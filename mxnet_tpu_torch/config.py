@@ -1,5 +1,6 @@
-"""Runtime knobs of the port: the subset of ``mxnet_tpu/config.py`` the
-serving slice reads, under the same names and ``MXNET_TPU_*`` aliases.
+"""Runtime knobs of the port: the subset of ``mxnet_tpu/config.py`` that
+the serving and training slices read, under the same names and
+``MXNET_TPU_*`` aliases.
 
 Switching a knob off is an explicit choice of the plain PyTorch version of
 that kernel; it is never a fallback taken on failure.
@@ -24,6 +25,23 @@ _KNOBS: Dict[str, tuple] = {
                                "cached (dense and paged) attention reads "
                                "through the CUDA page-table kernel (off = "
                                "the plain PyTorch version)"),
+    "flash_attention": (bool, True, ("MXNET_TPU_FLASH_ATTENTION",),
+                        "unmasked full-sequence attention through the "
+                        "flash kernels (off = the plain einsum path, "
+                        "_reference_mha)"),
+    "flash_pallas_bwd": (bool, True, ("MXNET_TPU_FLASH_PALLAS_BWD",),
+                         "flash backward through the dK/dV and dQ CUDA "
+                         "kernels (off = the plain PyTorch FlashAttention-2 "
+                         "backward)"),
+    # On the TPU this knob defaults off because XLA already fuses the plain
+    # Adam chain into one pass. Eager PyTorch fuses nothing: the plain update
+    # is about ten elementwise launches per parameter (292 parameters at
+    # gpt2_345m), each a full pass over device memory, so the port routes
+    # TrainStep's update through the one multi-tensor kernel by default.
+    "fused_adam": (bool, True, ("MXNET_TPU_FUSED_ADAM",),
+                   "Adam updates through the multi-tensor CUDA kernel, one "
+                   "launch for all parameters (off = the plain per-tensor "
+                   "PyTorch update)"),
 }
 
 _values: Dict[str, Any] = {}

@@ -1,7 +1,9 @@
-"""Attention operators of the serving path.
+"""Attention operators of the serving and training paths.
 
 Counterpart of ``mxnet_tpu/ops/attention.py``: the cache allocators, the
-dense and paged cached paths and the ``multi_head_attention`` dispatch.
+dense and paged cached paths and the ``multi_head_attention`` dispatch
+(flash kernels for unmasked full-sequence attention, the plain einsum path
+for masked attention).
 Tensors are (B, H, T, Ch) as in the JAX package. Caches are updated in
 place (the analog of the JAX engine's donated carry) and returned.
 """
@@ -13,6 +15,7 @@ import torch
 
 from .. import config as _config
 from ..base import dtype_torch
+from . import flash_attention as fa
 from . import paged_attention as pa
 
 __all__ = ["alloc_kv_cache", "alloc_paged_kv_cache", "multi_head_attention"]
@@ -109,12 +112,16 @@ def _reference_mha(q, k, v, mask=None, causal=False):
 
 
 def multi_head_attention(q, k, v, mask=None, causal=False, cache=None,
-                         position=None, page_table=None):
+                         position=None, page_table=None, use_flash="auto"):
     """Scaled-dot-product attention over (B, H, T, Ch) tensors.
 
     ``cache=(k_buf, v_buf), position=`` switches to the cached path: k/v
     carry only the new positions, and the call returns ``(out, k_buf,
     v_buf)``. With ``page_table=`` the cache entries are page pools.
+    A full-sequence call takes the flash kernels when ``use_flash`` says
+    so; ``"auto"`` means: no mask and the ``flash_attention`` knob on. On a
+    CUDA tensor the flash path raises for what the kernels do not take
+    (:func:`flash_attention.flash_supported`) instead of falling back.
     Scores and softmax are f32 on every path; the result is q's dtype."""
     orig_dtype = q.dtype
     if cache is not None:
@@ -133,7 +140,11 @@ def multi_head_attention(q, k, v, mask=None, causal=False, cache=None,
         else:
             out, k_buf, v_buf = _cached_mha(q, k, v, k_buf, v_buf, position)
         return out.to(orig_dtype), k_buf, v_buf
-    # The JAX package routes long causal full-sequence attention through
-    # its Pallas flash kernel here; the port's flash forward kernel is not
-    # written yet (ROADMAP), so full forwards take the plain version.
-    return _reference_mha(q, k, v, mask=mask, causal=causal).to(orig_dtype)
+    if use_flash == "auto":
+        # no sequence-length crossover here: see ops/flash_attention.py
+        use_flash = mask is None and _config.get("flash_attention")
+    if use_flash:
+        out = fa.flash_attention(q, k, v, mask=mask, causal=causal)
+    else:
+        out = _reference_mha(q, k, v, mask=mask, causal=causal)
+    return out.to(orig_dtype)

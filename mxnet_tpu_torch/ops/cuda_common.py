@@ -35,7 +35,7 @@ BUILD_DIR = PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 #: kernel sources, one shared library each
-SOURCES = ("layernorm", "paged_attention")
+SOURCES = ("layernorm", "paged_attention", "flash_attention", "adam")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -121,6 +121,19 @@ _ARGTYPES = {
                                              ctypes.c_int, ctypes.c_void_p],
     "mx_paged_attention": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
                           + [ctypes.c_void_p],
+    # (q, k, v, o, lse | NULL), then BH, Tq, Tk, D, causal, dtype, stream
+    "mx_flash_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                    + [ctypes.c_void_p],
+    # (q, k, v, do, lse, di, dk, dv), then BH, Tq, Tk, D, causal, dtype, stream
+    "mx_flash_bwd_dkv": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+                        + [ctypes.c_void_p],
+    # (q, k, v, do, lse, di, dq), then BH, Tq, Tk, D, causal, dtype, stream
+    "mx_flash_bwd_dq": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p],
+    # table, n_tensors, n_chunks, lr, wd, beta1, beta2, 1 - beta1,
+    # 1 - beta2, epsilon, rescale_grad, clip_gradient, stream
+    "mx_adam": [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_void_p] + [ctypes.c_float] * 7 + [ctypes.c_void_p],
 }
 
 

@@ -124,8 +124,18 @@ def paged_attention_read(q, k_pool, v_pool, page_table, position):
     row's ``page_table`` (B, n_pages) names in the pools (P+1, H, ps, Ch).
     Query i of row b attends keys ``<= position[b] + i``. Returns
     (B, H, Tq, Ch) in ``q.dtype`` (the kernel) or the promoted dtype (the
-    plain version, CPU tensors only)."""
+    plain version, CPU tensors only).
+
+    The read has no backward: the cached paths serve, under no_grad or
+    inference mode. With grad mode on and an input that requires grad it
+    raises, on either device, rather than return a result cut off from
+    the graph."""
     global launches
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k_pool, v_pool)):
+        raise MXNetError("paged_attention_read has no backward; run the "
+                         "cached paths under torch.no_grad() or "
+                         "torch.inference_mode()")
     if q.device.type == "cpu":
         return paged_attention_read_plain(q, k_pool, v_pool, page_table,
                                           position)
