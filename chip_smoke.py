@@ -10,23 +10,30 @@ prints its last line):
      source, in parallel) and print the card's name and power limit;
   2. hold each kernel against its plain PyTorch version on the card, at
      the shapes the serving and training paths give it (flash forward and
-     lse, dK/dV, dQ, multi-tensor Adam, and LayerNorm's gradients through
-     its autograd Function);
+     lse, dK/dV, dQ, multi-tensor Adam with its skip flag, inverse loss
+     scale and f16 gradients and copies, LayerNorm's gradients through its
+     autograd Function, and the softmax-cross-entropy forward (loss and
+     the row statistics) and backward, including extreme and -inf logits, labels -1 and
+     C, and rows past the TPU's 65536 cap);
   3. check that dense-cache and paged-cache logits are bit-identical
      through a small GPT-2 (2 layers at gpt2_345m width), and that they
      agree with the same engine run on the kernels' plain versions;
   4. training parity: 3 TrainStep steps of a 2-layer GPT-2 at gpt2_345m
      width with every kernel knob on, then off (the plain versions), with
-     the same seeded weights; per-step losses and final weights agree;
+     the same seeded weights; per-step losses and final weights agree. Then
+     the same under amp="bfloat16" with SoftmaxCrossEntropyLoss and Adam
+     on a warm-up schedule;
   5. serve 16 requests through the paged engine and the continuous
      batcher with gpt2_345m at full width (seeded random weights, f32),
      with both serving kernels' launch counts read around that run;
   6. train gpt2_345m at full width (B=4, T=1024, f32, Adam) through
      TrainStep: 2 warm-up and 10 timed steps, with the launch counts of
-     every kernel read around each step;
+     every kernel read around each step; then the same in bf16
+     (``train_amp``): TrainStep(net, SoftmaxCrossEntropyLoss(),
+     Adam(lr_scheduler=...), amp="bfloat16");
   7. time each kernel, its plain version and a PyTorch library yardstick
      with CUDA events, on the device (CUDA graph replay) and per eager
-     call, at the shapes the two paths give them;
+     call, at the shapes the three paths give them;
   8. print the kernel table as one JSON line, then the result line.
 
 It needs one CUDA card and imports nothing of JAX or ``mxnet_tpu``.
@@ -70,7 +77,27 @@ TOL = {
     # rows in another order (rtol 1e-4 as tests/test_pallas_layernorm.py)
     ("layernorm_grad", torch.float32): 1e-4,
     ("layernorm_grad", torch.bfloat16): 3e-2,
+    # softmax xent forward (loss, lse): kernel and plain version read the
+    # same values and compute in f32 in both dtypes, and differ in the order
+    # of the row sum and in expf only (1e-5, tests/test_pallas_softmax_xent
+    # .py's f32 tolerance).
+    ("xent_fwd", torch.float32): 1e-5,
+    ("xent_fwd", torch.bfloat16): 1e-5,
+    # The backward is held per element, at XENT_BWD_ATOL below and these
+    # rtols: it recomputes softmax from the saved row max and sum where the
+    # plain version takes it from scratch; both compute exp(x - max) / sum
+    # in f32 (the kernel as a product with 1 / sum) and differ by a few f32
+    # ulps (rtol 1e-5); in bf16 both round those f32 values, at most one
+    # bf16 ulp apart (2^-8 relative, rtol 1e-2).
+    ("xent_bwd", torch.float32): 1e-5,
+    ("xent_bwd", torch.bfloat16): 1e-2,
 }
+# At C classes a row's |dx| averages 2 g / C and most of its elements are
+# far below that (the median at the LM head's shape is ~2e-7 g), so an
+# absolute tolerance at the scale of the other checks would pass a backward
+# that drops every probability but the largest. The xent backward's atol
+# is 1e-3 * g[row] / C, per row.
+XENT_BWD_ATOL = 1e-3
 # Adam: tests/test_pallas_optimizer.py's (rtol, atol) for one update and
 # for a 10-step trajectory; the kernel may contract a*b + c into one fma
 # where the plain version rounds twice, a 1-ulp difference.
@@ -83,7 +110,33 @@ ADAM_TOL = {"step": (1e-6, 1e-7), "trajectory": (1e-5, 1e-6)}
 # step, so no weight may differ by more than 2.01 * lr * steps. Nearly all
 # agree far closer: at most 1% may differ by more than 1e-2 * lr.
 TRAIN_LR, TRAIN_STEPS = 1e-4, 3
-TRAIN_LOSS_RTOL = 1e-4
+TRAIN_LOSS_TOL = (1e-4, 0.0)  # (rtol, atol)
+# bf16 training (amp="bfloat16", SoftmaxCrossEntropyLoss, Adam on a warm-up
+# cosine schedule from AMP_LR): kernels against plain versions. The two
+# round to bf16 in other places (the plain LayerNorm, the einsum attention,
+# the composition's bf16 per-token losses), so the limits are multiples of
+# the largest spread that tools/torch_amp_parity.py measured over seeds 1-6
+# on the H100 (PERF.md): per-step loss gap 2.06e-3 (limit 3x), gap of the
+# loss's fall over the steps 0.111 (limit 2.25x; the plain losses are
+# multiples of 1/64, which alone moves a fall of 0.23 by up to 0.03), share
+# of weights beyond 1e-2 * lr 0.0259 (limit 2x; a backward that drops every
+# probability below 1e-3 gives 0.69). The f32 masters stay within the
+# sign-flip bound above over the scheduled rates (2.01 · their sum).
+AMP_LR = 1e-4
+AMP_LOSS_RTOL = 6e-3
+AMP_DROP_RTOL = 0.25
+AMP_FAR_SHARE = 0.05
+
+
+def amp_schedule():
+    """Linear warm-up from 1e-5 to AMP_LR over 4 steps, then cosine. The
+    warm-up's end is the ``base_lr`` given here: the optimizer's
+    ``learning_rate`` replaces ``base_lr`` but not the warm-up's end (as in
+    MXNet and the JAX package)."""
+    from mxnet_tpu_torch.lr_scheduler import CosineScheduler
+
+    return CosineScheduler(max_update=1000, base_lr=AMP_LR, warmup_steps=4,
+                           warmup_begin_lr=1e-5)
 # Logits of the engine on the kernels against the same engine on their plain
 # versions, f32, 2 layers: the f32 sums differ in order only (the
 # tolerance of the port's CPU tests against the JAX package).
@@ -144,18 +197,24 @@ def graph_time_ms(fn, calls=8, replays=10, repeats=5):
     return statistics.median(times)
 
 
-def check_close(name, dtype, got, want, what):
+def check_close(name, dtype, got, want, what, atol=None):
+    """|got - want| <= atol + rtol * |want| per element, rtol from TOL and
+    atol the same number unless given (a float or a tensor that
+    broadcasts against ``want``)."""
     tol = TOL[(name, dtype)]
+    atol = tol if atol is None else atol
     got, want = got.float(), want.float()
     if not torch.isfinite(got).all():
         raise AssertionError(f"{name} {what}: non-finite kernel output")
     err = (got - want).abs()
-    bad = err > tol + tol * want.abs()
+    bad = err > atol + tol * want.abs()
+    shown = (f"{atol:.3g}" if isinstance(atol, float)
+             else f"{atol.min().item():.3g}..{atol.max().item():.3g}")
     log(f"  {name} {what}: max_abs_err={err.max().item():.3e} "
-        f"(atol=rtol={tol})")
+        f"(atol={shown}, rtol={tol})")
     if bad.any():
         raise AssertionError(f"{name} {what}: {int(bad.sum())} elements "
-                             f"outside tolerance {tol}")
+                             f"outside tolerance")
     return err.max().item()
 
 
@@ -232,6 +291,8 @@ def phase_kernels():
     phase_layernorm_grads(errs)
     phase_flash_kernels(errs)
     phase_adam_kernel(errs)
+    phase_adam_amp(errs)
+    phase_xent_kernels(errs)
     return errs
 
 
@@ -351,6 +412,123 @@ def phase_adam_kernel(errs):
     errs["adam"] = worst
 
 
+def phase_adam_amp(errs):
+    """The Adam kernel's float16-scaling additions against the plain
+    version: an f16 gradient times a device inverse scale with f16 and bf16
+    copies, and the skip flag, whose launch leaves weights, moments and
+    copies bit-unchanged."""
+    from mxnet_tpu_torch.ops import optimizer as oo
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(7)
+    sizes = [7, 4097, 300 * 129, 1_000_003]
+    ws = [torch.randn(s, generator=gen).to(dev) for s in sizes]
+    ms = [(torch.randn(s, generator=gen) * 0.1).to(dev) for s in sizes]
+    vs = [(torch.randn(s, generator=gen) * 0.01).abs().to(dev) for s in sizes]
+    gs = [(torch.randn(s, generator=gen) * 512).to(dev, torch.float16)
+          for s in sizes]
+    lows = [torch.empty(s, dtype=(torch.float16, torch.bfloat16)[i % 2],
+                        device=dev) for i, s in enumerate(sizes)]
+    pw, pm, pv = ([t.clone() for t in ts] for ts in (ws, ms, vs))
+    plows = [t.clone() for t in lows]
+    inv = torch.tensor(1.0 / 1024, device=dev)
+    kw = dict(beta1=0.9, beta2=0.999, epsilon=1e-8, rescale_grad=0.5)
+    oo.adam_update_fused(ws, gs, ms, vs, 1e-3, 0.01, out_lows=lows,
+                         inv_scale=inv, **kw)
+    for i in range(len(sizes)):
+        oo.adam_update(pw[i], gs[i], pm[i], pv[i], 1e-3, wd=0.01,
+                       out_low=plows[i], inv_scale=inv, **kw)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for i, n in enumerate(sizes):
+        for got, want, name in ((ws[i], pw[i], "w"), (ms[i], pm[i], "m"),
+                                (vs[i], pv[i], "v")):
+            worst = max(worst, _adam_close(got, want, ADAM_TOL["step"],
+                                           f"{name}[{n}] f16 grad, 1/scale"))
+        if not torch.equal(lows[i], ws[i].to(lows[i].dtype)):
+            raise AssertionError(f"adam {lows[i].dtype} copy [{n}] is not the "
+                                 f"rounding of the new weight")
+    gs[1][5] = float("inf")
+    keep = [t.clone() for t in ws + ms + vs + lows]
+    oo.adam_update_fused(ws, gs, ms, vs, 1e-3, 0.01, out_lows=lows,
+                         inv_scale=inv,
+                         skip=torch.ones((), dtype=torch.int32, device=dev),
+                         **kw)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(keep, ws + ms + vs + lows)):
+        raise AssertionError("adam: a skipped launch changed its tensors")
+    errs["adam"] = max(errs["adam"], worst)
+    log(f"  adam f16 grads x device 1/scale, f16/bf16 copies: max_abs_err="
+        f"{worst:.3e} (rtol, atol {ADAM_TOL['step']}); skip flag: all "
+        f"{len(keep)} tensors bit-unchanged")
+
+
+# (N, C) of the xent checks: the LM head of the train_amp phase (B·T =
+# 4096, vocab 50257), one row, ragged small shapes, and a row wider than
+# the TPU kernel's 65536 cap
+XENT_CASES = [(4096, 50257), (1, 50257), (9, 50), (300, 128), (7, 70000)]
+
+
+def _xent_inputs(gen, n, c, dtype, dev, special=False):
+    """Logits ~ 3·N(0, 1), labels in [0, C), cotangent in [0.5, 1.5). With
+    ``special`` (n >= 6): row 0 extreme logits, row 1 -inf on every other
+    column, rows 2 and 3 labels -1 and C, row 5 all -inf (NaN in both)."""
+    x = torch.randn(n, c, generator=gen) * 3
+    lbl = torch.randint(0, c, (n,), generator=gen, dtype=torch.int32)
+    g = torch.rand(n, generator=gen) + 0.5
+    if special:
+        x[0] = torch.tensor([1e4, -1e4, 0.0, 50.0]).repeat(c // 4 + 1)[:c]
+        lbl[0] = 1
+        x[1, ::2] = float("-inf")
+        lbl[1] = 1
+        lbl[2], lbl[3] = -1, c
+        x[5] = float("-inf")
+    return x.to(dev, dtype), lbl.to(dev), g.to(dev)
+
+
+def phase_xent_kernels(errs):
+    """Softmax xent forward (loss, and lse from the row statistics) and
+    backward against their plain versions, f32 and bf16, at XENT_CASES; the
+    special rows of ``_xent_inputs`` in the (9, 50) and (7, 70000) cases.
+    The backward is held per element at XENT_BWD_ATOL."""
+    from mxnet_tpu_torch.ops import softmax_xent as sx
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(8)
+    errs.setdefault("xent_fwd", 0.0)
+    errs.setdefault("xent_bwd", 0.0)
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype)[6:]
+        for n, c in XENT_CASES:
+            special = n in (9, 7)
+            x, lbl, g = _xent_inputs(gen, n, c, dtype, dev, special)
+            loss, stats = sx._xent_fwd(x, lbl)
+            lse = stats[0] + torch.log(stats[1])
+            dx = sx._xent_bwd(x, lbl, stats, g)
+            rloss, rlse = sx.softmax_cross_entropy_plain(x, lbl)
+            rdx = sx.softmax_cross_entropy_bwd_plain(x, lbl, g)
+            torch.cuda.synchronize()
+            rows = torch.ones(n, dtype=torch.bool, device=dev)
+            if special:  # the all -inf row: NaN in both, as in JAX
+                rows[5] = False
+                if not (loss[5].isnan() and rloss[5].isnan()
+                        and dx[5].isnan().all()):
+                    raise AssertionError(f"xent {dn} ({n}, {c}): an all -inf "
+                                         f"row must give NaN")
+            what = f"{dn} ({n}, {c})" + (" with extreme/-inf logits, labels "
+                                         "-1 and C" if special else "")
+            errs["xent_fwd"] = max(
+                errs["xent_fwd"],
+                check_close("xent_fwd", dtype, loss[rows], rloss[rows],
+                            f"loss {what}"),
+                check_close("xent_fwd", dtype, lse[rows], rlse[rows],
+                            f"lse {what}"))
+            atol = (XENT_BWD_ATOL / c) * g[rows, None]
+            errs["xent_bwd"] = max(errs["xent_bwd"], check_close(
+                "xent_bwd", dtype, dx[rows], rdx[rows], f"dx {what}", atol))
+            del x, dx, rdx
+
+
 def phase_layernorm_grads(errs):
     """LayerNorm gradients through the autograd Function (kernel forward,
     analytic backward) against autograd through the plain composition."""
@@ -377,7 +555,7 @@ def phase_layernorm_grads(errs):
 
 
 KNOBS = ("paged_attention_kernel", "fused_layernorm", "flash_attention",
-         "flash_pallas_bwd", "fused_adam")
+         "flash_pallas_bwd", "fused_adam", "fused_softmax_xent")
 
 
 @contextlib.contextmanager
@@ -446,51 +624,84 @@ def phase_dense_equals_paged():
         f"max |kernel - plain| logit {worst:.3e} (tolerance {LOGIT_TOL})")
 
 
-def _train_batch(batch, seq, vocab=50257):
+def _train_batch(batch, seq, vocab=50257, seed=0):
     """modelbench's batch: seeded random ids, labels the ids rolled by one."""
-    rs = np.random.RandomState(0)
+    rs = np.random.RandomState(seed)
     ids = rs.randint(0, vocab, (batch, seq))
     return (torch.from_numpy(ids.astype(np.int32)).cuda(),
             torch.from_numpy(np.roll(ids, -1, 1).astype(np.int32)).cuda())
 
 
-def phase_train_parity():
+def phase_train_parity(amp=None, seed=1, batch_seed=0, check=True):
     """3 TrainStep steps of a 2-layer GPT-2 at gpt2_345m width (B=4,
     T=1024), every kernel knob on and then off, from the same seeded
-    weights: per-step losses and final weights agree (TRAIN_* above)."""
+    weights: per-step losses and final weights agree. In f32 (``amp=None``)
+    through ``lm_loss`` and Adam at TRAIN_LR (TRAIN_* above); under
+    ``amp="bfloat16"`` through SoftmaxCrossEntropyLoss and Adam on the
+    warm-up schedule, the masters staying f32 (AMP_* above). With
+    ``check=False`` it only measures (tools/torch_amp_parity.py)."""
     from mxnet_tpu_torch import TrainStep
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
     from mxnet_tpu_torch.models import get_gpt2, lm_loss
     from mxnet_tpu_torch.optimizer import Adam
 
-    ids, labels = _train_batch(4, 1024)
+    ids, labels = _train_batch(4, 1024, seed=batch_seed)
     runs = []
     for plain in (False, True):
         with plain_versions() if plain else contextlib.nullcontext():
             net = get_gpt2("gpt2_345m", dropout=0.0, num_layers=2,
-                           device="cuda", seed=1)
-            ts = TrainStep(net, lm_loss, Adam(learning_rate=TRAIN_LR))
-            losses = [float(ts(ids, labels)) for _ in range(TRAIN_STEPS)]
-        runs.append((losses, {n: p.detach().clone()
-                              for n, p in net.named_parameters()}))
+                           device="cuda", seed=seed)
+            if amp is None:
+                opt, loss_fn = Adam(learning_rate=TRAIN_LR), lm_loss
+            else:
+                opt = Adam(learning_rate=AMP_LR, lr_scheduler=amp_schedule())
+                loss_fn = SoftmaxCrossEntropyLoss()
+            ts = TrainStep(net, loss_fn, opt, amp=amp)
+            rates, losses = [], []
+            for _ in range(TRAIN_STEPS):
+                rates.append(opt.learning_rate)
+                losses.append(float(ts(ids, labels)))
+        params = {n: p.detach().clone() for n, p in net.named_parameters()}
+        if any(p.dtype != torch.float32 for p in params.values()):
+            raise AssertionError("training parity: the masters left f32")
+        runs.append((losses, params))
         del net, ts
     (lk, pk), (lp, pp) = runs
-    for step, (a, b) in enumerate(zip(lk, lp)):
-        if not (np.isfinite(a) and abs(a - b) <= TRAIN_LOSS_RTOL * abs(b)):
-            raise AssertionError(f"training parity step {step}: loss {a} on "
-                                 f"the kernels, {b} on the plain versions")
+    name = "train parity" if amp is None else f"train {amp} parity"
+    rtol, atol = TRAIN_LOSS_TOL if amp is None else (AMP_LOSS_RTOL, 0.0)
+    far_limit = 1e-2 if amp is None else AMP_FAR_SHARE
+    gaps = [abs(a - b) / abs(b) for a, b in zip(lk, lp)]
+    # what the gradients decide: the loss's fall over the steps
+    drop_k, drop_p = lk[0] - lk[-1], lp[0] - lp[-1]
+    drop_gap = abs(drop_k - drop_p) / abs(drop_p)
     err = torch.cat([(pk[n] - pp[n]).abs().reshape(-1) for n in pk])
     worst = err.max().item()
-    far = (err > 1e-2 * TRAIN_LR).float().mean().item()
-    bound = 2.01 * TRAIN_LR * TRAIN_STEPS
-    log(f"[train parity] 2 layers at gpt2_345m width, B=4 T=1024, "
-        f"{TRAIN_STEPS} steps: losses kernels {lk} / plain {lp}; max "
-        f"|weight diff| {worst:.3e} (bound {bound:.3e}), share beyond "
-        f"1e-2*lr {far:.2e} (limit 1e-2)")
-    if worst > bound or far > 1e-2:
-        raise AssertionError("training parity: final weights differ beyond "
-                             "the Adam sign-flip bound")
-    return {"losses_kernels": lk, "losses_plain": lp,
-            "max_weight_diff": worst, "share_beyond_1e-2_lr": far}
+    far = (err > 1e-2 * opt.lr).float().mean().item()
+    bound = 2.01 * sum(rates)
+    log(f"[{name}] 2 layers at gpt2_345m width, B=4 T=1024, seeds "
+        f"{seed}/{batch_seed}, {TRAIN_STEPS} steps at lr {rates}: losses "
+        f"kernels {lk} / plain {lp}, relative gaps {gaps} (limit {rtol}); "
+        f"loss falls {drop_k:.6f} / {drop_p:.6f}, relative gap "
+        f"{drop_gap:.3e}" + ("" if amp is None else
+                             f" (limit {AMP_DROP_RTOL})")
+        + f"; max |weight diff| {worst:.3e} (bound {bound:.3e}), share "
+        f"beyond 1e-2*lr {far:.2e} (limit {far_limit})")
+    res = {"losses_kernels": lk, "losses_plain": lp, "loss_rel_gaps": gaps,
+           "loss_drop_rel_gap": drop_gap, "max_weight_diff": worst,
+           "weight_bound": bound, "share_beyond_1e-2_lr": far}
+    if not check:
+        return res
+    for step, (a, b) in enumerate(zip(lk, lp)):
+        if not (np.isfinite(a) and abs(a - b) <= atol + rtol * abs(b)):
+            raise AssertionError(f"{name} step {step}: loss {a} on the "
+                                 f"kernels, {b} on the plain versions")
+    if amp is not None and not (drop_k > 0 and drop_gap <= AMP_DROP_RTOL):
+        raise AssertionError(f"{name}: the loss fell by {drop_k} on the "
+                             f"kernels, {drop_p} on the plain versions")
+    if worst > bound or far > far_limit:
+        raise AssertionError(f"{name}: final weights differ beyond the Adam "
+                             f"sign-flip bound, or too many beyond 1e-2*lr")
+    return res
 
 
 def _launch_counts():
@@ -498,10 +709,12 @@ def _launch_counts():
     from mxnet_tpu_torch.ops import layernorm as ln
     from mxnet_tpu_torch.ops import optimizer as oo
     from mxnet_tpu_torch.ops import paged_attention as pa
+    from mxnet_tpu_torch.ops import softmax_xent as sx
 
     return {"flash_fwd": fa.launches["fwd"], "flash_bwd_dkv": fa.launches["dkv"],
             "flash_bwd_dq": fa.launches["dq"], "adam": oo.launches,
-            "layernorm": ln.launches, "paged_attention": pa.launches}
+            "layernorm": ln.launches, "paged_attention": pa.launches,
+            "xent_fwd": sx.launches["fwd"], "xent_bwd": sx.launches["bwd"]}
 
 
 def _reset_launch_counts():
@@ -509,35 +722,51 @@ def _reset_launch_counts():
     from mxnet_tpu_torch.ops import layernorm as ln
     from mxnet_tpu_torch.ops import optimizer as oo
     from mxnet_tpu_torch.ops import paged_attention as pa
+    from mxnet_tpu_torch.ops import softmax_xent as sx
 
-    for key in fa.launches:
-        fa.launches[key] = 0
+    for counts in (fa.launches, sx.launches):
+        for key in counts:
+            counts[key] = 0
     ln.launches = oo.launches = pa.launches = 0
 
 
-def phase_train(warmup=2, steps=10, batch=4, seq=1024):
+def phase_train(warmup=2, steps=10, batch=4, seq=1024, amp=None):
     """gpt2_345m at full width through TrainStep, modelbench's setting:
-    B=4, T=1024, f32, dropout 0, seed 0, Adam(1e-4), one fixed batch.
-    Every step must launch each flash kernel once per layer, Adam once and
-    LayerNorm 49 times; every loss is finite and the last is below the
-    first. Returns the net (for timing Adam on its parameters), the
-    per-kernel launches of the run and the step metrics."""
+    B=4, T=1024, dropout 0, seed 0, one fixed batch. With ``amp=None``: f32,
+    ``lm_loss``, Adam(1e-4). With ``amp="bfloat16"`` (the ``train_amp``
+    path): bf16 copies of the f32 masters, SoftmaxCrossEntropyLoss through
+    the xent kernels, Adam on the warm-up schedule from AMP_LR. Every step
+    must launch each flash kernel once per layer, Adam once, LayerNorm 49
+    times and (bf16) each xent kernel once; every loss is finite and the
+    last is below the first. Returns the net (for timing Adam on its
+    parameters), the per-kernel launches of the run and the step
+    metrics."""
     from mxnet_tpu_torch import TrainStep
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
     from mxnet_tpu_torch.models import get_gpt2, lm_loss
     from mxnet_tpu_torch.optimizer import Adam
 
+    name = "train" if amp is None else "train_amp"
     t0 = time.perf_counter()
     net = get_gpt2("gpt2_345m", dropout=0.0, device="cuda", seed=0)
-    ts = TrainStep(net, lm_loss, Adam(learning_rate=1e-4))
+    if amp is None:
+        ts = TrainStep(net, lm_loss, Adam(learning_rate=1e-4), amp=None)
+    else:
+        ts = TrainStep(net, SoftmaxCrossEntropyLoss(),
+                       Adam(learning_rate=AMP_LR, lr_scheduler=amp_schedule()),
+                       amp=amp)
     ids, labels = _train_batch(batch, seq)
     n_params = sum(p.numel() for p in net.parameters())
-    log(f"[train] gpt2_345m f32, {len(list(net.parameters()))} parameters, "
-        f"{n_params} elements, built in {time.perf_counter() - t0:.1f}s")
+    log(f"[{name}] gpt2_345m {amp or 'f32'}, {len(list(net.parameters()))} "
+        f"parameters, {n_params} elements, built in "
+        f"{time.perf_counter() - t0:.1f}s")
+    xent = 0 if amp is None else 1
     want = {"flash_fwd": N_LAYERS, "flash_bwd_dkv": N_LAYERS,
             "flash_bwd_dq": N_LAYERS, "adam": 1, "layernorm": 2 * N_LAYERS + 1,
-            "paged_attention": 0}
+            "paged_attention": 0, "xent_fwd": xent, "xent_bwd": xent}
     total = dict.fromkeys(want, 0)
     losses = []
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_launch_counts()
     for i in range(warmup + steps):
@@ -548,7 +777,7 @@ def phase_train(warmup=2, steps=10, batch=4, seq=1024):
         losses.append(ts(ids, labels))
         got = {k: v - before[k] for k, v in _launch_counts().items()}
         if got != want:
-            raise AssertionError(f"train step {i}: launches {got}, expected "
+            raise AssertionError(f"{name} step {i}: launches {got}, expected "
                                  f"{want}")
         for k in total:
             total[k] += got[k]
@@ -557,13 +786,13 @@ def phase_train(warmup=2, steps=10, batch=4, seq=1024):
     losses = [float(x) for x in losses]
     peak = torch.cuda.max_memory_allocated()
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        raise AssertionError(f"train losses {losses}: not finite and falling")
+        raise AssertionError(f"{name} losses {losses}: not finite and falling")
     res = {"ms_per_step": wall / steps * 1e3,
            "tokens_per_s": batch * seq * steps / wall,
            "peak_bytes": peak, "losses": losses, "steps": steps,
-           "warmup": warmup}
-    log(f"[train] losses {['%.4f' % x for x in losses]}")
-    log(f"[train] {steps} timed steps: {res['ms_per_step']:.1f} ms/step, "
+           "warmup": warmup, "amp": amp}
+    log(f"[{name}] losses {['%.4f' % x for x in losses]}")
+    log(f"[{name}] {steps} timed steps: {res['ms_per_step']:.1f} ms/step, "
         f"{res['tokens_per_s']:.0f} tokens/s, peak memory "
         f"{peak / 2**30:.2f} GiB; launches per step {want}")
     del ts
@@ -855,6 +1084,57 @@ def phase_train_timing(net):
     return rows
 
 
+def phase_xent_timing():
+    """The xent kernels at the train_amp path's LM-head shape, (4096, 50257)
+    in bf16 (the path's dtype; those are the table's rows) and in f32,
+    beside their plain versions and F.cross_entropy. Bound as in
+    phase_timing: the logits read once (and dx written once), and 16 bytes
+    a row each way (labels and loss or cotangent, 4 bytes each; the row max
+    and sum, 8); ~4 operations a logit each way."""
+    from mxnet_tpu_torch.ops import softmax_xent as sx
+
+    F = torch.nn.functional
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(9)
+    rows = {}
+    n, c = 4096, 50257
+    for dtype in (torch.bfloat16, torch.float32):
+        x, lbl, g = _xent_inputs(gen, n, c, dtype, dev)
+        _, stats = sx._xent_fwd(x, lbl)
+        lbl64 = lbl.long()
+        size = torch.finfo(dtype).bits // 8
+        shape = f"({n}, {c}) {str(dtype)[6:]}"
+        fwd = _timed(lambda: sx._xent_fwd(x, lbl),
+                     lambda: sx.softmax_cross_entropy_plain(x, lbl),
+                     lambda: F.cross_entropy(x, lbl64, reduction="none"),
+                     nbytes=n * c * size + 16 * n, flops=4 * n * c,
+                     shape=f"xent_fwd {shape}")
+        fwd["library"] = "F.cross_entropy(reduction='none')"
+        # the library yardstick of the backward: F.cross_entropy forward +
+        # backward minus its forward, eager, on logits that require grad
+        xg = x.clone().requires_grad_()
+        fb_ms = cuda_time_ms(lambda: torch.autograd.grad(
+            F.cross_entropy(xg, lbl64, reduction="none"), xg, g), iters=10)
+        f_ms = cuda_time_ms(lambda: F.cross_entropy(xg, lbl64,
+                                                    reduction="none"),
+                            iters=10)
+        lib_bwd = fb_ms - f_ms
+        log(f"[time] F.cross_entropy backward at {shape}: "
+            f"{lib_bwd * 1e3:.2f} us (fwd+bwd {fb_ms * 1e3:.2f} - fwd "
+            f"{f_ms * 1e3:.2f}, eager)")
+        bwd = _timed(lambda: sx._xent_bwd(x, lbl, stats, g),
+                     lambda: sx.softmax_cross_entropy_bwd_plain(x, lbl, g),
+                     None, nbytes=2 * n * c * size + 16 * n, flops=4 * n * c,
+                     shape=f"xent_bwd {shape}")
+        bwd.update(library_ms=lib_bwd, library_eager_ms=lib_bwd,
+                   library="F.cross_entropy backward: fwd+bwd minus fwd, "
+                           "eager")
+        if dtype == torch.bfloat16:
+            rows["xent_fwd"], rows["xent_bwd"] = fwd, bwd
+        del x, xg, stats
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this script needs one "
@@ -873,9 +1153,17 @@ def main():
     timing = phase_timing(eng)
     del eng
     torch.cuda.empty_cache()
+    amp_parity = phase_train_parity(amp="bfloat16")
     net, train_launches, train = phase_train()
     timing.update(phase_train_timing(net))
     log("[train] " + json.dumps(dict(train, parity=parity)))
+    del net
+    torch.cuda.empty_cache()
+    net, amp_launches, train_amp = phase_train(amp="bfloat16")
+    del net
+    torch.cuda.empty_cache()
+    log("[train_amp] " + json.dumps(dict(train_amp, parity=amp_parity)))
+    timing.update(phase_xent_timing())
     # (source, replaced TPU kernel, the path whose run gives `launches`)
     meta = {
         "paged_attention": ("mxnet_tpu_torch/csrc/paged_attention.cu",
@@ -891,8 +1179,13 @@ def main():
                          "mxnet_tpu/ops/flash_attention.py:285", "train"),
         "adam": ("mxnet_tpu_torch/csrc/adam.cu",
                  "mxnet_tpu/ops/pallas_optimizer.py:63", "train"),
+        "xent_fwd": ("mxnet_tpu_torch/csrc/softmax_xent.cu",
+                     "mxnet_tpu/ops/pallas_softmax_xent.py:54", "train_amp"),
+        "xent_bwd": ("mxnet_tpu_torch/csrc/softmax_xent.cu",
+                     "mxnet_tpu/ops/pallas_softmax_xent.py:54", "train_amp"),
     }
-    by_path = {"serve": serve_launches, "train": train_launches}
+    by_path = {"serve": serve_launches, "train": train_launches,
+               "train_amp": amp_launches}
     kernels = []
     for name, (src, rep, path) in meta.items():
         t = timing[name]

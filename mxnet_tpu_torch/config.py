@@ -42,6 +42,15 @@ _KNOBS: Dict[str, tuple] = {
                    "Adam updates through the multi-tensor CUDA kernel, one "
                    "launch for all parameters (off = the plain per-tensor "
                    "PyTorch update)"),
+    # On the TPU this knob defaults off because XLA fuses the log_softmax ->
+    # pick composition and its gradient. Eager PyTorch materialises the
+    # (N, C) f32 log-softmax and then its (N, C) gradient in several passes
+    # (at an LM head, N·C = 4096 × 50257: 0.8 GB each), so the port routes
+    # SoftmaxCrossEntropyLoss through the one-pass kernels by default.
+    "fused_softmax_xent": (bool, True, ("MXNET_TPU_FUSED_SOFTMAX_XENT",),
+                           "sparse-label SoftmaxCrossEntropyLoss through the "
+                           "CUDA forward and backward kernels (off = the "
+                           "log_softmax -> pick composition)"),
 }
 
 _values: Dict[str, Any] = {}

@@ -1,4 +1,5 @@
-"""Gluon layers of the port as ``torch.nn.Module``s."""
-from . import nn
+"""Gluon layers (``nn``) and loss blocks (``loss``) of the port as
+``torch.nn.Module``s."""
+from . import loss, nn
 
-__all__ = ["nn"]
+__all__ = ["loss", "nn"]

@@ -15,6 +15,7 @@ import torch
 
 from .. import config as _config
 from ..base import dtype_torch
+from ..contrib import amp as _amp
 from . import flash_attention as fa
 from . import paged_attention as pa
 
@@ -119,10 +120,13 @@ def multi_head_attention(q, k, v, mask=None, causal=False, cache=None,
     carry only the new positions, and the call returns ``(out, k_buf,
     v_buf)``. With ``page_table=`` the cache entries are page pools.
     A full-sequence call takes the flash kernels when ``use_flash`` says
-    so; ``"auto"`` means: no mask and the ``flash_attention`` knob on. On a
-    CUDA tensor the flash path raises for what the kernels do not take
-    (:func:`flash_attention.flash_supported`) instead of falling back.
-    Scores and softmax are f32 on every path; the result is q's dtype."""
+    so; ``"auto"`` means: no mask, the ``flash_attention`` knob on and f32
+    or bf16 inputs (float16 takes the einsum path, as the JAX gate sends
+    it there). On a CUDA tensor the flash path raises for what the kernels
+    do not take (:func:`flash_attention.flash_supported`) instead of
+    falling back. Under a global ``amp.init`` dtype a full-sequence call
+    casts f32 q, k and v to it, as the JAX package does. Scores and softmax
+    are f32 on every path; the result is q's dtype."""
     orig_dtype = q.dtype
     if cache is not None:
         if position is None:
@@ -140,9 +144,11 @@ def multi_head_attention(q, k, v, mask=None, causal=False, cache=None,
         else:
             out, k_buf, v_buf = _cached_mha(q, k, v, k_buf, v_buf, position)
         return out.to(orig_dtype), k_buf, v_buf
+    q, k, v = _amp.cast_inputs(q, k, v)
     if use_flash == "auto":
         # no sequence-length crossover here: see ops/flash_attention.py
-        use_flash = mask is None and _config.get("flash_attention")
+        use_flash = mask is None and _config.get("flash_attention") \
+            and q.dtype in (torch.float32, torch.bfloat16)
     if use_flash:
         out = fa.flash_attention(q, k, v, mask=mask, causal=causal)
     else:

@@ -35,7 +35,8 @@ BUILD_DIR = PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 #: kernel sources, one shared library each
-SOURCES = ("layernorm", "paged_attention", "flash_attention", "adam")
+SOURCES = ("layernorm", "paged_attention", "flash_attention", "adam",
+           "softmax_xent")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -130,10 +131,18 @@ _ARGTYPES = {
     # (q, k, v, do, lse, di, dq), then BH, Tq, Tk, D, causal, dtype, stream
     "mx_flash_bwd_dq": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                        + [ctypes.c_void_p],
-    # table, n_tensors, n_chunks, lr, wd, beta1, beta2, 1 - beta1,
-    # 1 - beta2, epsilon, rescale_grad, clip_gradient, stream
-    "mx_adam": [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                ctypes.c_void_p] + [ctypes.c_float] * 7 + [ctypes.c_void_p],
+    # table, n_tensors, n_chunks, lr, wd, inv_scale | NULL, skip | NULL,
+    # beta1, beta2, 1 - beta1, 1 - beta2, epsilon, rescale_grad,
+    # clip_gradient, stream
+    "mx_adam": [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+               + [ctypes.c_void_p] * 4 + [ctypes.c_float] * 7
+               + [ctypes.c_void_p],
+    # (x, label, loss, stats), then n, c, dtype, stream
+    "mx_xent_fwd": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p],
+    # (x, label, stats, g, dx), then n, c, dtype, stream
+    "mx_xent_bwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p],
 }
 
 

@@ -1,12 +1,14 @@
-"""Optimizer registry and Adam.
+"""Optimizer registry: SGD, NAG, Adam and AdamW.
 
-Counterpart of the ``Optimizer``/``Adam`` subset of ``mxnet_tpu/optimizer.py``
-that the single-device ``TrainStep`` uses: the hyperparameters, the
-``lr_mult``/``wd_mult`` dicts, ``create_state`` and the pure-state update
-``update_raw``. Updates run in place on the weight and state tensors (see
-``ops/optimizer.py``). :meth:`Optimizer.update_raw_multi` applies one update
-to a list of parameters; Adam's runs as one multi-tensor kernel launch on
-the card when the ``fused_adam`` knob is on.
+Counterpart of the ``Optimizer`` subset of ``mxnet_tpu/optimizer.py`` that
+the single-device ``TrainStep`` uses: the hyperparameters, the
+``lr_scheduler``, the ``lr_mult``/``wd_mult`` dicts, ``create_state`` and
+the pure-state update ``update_raw``. Updates run in place on the weight
+and state tensors (see ``ops/optimizer.py``). :meth:`Optimizer.update_raw_multi`
+applies one update to a list of parameters; Adam's runs as one
+multi-tensor kernel launch on the card when the ``fused_adam`` knob is on.
+The JAX package has no kernel for SGD, NAG or AdamW, and neither has the
+port: their ``update_raw_multi`` loops the plain update.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ from . import config as _config
 from .base import MXNetError
 from .ops import optimizer as _oo
 
-__all__ = ["Optimizer", "Adam", "create", "register"]
+__all__ = ["Optimizer", "SGD", "NAG", "Adam", "AdamW", "create", "register"]
 
 _OPT_REGISTRY: Dict[str, type] = {}
 
@@ -40,21 +42,32 @@ def create(name, **kwargs):
     return cls(**kwargs)
 
 
+def _state_tensors(state):
+    if state is None:
+        return []
+    return list(state) if isinstance(state, (tuple, list)) else [state]
+
+
 class Optimizer:
-    """Hyperparameters and the pure-state protocol. ``lr_scheduler`` and
-    ``multi_precision`` are not ported yet and are refused."""
+    """Hyperparameters and the pure-state protocol. With ``lr_scheduler``
+    the rate is ``lr_scheduler(num_update)`` and ``learning_rate`` becomes
+    its ``base_lr``. ``multi_precision`` belongs to the imperative Trainer,
+    which is not ported yet, and is refused."""
 
     def __init__(self, learning_rate=0.01, wd=0.0, rescale_grad=1.0,
                  clip_gradient=None, param_dict=None, lr_scheduler=None,
                  multi_precision=False):
-        if lr_scheduler is not None or multi_precision:
-            raise MXNetError("lr_scheduler and multi_precision are not "
-                             "ported yet")
+        if multi_precision:
+            raise MXNetError("multi_precision is not ported yet (it serves "
+                             "the imperative gluon.Trainer)")
         self.lr = learning_rate
         self.wd = wd
         self.rescale_grad = rescale_grad
         self.clip_gradient = clip_gradient if clip_gradient is not None \
             else -1.0
+        self.lr_scheduler = lr_scheduler
+        if lr_scheduler is not None:
+            lr_scheduler.base_lr = learning_rate
         #: host mirror of the number of steps taken (TrainStep advances it)
         self.num_update = 0
         self.lr_mult: Dict = {}
@@ -63,9 +76,13 @@ class Optimizer:
 
     def set_learning_rate(self, lr):
         self.lr = lr
+        if self.lr_scheduler is not None:
+            self.lr_scheduler.base_lr = lr
 
     @property
     def learning_rate(self):
+        if self.lr_scheduler is not None:
+            return float(self.lr_scheduler(self.num_update))
         return self.lr
 
     def set_lr_mult(self, args_lr_mult):
@@ -84,11 +101,66 @@ class Optimizer:
         a schedule never syncs the host."""
         raise NotImplementedError
 
-    def update_raw_multi(self, ws, gs, states, lr, wd, t):
+    def update_raw_multi(self, ws, gs, states, lr, wd, t, out_lows=None,
+                         inv_scale=None, skip=None):
         """One update of every parameter in the lists; ``lr`` and ``wd`` are
-        (N,) f32 tensors (the rates times each parameter's multiplier)."""
+        (N,) f32 tensors (the rates times each parameter's multiplier).
+        ``out_lows`` (None, or per parameter None or a low-precision tensor)
+        receive the new weights. ``inv_scale`` (a 0-d f32 tensor) multiplies
+        each gradient first; ``skip`` (a 0-d tensor), when nonzero, leaves
+        weights, states and copies as they were, as the JAX step's
+        ``lax.cond``. Here, for optimizers whose update takes no skip flag:
+        the plain update parameter by parameter, each weight and state put
+        back where ``skip`` is set."""
         for i, (w, g, s) in enumerate(zip(ws, gs, states)):
-            self.update_raw(w, g, s, lr[i], wd[i], t)
+            if inv_scale is not None:
+                g = g.float() * inv_scale
+            if skip is None:
+                self.update_raw(w, g, s, lr[i], wd[i], t)
+            else:
+                held = [w] + _state_tensors(s)
+                before = [x.clone() for x in held]
+                self.update_raw(w, g, s, lr[i], wd[i], t)
+                keep = skip.bool()
+                for x, old in zip(held, before):
+                    x.copy_(torch.where(keep, old, x))
+            if out_lows is not None and out_lows[i] is not None:
+                out_lows[i].copy_(w)
+
+
+@register
+class SGD(Optimizer):
+    """SGD, with momentum when ``momentum`` is nonzero."""
+
+    def __init__(self, momentum=0.0, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+
+    def create_state(self, index, weight):
+        if self.momentum == 0.0:
+            return None
+        return torch.zeros_like(weight, dtype=torch.float32)
+
+    def update_raw(self, w, g, state, lr, wd, t):
+        if self.momentum == 0.0:
+            _oo.sgd_update(w, g, lr, wd, self.rescale_grad, self.clip_gradient)
+            return w, None
+        _oo.sgd_mom_update(w, g, state, lr, self.momentum, wd,
+                           self.rescale_grad, self.clip_gradient)
+        return w, state
+
+
+@register
+class NAG(SGD):
+    """Nesterov accelerated SGD."""
+
+    def update_raw(self, w, g, state, lr, wd, t):
+        if self.momentum == 0.0:
+            _oo.sgd_update(w, g, lr, wd, self.rescale_grad, self.clip_gradient)
+            return w, None
+        _oo.nag_mom_update(w, g, state, lr, self.momentum, wd,
+                           self.rescale_grad, self.clip_gradient)
+        return w, state
 
 
 @register
@@ -128,11 +200,31 @@ class Adam(Optimizer):
                         h["clip_gradient"])
         return w, (mean, var)
 
-    def update_raw_multi(self, ws, gs, states, lr, wd, t):
+    def update_raw_multi(self, ws, gs, states, lr, wd, t, out_lows=None,
+                         inv_scale=None, skip=None):
         """All parameters at once: one kernel launch on the card when the
-        ``fused_adam`` knob is on, else the plain version per parameter."""
-        if not _config.get("fused_adam"):
-            return super().update_raw_multi(ws, gs, states, lr, wd, t)
-        _oo.adam_update_fused(ws, gs, [s[0] for s in states],
-                              [s[1] for s in states], self._lr_t(lr, t), wd,
-                              **self._hyper())
+        ``fused_adam`` knob is on, else the plain version per parameter
+        (which applies ``inv_scale`` and ``skip`` itself)."""
+        update = _oo.adam_update_fused if _config.get("fused_adam") \
+            else _oo.adam_update_multi
+        update(ws, gs, [s[0] for s in states], [s[1] for s in states],
+               self._lr_t(lr, t), wd, out_lows=out_lows, inv_scale=inv_scale,
+               skip=skip, **self._hyper())
+
+
+@register
+class AdamW(Adam):
+    """Adam with decoupled weight decay, applied after the Adam step (so it
+    cannot ride the coupled-wd kernel: the plain update per parameter)."""
+
+    def update_raw(self, w, g, state, lr, wd, t):
+        mean, var = state
+        h = self._hyper()
+        w_old = w.clone()
+        _oo.adam_update(w, g, mean, var, self._lr_t(lr, t), h["beta1"],
+                        h["beta2"], h["epsilon"], 0.0, h["rescale_grad"],
+                        h["clip_gradient"])
+        w.copy_(w - lr * wd * w_old)
+        return w, (mean, var)
+
+    update_raw_multi = Optimizer.update_raw_multi

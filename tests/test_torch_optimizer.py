@@ -168,6 +168,40 @@ def test_update_raw_multi_knob_on_and_off_agree_on_cpu():
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("skip", [0, 1])
+@pytest.mark.parametrize("opt_name", ["adam", "adamw"])
+def test_update_raw_multi_scale_and_skip_knob_on_and_off(opt_name, skip):
+    """``inv_scale``, ``skip`` and the low-precision copies through
+    ``update_raw_multi``: Adam with ``fused_adam`` on and off (both plain on
+    the CPU) gives the same tensors; a set skip leaves every weight, moment
+    and copy bit-unchanged, for Adam and for AdamW's clone-and-restore."""
+    rs = np.random.RandomState(8)
+    data = [_mk(rs, s) for s in ((6, 3), (13,))]
+    results = []
+    for on in (True, False):
+        tconfig.set("fused_adam", on)
+        try:
+            opt = topt.create(opt_name, learning_rate=0.01, wd=0.1)
+            ws = [torch.from_numpy(d[0].copy()) for d in data]
+            st = [opt.create_state(i, w) for i, w in enumerate(ws)]
+            lows = [w.to(torch.bfloat16) for w in ws]
+            before = [t.clone() for t in ws + lows + [x for s in st for x in s]]
+            opt.update_raw_multi(
+                ws, [torch.from_numpy(d[1] * 64).half() for d in data], st,
+                torch.tensor([0.01, 0.02]), torch.tensor([0.1, 0.0]),
+                torch.tensor(1, dtype=torch.int32), out_lows=lows,
+                inv_scale=torch.tensor(1 / 64), skip=torch.tensor(
+                    skip, dtype=torch.int32))
+            after = ws + lows + [x for s in st for x in s]
+            assert all(torch.equal(a, b) for a, b in zip(before, after)) \
+                == bool(skip)
+            results.append(after)
+        finally:
+            tconfig.set("fused_adam", True)
+    for a, b in zip(*results):
+        assert torch.equal(a, b)
+
+
 def test_training_knobs_default_on_with_env_aliases(monkeypatch):
     monkeypatch.setattr(tconfig, "_values", {})  # no in-process overrides
     for name in ("fused_adam", "flash_attention", "flash_pallas_bwd"):
@@ -192,3 +226,77 @@ def test_create_and_register():
         topt.create("nope")
     with pytest.raises(MXNetError, match="not ported"):
         topt.Adam(multi_precision=True)
+
+
+def test_inverse_scale_and_f16_gradients_match_jax():
+    """Float16 loss scaling: an f16 gradient of the scaled loss, times the
+    inverse scale, then Adam, as the JAX TrainStep unscales (g · 1/scale
+    in f32, then rescale_grad); bf16 and f16 copies are the rounding of
+    the new weight."""
+    rs = np.random.RandomState(6)
+    shapes = [(7,), (65, 17), (3, 3, 3)]
+    data = [_mk(rs, s) for s in shapes]
+    scale = np.float32(1024.0)
+    inv = np.float32(1.0) / scale
+    ws, gs, ms, vs, lows = [], [], [], [], []
+    for i, (w, g, m, v) in enumerate(data):
+        tw, tg, tm, tv = _t(w, g * scale, m, v)
+        ws.append(tw)
+        gs.append(tg.half())
+        ms.append(tm)
+        vs.append(tv)
+        lows.append(torch.empty(w.shape, dtype=(torch.float16, torch.bfloat16,
+                                                torch.float16)[i]))
+    too.adam_update_fused(ws, gs, ms, vs, 0.003, 0.01, rescale_grad=0.5,
+                          out_lows=lows, inv_scale=torch.tensor(inv), **HP)
+    for i, (w, g, m, v) in enumerate(data):
+        g16 = (g * scale).astype(np.float16).astype(np.float32)
+        ref = jpo.adam_update_fused(
+            jnp.asarray(w), jnp.asarray(g16) * inv, jnp.asarray(m),
+            jnp.asarray(v), jnp.float32(0.003), wd=jnp.float32(0.01),
+            rescale_grad=0.5, interpret=True, **HP)
+        for got, r, name in zip((ws[i], ms[i], vs[i]), ref, "wmv"):
+            np.testing.assert_allclose(got.numpy(), np.asarray(r),
+                                       err_msg=f"{name}{i}", **ONE)
+        assert torch.equal(lows[i], ws[i].to(lows[i].dtype))
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["multi", "per_tensor"])
+def test_skip_flag_leaves_everything_bit_unchanged(fused):
+    """A nonzero skip writes nothing (weights, moments, copies), whatever
+    the gradient holds; a zero skip is a normal update."""
+    rs = np.random.RandomState(7)
+    w, g, m, v = _mk(rs, (40, 9))
+    g[0, 0] = np.inf
+    tw, tg, tm, tv = _t(w, g, m, v)
+    low = tw.to(torch.bfloat16)
+    keep = [t.clone() for t in (tw, tm, tv, low)]
+    for skip in (torch.tensor(1, dtype=torch.int32), torch.tensor(True)):
+        if fused:
+            too.adam_update_fused([tw], [tg], [tm], [tv], 0.01, 0.0,
+                                  out_lows=[low], skip=skip,
+                                  inv_scale=torch.tensor(0.5), **HP)
+        else:
+            too.adam_update(tw, tg, tm, tv, 0.01, out_low=low, skip=skip,
+                            inv_scale=torch.tensor(0.5), **HP)
+        for a, b in zip(keep, (tw, tm, tv, low)):
+            assert torch.equal(a, b)
+    g[0, 0] = 1.0
+    tg = torch.from_numpy(g)
+    too.adam_update(tw, tg, tm, tv, 0.01, out_low=low,
+                    skip=torch.tensor(0, dtype=torch.int32), **HP)
+    ref = _t(w, g, m, v)
+    too.adam_update(ref[0], ref[1], ref[2], ref[3], 0.01, **HP)
+    for a, b in zip((tw, tm, tv), ref[:1] + ref[2:]):
+        assert torch.equal(a, b)
+    assert torch.equal(low, tw.to(torch.bfloat16))
+
+
+def test_kernel_table_flags_for_f16_gradients_and_copies():
+    """A table row's flags carry the gradient's and the copy's dtypes."""
+    w = torch.zeros(5)
+    got = [too._flags(g, low) for g, low in (
+        (w, None), (w.bfloat16(), w.bfloat16()), (w.half(), w.half()),
+        (w, w.half()))]
+    assert got == [0, too._FLAG_G_BF16, too._FLAG_G_F16 | too._FLAG_LOW_F16,
+                   too._FLAG_LOW_F16]

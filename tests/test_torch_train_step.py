@@ -2,7 +2,7 @@
 the JAX package's TrainStep(mesh=None) on a 2-layer GPT-2 with the same
 weights (carried through mxnet_tpu_torch.serialization) and the same
 batches, three Adam steps; and the refusals of what the port has not
-ported yet."""
+ported yet (amp= is ported: tests/test_torch_amp.py)."""
 import numpy as np
 import pytest
 import torch
@@ -158,7 +158,7 @@ def test_lm_loss_is_differentiable():
 
 
 @pytest.mark.parametrize("kw", [{"mesh": object()}, {"layout": object()},
-                                {"amp": "bfloat16"}])
+                                {"layout": object(), "amp": "bfloat16"}])
 def test_refuses_what_is_not_ported(kw):
     net, _ = _tiny_step()
     with pytest.raises(MXNetError, match="not ported"):
