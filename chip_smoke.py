@@ -7,14 +7,18 @@ Phases, each raising on failure (so the script exits non-zero and never
 prints its last line):
 
   1. build the CUDA kernels from ``mxnet_tpu_torch/csrc/`` (one nvcc per
-     source, in parallel) and print the card's name and power limit;
+     source, in parallel), check that the bf16 flash backward kernels
+     multiply on the tensor cores (HMMA in their SASS), and print the
+     card's name and power limit;
   2. hold each kernel against its plain PyTorch version on the card, at
      the shapes the serving and training paths give it (flash forward and
-     lse, dK/dV, dQ, multi-tensor Adam with its skip flag, inverse loss
-     scale and f16 gradients and copies, LayerNorm's gradients through its
-     autograd Function, and the softmax-cross-entropy forward (loss and
-     the row statistics) and backward, including extreme and -inf logits, labels -1 and
-     C, and rows past the TPU's 65536 cap);
+     lse, dK/dV, dQ, the bf16 backward also against a plain version that
+     rounds p and ds as it does, multi-tensor Adam with its skip flag,
+     inverse loss scale and f16 gradients and copies, LayerNorm's
+     gradients through its autograd Function, and the
+     softmax-cross-entropy forward (loss and the row statistics) and
+     backward, including extreme and -inf logits, labels -1 and C, and
+     rows past the TPU's 65536 cap);
   3. check that dense-cache and paged-cache logits are bit-identical
      through a small GPT-2 (2 layers at gpt2_345m width), and that they
      agree with the same engine run on the kernels' plain versions;
@@ -46,13 +50,17 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
-# The card's published peaks (NVIDIA H100 SXM data sheet, 700 W).
+# The card's published peaks (NVIDIA H100 SXM data sheet, 700 W): HBM, f32
+# outside the tensor cores (the bound of f32 work) and dense bf16 on the
+# tensor cores (the bound of bf16 work, whichever units a kernel uses).
 HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS_PER_S = 67e12  # CUDA cores; the kernels use no tensor cores
+F32_FLOPS_PER_S = 67e12
+BF16_TC_FLOPS_PER_S = 989e12
 N_LAYERS = 24  # gpt2_345m
 
 # Tolerances, |kernel - plain| <= atol + rtol * |plain|. f32: only the order
@@ -65,13 +73,28 @@ TOL = {
     ("layernorm", torch.float32): 2e-5,
     ("layernorm", torch.bfloat16): 3e-2,
     # flash: tests/test_flash_attention.py's forward (2e-4 / 3e-2) and
-    # backward (2e-3) tolerances. Kernel and plain version both keep f32
-    # scores and sums and differ in sum order only; in bf16 both round the
-    # same f32 result once, so they differ by at most a bf16 ulp or two.
+    # backward (2e-3 / 3e-2) tolerances against the exact plain versions.
+    # The forward and the f32 backward keep f32 scores and sums and differ
+    # from them in sum order only. The bf16 backward runs on the tensor
+    # cores and rounds p and ds to bf16 before the accumulating products
+    # (2^-9 relative each, on average over a sum), well inside 3e-2.
     ("flash_fwd", torch.float32): 2e-4,
     ("flash_fwd", torch.bfloat16): 3e-2,
     ("flash_bwd", torch.float32): 2e-3,
     ("flash_bwd", torch.bfloat16): 3e-2,
+    # ... and against the plain version that rounds p and ds as the kernel
+    # does (``rounded=True``). The two compute the same f32 scores in
+    # another order (tensor-core sums against cuBLAS's), so p and ds differ
+    # by ~1e-7 relative before rounding, and their sums by ~1e-6. Both round
+    # each result to bf16: one ulp apart at most, 2^-7 relative (rtol). A p
+    # or ds that straddles a bf16 rounding midpoint rounds one ulp apart,
+    # which moves the sums it enters by up to 2^-7 of that term; the f32
+    # gaps make this rare (about 1e-4 of elements), but a row that sees few
+    # keys has terms near 1. So the atol is per output row (flash_flip_atol):
+    # FLASH_ROUNDED_ATOL for the sum order plus FLASH_FLIPS such flips of
+    # the row's largest term (p do for dV, ds q scale for dK, ds k scale
+    # for dQ, bounded by the largest |do|, |q| or |k| of the slice).
+    ("flash_bwd_rounded", torch.bfloat16): 2 ** -7,
     # LayerNorm gradients: the analytic backward under the kernel's forward
     # against autograd through the plain composition; f32 sums of up to 512
     # rows in another order (rtol 1e-4 as tests/test_pallas_layernorm.py)
@@ -92,6 +115,8 @@ TOL = {
     ("xent_bwd", torch.float32): 1e-5,
     ("xent_bwd", torch.bfloat16): 1e-2,
 }
+FLASH_ROUNDED_ATOL = 1e-4
+FLASH_FLIPS = 2
 # At C classes a row's |dx| averages 2 g / C and most of its elements are
 # far below that (the median at the LM head's shape is ~2e-7 g), so an
 # absolute tolerance at the scale of the other checks would pass a backward
@@ -197,15 +222,20 @@ def graph_time_ms(fn, calls=8, replays=10, repeats=5):
     return statistics.median(times)
 
 
-def check_close(name, dtype, got, want, what, atol=None):
+def check_close(name, dtype, got, want, what, atol=None, failures=None):
     """|got - want| <= atol + rtol * |want| per element, rtol from TOL and
     atol the same number unless given (a float or a tensor that
-    broadcasts against ``want``)."""
+    broadcasts against ``want``). Raises on a violation, or appends its
+    message to ``failures`` when that is a list."""
     tol = TOL[(name, dtype)]
     atol = tol if atol is None else atol
     got, want = got.float(), want.float()
     if not torch.isfinite(got).all():
-        raise AssertionError(f"{name} {what}: non-finite kernel output")
+        msg = f"{name} {what}: non-finite kernel output"
+        if failures is None:
+            raise AssertionError(msg)
+        log(f"  FAILED {msg}")
+        failures.append(msg)
     err = (got - want).abs()
     bad = err > atol + tol * want.abs()
     shown = (f"{atol:.3g}" if isinstance(atol, float)
@@ -213,8 +243,11 @@ def check_close(name, dtype, got, want, what, atol=None):
     log(f"  {name} {what}: max_abs_err={err.max().item():.3e} "
         f"(atol={shown}, rtol={tol})")
     if bad.any():
-        raise AssertionError(f"{name} {what}: {int(bad.sum())} elements "
-                             f"outside tolerance")
+        msg = f"{name} {what}: {int(bad.sum())} elements outside tolerance"
+        if failures is None:
+            raise AssertionError(msg)
+        log(f"  FAILED {msg}")
+        failures.append(msg)
     return err.max().item()
 
 
@@ -232,12 +265,44 @@ def phase_build():
                      if log_path.exists() else []):
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    check_tensor_cores(libs["flash_attention"])
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0]
     log(card)
     return card
+
+
+# the bf16 flash backward kernels, which must multiply on the tensor cores
+TC_KERNELS = ("flash_bwd_dkv_tc_kernelILi64", "flash_bwd_dkv_tc_kernelILi128",
+              "flash_bwd_dq_tc_kernelILi64", "flash_bwd_dq_tc_kernelILi128")
+
+
+def check_tensor_cores(lib):
+    """Count the tensor-core instructions (HMMA, HGMMA) of each flash kernel
+    in the built library's SASS (``cuobjdump -sass``), and fail unless
+    every kernel of TC_KERNELS has some."""
+    from mxnet_tpu_torch.ops import cuda_common
+
+    cuobjdump = Path(cuda_common._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HMMA" in line:  # HMMA and HGMMA
+            counts[fn] += 1
+    for fn, n in sorted(counts.items()):
+        log(f"  flash_attention SASS: {n} tensor-core instructions in "
+            f"{fn[:72]}")
+    for want in TC_KERNELS:
+        n = sum(c for fn, c in counts.items() if want in fn)
+        if n == 0:
+            raise AssertionError(f"no tensor-core instruction in {want}")
 
 
 def _paged_case(gen, b, h, tq, ch, ps, n_pages, pool_pages, dtype, trash_row,
@@ -264,8 +329,7 @@ def phase_kernels():
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
-    errs = {"paged_attention": 0.0, "layernorm": 0.0, "flash_fwd": 0.0,
-            "flash_bwd_dkv": 0.0, "flash_bwd_dq": 0.0, "adam": 0.0}
+    errs = {"paged_attention": 0.0, "layernorm": 0.0, "adam": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
         for tq in (1, 128):
             for ps in (16, 6):
@@ -310,15 +374,46 @@ FLASH_CASES = [(4, 16, 1024, 1024, True), (4, 16, 1024, 1024, False),
                (2, 8, 320, 320, True)]
 
 
-def phase_flash_kernels(errs):
+def flash_flip_atol(q, k, v, do, lse, di, causal):
+    """The rounded check's atol of each output row of dk, dv and dq (see
+    TOL): FLASH_ROUNDED_ATOL plus FLASH_FLIPS times 2^-7 of the row's
+    largest term."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+
+    p, ds = fa._recompute(q, k, v, do, lse, di, causal)
+    ds = ds.abs()
+    scale = q.shape[-1] ** -0.5
+
+    def slice_max(t):  # per (b, h) slice, as (B, H, 1, 1)
+        return t.float().abs().amax(dim=(-2, -1), keepdim=True)
+
+    terms = {"dk": ds.amax(dim=-2).unsqueeze(-1) * slice_max(q) * scale,
+             "dv": p.amax(dim=-2).unsqueeze(-1) * slice_max(do),
+             "dq": ds.amax(dim=-1).unsqueeze(-1) * slice_max(k) * scale}
+    return {n: FLASH_ROUNDED_ATOL + FLASH_FLIPS * 2 ** -7 * t
+            for n, t in terms.items()}
+
+
+def phase_flash_kernels(errs, dtypes=(torch.float32, torch.bfloat16),
+                        failures=None):
     """Flash forward + lse, dK/dV and dQ against their plain versions, f32
-    and bf16, head dims 64 and 128."""
+    and bf16, head dims 64 and 128. The bf16 backward is held twice:
+    against the exact plain version and against the one that rounds p and
+    ds as the tensor-core kernels do. Errors go to ``errs`` under the
+    kernel's name, with ``_bf16`` for bf16 and ``_rounded`` for the second
+    check. ``failures`` as in check_close (tools/torch_flash_faults.py)."""
     from mxnet_tpu_torch.ops import flash_attention as fa
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(3)
-    for dtype in (torch.float32, torch.bfloat16):
+
+    def held(key, *args, **kw):
+        errs[key] = max(errs.get(key, 0.0),
+                        check_close(*args, failures=failures, **kw))
+
+    for dtype in dtypes:
         dn = str(dtype)[6:]
+        sfx = "" if dtype == torch.float32 else "_bf16"
         for d in (64, 128):
             for b, h, tq, tk, causal in FLASH_CASES:
                 what = f"{dn} d={d} B={b} H={h} Tq={tq} Tk={tk} causal={causal}"
@@ -326,24 +421,31 @@ def phase_flash_kernels(errs):
                 out, lse = fa._flash_fwd(q, k, v, causal, return_lse=True)
                 ref, ref_lse = fa.flash_fwd_plain(q, k, v, causal)
                 torch.cuda.synchronize()
-                e = check_close("flash_fwd", dtype, out, ref, f"out {what}")
-                e = max(e, check_close("flash_fwd", dtype, lse, ref_lse,
-                                       f"lse {what}"))
-                errs["flash_fwd"] = max(errs["flash_fwd"], e)
+                held("flash_fwd" + sfx, "flash_fwd", dtype, out, ref,
+                     f"out {what}")
+                held("flash_fwd" + sfx, "flash_fwd", dtype, lse, ref_lse,
+                     f"lse {what}")
                 do = torch.randn(b, h, tq, d, generator=gen).to(dev, dtype)
                 di = fa._row_dot(do, out).contiguous()
                 dk, dv = fa._bwd_dkv(q, k, v, do, lse, di, causal)
                 dq = fa._bwd_dq(q, k, v, do, lse, di, causal)
-                rdk, rdv = fa._flash_bwd_dkv_plain(q, k, v, do, lse, di, causal)
-                rdq = fa._flash_bwd_dq_plain(q, k, v, do, lse, di, causal)
-                torch.cuda.synchronize()
-                errs["flash_bwd_dkv"] = max(
-                    errs["flash_bwd_dkv"],
-                    check_close("flash_bwd", dtype, dk, rdk, f"dk {what}"),
-                    check_close("flash_bwd", dtype, dv, rdv, f"dv {what}"))
-                errs["flash_bwd_dq"] = max(
-                    errs["flash_bwd_dq"],
-                    check_close("flash_bwd", dtype, dq, rdq, f"dq {what}"))
+                for rounded in (False, True) if sfx else (False,):
+                    rdk, rdv = fa._flash_bwd_dkv_plain(q, k, v, do, lse, di,
+                                                       causal, rounded=rounded)
+                    rdq = fa._flash_bwd_dq_plain(q, k, v, do, lse, di, causal,
+                                                 rounded=rounded)
+                    atol = flash_flip_atol(q, k, v, do, lse, di, causal) \
+                        if rounded else {}
+                    torch.cuda.synchronize()
+                    name = "flash_bwd_rounded" if rounded else "flash_bwd"
+                    tail = " (p, ds rounded)" if rounded else ""
+                    key = "_rounded" if rounded else ""
+                    for kern, grad, got, want in (
+                            ("flash_bwd_dkv", "dk", dk, rdk),
+                            ("flash_bwd_dkv", "dv", dv, rdv),
+                            ("flash_bwd_dq", "dq", dq, rdq)):
+                        held(kern + sfx + key, name, dtype, got, want,
+                             f"{grad} {what}{tail}", atol=atol.get(grad))
 
 
 def _adam_close(got, want, tol, what):
@@ -874,24 +976,35 @@ def phase_serve():
     return eng, launches
 
 
-def _bound_ms(nbytes, flops):
-    return max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3, \
-        "bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS_PER_S \
-        else "operations"
+# the peak an operation count is held against, by the inputs' type
+PEAKS = {torch.float32: ("f32 CUDA cores, 67 TFLOP/s", F32_FLOPS_PER_S),
+         torch.bfloat16: ("bf16 tensor cores, 989 TFLOP/s",
+                          BF16_TC_FLOPS_PER_S)}
+
+
+def _bound_ms(nbytes, flops, dtype=torch.float32):
+    """(least ms, "bytes" or "operations", the operations' peak): bytes over
+    the HBM rate or flops over the peak for ``dtype``, the larger."""
+    peak_name, peak = PEAKS[dtype]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return max(t_bytes, t_ops) * 1e3, \
+        "bytes" if t_bytes >= t_ops else "operations", peak_name
 
 
 def _timed(kern, plain, library, nbytes, flops, shape, plain_graph=True,
-           small=False):
+           small=False, dtype=torch.float32):
     """One row of the kernel table. ``ms``, ``plain_ms`` and ``library_ms``
     are device times (CUDA graph replay), except the plain paged read, whose
     host syncs cannot be captured: its time is eager. The ``*_eager_ms``
     are the per-call times of eager calls, host included, as the serving
     loop pays them. ``library=None`` leaves the library time to the caller;
-    ``small`` takes fewer calls, for work of milliseconds per call."""
-    bound_ms, bound_by = _bound_ms(nbytes, flops)
+    ``small`` takes fewer calls, for work of milliseconds per call. The
+    bound holds the flops against the peak for ``dtype``."""
+    bound_ms, bound_by, peak = _bound_ms(nbytes, flops, dtype)
     g = dict(calls=2, replays=3, repeats=3) if small else {}
     e = dict(warmup=2, iters=5, repeats=3) if small else {}
     r = dict(shape=shape, bound_ms=bound_ms, bound_by=bound_by,
+             bound_peak=peak,
              ms=graph_time_ms(kern, **g), eager_ms=cuda_time_ms(kern, **e),
              plain_eager_ms=cuda_time_ms(plain, **dict(e, iters=5)))
     if library is not None:
@@ -905,14 +1018,15 @@ def _timed(kern, plain, library, nbytes, flops, shape, plain_graph=True,
     log(f"[time] {shape}: kernel {r['ms'] * 1e3:.2f} us (eager "
         f"{r['eager_ms'] * 1e3:.2f}), plain {r['plain_ms'] * 1e3:.2f} us "
         f"(eager {r['plain_eager_ms'] * 1e3:.2f}), {lib}bound "
-        f"{bound_ms * 1e3:.2f} us ({bound_by})")
+        f"{bound_ms * 1e3:.2f} us ({bound_by}; {peak})")
     return r
 
 
 def phase_timing(eng):
     """Each kernel at the serving path's shapes beside its plain version
-    and a library call; bound = max(bytes / HBM rate, flops / f32 rate),
-    each input read once and each output written once."""
+    and a library call; bound = max(bytes / HBM rate, flops / the peak for
+    the inputs' type), each input read once and each output written
+    once."""
     from mxnet_tpu_torch.ops import layernorm as ln
     from mxnet_tpu_torch.ops import paged_attention as pa
 
@@ -1001,8 +1115,10 @@ def _flash_bounds(b, h, t, d, itemsize):
 
 def phase_train_timing(net):
     """The training kernels at the shapes gpt2_345m training gives them:
-    flash (B=4, H=16, T=1024, D=64, causal, f32; also T=2048) and Adam over
-    the model's 292 parameters. Bounds as in phase_timing."""
+    flash (B=4, H=16, T=1024, D=64, causal) in f32 (the ``train`` path; also
+    T=2048) and in bf16 (``train_amp``), and Adam over the model's 292
+    parameters. Bounds as in phase_timing. Returns the rows by kernel name,
+    the bf16 flash rows under ``<name>_bf16``."""
     from mxnet_tpu_torch.ops import flash_attention as fa
     from mxnet_tpu_torch.ops import optimizer as oo
 
@@ -1010,27 +1126,40 @@ def phase_train_timing(net):
     gen = torch.Generator().manual_seed(6)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = {}
-    for t in (1024, 2048):
+    for t, dtype in ((1024, torch.float32), (2048, torch.float32),
+                     (1024, torch.bfloat16)):
         b, h, d = 4, 16, 64
-        q, k, v = _flash_inputs(gen, b, h, t, t, d, torch.float32, dev)
-        do = torch.randn(b, h, t, d, generator=gen).to(dev)
+        dn = str(dtype)[6:]
+        q, k, v = _flash_inputs(gen, b, h, t, t, d, dtype, dev)
+        do = torch.randn(b, h, t, d, generator=gen).to(dev, dtype)
         out, lse = fa._flash_fwd(q, k, v, True, return_lse=True)
         di = fa._row_dot(do, out).contiguous()
-        bounds = _flash_bounds(b, h, t, d, 4)
-        shape = f"B={b} H={h} T={t} D={d} causal f32"
+        bounds = _flash_bounds(b, h, t, d, q.element_size())
+        shape = f"B={b} H={h} T={t} D={d} causal {dn}"
         fwd = _timed(lambda: fa._flash_fwd(q, k, v, True, return_lse=True),
                      lambda: fa.flash_fwd_plain(q, k, v, True),
                      lambda: sdpa(q, k, v, is_causal=True),
-                     *bounds["fwd"], shape=f"flash_fwd {shape}")
+                     *bounds["fwd"], shape=f"flash_fwd {shape}", dtype=dtype)
         # the library yardstick of the backward: SDPA forward + backward
-        # minus SDPA forward, eager, on inputs that require grad
+        # minus SDPA forward on inputs that require grad, on the device (CUDA
+        # graph replay; eager, SDPA's host time per call, ~0.3 ms in bf16,
+        # would be measured instead) and eager
         qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
-        fb_ms = cuda_time_ms(lambda: torch.autograd.grad(
-            sdpa(qg, kg, vg, is_causal=True), (qg, kg, vg), do), iters=10)
-        f_ms = cuda_time_ms(lambda: sdpa(qg, kg, vg, is_causal=True), iters=10)
+
+        def lib_fwd_bwd():
+            torch.autograd.grad(sdpa(qg, kg, vg, is_causal=True),
+                                (qg, kg, vg), do)
+
+        def lib_fwd():
+            sdpa(qg, kg, vg, is_causal=True)
+
+        fb_ms, f_ms = graph_time_ms(lib_fwd_bwd), graph_time_ms(lib_fwd)
+        fb_eager = cuda_time_ms(lib_fwd_bwd, iters=10)
         lib_bwd = fb_ms - f_ms
+        lib_bwd_eager = fb_eager - cuda_time_ms(lib_fwd, iters=10)
         log(f"[time] SDPA causal backward at {shape}: {lib_bwd * 1e3:.2f} us "
-            f"(fwd+bwd {fb_ms * 1e3:.2f} - fwd {f_ms * 1e3:.2f}, eager)")
+            f"(fwd+bwd {fb_ms * 1e3:.2f} - fwd {f_ms * 1e3:.2f}, device); "
+            f"eager {lib_bwd_eager * 1e3:.2f} us")
         del qg, kg, vg
         bwd = {}
         for name, kern, plain in (
@@ -1039,14 +1168,18 @@ def phase_train_timing(net):
             bwd[name] = _timed(
                 lambda: kern(q, k, v, do, lse, di, True),
                 lambda: plain(q, k, v, do, lse, di, True),
-                None, *bounds[name], shape=f"flash_bwd_{name} {shape}")
-            bwd[name].update(library_ms=lib_bwd, library_eager_ms=lib_bwd,
+                None, *bounds[name], shape=f"flash_bwd_{name} {shape}",
+                dtype=dtype)
+            bwd[name].update(library_ms=lib_bwd,
+                             library_eager_ms=lib_bwd_eager,
                              library="SDPA backward (dq, dk, dv together): "
-                                     "fwd+bwd minus fwd, eager")
+                                     "fwd+bwd minus fwd")
         if t == 1024:
+            sfx = "" if dtype == torch.float32 else "_bf16"
             fwd["library"] = "SDPA is_causal forward"
-            rows["flash_fwd"] = fwd
-            rows["flash_bwd_dkv"], rows["flash_bwd_dq"] = bwd["dkv"], bwd["dq"]
+            rows["flash_fwd" + sfx] = fwd
+            rows["flash_bwd_dkv" + sfx] = bwd["dkv"]
+            rows["flash_bwd_dq" + sfx] = bwd["dq"]
         del q, k, v, do, out, lse, di
 
     # Adam over gpt2_345m's parameters: f32 grads, lr 1e-4, wd 0
@@ -1108,7 +1241,7 @@ def phase_xent_timing():
                      lambda: sx.softmax_cross_entropy_plain(x, lbl),
                      lambda: F.cross_entropy(x, lbl64, reduction="none"),
                      nbytes=n * c * size + 16 * n, flops=4 * n * c,
-                     shape=f"xent_fwd {shape}")
+                     shape=f"xent_fwd {shape}", dtype=dtype)
         fwd["library"] = "F.cross_entropy(reduction='none')"
         # the library yardstick of the backward: F.cross_entropy forward +
         # backward minus its forward, eager, on logits that require grad
@@ -1125,7 +1258,7 @@ def phase_xent_timing():
         bwd = _timed(lambda: sx._xent_bwd(x, lbl, stats, g),
                      lambda: sx.softmax_cross_entropy_bwd_plain(x, lbl, g),
                      None, nbytes=2 * n * c * size + 16 * n, flops=4 * n * c,
-                     shape=f"xent_bwd {shape}")
+                     shape=f"xent_bwd {shape}", dtype=dtype)
         bwd.update(library_ms=lib_bwd, library_eager_ms=lib_bwd,
                    library="F.cross_entropy backward: fwd+bwd minus fwd, "
                            "eager")
@@ -1177,6 +1310,15 @@ def main():
                           "mxnet_tpu/ops/flash_attention.py:256", "train"),
         "flash_bwd_dq": ("mxnet_tpu_torch/csrc/flash_attention.cu",
                          "mxnet_tpu/ops/flash_attention.py:285", "train"),
+        # the same kernels' bf16 instantiations, on the train_amp path
+        "flash_fwd_bf16": ("mxnet_tpu_torch/csrc/flash_attention.cu",
+                           "mxnet_tpu/ops/flash_attention.py:100", "train_amp"),
+        "flash_bwd_dkv_bf16": ("mxnet_tpu_torch/csrc/flash_attention.cu",
+                               "mxnet_tpu/ops/flash_attention.py:256",
+                               "train_amp"),
+        "flash_bwd_dq_bf16": ("mxnet_tpu_torch/csrc/flash_attention.cu",
+                              "mxnet_tpu/ops/flash_attention.py:285",
+                              "train_amp"),
         "adam": ("mxnet_tpu_torch/csrc/adam.cu",
                  "mxnet_tpu/ops/pallas_optimizer.py:63", "train"),
         "xent_fwd": ("mxnet_tpu_torch/csrc/softmax_xent.cu",
@@ -1189,13 +1331,17 @@ def main():
     kernels = []
     for name, (src, rep, path) in meta.items():
         t = timing[name]
+        counter = name.removesuffix("_bf16")  # one counter for both dtypes
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": by_path[path][name], "launches_path": path,
-            "launches_by_path": {p: c.get(name, 0) for p, c in by_path.items()},
+            "launches": by_path[path][counter], "launches_path": path,
+            "launches_by_path": {p: c.get(counter, 0)
+                                 for p, c in by_path.items()},
             "max_abs_err": errs[name],
+            "max_abs_err_rounded": errs.get(name + "_rounded"),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "bound_peak": t["bound_peak"],
             "library_ms": t["library_ms"], "shape": t["shape"],
             "eager_ms": t["eager_ms"], "plain_eager_ms": t["plain_eager_ms"],
             "library_eager_ms": t["library_eager_ms"],

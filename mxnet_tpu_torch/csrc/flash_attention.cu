@@ -20,13 +20,15 @@
 // forward does 4*D flops per live (query, key) pair and moves 4*T*D
 // elements per slice, about 200 flops per byte, far above the ~20 that the
 // f32 CUDA cores do per byte of HBM (H100 SXM data sheet, 700 W power
-// limit: 67 TFLOP/s over 3.35 TB/s), so the least time is the flops over
-// 67 TFLOP/s (these kernels use no tensor cores). The backward does 7
-// block products per tile pair against the forward's 2, split 4 (dK/dV)
-// and 3 (dQ).
+// limit: 67 TFLOP/s over 3.35 TB/s), so the least time of the kernels
+// below, which use no tensor cores, is the flops over 67 TFLOP/s. The
+// backward does 7 block products per tile pair against the forward's 2,
+// split 4 (dK/dV) and 3 (dQ). For bf16 inputs the backward runs on the
+// tensor cores instead: see "The bf16 backward on the tensor cores" below.
 //
-// Design: the TPU kernels walk a sequential grid axis and carry m, l and
-// the accumulators in VMEM scratch from one grid step to the next. Blocks
+// Design of the forward and of the f32 backward: the TPU kernels walk a
+// sequential grid axis and carry m, l and the accumulators in VMEM scratch
+// from one grid step to the next. Blocks
 // on the card run in no order, so each block owns one output tile and
 // walks the other operand's tiles in a loop of its own:
 //   forward and dQ: one block per (b*h, tile of 64 queries), looping over
@@ -47,7 +49,10 @@
 // the row max and row sum of the online softmax are 4 shuffles. Ragged
 // lengths are masked in the kernel: rows past Tq load zeros and are not
 // stored, keys past Tk are masked out of the softmax.
+#include <type_traits>
+
 #include "common.cuh"
+#include "mma_sm90.cuh"
 
 constexpr int BT = 64;        // rows of a query or key tile
 constexpr int TS = BT + 1;    // row stride of a transposed tile in shared memory
@@ -354,6 +359,350 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 backward on the tensor cores.
+//
+// Replaces, for bf16 q/k/v/do: _bwd_dkv_kernel and _bwd_dq_kernel in
+// mxnet_tpu/ops/flash_attention.py (:256 and :285). The f32 instantiations
+// keep the CUDA-core kernels above.
+//
+// Bound on the H100: operations. At B=4 H=16 T=1024 D=64 causal, dK/dV does
+// 4 block products of 2*D flops per live (query, key) pair, 17.2 GFLOP, and
+// dQ 3, 12.9 GFLOP; against 989 TFLOP/s of dense bf16 (H100 SXM data sheet,
+// 700 W) that is 17.4 and 13.0 us, while their bytes (q, k, v, do, lse, di
+// in, the gradients out; about 50 MB) take about 15 us at 3.35 TB/s.
+//
+// Design. One block of 4 warps owns 64 rows of the output: dK/dV one tile of
+// 64 keys, dQ one tile of 64 queries; warp w owns rows 16w..16w+15. Every
+// product is mma.sync m16n8k16 (bf16 operands, f32 accumulators) with
+// operands loaded by ldmatrix from bf16 tiles whose rows are padded to D + 8
+// elements (8 rows of 16 bytes fall in 32 distinct banks). Per looped tile:
+//   dK/dV: s^T = K Q^T and dp^T = V dO^T (f32), p^T = exp(s^T scale - lse)
+//          under the mask, ds^T = p^T (dp^T - di); dV += p^T dO, dK += ds^T Q;
+//   dQ:    s = Q K^T, dp = dO V^T, p and ds as above; dQ += ds K.
+// The f32 C fragments of p and ds are packed to bf16 and reused as the A
+// fragments of the accumulating products (mma_sm90.cuh), so p and ds never
+// touch shared memory. The resident operand (K and V; Q and dO) is loaded
+// once: at D = 64 its A fragments stay in registers for the whole loop; at
+// D = 128 they are read from its shared-memory tile at each use and the looped
+// tile is 32 rows, because 64 x 128 f32 accumulators for each of dK and dV
+// already take 128 registers a thread (ptxas -v on sm_90a: dK/dV 242
+// registers at both head dims, dQ 169 and 163, no spills). The looped operand
+// (Q, dO, lse, di; K, V) is double-buffered with cp.async: tile i + 1 is in
+// flight while tile i is multiplied. Tiles that the causal mask hides
+// entirely are skipped, and the element mask is applied only on tiles that
+// cross the causal frontier or the ragged end. No atomics: results are the
+// same from run to run.
+//
+// Rounding. Exactly two things are rounded to bf16: p and ds before the
+// accumulating products, and the outputs. Scores, exp, lse, di and every
+// accumulator are f32, and the scale is applied in f32 (to s, and to dK and
+// dQ at the end; 1/sqrt(128) is not a power of two, so folding it into a
+// bf16 q would round again). The TPU kernel computes these products as f32
+// dot_generals, which its matrix unit at JAX's default precision multiplies
+// as bf16 operands: the same rounding of p and ds, made there by the chip.
+namespace bf16tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int NW = 4;          // warps a block
+constexpr int NTH = 32 * NW;   // threads a block
+constexpr int BR = 16 * NW;    // rows of the resident tile, 16 a warp
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+struct Tile {
+  static constexpr int LD = D + 8;              // shared-memory row stride (elements)
+  static constexpr int BN = D == 64 ? 64 : 32;  // rows of the looped tile
+  static constexpr bool REGS = D == 64;         // resident A fragments in registers
+};
+
+template <int D>
+__host__ __device__ constexpr size_t smem_bytes() {
+  // two resident tiles, two double-buffered looped tiles, two f32 vectors
+  return (2 * BR + 4 * Tile<D>::BN) * Tile<D>::LD * sizeof(bf16) +
+         4 * Tile<D>::BN * sizeof(float);
+}
+
+// Rows [r0, r0 + ROWS) of a (n, D) row-major slice into a [ROWS][D + 8]
+// tile by 16-byte cp.async; rows at or past n are zeros.
+template <int ROWS, int D>
+__device__ __forceinline__ void load_rows(bf16* sm, const bf16* __restrict__ src, int r0, int n) {
+  constexpr int CH = D / 8;
+  static_assert(ROWS * CH % NTH == 0, "whole copies per thread");
+#pragma unroll
+  for (int it = 0; it < ROWS * CH / NTH; ++it) {
+    const int i = threadIdx.x + it * NTH;
+    const int r = i / CH, c = (i % CH) * 8, row = r0 + r;
+    const bool ok = row < n;
+    cp_async16(sm + r * Tile<D>::LD + c, src + static_cast<size_t>(ok ? row : 0) * D + c,
+               ok ? 16 : 0);
+  }
+}
+
+// Entries [r0, r0 + ROWS) of an (n,) f32 vector, zeros past n, copied by
+// threads [t0, t0 + ROWS).
+template <int ROWS>
+__device__ __forceinline__ void load_vec(float* sm, const float* __restrict__ src, int r0,
+                                         int n, int t0) {
+  const int i = static_cast<int>(threadIdx.x) - t0;
+  if (i >= 0 && i < ROWS) {
+    const int row = r0 + i;
+    const bool ok = row < n;
+    cp_async4(sm + i, src + (ok ? row : 0), ok ? 4 : 0);
+  }
+}
+
+// A warp's 16 rows of a resident [BR][D + 8] tile as mma A operands.
+template <int D>
+struct Resident {
+  uint32_t f[Tile<D>::REGS ? D / 16 : 1][4];
+  const bf16* at;
+
+  __device__ __forceinline__ void init(const bf16* tile, int warp, int lane) {
+    at = tile + warp * 16 * Tile<D>::LD + a_off(lane, Tile<D>::LD);
+    if constexpr (Tile<D>::REGS) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) ldsm_x4(f[kk], at + 16 * kk);
+    }
+  }
+  // the A fragment of channels [16 kk, 16 kk + 16)
+  __device__ __forceinline__ void get(uint32_t (&a)[4], int kk) const {
+    if constexpr (Tile<D>::REGS) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = f[kk][i];
+    } else {
+      ldsm_x4(a, at + 16 * kk);
+    }
+  }
+};
+
+// acc (16 x N) += the warp's resident rows times the transpose of an
+// (N, D) tile stored [row][channel]: the score products.
+template <int D, int N>
+__device__ __forceinline__ void scores(float (&acc)[N / 8][4], const Resident<D>& res,
+                                       const bf16* tile, int lane) {
+  constexpr int LD = Tile<D>::LD;
+  const bf16* b = tile + bn_off(lane, LD);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[4];
+    res.get(a, kk);
+#pragma unroll
+    for (int j = 0; j < N / 16; ++j) {
+      uint32_t r[4];
+      ldsm_x4(r, b + 16 * j * LD + 16 * kk);
+      mma_bf16(acc[2 * j], a, r[0], r[1]);
+      mma_bf16(acc[2 * j + 1], a, r[2], r[3]);
+    }
+  }
+}
+
+// acc (16 x D) += w (16 x N, f32 C fragments, rounded to bf16 here) times
+// an (N, D) tile stored [row][channel]: the accumulating products.
+template <int D, int N>
+__device__ __forceinline__ void accumulate(float (&acc)[D / 8][4], const float (&w)[N / 8][4],
+                                           const bf16* tile, int lane) {
+  constexpr int LD = Tile<D>::LD;
+  const bf16* b = tile + bk_off(lane, LD);
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    uint32_t a[4];
+    frag_from_acc(a, w[2 * kk], w[2 * kk + 1]);
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j) {
+      uint32_t r[4];
+      ldsm_x4_t(r, b + 16 * kk * LD + 16 * j);
+      mma_bf16(acc[2 * j], a, r[0], r[1]);
+      mma_bf16(acc[2 * j + 1], a, r[2], r[3]);
+    }
+  }
+}
+
+// A warp's 16 x D f32 accumulator times mul, rounded to bf16, into rows
+// [row0, row0 + 16) of a (n, D) slice; rows at or past n are not written.
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[D / 8][4], int row0,
+                                           int n, int lane, float mul) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + g + 8 * h;
+    if (row >= n) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(dst + static_cast<size_t>(row) * D + 8 * j + 2 * t) =
+          pack_bf16(acc[j][2 * h] * mul, acc[j][2 * h + 1] * mul);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(NTH)
+flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ di,
+                        bf16* __restrict__ dk, bf16* __restrict__ dv, int Tq, int Tk, int causal,
+                        float scale) {
+  constexpr int LD = Tile<D>::LD, BQ = Tile<D>::BN;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ks = reinterpret_cast<bf16*>(smem);
+  bf16* vs = ks + BR * LD;
+  bf16* qs = vs + BR * LD;        // [2][BQ][LD]
+  bf16* dos = qs + 2 * BQ * LD;   // [2][BQ][LD]
+  float* lse_s = reinterpret_cast<float*>(dos + 2 * BQ * LD);  // [2][BQ]
+  float* di_s = lse_s + 2 * BQ;                                // [2][BQ]
+  const int bh = blockIdx.y, k0 = blockIdx.x * BR;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int off = Tk - Tq;
+  const size_t qoff = static_cast<size_t>(bh) * Tq * D, koff = static_cast<size_t>(bh) * Tk * D;
+  const float* lse_b = lse + static_cast<size_t>(bh) * Tq;
+  const float* di_b = di + static_cast<size_t>(bh) * Tq;
+  const float sl2 = scale * LOG2E;
+
+  // the first query tile with a row that sees key k0; the tiles before it
+  // are masked out entirely
+  const int q_begin = causal ? (max(0, k0 - off) / BQ) * BQ : 0;
+  const int n_tiles = q_begin < Tq ? (Tq - q_begin + BQ - 1) / BQ : 0;
+  auto load_q_tile = [&](int q0, int st) {
+    load_rows<BQ, D>(qs + st * BQ * LD, q + qoff, q0, Tq);
+    load_rows<BQ, D>(dos + st * BQ * LD, dout + qoff, q0, Tq);
+    load_vec<BQ>(lse_s + st * BQ, lse_b, q0, Tq, 0);
+    load_vec<BQ>(di_s + st * BQ, di_b, q0, Tq, BQ);
+  };
+  load_rows<BR, D>(ks, k + koff, k0, Tk);
+  load_rows<BR, D>(vs, v + koff, k0, Tk);
+  cp_async_commit();
+  if (n_tiles > 0) load_q_tile(q_begin, 0);
+  cp_async_commit();
+  cp_async_wait<1>();  // K and V have landed
+  __syncthreads();
+  Resident<D> kr, vr;
+  kr.init(ks, warp, lane);
+  vr.init(vs, warp, lane);
+
+  float dk_acc[D / 8][4] = {}, dv_acc[D / 8][4] = {};
+  for (int it = 0; it < n_tiles; ++it) {
+    const int q0 = q_begin + it * BQ, st = it & 1;
+    cp_async_wait<0>();  // tile it has landed ...
+    __syncthreads();     // ... for every thread, and tile it - 1 is no longer read
+    if (it + 1 < n_tiles) load_q_tile(q0 + BQ, st ^ 1);
+    cp_async_commit();
+    const bf16* qt = qs + st * BQ * LD;
+    const bf16* dot = dos + st * BQ * LD;
+    const float* ls = lse_s + st * BQ;
+    const float* dis = di_s + st * BQ;
+    // transposed: rows are this warp's keys, columns the tile's queries
+    float s[BQ / 8][4] = {}, dp[BQ / 8][4] = {};
+    scores<D, BQ>(s, kr, qt, lane);
+    scores<D, BQ>(dp, vr, dot, lane);
+    // key rows past Tk are never stored, so only the queries' end and the
+    // causal frontier need the element mask
+    const bool edge = q0 + BQ > Tq || (causal && k0 + BR - 1 > q0 + off);
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * j + 2 * t + (e & 1);
+        float p = exp2f(s[j][e] * sl2 - ls[c] * LOG2E);
+        if (edge) {
+          const int row = q0 + c, key = k0 + warp * 16 + g + 8 * (e >> 1);
+          if (row >= Tq || (causal && key > row + off)) p = 0.f;
+        }
+        s[j][e] = p;
+        dp[j][e] = p * (dp[j][e] - dis[c]);
+      }
+    }
+    accumulate<D, BQ>(dv_acc, s, dot, lane);  // dv += p^T do
+    accumulate<D, BQ>(dk_acc, dp, qt, lane);  // dk += ds^T q
+  }
+  cp_async_wait<0>();
+  store_rows<D>(dk + koff, dk_acc, k0 + warp * 16, Tk, lane, scale);
+  store_rows<D>(dv + koff, dv_acc, k0 + warp * 16, Tk, lane, 1.f);
+}
+
+template <int D>
+__global__ void __launch_bounds__(NTH)
+flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                       const float* __restrict__ lse, const float* __restrict__ di,
+                       bf16* __restrict__ dq, int Tq, int Tk, int causal, float scale) {
+  constexpr int LD = Tile<D>::LD, BK = Tile<D>::BN;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  bf16* dos = qs + BR * LD;
+  bf16* kts = dos + BR * LD;       // [2][BK][LD]
+  bf16* vts = kts + 2 * BK * LD;   // [2][BK][LD]
+  // the last query tiles see the most keys: start them first
+  const int bh = blockIdx.y, q0 = (gridDim.x - 1 - blockIdx.x) * BR;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int off = Tk - Tq;
+  const size_t qoff = static_cast<size_t>(bh) * Tq * D, koff = static_cast<size_t>(bh) * Tk * D;
+  const float sl2 = scale * LOG2E;
+
+  const int n_tiles = (key_end(q0, Tq, Tk, causal) + BK - 1) / BK;
+  auto load_kv_tile = [&](int k0, int st) {
+    load_rows<BK, D>(kts + st * BK * LD, k + koff, k0, Tk);
+    load_rows<BK, D>(vts + st * BK * LD, v + koff, k0, Tk);
+  };
+  load_rows<BR, D>(qs, q + qoff, q0, Tq);
+  load_rows<BR, D>(dos, dout + qoff, q0, Tq);
+  cp_async_commit();
+  if (n_tiles > 0) load_kv_tile(0, 0);
+  cp_async_commit();
+  // this thread's rows: q0 + 16 warp + g and + 8
+  float lse2[2], di_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + warp * 16 + g + 8 * h;
+    const size_t at = static_cast<size_t>(bh) * Tq + row;
+    lse2[h] = row < Tq ? lse[at] * LOG2E : 0.f;
+    di_r[h] = row < Tq ? di[at] : 0.f;
+  }
+  cp_async_wait<1>();  // Q and dO have landed
+  __syncthreads();
+  Resident<D> qr, dor;
+  qr.init(qs, warp, lane);
+  dor.init(dos, warp, lane);
+
+  float dq_acc[D / 8][4] = {};
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * BK, st = it & 1;
+    cp_async_wait<0>();
+    __syncthreads();
+    if (it + 1 < n_tiles) load_kv_tile(k0 + BK, st ^ 1);
+    cp_async_commit();
+    const bf16* kt = kts + st * BK * LD;
+    const bf16* vt = vts + st * BK * LD;
+    float s[BK / 8][4] = {}, dp[BK / 8][4] = {};
+    scores<D, BK>(s, qr, kt, lane);
+    scores<D, BK>(dp, dor, vt, lane);
+    // query rows past Tq are never stored, so only the keys' end and the
+    // causal frontier need the element mask
+    const bool edge = k0 + BK > Tk || (causal && k0 + BK - 1 > q0 + off);
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        float p = exp2f(s[j][e] * sl2 - lse2[h]);
+        if (edge) {
+          const int col = k0 + 8 * j + 2 * t + (e & 1), row = q0 + warp * 16 + g + 8 * h;
+          if (col >= Tk || (causal && col > row + off)) p = 0.f;
+        }
+        dp[j][e] = p * (dp[j][e] - di_r[h]);
+      }
+    }
+    accumulate<D, BK>(dq_acc, dp, kt, lane);  // dq += ds k
+  }
+  cp_async_wait<0>();
+  store_rows<D>(dq + qoff, dq_acc, q0 + warp * 16, Tq, lane, scale);
+}
+
+}  // namespace bf16tc
+
+static bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
 // Opt a kernel in to its dynamic shared memory (above the 48 KB default)
 // once per instantiation.
 template <typename K>
@@ -385,15 +734,32 @@ static int bwd_dkv(const void* q, const void* k, const void* v, const void* dout
                    const float* lse, const float* di, void* dk, void* dv, int BH, int Tq,
                    int Tk, int causal, cudaStream_t s) {
   static bool attr = false;
-  const size_t smem = dkv_smem_floats<D>() * sizeof(float);
-  auto kern = flash_bwd_dkv_kernel<D, T>;
-  const cudaError_t e = allow_smem(kern, smem, attr);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid((Tk + BT - 1) / BT, BH);
-  kern<<<grid, NT, smem, s>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                              static_cast<const T*>(v), static_cast<const T*>(dout), lse, di,
-                              static_cast<T*>(dk), static_cast<T*>(dv), Tq, Tk, causal,
-                              1.0f / sqrtf(static_cast<float>(D)));
+  const float scale = 1.0f / sqrtf(static_cast<float>(D));
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    using bf16tc::bf16;
+    if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout) ||
+        !aligned16(dk) || !aligned16(dv))
+      return static_cast<int>(cudaErrorMisalignedAddress);
+    const size_t smem = bf16tc::smem_bytes<D>();
+    auto kern = bf16tc::flash_bwd_dkv_tc_kernel<D>;
+    const cudaError_t e = allow_smem(kern, smem, attr);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    dim3 grid((Tk + bf16tc::BR - 1) / bf16tc::BR, BH);
+    kern<<<grid, bf16tc::NTH, smem, s>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const bf16*>(dout), lse, di, static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), Tq, Tk, causal, scale);
+  } else {
+    const size_t smem = dkv_smem_floats<D>() * sizeof(float);
+    auto kern = flash_bwd_dkv_kernel<D, T>;
+    const cudaError_t e = allow_smem(kern, smem, attr);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    dim3 grid((Tk + BT - 1) / BT, BH);
+    kern<<<grid, NT, smem, s>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                                static_cast<const T*>(v), static_cast<const T*>(dout), lse, di,
+                                static_cast<T*>(dk), static_cast<T*>(dv), Tq, Tk, causal,
+                                scale);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -402,15 +768,30 @@ static int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                   const float* lse, const float* di, void* dq, int BH, int Tq, int Tk,
                   int causal, cudaStream_t s) {
   static bool attr = false;
-  const size_t smem = dq_smem_floats<D>() * sizeof(float);
-  auto kern = flash_bwd_dq_kernel<D, T>;
-  const cudaError_t e = allow_smem(kern, smem, attr);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid((Tq + BT - 1) / BT, BH);
-  kern<<<grid, NT, smem, s>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                              static_cast<const T*>(v), static_cast<const T*>(dout), lse, di,
-                              static_cast<T*>(dq), Tq, Tk, causal,
-                              1.0f / sqrtf(static_cast<float>(D)));
+  const float scale = 1.0f / sqrtf(static_cast<float>(D));
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    using bf16tc::bf16;
+    if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout) || !aligned16(dq))
+      return static_cast<int>(cudaErrorMisalignedAddress);
+    const size_t smem = bf16tc::smem_bytes<D>();
+    auto kern = bf16tc::flash_bwd_dq_tc_kernel<D>;
+    const cudaError_t e = allow_smem(kern, smem, attr);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    dim3 grid((Tq + bf16tc::BR - 1) / bf16tc::BR, BH);
+    kern<<<grid, bf16tc::NTH, smem, s>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const bf16*>(dout), lse, di, static_cast<bf16*>(dq), Tq, Tk, causal,
+        scale);
+  } else {
+    const size_t smem = dq_smem_floats<D>() * sizeof(float);
+    auto kern = flash_bwd_dq_kernel<D, T>;
+    const cudaError_t e = allow_smem(kern, smem, attr);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    dim3 grid((Tq + BT - 1) / BT, BH);
+    kern<<<grid, NT, smem, s>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                                static_cast<const T*>(v), static_cast<const T*>(dout), lse, di,
+                                static_cast<T*>(dq), Tq, Tk, causal, scale);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

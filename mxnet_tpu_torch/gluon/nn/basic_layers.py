@@ -12,7 +12,7 @@ import torch
 from torch import nn
 
 from ... import initializer as _init
-from ...base import dtype_torch
+from ...base import dtype_torch, resolve_device
 from ...ops import nn as _ops
 
 __all__ = ["Dense", "Embedding", "LayerNorm", "Dropout", "HybridSequential",
@@ -21,7 +21,7 @@ __all__ = ["Dense", "Embedding", "LayerNorm", "Dropout", "HybridSequential",
 
 def _param(shape, dtype, device):
     return nn.Parameter(torch.empty(shape, dtype=dtype_torch(dtype),
-                                    device=device))
+                                    device=resolve_device(device)))
 
 
 class Dense(nn.Module):
@@ -29,7 +29,7 @@ class Dense(nn.Module):
 
     def __init__(self, units, flatten=True, in_units=0, use_bias=True,
                  dtype="float32", weight_initializer=None,
-                 bias_initializer="zeros", device="cpu"):
+                 bias_initializer="zeros", device="cuda"):
         super().__init__()
         if in_units <= 0:
             raise ValueError("Dense needs in_units (no deferred shapes)")
@@ -53,7 +53,7 @@ class Embedding(nn.Module):
     """Row lookup into a (input_dim, output_dim) weight."""
 
     def __init__(self, input_dim, output_dim, dtype="float32",
-                 weight_initializer=None, device="cpu"):
+                 weight_initializer=None, device="cuda"):
         super().__init__()
         self._input_dim = int(input_dim)
         self._weight_init = _init.create(weight_initializer or "uniform")
@@ -71,7 +71,7 @@ class LayerNorm(nn.Module):
 
     def __init__(self, epsilon=1e-5, in_channels=0, dtype="float32",
                  beta_initializer="zeros", gamma_initializer="ones",
-                 device="cpu"):
+                 device="cuda"):
         super().__init__()
         if in_channels <= 0:
             raise ValueError("LayerNorm needs in_channels")

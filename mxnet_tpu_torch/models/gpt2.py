@@ -34,10 +34,10 @@ gpt2_configs = {
 
 class GPT2Block(nn.Module):
     def __init__(self, units, num_heads, dropout=0.1, dtype="float32",
-                 device="cpu"):
+                 device="cuda"):
         super().__init__()
         self._heads = num_heads
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=dtype, device=resolve_device(device))
         self.ln1 = gnn.LayerNorm(in_channels=units, **kw)
         self.qkv = gnn.Dense(3 * units, flatten=False, in_units=units,
                              weight_initializer=init.Normal(0.02), **kw)

@@ -14,7 +14,7 @@ import math
 import torch
 
 from .. import config as _config
-from ..base import dtype_torch
+from ..base import dtype_torch, resolve_device
 from ..contrib import amp as _amp
 from . import flash_attention as fa
 from . import paged_attention as pa
@@ -23,23 +23,23 @@ __all__ = ["alloc_kv_cache", "alloc_paged_kv_cache", "multi_head_attention"]
 
 
 def alloc_kv_cache(batch_size, num_heads, max_length, channels, num_layers,
-                   dtype="float32", device="cpu"):
+                   dtype="float32", device="cuda"):
     """Per-layer ``(k_buf, v_buf)`` zero buffers of shape (B, H, Tmax, Ch)."""
     shape = (int(batch_size), int(num_heads), int(max_length), int(channels))
-    dt = dtype_torch(dtype)
+    dt, device = dtype_torch(dtype), resolve_device(device)
     return [(torch.zeros(shape, dtype=dt, device=device),
              torch.zeros(shape, dtype=dt, device=device))
             for _ in range(int(num_layers))]
 
 
 def alloc_paged_kv_cache(num_pages, num_heads, page_size, channels,
-                         num_layers, dtype="float32", device="cpu"):
+                         num_layers, dtype="float32", device="cuda"):
     """Per-layer ``(k_pool, v_pool)`` page pools of shape
     (num_pages + 1, H, page_size, Ch). Page 0 is the reserved trash page:
     table entries of released and past-capacity rows are 0, so their writes
     land there instead of in live pages."""
     shape = (int(num_pages) + 1, int(num_heads), int(page_size), int(channels))
-    dt = dtype_torch(dtype)
+    dt, device = dtype_torch(dtype), resolve_device(device)
     return [(torch.zeros(shape, dtype=dt, device=device),
              torch.zeros(shape, dtype=dt, device=device))
             for _ in range(int(num_layers))]

@@ -95,19 +95,35 @@ def _recompute(q, k, v, do, lse, di, causal):
     return p, p * (dp - di.unsqueeze(-1))
 
 
-def _flash_bwd_dkv_plain(q, k, v, do, lse, di, causal):
-    """Plain version of the dK/dV kernel."""
+def _to_bf16(*ts):
+    """Each f32 tensor rounded to bf16 (nearest even) and widened back."""
+    return tuple(t.to(torch.bfloat16).float() for t in ts)
+
+
+def _flash_bwd_dkv_plain(q, k, v, do, lse, di, causal, rounded=False):
+    """Plain version of the dK/dV kernel: exact f32 math by default. With
+    ``rounded`` and bf16 inputs, p and ds are rounded to bf16 before the
+    accumulating products and the scale is applied to dk at the end, as the
+    bf16 tensor-core kernel does (f32 inputs: the exact math, as the f32
+    kernel)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     p, ds = _recompute(q, k, v, do, lse, di, causal)
+    if rounded and q.dtype == torch.bfloat16:
+        p, ds = _to_bf16(p, ds)
+        dk = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
+    else:
+        dk = torch.matmul(ds.transpose(-1, -2), q.float() * scale)
     dv = torch.matmul(p.transpose(-1, -2), do.float())
-    dk = torch.matmul(ds.transpose(-1, -2), q.float() * scale)
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _flash_bwd_dq_plain(q, k, v, do, lse, di, causal):
-    """Plain version of the dQ kernel."""
+def _flash_bwd_dq_plain(q, k, v, do, lse, di, causal, rounded=False):
+    """Plain version of the dQ kernel (``rounded`` as for dK/dV: ds is
+    rounded to bf16 before the product)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     _, ds = _recompute(q, k, v, do, lse, di, causal)
+    if rounded and q.dtype == torch.bfloat16:
+        ds, = _to_bf16(ds)
     return (torch.matmul(ds, k.float()) * scale).to(q.dtype)
 
 

@@ -247,8 +247,8 @@ def _mlps(seed=0):
     jnet.initialize()
     _ = jnet(nd.ones((2, IN)))
     tnet = tnn.HybridSequential()
-    tnet.add(tnn.Dense(16, in_units=IN), torch.nn.ReLU(),
-             tnn.Dense(OUT, in_units=16))
+    tnet.add(tnn.Dense(16, in_units=IN, device="cpu"), torch.nn.ReLU(),
+             tnn.Dense(OUT, in_units=16, device="cpu"))
     jp = {k: p.data().asnumpy() for k, p in jnet._collect_params_with_prefix().items()}
     with torch.no_grad():
         for (jname, tname) in (("0", "0"), ("1", "2")):

@@ -94,6 +94,43 @@ def test_backward_d128_bf16_matches_f32_math():
         torch.testing.assert_close(a.float(), r, rtol=3e-2, atol=3e-2)
 
 
+def _plain_bwd(q, k, v, do, causal, rounded):
+    out, lse = tfa.flash_fwd_plain(q, k, v, causal)
+    di = tfa._row_dot(do, out)
+    dk, dv = tfa._flash_bwd_dkv_plain(q, k, v, do, lse, di, causal,
+                                      rounded=rounded)
+    return (tfa._flash_bwd_dq_plain(q, k, v, do, lse, di, causal,
+                                    rounded=rounded), dk, dv)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("tq,tk", [(128, 384), (384, 128), (320, 320)])
+def test_rounded_plain_backward_matches_jax_vjp_bf16(tq, tk, causal, d):
+    """The plain backward that rounds p and ds to bf16 before the
+    accumulating products, as the bf16 tensor-core kernels do, against
+    jax.vjp of the JAX flash_attention (Pallas in interpret mode) on the
+    same bf16 inputs, at the bf16 tolerance (3e-2); for f32 inputs the
+    option changes nothing."""
+    q, k, v = _qkv(tq, tk, d, seed=5 * tq + tk + d, scale=0.5)
+    cot = np.random.RandomState(tq + d).randn(1, 2, tq, d).astype(np.float32)
+    jb = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v, cot)]
+    _, vjp = jax.vjp(lambda q, k, v: jfa.flash_attention(
+        q, k, v, causal=causal, interpret=True), *jb[:3])
+    ref = vjp(jb[3])
+    tb = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v, cot)]
+    got = _plain_bwd(*tb, causal, rounded=True)
+    for a, r, name in zip(got, ref, ("dq", "dk", "dv")):
+        assert a.dtype == torch.bfloat16, name
+        np.testing.assert_allclose(a.float().numpy(),
+                                   np.asarray(r, np.float32), rtol=3e-2,
+                                   atol=3e-2, err_msg=name)
+    tf = [torch.from_numpy(a) for a in (q, k, v, cot)]
+    for a, b in zip(_plain_bwd(*tf, causal, rounded=True),
+                    _plain_bwd(*tf, causal, rounded=False)):
+        assert torch.equal(a, b)
+
+
 def test_knob_off_backward_takes_plain_version():
     """flash_pallas_bwd off is the explicit choice of the plain backward; on
     the CPU both settings run it, so the gradients are equal."""

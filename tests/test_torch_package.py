@@ -59,6 +59,37 @@ def test_entry_points_default_to_the_card(monkeypatch):
     assert mt.ContinuousBatcher(eng, device="cpu").engine is eng
 
 
+def _tensors(obj):
+    return list(obj.parameters()) if isinstance(obj, torch.nn.Module) \
+        else [t for pair in obj for t in pair]
+
+
+# the public constructors below the entry points, each with its arguments
+# but no device
+CONSTRUCTORS = {
+    "Dense": lambda **kw: mt.gluon.nn.Dense(4, in_units=3, **kw),
+    "Embedding": lambda **kw: mt.gluon.nn.Embedding(5, 3, **kw),
+    "LayerNorm": lambda **kw: mt.gluon.nn.LayerNorm(in_channels=3, **kw),
+    "alloc_kv_cache": lambda **kw: mt.ops.attention.alloc_kv_cache(
+        1, 2, 8, 4, 2, **kw),
+    "alloc_paged_kv_cache": lambda **kw: mt.ops.attention.alloc_paged_kv_cache(
+        3, 2, 4, 4, 2, **kw),
+    "GPT2Block": lambda **kw: tgpt2.GPT2Block(16, 2, **kw),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CONSTRUCTORS))
+def test_constructors_default_to_the_card(monkeypatch, name):
+    """Without a device these build on the card, and without a card they
+    raise as GPT2Model does; device="cpu" stays available on request."""
+    make = CONSTRUCTORS[name]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(MXNetError, match="CUDA is not available"):
+        make()
+    tensors = _tensors(make(device="cpu"))
+    assert tensors and all(t.device.type == "cpu" for t in tensors)
+
+
 @pytest.mark.parametrize("alone", [False, True], ids=["checkout", "alone"])
 def test_chip_smoke_fails_without_a_card(tmp_path, alone):
     """Without a card, in the checkout or in a directory that holds only the

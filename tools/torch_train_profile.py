@@ -30,8 +30,8 @@ import torch
 
 GROUPS = (  # (group, substrings of the kernel name), first match wins
     ("flash forward", ("flash_fwd_kernel",)),
-    ("flash dK/dV", ("flash_bwd_dkv_kernel",)),
-    ("flash dQ", ("flash_bwd_dq_kernel",)),
+    ("flash dK/dV", ("flash_bwd_dkv_",)),  # the f32 and the bf16 kernel
+    ("flash dQ", ("flash_bwd_dq_",)),
     ("adam", ("adam_kernel",)),
     ("softmax xent forward", ("xent_fwd_kernel",)),
     ("softmax xent backward", ("xent_bwd_kernel",)),
