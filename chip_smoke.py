@@ -7,15 +7,16 @@ Phases, each raising on failure (so the script exits non-zero and never
 prints its last line):
 
   1. build the CUDA kernels from ``mxnet_tpu_torch/csrc/`` (one nvcc per
-     source, in parallel), check that the bf16 flash backward kernels
-     multiply on the tensor cores (HMMA in their SASS), and print the
-     card's name and power limit;
+     source, in parallel), check that the bf16 flash kernels (forward,
+     dK/dV, dQ) multiply on the tensor cores (HMMA in their SASS), and
+     print the card's name and power limit;
   2. hold each kernel against its plain PyTorch version on the card, at
-     the shapes the serving and training paths give it (flash forward and
-     lse, dK/dV, dQ, the bf16 backward also against a plain version that
-     rounds p and ds as it does, multi-tensor Adam with its skip flag,
-     inverse loss scale and f16 gradients and copies, LayerNorm's
-     gradients through its autograd Function, and the
+     the shapes the serving and training paths give it (the split-key
+     paged read at decode and prefill, frontiers on split boundaries; flash
+     forward and lse, dK/dV, dQ, the bf16 kernels also against plain
+     versions that round p (and ds) as they do; multi-tensor Adam with its
+     skip flag, inverse loss scale and f16 gradients and copies,
+     LayerNorm's gradients through its autograd Function, and the
      softmax-cross-entropy forward (loss and the row statistics) and
      backward, including extreme and -inf logits, labels -1 and C, and
      rows past the TPU's 65536 cap);
@@ -95,6 +96,11 @@ TOL = {
     # the row's largest term (p do for dV, ds q scale for dK, ds k scale
     # for dQ, bounded by the largest |do|, |q| or |k| of the slice).
     ("flash_bwd_rounded", torch.bfloat16): 2 ** -7,
+    # The bf16 forward (tensor cores) rounds the softmax numerators p to bf16
+    # before P V, against the running max, where rounded=True rounds them
+    # against the final max: a p may round one ulp apart (the per-row
+    # flash_fwd_flip_atol); lse is f32 in both, sum order apart.
+    ("flash_fwd_rounded", torch.bfloat16): 2 ** -7,
     # LayerNorm gradients: the analytic backward under the kernel's forward
     # against autograd through the plain composition; f32 sums of up to 512
     # rows in another order (rtol 1e-4 as tests/test_pallas_layernorm.py)
@@ -274,8 +280,9 @@ def phase_build():
     return card
 
 
-# the bf16 flash backward kernels, which must multiply on the tensor cores
-TC_KERNELS = ("flash_bwd_dkv_tc_kernelILi64", "flash_bwd_dkv_tc_kernelILi128",
+# the bf16 flash kernels, which must multiply on the tensor cores
+TC_KERNELS = ("flash_fwd_tc_kernelILi64", "flash_fwd_tc_kernelILi128",
+              "flash_bwd_dkv_tc_kernelILi64", "flash_bwd_dkv_tc_kernelILi128",
               "flash_bwd_dq_tc_kernelILi64", "flash_bwd_dq_tc_kernelILi128")
 
 
@@ -306,7 +313,7 @@ def check_tensor_cores(lib):
 
 
 def _paged_case(gen, b, h, tq, ch, ps, n_pages, pool_pages, dtype, trash_row,
-                dev):
+                dev, positions=None):
     def randn(*shape):
         return torch.randn(*shape, generator=gen).to(dev)
 
@@ -318,30 +325,62 @@ def _paged_case(gen, b, h, tq, ch, ps, n_pages, pool_pages, dtype, trash_row,
         table[0] = 0  # a released row: every slot is the trash page
     cap = n_pages * ps
     position = torch.randint(0, cap - tq + 1, (b,), generator=gen,
-                             dtype=torch.int32).to(dev)
+                             dtype=torch.int32)
+    if positions is not None:
+        position = torch.tensor(positions, dtype=torch.int32)
+    position = position.to(dev)
     q = randn(b, h, tq, ch).to(dtype)
     return q, k_pool, v_pool, table, position
 
 
-def phase_kernels():
-    from mxnet_tpu_torch.ops import layernorm as ln
+# (B, tq, positions or None for random, what): the serving shapes (decode
+# and a 128-query prefill chunk at B=8, 16 heads, row 0 all trash), then
+# decode rows whose frontiers sit on a split boundary (key 128 and 256 open
+# a split), a key past one and a key before one, spanning 1 to 8 splits of
+# a 1024-key capacity, and a small prefill (few blocks, so the key range is
+# split) whose first queries see no key of the second split
+PAGED_CASES = [(8, 1, None, "(row 0 all trash)"),
+               (8, 128, None, "(row 0 all trash)"),
+               (8, 1, [127, 128, 129, 255, 256, 300, 511, 1023],
+                "(frontiers at split boundaries)"),
+               (2, 16, [120, 500], "(prefill across splits)")]
+
+
+def phase_paged_kernels(errs, failures=None):
+    """The paged read against its plain version at PAGED_CASES, f32 and bf16,
+    page sizes 16 and 6, head width 64; decode errors under
+    ``paged_attention``, prefill under ``paged_attention_prefill``.
+    ``failures`` as in check_close (tools/torch_flash_faults.py)."""
     from mxnet_tpu_torch.ops import paged_attention as pa
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
-    errs = {"paged_attention": 0.0, "layernorm": 0.0, "adam": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
-        for tq in (1, 128):
+        for b, tq, positions, what in PAGED_CASES:
             for ps in (16, 6):
                 n_pages = -(-1024 // ps)
-                case = _paged_case(gen, 8, 16, tq, 64, ps, n_pages,
-                                   8 * n_pages // 2, dtype, True, dev)
+                h = 16 if b == 8 else 4
+                case = _paged_case(gen, b, h, tq, 64, ps, n_pages,
+                                   b * n_pages // 2 + 1, dtype,
+                                   positions is None, dev, positions)
                 got = pa.paged_attention_read(*case)
                 want = pa.paged_attention_read_plain(*case)
                 torch.cuda.synchronize()
-                errs["paged_attention"] = max(errs["paged_attention"], check_close(
+                key = "paged_attention" + ("" if tq == 1 else "_prefill")
+                errs[key] = max(errs.get(key, 0.0), check_close(
                     "paged_attention", dtype, got, want,
-                    f"{str(dtype)[6:]} tq={tq} ps={ps} (row 0 all trash)"))
+                    f"{str(dtype)[6:]} B={b} tq={tq} ps={ps} {what}",
+                    failures=failures))
+
+
+def phase_kernels():
+    from mxnet_tpu_torch.ops import layernorm as ln
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(0)
+    errs = {"layernorm": 0.0, "adam": 0.0}
+    phase_paged_kernels(errs)
+    for dtype in (torch.float32, torch.bfloat16):
         for rows in (8, 512):
             x = torch.randn(rows, 1024, generator=gen).to(dev, dtype)
             g = (1 + 0.1 * torch.randn(1024, generator=gen)).to(dev, dtype)
@@ -394,6 +433,21 @@ def flash_flip_atol(q, k, v, do, lse, di, causal):
             for n, t in terms.items()}
 
 
+def flash_fwd_flip_atol(q, k, v, causal):
+    """The rounded forward check's atol of each output row: FLASH_ROUNDED_ATOL
+    plus FLASH_FLIPS times 2^-7 of the row's largest p |v| term (p the
+    softmax weight, |v| bounded by the largest of the slice). The kernel
+    rounds exp(s - m) against the running max m, the plain version against
+    the final one, so a p may round one ulp apart."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+
+    s, _ = fa._scores(q, k, causal)
+    p = torch.softmax(s, dim=-1).nan_to_num(0.0)  # rows with no live key
+    vmax = v.float().abs().amax(dim=(-2, -1), keepdim=True)
+    return FLASH_ROUNDED_ATOL + FLASH_FLIPS * 2 ** -7 * \
+        p.amax(dim=-1, keepdim=True) * vmax
+
+
 def phase_flash_kernels(errs, dtypes=(torch.float32, torch.bfloat16),
                         failures=None):
     """Flash forward + lse, dK/dV and dQ against their plain versions, f32
@@ -425,6 +479,17 @@ def phase_flash_kernels(errs, dtypes=(torch.float32, torch.bfloat16),
                      f"out {what}")
                 held("flash_fwd" + sfx, "flash_fwd", dtype, lse, ref_lse,
                      f"lse {what}")
+                if sfx:  # the tensor-core forward rounds p as rounded=True
+                    rref, rlse = fa.flash_fwd_plain(q, k, v, causal,
+                                                    rounded=True)
+                    atol = flash_fwd_flip_atol(q, k, v, causal)
+                    torch.cuda.synchronize()
+                    held("flash_fwd_bf16_rounded", "flash_fwd_rounded", dtype,
+                         out, rref, f"out {what} (p rounded)", atol=atol)
+                    held("flash_fwd_bf16_rounded", "flash_fwd_rounded", dtype,
+                         lse, rlse, f"lse {what} (p rounded)",
+                         atol=FLASH_ROUNDED_ATOL)
+                    del rref, rlse, atol
                 do = torch.randn(b, h, tq, d, generator=gen).to(dev, dtype)
                 di = fa._row_dot(do, out).contiguous()
                 dk, dv = fa._bwd_dkv(q, k, v, do, lse, di, causal)
@@ -1074,13 +1139,14 @@ def phase_timing(eng):
     p0 = torch.zeros(1, dtype=torch.int32, device=dev)
     kh = kp[tp[0, :tq // 16].long()].transpose(0, 1).reshape(1, h, tq, ch)
     vh = vp[tp[0, :tq // 16].long()].transpose(0, 1).reshape(1, h, tq, ch)
-    _timed(lambda: pa.paged_attention_read(qp, kp, vp, tp, p0),
-           lambda: pa.paged_attention_read_plain(qp, kp, vp, tp, p0),
-           lambda: sdpa(qp, kh, vh, is_causal=True),
-           nbytes=4 * 4 * h * tq * ch + 4 * tq // 16,
-           flops=4 * h * ch * tq * (tq + 1) // 2,
-           shape="paged_attention prefill B=1 Tq=512 from position 0 f32",
-           plain_graph=False)
+    rows["paged_attention_prefill"] = _timed(
+        lambda: pa.paged_attention_read(qp, kp, vp, tp, p0),
+        lambda: pa.paged_attention_read_plain(qp, kp, vp, tp, p0),
+        lambda: sdpa(qp, kh, vh, is_causal=True),
+        nbytes=4 * 4 * h * tq * ch + 4 * tq // 16,
+        flops=4 * h * ch * tq * (tq + 1) // 2,
+        shape="paged_attention prefill B=1 Tq=512 from position 0 f32",
+        plain_graph=False)
 
     # LayerNorm at the decode shape (8 rows of 1024) and the largest
     # prefill bucket (512 rows)
@@ -1200,19 +1266,19 @@ def phase_train_timing(net):
     lib_params = [torch.nn.Parameter(w.clone()) for w in ws]
     for p, g in zip(lib_params, gs):
         p.grad = g
+    # capturable: its step count stays on the card, so a CUDA graph can
+    # replay the step (device time) as it does the kernel's
     lib_opt = torch.optim.Adam(lib_params, lr=1e-4, betas=(0.9, 0.999),
-                               eps=1e-8, weight_decay=0.0, fused=True)
+                               eps=1e-8, weight_decay=0.0, fused=True,
+                               capturable=True)
     rows["adam"] = _timed(
         lambda: oo.adam_update_fused(ws, gs, ms, vs, lr, wd, **kw),
-        plain_adam, None, nbytes=28 * n, flops=12 * n,
+        plain_adam, lib_opt.step, nbytes=28 * n, flops=12 * n,
         shape=f"adam {len(ws)} tensors, {n} elements, f32 grads",
         small=True)
-    rows["adam"].update(
-        library_ms=cuda_time_ms(lib_opt.step, warmup=2, iters=5, repeats=3),
-        library="torch.optim.Adam(fused=True).step(), eager, wd 0 (epsilon "
-                "added after the bias correction, not before as here)")
-    rows["adam"]["library_eager_ms"] = rows["adam"]["library_ms"]
-    log(f"[time] adam library {rows['adam']['library_ms'] * 1e3:.2f} us")
+    rows["adam"]["library"] = (
+        "torch.optim.Adam(fused=True, capturable=True).step(), wd 0 "
+        "(epsilon added after the bias correction, not before as here)")
     del lib_opt, lib_params, gs, ms, vs
     return rows
 
@@ -1244,24 +1310,31 @@ def phase_xent_timing():
                      shape=f"xent_fwd {shape}", dtype=dtype)
         fwd["library"] = "F.cross_entropy(reduction='none')"
         # the library yardstick of the backward: F.cross_entropy forward +
-        # backward minus its forward, eager, on logits that require grad
+        # backward minus its forward on logits that require grad, on the
+        # device (CUDA graph replay) and eager
         xg = x.clone().requires_grad_()
-        fb_ms = cuda_time_ms(lambda: torch.autograd.grad(
-            F.cross_entropy(xg, lbl64, reduction="none"), xg, g), iters=10)
-        f_ms = cuda_time_ms(lambda: F.cross_entropy(xg, lbl64,
-                                                    reduction="none"),
-                            iters=10)
+
+        def lib_fwd_bwd():
+            torch.autograd.grad(F.cross_entropy(xg, lbl64, reduction="none"),
+                                xg, g)
+
+        def lib_fwd():
+            F.cross_entropy(xg, lbl64, reduction="none")
+
+        fb_ms, f_ms = (graph_time_ms(fn, calls=2, replays=3, repeats=3)
+                       for fn in (lib_fwd_bwd, lib_fwd))
         lib_bwd = fb_ms - f_ms
+        lib_bwd_eager = cuda_time_ms(lib_fwd_bwd, iters=10) - \
+            cuda_time_ms(lib_fwd, iters=10)
         log(f"[time] F.cross_entropy backward at {shape}: "
             f"{lib_bwd * 1e3:.2f} us (fwd+bwd {fb_ms * 1e3:.2f} - fwd "
-            f"{f_ms * 1e3:.2f}, eager)")
+            f"{f_ms * 1e3:.2f}, device); eager {lib_bwd_eager * 1e3:.2f} us")
         bwd = _timed(lambda: sx._xent_bwd(x, lbl, stats, g),
                      lambda: sx.softmax_cross_entropy_bwd_plain(x, lbl, g),
                      None, nbytes=2 * n * c * size + 16 * n, flops=4 * n * c,
                      shape=f"xent_bwd {shape}", dtype=dtype)
-        bwd.update(library_ms=lib_bwd, library_eager_ms=lib_bwd,
-                   library="F.cross_entropy backward: fwd+bwd minus fwd, "
-                           "eager")
+        bwd.update(library_ms=lib_bwd, library_eager_ms=lib_bwd_eager,
+                   library="F.cross_entropy backward: fwd+bwd minus fwd")
         if dtype == torch.bfloat16:
             rows["xent_fwd"], rows["xent_bwd"] = fwd, bwd
         del x, xg, stats
@@ -1302,6 +1375,11 @@ def main():
         "paged_attention": ("mxnet_tpu_torch/csrc/paged_attention.cu",
                             "mxnet_tpu/ops/pallas_paged_attention.py:79",
                             "serve"),
+        # the same kernel at the prefill shape (its launches: the serve
+        # run's, as above)
+        "paged_attention_prefill": ("mxnet_tpu_torch/csrc/paged_attention.cu",
+                                    "mxnet_tpu/ops/pallas_paged_attention.py:79",
+                                    "serve"),
         "layernorm": ("mxnet_tpu_torch/csrc/layernorm.cu",
                       "mxnet_tpu/ops/pallas_layernorm.py:53", "serve"),
         "flash_fwd": ("mxnet_tpu_torch/csrc/flash_attention.cu",
@@ -1331,7 +1409,8 @@ def main():
     kernels = []
     for name, (src, rep, path) in meta.items():
         t = timing[name]
-        counter = name.removesuffix("_bf16")  # one counter for both dtypes
+        # one counter for both dtypes, and for decode and prefill
+        counter = name.removesuffix("_bf16").removesuffix("_prefill")
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": by_path[path][counter], "launches_path": path,

@@ -23,10 +23,11 @@
 // limit: 67 TFLOP/s over 3.35 TB/s), so the least time of the kernels
 // below, which use no tensor cores, is the flops over 67 TFLOP/s. The
 // backward does 7 block products per tile pair against the forward's 2,
-// split 4 (dK/dV) and 3 (dQ). For bf16 inputs the backward runs on the
-// tensor cores instead: see "The bf16 backward on the tensor cores" below.
+// split 4 (dK/dV) and 3 (dQ). For bf16 inputs the forward and the backward
+// run on the tensor cores instead: see "The bf16 backward on the tensor
+// cores" and "The bf16 forward on the tensor cores" below.
 //
-// Design of the forward and of the f32 backward: the TPU kernels walk a
+// Design of the f32 forward and backward: the TPU kernels walk a
 // sequential grid axis and carry m, l and the accumulators in VMEM scratch
 // from one grid step to the next. Blocks
 // on the card run in no order, so each block owns one output tile and
@@ -143,6 +144,7 @@ __device__ __forceinline__ void tile_acc(float (&acc)[4][D / 16], const float* w
   }
 }
 
+// The f32 forward (bf16 goes to bf16tc::flash_fwd_tc_kernel).
 template <int D, typename T>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -518,11 +520,12 @@ __device__ __forceinline__ void accumulate(float (&acc)[D / 8][4], const float (
   }
 }
 
-// A warp's 16 x D f32 accumulator times mul, rounded to bf16, into rows
-// [row0, row0 + 16) of a (n, D) slice; rows at or past n are not written.
+// A warp's 16 x D f32 accumulator, row g times mul[0] and row g + 8 times
+// mul[1] (g = lane / 4), rounded to bf16, into rows [row0, row0 + 16) of a
+// (n, D) slice; rows at or past n are not written.
 template <int D>
 __device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[D / 8][4], int row0,
-                                           int n, int lane, float mul) {
+                                           int n, int lane, const float (&mul)[2]) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -531,8 +534,14 @@ __device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[D / 8][
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<uint32_t*>(dst + static_cast<size_t>(row) * D + 8 * j + 2 * t) =
-          pack_bf16(acc[j][2 * h] * mul, acc[j][2 * h + 1] * mul);
+          pack_bf16(acc[j][2 * h] * mul[h], acc[j][2 * h + 1] * mul[h]);
   }
+}
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[D / 8][4], int row0,
+                                           int n, int lane, float mul) {
+  const float both[2] = {mul, mul};
+  store_rows<D>(dst, acc, row0, n, lane, both);
 }
 
 template <int D>
@@ -699,6 +708,162 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_rows<D>(dq + qoff, dq_acc, q0 + warp * 16, Tq, lane, scale);
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 forward on the tensor cores.
+//
+// Replaces, for bf16 q/k/v: _fwd_kernel in mxnet_tpu/ops/flash_attention.py
+// (:100). The f32 instantiation keeps flash_fwd_kernel above, unchanged.
+//
+// Bound on the H100: operations, barely. At B=4 H=16 T=1024 D=64 causal it
+// does 2 block products of 2*D flops per live (query, key) pair, 8.6 GFLOP,
+// 8.7 us at 989 TFLOP/s (H100 SXM data sheet, 700 W), against ~10 us for
+// its 34 MB (q, k, v in, o and lse out) at 3.35 TB/s.
+//
+// Design: FlashAttention-2 on mma.sync m16n8k16 with the helpers above. One
+// block of 4 warps owns 64 query rows, 16 a warp; Q is the resident
+// operand (its A fragments in registers at D = 64, re-read from shared
+// memory at D = 128). The block walks the K/V tiles of Tile<D>::BN keys that
+// its rows can see, double-buffered with cp.async. Per tile: s = Q K^T
+// (f32 C fragments), the online softmax on those fragments in registers (a
+// row's four owner lanes, lane ^ 1 and lane ^ 2, reduce its max), the O
+// accumulator rescaled by corr = exp(m_old - m_new) when the max moves, and
+// O += P V with the f32 p packed to bf16 A fragments (frag_from_acc): p never
+// touches shared memory, and V's [key][channel] tile is the (N, D) operand
+// of accumulate. Exponentials are exp2f of s * scale * log2(e). Each lane
+// keeps the partial row sums l of its own columns; the four are added at the
+// end. Epilogue: o = acc * (1 / l) rounded to bf16, lse = m + log(l) in f32
+// for rows with l > 0, else 0 (out 0), as flash_fwd_kernel. Tiles that the
+// causal mask hides entirely are skipped, the element mask runs only on the
+// tiles on the causal frontier or the ragged end, and blocks start from the
+// last query tiles, which see the most keys.
+//
+// Rounding. Exactly two things are rounded to bf16: the softmax numerators
+// p before P V, and the output. Scores, exp, m, l (summed from the f32 p),
+// lse and the O accumulator are f32; the scale is applied to s in f32, not
+// folded into a bf16 q (1/sqrt(128) is not a power of two). The TPU kernel's
+// f32 dot_general of p and v runs on its matrix unit with bf16 operands at
+// JAX's default precision: the same rounding. p is rounded against the
+// running max, not the final one, so it may sit one bf16 ulp away from
+// exp(s - m_final) rounded; chip_smoke.py's rounded check allows for that.
+template <int D>
+__host__ __device__ constexpr size_t fwd_tc_smem_bytes() {
+  // the resident Q tile and double-buffered K and V tiles
+  return (BR + 4 * Tile<D>::BN) * Tile<D>::LD * sizeof(bf16);
+}
+
+template <int D>
+__global__ void __launch_bounds__(NTH)
+flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                    int Tq, int Tk, int causal, float scale) {
+  constexpr int LD = Tile<D>::LD, BK = Tile<D>::BN;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  bf16* kts = qs + BR * LD;        // [2][BK][LD]
+  bf16* vts = kts + 2 * BK * LD;   // [2][BK][LD]
+  // the last query tiles see the most keys: start them first
+  const int bh = blockIdx.y, q0 = (gridDim.x - 1 - blockIdx.x) * BR;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int off = Tk - Tq;
+  const size_t qoff = static_cast<size_t>(bh) * Tq * D, koff = static_cast<size_t>(bh) * Tk * D;
+  const float sl2 = scale * LOG2E;
+
+  const int n_tiles = (key_end(q0, Tq, Tk, causal) + BK - 1) / BK;
+  auto load_kv_tile = [&](int k0, int st) {
+    load_rows<BK, D>(kts + st * BK * LD, k + koff, k0, Tk);
+    load_rows<BK, D>(vts + st * BK * LD, v + koff, k0, Tk);
+  };
+  load_rows<BR, D>(qs, q + qoff, q0, Tq);
+  cp_async_commit();
+  if (n_tiles > 0) load_kv_tile(0, 0);
+  cp_async_commit();
+  cp_async_wait<1>();  // Q has landed
+  __syncthreads();
+  Resident<D> qr;
+  qr.init(qs, warp, lane);
+
+  // this thread's rows q0 + 16 warp + g (h = 0) and + 8 (h = 1); m in
+  // units of s * scale * log2(e), l this lane's share of the row sum
+  float acc[D / 8][4] = {};
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * BK, st = it & 1;
+    cp_async_wait<0>();
+    __syncthreads();
+    if (it + 1 < n_tiles) load_kv_tile(k0 + BK, st ^ 1);
+    cp_async_commit();
+    const bf16* kt = kts + st * BK * LD;
+    const bf16* vt = vts + st * BK * LD;
+    float s[BK / 8][4] = {};
+    scores<D, BK>(s, qr, kt, lane);
+    // query rows past Tq are never stored, so only the keys' end and the
+    // causal frontier need the element mask
+    const bool edge = k0 + BK > Tk || (causal && k0 + BK - 1 > q0 + off);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        float x = s[j][e] * sl2;
+        if (edge) {
+          const int col = k0 + 8 * j + 2 * t + (e & 1), row = q0 + warp * 16 + g + 8 * h;
+          if (col >= Tk || (causal && col > row + off)) x = -INFINITY;
+        }
+        s[j][e] = x;
+        mx[h] = fmaxf(mx[h], x);
+      }
+    }
+    float base[2], corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(FULL, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(FULL, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h]);
+      // a row with no live key yet keeps m = -inf: guard exp against nan
+      base[h] = m_new == -INFINITY ? 0.f : m_new;
+      corr[h] = exp2f(m[h] - base[h]);  // 0 while m was -inf
+      m[h] = m_new;
+      l[h] *= corr[h];
+    }
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(s[j][e] - base[e >> 1]);  // 0 for masked keys
+        s[j][e] = p;
+        l[e >> 1] += p;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] *= corr[e >> 1];
+    }
+    accumulate<D, BK>(acc, s, vt, lane);  // o += p v
+  }
+  cp_async_wait<0>();
+
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(FULL, l[h], 1);
+    l[h] += __shfl_xor_sync(FULL, l[h], 2);
+    inv[h] = l[h] > 0.f ? 1.f / l[h] : 0.f;
+  }
+  store_rows<D>(o + qoff, acc, q0 + warp * 16, Tq, lane, inv);
+  if (lse != nullptr && t == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = q0 + warp * 16 + g + 8 * h;
+      if (row < Tq)
+        lse[static_cast<size_t>(bh) * Tq + row] =
+            l[h] > 0.f ? m[h] * (1.f / LOG2E) + logf(l[h]) : 0.f;
+    }
+  }
+}
+
 }  // namespace bf16tc
 
 static bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
@@ -718,14 +883,30 @@ template <int D, typename T>
 static int fwd(const void* q, const void* k, const void* v, void* o, float* lse, int BH,
                int Tq, int Tk, int causal, cudaStream_t s) {
   static bool attr = false;
-  const size_t smem = fwd_smem_floats<D>() * sizeof(float);
-  auto kern = flash_fwd_kernel<D, T>;
-  const cudaError_t e = allow_smem(kern, smem, attr);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid((Tq + BT - 1) / BT, BH);
-  kern<<<grid, NT, smem, s>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                              static_cast<const T*>(v), static_cast<T*>(o), lse, Tq, Tk,
-                              causal, 1.0f / sqrtf(static_cast<float>(D)));
+  const float scale = 1.0f / sqrtf(static_cast<float>(D));
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    using bf16tc::bf16;
+    if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o))
+      return static_cast<int>(cudaErrorMisalignedAddress);
+    const size_t smem = bf16tc::fwd_tc_smem_bytes<D>();
+    auto kern = bf16tc::flash_fwd_tc_kernel<D>;
+    const cudaError_t e = allow_smem(kern, smem, attr);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    dim3 grid((Tq + bf16tc::BR - 1) / bf16tc::BR, BH);
+    kern<<<grid, bf16tc::NTH, smem, s>>>(static_cast<const bf16*>(q),
+                                         static_cast<const bf16*>(k),
+                                         static_cast<const bf16*>(v), static_cast<bf16*>(o), lse,
+                                         Tq, Tk, causal, scale);
+  } else {
+    const size_t smem = fwd_smem_floats<D>() * sizeof(float);
+    auto kern = flash_fwd_kernel<D, T>;
+    const cudaError_t e = allow_smem(kern, smem, attr);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    dim3 grid((Tq + BT - 1) / BT, BH);
+    kern<<<grid, NT, smem, s>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                                static_cast<const T*>(v), static_cast<T*>(o), lse, Tq, Tk,
+                                causal, scale);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

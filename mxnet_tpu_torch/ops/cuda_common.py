@@ -120,7 +120,10 @@ _ARGTYPES = {
     "mx_layernorm": [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
                                              ctypes.c_float, ctypes.c_int,
                                              ctypes.c_int, ctypes.c_void_p],
-    "mx_paged_attention": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+    # (q, k_pool, v_pool, table, position, out, part | NULL,
+    # arrivals | NULL), then B, H, Tq, Ch, ps, n_pages, n_pool, split_keys,
+    # n_splits, q dtype, kv dtype, stream
+    "mx_paged_attention": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11
                           + [ctypes.c_void_p],
     # (q, k, v, o, lse | NULL), then BH, Tq, Tk, D, causal, dtype, stream
     "mx_flash_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6

@@ -68,18 +68,27 @@ def _scores(q, k, causal):
     return s.masked_fill(~live, float("-inf")), live
 
 
-def flash_fwd_plain(q, k, v, causal):
+def flash_fwd_plain(q, k, v, causal, rounded=False):
     """Plain version of the forward kernel: exact f32-softmax attention.
     Returns ``(out, lse)``, out in q's dtype and lse (B, H, Tq) f32; a row
-    with no live key gives out 0 and lse 0."""
+    with no live key gives out 0 and lse 0. With ``rounded`` and bf16
+    inputs, the numerators exp(s - m) are rounded to bf16 before the
+    product with v and the sum is divided by the f32 row sum l afterwards,
+    as the bf16 tensor-core kernel does (f32 inputs: the exact math, as the
+    f32 kernel)."""
     s, _ = _scores(q, k, causal)
     m = s.amax(dim=-1, keepdim=True)
     dead = m == float("-inf")
     m = torch.where(dead, torch.zeros_like(m), m)
-    l = torch.exp(s - m).sum(dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    l = e.sum(dim=-1, keepdim=True)
     lse = torch.where(dead, torch.zeros_like(m), m + torch.log(l))
-    p = torch.exp(s - lse).masked_fill(dead, 0.0)
-    out = torch.matmul(p, v.float())
+    if rounded and q.dtype == torch.bfloat16:
+        e, = _to_bf16(e)
+        out = torch.matmul(e, v.float()) / torch.where(dead, torch.ones_like(l), l)
+    else:
+        p = torch.exp(s - lse).masked_fill(dead, 0.0)
+        out = torch.matmul(p, v.float())
     return out.to(q.dtype), lse.squeeze(-1)
 
 

@@ -11,9 +11,10 @@ for CPU tensors.
 The read serves the dense cache too: a contiguous (B, H, Tmax, Ch) buffer
 is a pool of B pages of ``Tmax`` slots under the identity table
 ``arange(B)[:, None]``. The kernel walks keys in fixed tiles of logical key
-index, and the plain version cuts each row's history at its frontier, so
-neither depends on the page size: dense and paged logits are bit-identical
-by construction, on the card and on the CPU.
+index, cut into splits whose boundaries :func:`_split_plan` sets from the
+query count and the batch alone, and the plain version cuts each row's
+history at its frontier, so neither depends on the page size: dense and
+paged logits are bit-identical by construction, on the card and on the CPU.
 """
 from __future__ import annotations
 
@@ -32,6 +33,50 @@ KERNEL_CHANNELS = (16, 32, 64, 128)
 
 #: kernel launches since the last reset (read by chip_smoke.py)
 launches = 0
+
+#: logical keys of one split of the key range (flash-decoding): 4 tiles of
+#: 32 keys, one a warp. At gpt2_345m's serve shape (B=8, 16 heads, 512 live
+#: keys) that is 4 live splits for each of the 128 (row, head) pairs, 512
+#: blocks of 4 warps over the H100's 132 SMs
+SPLIT_KEYS = 128
+#: one split covering every key (a multiple of 128 past any capacity)
+_WHOLE = 1 << 30
+#: (row, head, query tile) blocks from which the read does not split: a
+#: few per SM of the H100's 132 (a prefill chunk of 512 queries of one row
+#: at 16 heads gives 1024)
+_SPLIT_BELOW = 4 * 132
+
+# per (device, stream): int32 arrival counters of the split combine, all
+# zero between reads (the kernel sets each back to 0), so reads in stream
+# order share them; grown on demand
+_arrivals = {}
+
+
+def _query_tile(tq):
+    """Queries of one block: 1 for decode, 8 for prefill chunks."""
+    return 1 if tq == 1 else 8
+
+
+def _split_plan(cap, tq, bh):
+    """``(split_keys, n_splits)`` of a read of ``tq`` queries for ``bh``
+    (row, head) pairs over a table of ``cap`` = n_pages * ps keys. Split s
+    covers logical keys [s * split_keys, (s + 1) * split_keys); the kernel
+    works only on the splits up to each block's frontier, so the
+    boundaries depend on ``tq`` and ``bh`` only, not on the page size: a
+    larger ``cap`` adds only splits past every frontier."""
+    if bh * -(-tq // _query_tile(tq)) >= _SPLIT_BELOW:
+        return _WHOLE, 1
+    return SPLIT_KEYS, max(1, -(-cap // SPLIT_KEYS))
+
+
+def _arrival_counters(device, stream, n):
+    """At least ``n`` zeroed int32 counters for reads on ``stream`` of
+    ``device``, cached."""
+    buf = _arrivals.get((device, stream))
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _arrivals[(device, stream)] = buf
+    return buf
 
 
 def scatter_tokens(k_new, v_new, k_pool, v_pool, page_table, position):
@@ -144,13 +189,23 @@ def paged_attention_read(q, k_pool, v_pool, page_table, position):
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    ps, n_pages = k_pool.shape[2], page_table.shape[1]
+    split_keys, n_splits = _split_plan(n_pages * ps, tq, b * h)
+    stream = _cc.stream_ptr(q.device)
+    part = arrivals = None
+    if n_splits > 1:
+        part = torch.empty((b * h * tq, n_splits, ch + 2), dtype=torch.float32,
+                           device=q.device)
+        arrivals = _arrival_counters(q.device, stream,
+                                     b * h * -(-tq // _query_tile(tq)))
     lib = _cc.load("paged_attention")
     rc = lib.mx_paged_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         page_table.data_ptr(), position.data_ptr(), out.data_ptr(),
-        b, h, tq, ch, k_pool.shape[2], page_table.shape[1], k_pool.shape[0],
-        _cc.dtype_code(q.dtype), _cc.dtype_code(k_pool.dtype),
-        _cc.stream_ptr(q.device))
+        None if part is None else part.data_ptr(),
+        None if arrivals is None else arrivals.data_ptr(),
+        b, h, tq, ch, ps, n_pages, k_pool.shape[0], split_keys, n_splits,
+        _cc.dtype_code(q.dtype), _cc.dtype_code(k_pool.dtype), stream)
     _cc.check_launch(lib, rc, "paged_attention")
     launches += 1
     return out

@@ -131,6 +131,36 @@ def test_rounded_plain_backward_matches_jax_vjp_bf16(tq, tk, causal, d):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("tq,tk", LENGTHS)
+def test_rounded_plain_forward_matches_jax_kernel_bf16(tq, tk, causal, d):
+    """The plain forward that rounds the softmax numerators to bf16 before
+    the product with v, as the bf16 tensor-core kernel does, against the JAX
+    ``_flash_fwd`` (Pallas in interpret mode) on the same bf16 inputs: out
+    and lse at the bf16 tolerance (3e-2); rows that see no key give 0. For
+    f32 inputs the option changes nothing."""
+    q, k, v = _qkv(tq, tk, d, seed=7 * tq + tk + d)
+    jb = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]
+    ref, ref_lse = jfa._flash_fwd(*jb, causal, interpret=True, return_lse=True)
+    tb = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)]
+    out, lse = tfa.flash_fwd_plain(*tb, causal, rounded=True)
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32),
+                               rtol=3e-2, atol=3e-2)
+    np.testing.assert_allclose(lse.reshape(2, tq).numpy(),
+                               np.asarray(ref_lse)[:, :, 0], rtol=3e-2,
+                               atol=3e-2)
+    if causal and tq > tk:
+        dead = np.arange(tq) + tk - tq < 0
+        assert np.all(out.float().numpy()[:, :, dead] == 0)
+        assert np.all(lse.numpy()[:, :, dead] == 0)
+    tf = [torch.from_numpy(a) for a in (q, k, v)]
+    for a, b in zip(tfa.flash_fwd_plain(*tf, causal, rounded=True),
+                    tfa.flash_fwd_plain(*tf, causal)):
+        assert torch.equal(a, b)
+
+
 def test_knob_off_backward_takes_plain_version():
     """flash_pallas_bwd off is the explicit choice of the plain backward; on
     the CPU both settings run it, so the gradients are equal."""

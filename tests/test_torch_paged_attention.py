@@ -194,6 +194,51 @@ def test_knob_off_selects_plain_version():
     assert torch.equal(on, off)
 
 
+@pytest.mark.parametrize("tq,bh", [(1, 128), (1, 2), (16, 8), (128, 128),
+                                   (512, 16)])
+def test_split_plan_does_not_depend_on_page_size(tq, bh):
+    """The split boundaries of a read are the same for the dense view of a
+    1000-key cache (one page of Tmax per row) and for paged tables of the
+    same history at page sizes 16 and 6: the same keys per split, and so the
+    same live splits up to every frontier; the grid's splits cover each
+    capacity."""
+    tmax = 1000
+    plans = {}
+    for ps in (tmax, 16, 6):
+        cap = -(-tmax // ps) * ps
+        split_keys, n_splits = tpa._split_plan(cap, tq, bh)
+        assert split_keys % 128 == 0 and n_splits >= 1
+        assert n_splits == 1 or n_splits * split_keys >= cap
+        # the live splits of a query tile whose last frontier is key f, as
+        # the kernel counts them: splits 0 .. f // split_keys
+        plans[ps] = [[(sp * split_keys, min((sp + 1) * split_keys, f + 1))
+                      for sp in range(f // split_keys + 1)]
+                     for f in range(tmax)]
+    assert plans[16] == plans[tmax] == plans[6]
+
+
+def test_split_plan_at_the_serving_shapes():
+    """Decode at B=8 with 16 heads splits a 1024-key table in 8 splits of
+    SPLIT_KEYS; a 512-query prefill chunk of one row already gives 1024
+    (row, head, query tile) blocks and is not split."""
+    assert tpa._split_plan(1024, 1, 8 * 16) == (tpa.SPLIT_KEYS, 8)
+    assert tpa._split_plan(1024, 512, 16)[1] == 1
+
+
+@pytest.mark.parametrize("tq", [1, 5])
+def test_cpu_read_counts_no_launch(tq):
+    """On CPU tensors the wrapper takes the plain version and launches
+    nothing."""
+    rs = np.random.RandomState(7)
+    case = _mk_case(rs, b=2, h=2, tq=tq, ch=16, ps=8, n_pages=4, pool_pages=8)
+    before = tpa.launches
+    with torch.no_grad():
+        out = tpa.paged_attention_read(*[torch.from_numpy(case[k]) for k in (
+            "q", "k_pool", "v_pool", "table", "position")])
+    assert tuple(out.shape) == (2, 2, tq, 16)
+    assert tpa.launches == before
+
+
 def test_wrapper_refuses_non_cuda_device():
     """The wrapper takes the plain version only for CPU tensors; any other
     device must launch the kernel or raise, never fall back."""

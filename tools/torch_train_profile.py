@@ -1,14 +1,19 @@
 #!/usr/bin/env python3
-"""Where the time of one PyTorch/CUDA training step goes, on one card.
+"""Where the time of one PyTorch/CUDA training or decode step goes, on one
+card.
 
     python3 tools/torch_train_profile.py [--layers 24] [--steps 3] [--amp bfloat16]
+    python3 tools/torch_train_profile.py --decode [--steps 20]
 
 Trains gpt2_345m (``mxnet_tpu_torch``, B=4, T=1024, seeded random weights
 and batch, as ``chip_smoke.py``) for two warm-up steps: in f32 with
 ``lm_loss`` and Adam 1e-4 (the ``train`` phase), or with ``--amp bfloat16``
 through ``TrainStep(net, SoftmaxCrossEntropyLoss(), Adam(lr_scheduler=...),
 amp="bfloat16")`` on chip_smoke.py's warm-up schedule (the ``train_amp``
-phase). It then times ``--steps`` steps untraced and ``--steps`` more
+phase). With ``--decode`` it instead fills chip_smoke.py's serving engine
+(gpt2_345m f32, batch 8, page size 16) with 8 prompts of 500 tokens and
+takes decode steps (``GenerationEngine.decode_step``, B=8, 500-560 cached
+keys a row). It then times ``--steps`` steps untraced and ``--steps`` more
 traced by ``torch.profiler``, and prints the card's name and power limit,
 the wall time per step of each, the device time per step summed over
 kernels (one stream, so kernels do not overlap), the idle share (1 -
@@ -29,7 +34,8 @@ import numpy as np
 import torch
 
 GROUPS = (  # (group, substrings of the kernel name), first match wins
-    ("flash forward", ("flash_fwd_kernel",)),
+    ("flash forward", ("flash_fwd_",)),  # the f32 and the bf16 kernel
+    ("paged attention", ("paged_attention_kernel",)),
     ("flash dK/dV", ("flash_bwd_dkv_",)),  # the f32 and the bf16 kernel
     ("flash dQ", ("flash_bwd_dq_",)),
     ("adam", ("adam_kernel",)),
@@ -57,15 +63,13 @@ def main():
     ap.add_argument("--layers", type=int, default=24)
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--amp", choices=("bfloat16",), default=None)
+    ap.add_argument("--decode", action="store_true",
+                    help="profile serving decode steps instead of training")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("torch_train_profile: CUDA is not available")
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
-    from mxnet_tpu_torch import TrainStep
-    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
-    from mxnet_tpu_torch.lr_scheduler import CosineScheduler
-    from mxnet_tpu_torch.models import get_gpt2, lm_loss
-    from mxnet_tpu_torch.optimizer import Adam
+    from mxnet_tpu_torch.models import get_gpt2
 
     torch.backends.cuda.matmul.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -73,6 +77,50 @@ def main():
                           text=True, check=True, timeout=60).stdout.strip()
     net = get_gpt2("gpt2_345m", dropout=0.0, device="cuda", seed=0,
                    num_layers=args.layers)
+    rs = np.random.RandomState(0)
+    if args.decode:
+        from mxnet_tpu_torch.inference import GenerationEngine
+
+        eng = GenerationEngine(net, batch_size=8, max_length=1024, paged=True,
+                               page_size=16, eos_id=None, device="cuda")
+        for slot in range(8):
+            eng.prefill(rs.randint(0, 50257, 500), slot)
+        step = eng.decode_step
+        what = (f"gpt2_345m layers={args.layers} f32 decode B=8, paged "
+                f"(ps 16), 500 prompt tokens a row")
+    else:
+        step = _train_step(args, net, rs)
+        what = (f"gpt2_345m layers={args.layers} B=4 T=1024 "
+                f"{args.amp or 'f32'}")
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    # the same steps untraced: the profiler adds host time to every op, so
+    # the idle share is read against this wall time too
+    t = time.perf_counter()
+    for _ in range(args.steps):
+        step()
+    torch.cuda.synchronize()
+    plain_wall = (time.perf_counter() - t) / args.steps
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t = time.perf_counter()
+        for _ in range(args.steps):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) / args.steps
+    _report(card, what, args.steps, prof, wall, plain_wall)
+
+
+def _train_step(args, net, rs):
+    """One TrainStep call on chip_smoke.py's fixed batch, as a closure."""
+    from mxnet_tpu_torch import TrainStep
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.lr_scheduler import CosineScheduler
+    from mxnet_tpu_torch.models import lm_loss
+    from mxnet_tpu_torch.optimizer import Adam
+
     if args.amp is None:
         ts = TrainStep(net, lm_loss, Adam(learning_rate=1e-4), amp=None)
     else:  # chip_smoke.py's amp_schedule()
@@ -81,39 +129,23 @@ def main():
                 max_update=1000, base_lr=1e-4, warmup_steps=4,
                 warmup_begin_lr=1e-5)),
             amp=args.amp)
-    rs = np.random.RandomState(0)
     ids_np = rs.randint(0, 50257, (4, 1024))
     ids = torch.from_numpy(ids_np.astype(np.int32)).cuda()
     labels = torch.from_numpy(np.roll(ids_np, -1, 1).astype(np.int32)).cuda()
-    for _ in range(2):
-        ts(ids, labels)
-    torch.cuda.synchronize()
-    # the same steps untraced: the profiler adds host time to every op, so
-    # the idle share is read against this wall time too
-    t = time.perf_counter()
-    for _ in range(args.steps):
-        ts(ids, labels)
-    torch.cuda.synchronize()
-    plain_wall = (time.perf_counter() - t) / args.steps
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t = time.perf_counter()
-        for _ in range(args.steps):
-            ts(ids, labels)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t) / args.steps
+    return lambda: ts(ids, labels)
+
+
+def _report(card, what, steps, prof, wall, plain_wall):
     kernels = collections.Counter()
     calls = collections.Counter()
     for evt in prof.key_averages():
         us = _device_us(evt)
         if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
-            kernels[evt.key] += us / args.steps
-            calls[evt.key] += evt.count / args.steps
+            kernels[evt.key] += us / steps
+            calls[evt.key] += evt.count / steps
     busy = sum(kernels.values()) / 1e3
     print(card)
-    print(f"gpt2_345m layers={args.layers} B=4 T=1024 {args.amp or 'f32'}, "
-          f"{args.steps} traced steps under the profiler")
+    print(f"{what}, {steps} traced steps under the profiler")
     print(f"wall {wall * 1e3:.2f} ms/step traced, {plain_wall * 1e3:.2f} "
           f"untraced; device {busy:.2f} ms/step; idle share "
           f"{1 - busy / (wall * 1e3):.3f} traced, "
