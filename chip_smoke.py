@@ -8,13 +8,16 @@ prints its last line):
 
   1. build the CUDA kernels from ``mxnet_tpu_torch/csrc/`` (one nvcc per
      source, in parallel), check that the bf16 flash kernels (forward,
-     dK/dV, dQ) multiply on the tensor cores (HMMA in their SASS), and
+     dK/dV, dQ) and the f32 backward (dK/dV, dQ, 3xTF32) multiply on the
+     tensor cores (HMMA in their SASS, TF32 HMMA for the latter), and
      print the card's name and power limit;
   2. hold each kernel against its plain PyTorch version on the card, at
      the shapes the serving and training paths give it (the split-key
-     paged read at decode and prefill, frontiers on split boundaries; flash
-     forward and lse, dK/dV, dQ, the bf16 kernels also against plain
-     versions that round p (and ds) as they do; multi-tensor Adam with its
+     paged read at decode and prefill, frontiers on split boundaries, in
+     five (q, pool) dtype pairs; flash forward and lse, dK/dV, dQ, the
+     bf16 kernels also against plain versions that round p (and ds) as
+     they do, the f32 backward also at a tight limit that one TF32 pass
+     fails; multi-tensor Adam with its
      skip flag, inverse loss scale and f16 gradients and copies,
      LayerNorm's gradients through its autograd Function, and the
      softmax-cross-entropy forward (loss and the row statistics) and
@@ -22,7 +25,9 @@ prints its last line):
      rows past the TPU's 65536 cap);
   3. check that dense-cache and paged-cache logits are bit-identical
      through a small GPT-2 (2 layers at gpt2_345m width), and that they
-     agree with the same engine run on the kernels' plain versions;
+     agree with the same engine run on the kernels' plain versions; then
+     the same under ``contrib.amp.init("bfloat16")`` and
+     ``contrib.amp.init("float16")`` (bf16 or f16 q over the f32 caches);
   4. training parity: 3 TrainStep steps of a 2-layer GPT-2 at gpt2_345m
      width with every kernel knob on, then off (the plain versions), with
      the same seeded weights; per-step losses and final weights agree. Then
@@ -57,11 +62,18 @@ import numpy as np
 import torch
 
 # The card's published peaks (NVIDIA H100 SXM data sheet, 700 W): HBM, f32
-# outside the tensor cores (the bound of f32 work) and dense bf16 on the
-# tensor cores (the bound of bf16 work, whichever units a kernel uses).
+# outside the tensor cores, dense bf16 on the tensor cores and dense TF32
+# on the tensor cores, three TF32 products of which make one f32-accurate
+# product (3xTF32). An operation count is held against the fastest way the
+# card has to do that work at the inputs' accuracy, whichever units a kernel
+# uses: bf16 matrix products at the bf16 tensor-core rate, f32 matrix
+# products (the attention kernels' block products) at the 3xTF32 rate, a
+# third of TF32's, and f32 work that is no matrix product (LayerNorm, Adam,
+# softmax cross-entropy) at the CUDA cores' rate.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 BF16_TC_FLOPS_PER_S = 989e12
+TF32_TC_FLOPS_PER_S = 494.7e12
 N_LAYERS = 24  # gpt2_345m
 
 # Tolerances, |kernel - plain| <= atol + rtol * |plain|. f32: only the order
@@ -71,18 +83,27 @@ N_LAYERS = 24  # gpt2_345m
 TOL = {
     ("paged_attention", torch.float32): 1e-5,
     ("paged_attention", torch.bfloat16): 2e-2,
+    # f16 q (over f32 pools): the bf16 reasoning at f16's three more
+    # mantissa bits, 2e-2 / 8, rounded up
+    ("paged_attention", torch.float16): 5e-3,
     ("layernorm", torch.float32): 2e-5,
     ("layernorm", torch.bfloat16): 3e-2,
     # flash: tests/test_flash_attention.py's forward (2e-4 / 3e-2) and
     # backward (2e-3 / 3e-2) tolerances against the exact plain versions.
-    # The forward and the f32 backward keep f32 scores and sums and differ
-    # from them in sum order only. The bf16 backward runs on the tensor
-    # cores and rounds p and ds to bf16 before the accumulating products
-    # (2^-9 relative each, on average over a sum), well inside 3e-2.
+    # The f32 forward keeps f32 scores and sums and differs from them in sum
+    # order only; the f32 backward multiplies in 3xTF32 on the tensor cores,
+    # f32-accurate (each product within about 2^-20 of exact). The
+    # bf16 backward runs on the tensor cores and rounds p and ds to bf16
+    # before the accumulating products (2^-9 relative each, on average over
+    # a sum), well inside 3e-2.
     ("flash_fwd", torch.float32): 2e-4,
     ("flash_fwd", torch.bfloat16): 3e-2,
     ("flash_bwd", torch.float32): 2e-3,
     ("flash_bwd", torch.bfloat16): 3e-2,
+    # ... and the f32 backward at a tight absolute limit, FLASH_TIGHT_ATOL
+    # below, with no relative term: one TF32 pass instead of three (the lo
+    # terms dropped) stays inside 2e-3 but not inside this.
+    ("flash_bwd_tight", torch.float32): 0.0,
     # ... and against the plain version that rounds p and ds as the kernel
     # does (``rounded=True``). The two compute the same f32 scores in
     # another order (tensor-core sums against cuBLAS's), so p and ds differ
@@ -123,6 +144,10 @@ TOL = {
 }
 FLASH_ROUNDED_ATOL = 1e-4
 FLASH_FLIPS = 2
+# The tight limit of the f32 backward: 4x the largest |kernel - plain| of
+# the unmodified 3xTF32 kernels over FLASH_CASES at d 64 and 128 (dk, dv,
+# dq together) on the H100 (PERF.md gives the run).
+FLASH_TIGHT_ATOL = 4 * 8.06e-5
 # At C classes a row's |dx| averages 2 g / C and most of its elements are
 # far below that (the median at the LM head's shape is ~2e-7 g), so an
 # absolute tolerance at the scale of the other checks would pass a backward
@@ -170,8 +195,13 @@ def amp_schedule():
                            warmup_begin_lr=1e-5)
 # Logits of the engine on the kernels against the same engine on their plain
 # versions, f32, 2 layers: the f32 sums differ in order only (the
-# tolerance of the port's CPU tests against the JAX package).
-LOGIT_TOL = 1e-4
+# tolerance of the port's CPU tests against the JAX package). Under
+# amp.init("bfloat16") the two round the attention weights to bf16 against
+# other maxima (the kernel the running one, the plain version the softmax's):
+# the bf16 tolerance of the CPU tests against the JAX package. Under
+# amp.init("float16") they round them to f16, three mantissa bits finer:
+# the bf16 limit over 8.
+LOGIT_TOL = {None: 1e-4, "bfloat16": 3e-2, "float16": 3e-2 / 8}
 
 
 def log(*a):
@@ -280,16 +310,23 @@ def phase_build():
     return card
 
 
-# the bf16 flash kernels, which must multiply on the tensor cores
-TC_KERNELS = ("flash_fwd_tc_kernelILi64", "flash_fwd_tc_kernelILi128",
-              "flash_bwd_dkv_tc_kernelILi64", "flash_bwd_dkv_tc_kernelILi128",
-              "flash_bwd_dq_tc_kernelILi64", "flash_bwd_dq_tc_kernelILi128")
+# the flash kernels that must multiply on the tensor cores: (namespace,
+# kernel, TF32): the bf16 forward and backward, and the f32 backward in
+# 3xTF32, whose HMMA must have the TF32 m16n8k8 shape (.TF32, 1688)
+TC_KERNELS = [(ns, f"{kern}ILi{d}", ns == "tf32x3")
+              for ns, kerns in (("bf16tc", ("flash_fwd_tc_kernel",
+                                            "flash_bwd_dkv_tc_kernel",
+                                            "flash_bwd_dq_tc_kernel")),
+                                ("tf32x3", ("flash_bwd_dkv_tc_kernel",
+                                            "flash_bwd_dq_tc_kernel")))
+              for kern in kerns for d in (64, 128)]
 
 
 def check_tensor_cores(lib):
     """Count the tensor-core instructions (HMMA, HGMMA) of each flash kernel
-    in the built library's SASS (``cuobjdump -sass``), and fail unless
-    every kernel of TC_KERNELS has some."""
+    in the built library's SASS (``cuobjdump -sass``), and among them the
+    TF32 ones, and fail unless every kernel of TC_KERNELS has some (TF32
+    ones for the 3xTF32 kernels)."""
     from mxnet_tpu_torch.ops import cuda_common
 
     cuobjdump = Path(cuda_common._nvcc()).with_name("cuobjdump")
@@ -300,20 +337,23 @@ def check_tensor_cores(lib):
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
-            counts[fn] = 0
+            counts[fn] = [0, 0]
         elif fn is not None and "HMMA" in line:  # HMMA and HGMMA
-            counts[fn] += 1
-    for fn, n in sorted(counts.items()):
-        log(f"  flash_attention SASS: {n} tensor-core instructions in "
-            f"{fn[:72]}")
-    for want in TC_KERNELS:
-        n = sum(c for fn, c in counts.items() if want in fn)
+            counts[fn][0] += 1
+            counts[fn][1] += ".TF32" in line or "1688" in line
+    for fn, (n, n_tf32) in sorted(counts.items()):
+        log(f"  flash_attention SASS: {n} tensor-core instructions "
+            f"({n_tf32} TF32) in {fn[:72]}")
+    for ns, want, tf32 in TC_KERNELS:
+        n = sum(c[1 if tf32 else 0] for fn, c in counts.items()
+                if want in fn and ns in fn)
         if n == 0:
-            raise AssertionError(f"no tensor-core instruction in {want}")
+            raise AssertionError(f"no {'TF32 ' if tf32 else ''}tensor-core "
+                                 f"instruction in {ns}::{want}")
 
 
-def _paged_case(gen, b, h, tq, ch, ps, n_pages, pool_pages, dtype, trash_row,
-                dev, positions=None):
+def _paged_case(gen, b, h, tq, ch, ps, n_pages, pool_pages, qdtype, dtype,
+                trash_row, dev, positions=None):
     def randn(*shape):
         return torch.randn(*shape, generator=gen).to(dev)
 
@@ -329,7 +369,7 @@ def _paged_case(gen, b, h, tq, ch, ps, n_pages, pool_pages, dtype, trash_row,
     if positions is not None:
         position = torch.tensor(positions, dtype=torch.int32)
     position = position.to(dev)
-    q = randn(b, h, tq, ch).to(dtype)
+    q = randn(b, h, tq, ch).to(qdtype)
     return q, k_pool, v_pool, table, position
 
 
@@ -346,30 +386,46 @@ PAGED_CASES = [(8, 1, None, "(row 0 all trash)"),
                (2, 16, [120, 500], "(prefill across splits)")]
 
 
+# (q, pool) dtypes of the paged read: f32 and bf16 models, an f32 model's
+# cached read under amp.init("bfloat16") or amp.init("float16") (bf16 or
+# f16 q over f32 pools), and f32 q over bf16 pools
+PAGED_DTYPES = [(torch.float32, torch.float32),
+                (torch.bfloat16, torch.bfloat16),
+                (torch.bfloat16, torch.float32),
+                (torch.float16, torch.float32),
+                (torch.float32, torch.bfloat16)]
+
+
 def phase_paged_kernels(errs, failures=None):
-    """The paged read against its plain version at PAGED_CASES, f32 and bf16,
-    page sizes 16 and 6, head width 64; decode errors under
-    ``paged_attention``, prefill under ``paged_attention_prefill``.
-    ``failures`` as in check_close (tools/torch_flash_faults.py)."""
+    """The paged read against its plain version at PAGED_CASES and
+    PAGED_DTYPES, page sizes 16 and 6, head width 64, at the tolerance of
+    the output's (q's) dtype; decode errors under ``paged_attention``,
+    prefill under ``paged_attention_prefill``. ``failures`` as in
+    check_close (tools/torch_flash_faults.py)."""
     from mxnet_tpu_torch.ops import paged_attention as pa
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
-    for dtype in (torch.float32, torch.bfloat16):
+    for qdtype, dtype in PAGED_DTYPES:
+        dn = str(dtype)[6:] if qdtype == dtype \
+            else f"{str(qdtype)[6:]}/{str(dtype)[6:]}"
         for b, tq, positions, what in PAGED_CASES:
             for ps in (16, 6):
                 n_pages = -(-1024 // ps)
                 h = 16 if b == 8 else 4
                 case = _paged_case(gen, b, h, tq, 64, ps, n_pages,
-                                   b * n_pages // 2 + 1, dtype,
+                                   b * n_pages // 2 + 1, qdtype, dtype,
                                    positions is None, dev, positions)
                 got = pa.paged_attention_read(*case)
                 want = pa.paged_attention_read_plain(*case)
                 torch.cuda.synchronize()
+                if got.dtype != qdtype or want.dtype != qdtype:
+                    raise AssertionError(f"paged read {dn}: output dtypes "
+                                         f"{got.dtype} / {want.dtype}")
                 key = "paged_attention" + ("" if tq == 1 else "_prefill")
                 errs[key] = max(errs.get(key, 0.0), check_close(
-                    "paged_attention", dtype, got, want,
-                    f"{str(dtype)[6:]} B={b} tq={tq} ps={ps} {what}",
+                    "paged_attention", qdtype, got, want,
+                    f"{dn} B={b} tq={tq} ps={ps} {what}",
                     failures=failures))
 
 
@@ -393,6 +449,11 @@ def phase_kernels():
                 f"{str(dtype)[6:]} ({rows}, 1024)"))
     phase_layernorm_grads(errs)
     phase_flash_kernels(errs)
+    log("[flash] f32 backward against the f64 plain version: kernels "
+        f"dK/dV {errs['flash_bwd_dkv_f64']:.3e}, dQ "
+        f"{errs['flash_bwd_dq_f64']:.3e}; the f32 plain version dK/dV "
+        f"{errs['flash_bwd_dkv_plain_f64']:.3e}, dQ "
+        f"{errs['flash_bwd_dq_plain_f64']:.3e}")
     phase_adam_kernel(errs)
     phase_adam_amp(errs)
     phase_xent_kernels(errs)
@@ -448,14 +509,38 @@ def flash_fwd_flip_atol(q, k, v, causal):
         p.amax(dim=-1, keepdim=True) * vmax
 
 
+def _flash_bwd_f64(q, k, v, do, lse, di, causal):
+    """The plain FA-2 backward (``_recompute`` and the products of
+    ``_flash_bwd_dkv_plain`` / ``_flash_bwd_dq_plain``) in f64 on the same
+    inputs: the witness that tells the f32 kernels' error from the f32
+    plain version's. Returns (dk, dv, dq) in f64."""
+    q, k, v, do, lse, di = (t.double() for t in (q, k, v, do, lse, di))
+    scale = q.shape[-1] ** -0.5
+    s = torch.matmul(q * scale, k.transpose(-1, -2))
+    p = torch.exp(s - lse.unsqueeze(-1))
+    if causal:
+        tq, tk = s.shape[-2], s.shape[-1]
+        live = torch.ones((tq, tk), dtype=torch.bool,
+                          device=q.device).tril(tk - tq)
+        p = p.masked_fill(~live, 0.0)
+    ds = p * (torch.matmul(do, v.transpose(-1, -2)) - di.unsqueeze(-1))
+    return (torch.matmul(ds.transpose(-1, -2), q * scale),
+            torch.matmul(p.transpose(-1, -2), do),
+            torch.matmul(ds, k) * scale)
+
+
 def phase_flash_kernels(errs, dtypes=(torch.float32, torch.bfloat16),
                         failures=None):
     """Flash forward + lse, dK/dV and dQ against their plain versions, f32
     and bf16, head dims 64 and 128. The bf16 backward is held twice:
     against the exact plain version and against the one that rounds p and
-    ds as the tensor-core kernels do. Errors go to ``errs`` under the
-    kernel's name, with ``_bf16`` for bf16 and ``_rounded`` for the second
-    check. ``failures`` as in check_close (tools/torch_flash_faults.py)."""
+    ds as the tensor-core kernels do; the f32 backward (3xTF32) twice too:
+    at the f32 tolerance and at FLASH_TIGHT_ATOL. Errors go to ``errs``
+    under the kernel's name, with ``_bf16`` for bf16 and ``_rounded`` or
+    ``_tight`` for the second check. The f32 backward and its plain version
+    are also measured against the f64 plain version (``_f64`` and
+    ``_plain_f64``; no limit: the witness of what sets the tight limit).
+    ``failures`` as in check_close (tools/torch_flash_faults.py)."""
     from mxnet_tpu_torch.ops import flash_attention as fa
 
     dev = torch.device("cuda")
@@ -502,15 +587,33 @@ def phase_flash_kernels(errs, dtypes=(torch.float32, torch.bfloat16),
                     atol = flash_flip_atol(q, k, v, do, lse, di, causal) \
                         if rounded else {}
                     torch.cuda.synchronize()
-                    name = "flash_bwd_rounded" if rounded else "flash_bwd"
-                    tail = " (p, ds rounded)" if rounded else ""
-                    key = "_rounded" if rounded else ""
-                    for kern, grad, got, want in (
-                            ("flash_bwd_dkv", "dk", dk, rdk),
-                            ("flash_bwd_dkv", "dv", dv, rdv),
-                            ("flash_bwd_dq", "dq", dq, rdq)):
-                        held(kern + sfx + key, name, dtype, got, want,
-                             f"{grad} {what}{tail}", atol=atol.get(grad))
+                    # (check, errs key suffix, atol by grad, message tail)
+                    checks = [("flash_bwd_rounded", "_rounded", atol,
+                               " (p, ds rounded)") if rounded else
+                              ("flash_bwd", "", {}, "")]
+                    if not sfx:
+                        checks.append(("flash_bwd_tight", "_tight",
+                                       dict.fromkeys(("dk", "dv", "dq"),
+                                                     FLASH_TIGHT_ATOL),
+                                       " (tight)"))
+                    for name, key, atols, tail in checks:
+                        for kern, grad, got, want in (
+                                ("flash_bwd_dkv", "dk", dk, rdk),
+                                ("flash_bwd_dkv", "dv", dv, rdv),
+                                ("flash_bwd_dq", "dq", dq, rdq)):
+                            held(kern + sfx + key, name, dtype, got, want,
+                                 f"{grad} {what}{tail}", atol=atols.get(grad))
+                    if not sfx:
+                        exact = _flash_bwd_f64(q, k, v, do, lse, di, causal)
+                        for kern, got, plain, want in zip(
+                                ("flash_bwd_dkv", "flash_bwd_dkv",
+                                 "flash_bwd_dq"), (dk, dv, dq),
+                                (rdk, rdv, rdq), exact):
+                            for key, x in (("_f64", got), ("_plain_f64", plain)):
+                                err = (x.double() - want).abs().max().item()
+                                errs[kern + key] = max(errs.get(kern + key, 0.0),
+                                                       err)
+                        del exact
 
 
 def _adam_close(got, want, tol, what):
@@ -740,13 +843,29 @@ def plain_versions():
             config.set(k, True)
 
 
-def phase_dense_equals_paged():
-    """2 layers at gpt2_345m width: the dense and the paged engine give
-    bit-identical logits, and both agree with the same paged engine run on
-    the plain versions (the reference) within LOGIT_TOL."""
+def phase_dense_equals_paged(amp=None):
+    """2 layers at gpt2_345m width (f32 weights and caches): the dense and
+    the paged engine give bit-identical logits, and both agree with the
+    same paged engine run on the plain versions (the reference) within
+    LOGIT_TOL. With ``amp="bfloat16"`` or ``"float16"`` all of it under
+    ``contrib.amp.init(amp)``: the cached reads then take bf16 or f16 q over
+    the f32 pools."""
+    from mxnet_tpu_torch.contrib import amp as _amp
+
+    if amp is None:
+        return _dense_equals_paged(None)
+    _amp.init(amp)
+    try:
+        return _dense_equals_paged(amp)
+    finally:
+        _amp._reset()
+
+
+def _dense_equals_paged(amp):
     from mxnet_tpu_torch.inference import GenerationEngine
     from mxnet_tpu_torch.models import get_gpt2
 
+    tol = LOGIT_TOL[amp]
     net = get_gpt2("gpt2_345m", dropout=0.0, num_layers=2, max_length=256,
                    device="cuda", seed=1)
     kw = dict(batch_size=2, eos_id=None, device="cuda")
@@ -759,7 +878,7 @@ def phase_dense_equals_paged():
         nonlocal worst
         err = (logits - ref).abs().max().item()
         worst = max(worst, err)
-        if not torch.isfinite(logits).all() or err > LOGIT_TOL:
+        if not torch.isfinite(logits).all() or err > tol:
             raise AssertionError(f"{what}: kernel logits differ from the "
                                  f"plain versions' by {err}")
 
@@ -787,8 +906,9 @@ def phase_dense_equals_paged():
             raise AssertionError(f"decode step {step}: dense and paged "
                                  f"logits differ (max {diff})")
         against_plain(f"decode step {step}", lg_p, lg_ref)
-    log(f"[dense==paged] 2 prefills + 8 decode steps: logits bit-identical; "
-        f"max |kernel - plain| logit {worst:.3e} (tolerance {LOGIT_TOL})")
+    log(f"[dense==paged{'' if amp is None else ' amp ' + amp}] 2 prefills + "
+        f"8 decode steps: logits bit-identical; max |kernel - plain| logit "
+        f"{worst:.3e} (tolerance {tol})")
 
 
 def _train_batch(batch, seq, vocab=50257, seed=0):
@@ -1041,15 +1161,20 @@ def phase_serve():
     return eng, launches
 
 
-# the peak an operation count is held against, by the inputs' type
+# the peak an operation count is held against (see HBM_BYTES_PER_S): by the
+# inputs' type, and for f32 matrix products ("3xtf32") a third of the TF32
+# rate
 PEAKS = {torch.float32: ("f32 CUDA cores, 67 TFLOP/s", F32_FLOPS_PER_S),
          torch.bfloat16: ("bf16 tensor cores, 989 TFLOP/s",
-                          BF16_TC_FLOPS_PER_S)}
+                          BF16_TC_FLOPS_PER_S),
+         "3xtf32": ("3xTF32 tensor cores, 494.7/3 TFLOP/s",
+                    TF32_TC_FLOPS_PER_S / 3)}
 
 
 def _bound_ms(nbytes, flops, dtype=torch.float32):
     """(least ms, "bytes" or "operations", the operations' peak): bytes over
-    the HBM rate or flops over the peak for ``dtype``, the larger."""
+    the HBM rate or flops over the peak for ``dtype`` (a key of PEAKS), the
+    larger."""
     peak_name, peak = PEAKS[dtype]
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, \
@@ -1064,12 +1189,16 @@ def _timed(kern, plain, library, nbytes, flops, shape, plain_graph=True,
     are the per-call times of eager calls, host included, as the serving
     loop pays them. ``library=None`` leaves the library time to the caller;
     ``small`` takes fewer calls, for work of milliseconds per call. The
-    bound holds the flops against the peak for ``dtype``."""
+    bound holds the flops against the peak for ``dtype`` (a key of
+    PEAKS); for f32 matrix products ("3xtf32") the CUDA cores' bound is
+    kept beside it as ``bound_cuda_cores_ms``."""
     bound_ms, bound_by, peak = _bound_ms(nbytes, flops, dtype)
     g = dict(calls=2, replays=3, repeats=3) if small else {}
     e = dict(warmup=2, iters=5, repeats=3) if small else {}
     r = dict(shape=shape, bound_ms=bound_ms, bound_by=bound_by,
              bound_peak=peak,
+             bound_cuda_cores_ms=_bound_ms(nbytes, flops)[0]
+             if dtype == "3xtf32" else None,
              ms=graph_time_ms(kern, **g), eager_ms=cuda_time_ms(kern, **e),
              plain_eager_ms=cuda_time_ms(plain, **dict(e, iters=5)))
     if library is not None:
@@ -1090,8 +1219,8 @@ def _timed(kern, plain, library, nbytes, flops, shape, plain_graph=True,
 def phase_timing(eng):
     """Each kernel at the serving path's shapes beside its plain version
     and a library call; bound = max(bytes / HBM rate, flops / the peak for
-    the inputs' type), each input read once and each output written
-    once."""
+    the work at the inputs' accuracy, PEAKS), each input read once and each
+    output written once."""
     from mxnet_tpu_torch.ops import layernorm as ln
     from mxnet_tpu_torch.ops import paged_attention as pa
 
@@ -1128,7 +1257,7 @@ def phase_timing(eng):
         nbytes=4 * (2 * b * h * L * ch + 2 * b * h * ch) + 4 * b * (L // 16 + 1),
         flops=4 * b * h * L * ch,
         shape="paged_attention decode B=8 H=16 Tq=1 Ch=64 L=512 ps=16 f32",
-        plain_graph=False)
+        plain_graph=False, dtype="3xtf32")
     del hist
 
     # prefill attention at the largest bucket (one row, 512 new tokens)
@@ -1146,7 +1275,7 @@ def phase_timing(eng):
         nbytes=4 * 4 * h * tq * ch + 4 * tq // 16,
         flops=4 * h * ch * tq * (tq + 1) // 2,
         shape="paged_attention prefill B=1 Tq=512 from position 0 f32",
-        plain_graph=False)
+        plain_graph=False, dtype="3xtf32")
 
     # LayerNorm at the decode shape (8 rows of 1024) and the largest
     # prefill bucket (512 rows)
@@ -1202,10 +1331,12 @@ def phase_train_timing(net):
         di = fa._row_dot(do, out).contiguous()
         bounds = _flash_bounds(b, h, t, d, q.element_size())
         shape = f"B={b} H={h} T={t} D={d} causal {dn}"
+        # f32 block products are bound at the 3xTF32 rate (PEAKS)
+        peak = "3xtf32" if dtype == torch.float32 else dtype
         fwd = _timed(lambda: fa._flash_fwd(q, k, v, True, return_lse=True),
                      lambda: fa.flash_fwd_plain(q, k, v, True),
                      lambda: sdpa(q, k, v, is_causal=True),
-                     *bounds["fwd"], shape=f"flash_fwd {shape}", dtype=dtype)
+                     *bounds["fwd"], shape=f"flash_fwd {shape}", dtype=peak)
         # the library yardstick of the backward: SDPA forward + backward
         # minus SDPA forward on inputs that require grad, on the device (CUDA
         # graph replay; eager, SDPA's host time per call, ~0.3 ms in bf16,
@@ -1235,7 +1366,7 @@ def phase_train_timing(net):
                 lambda: kern(q, k, v, do, lse, di, True),
                 lambda: plain(q, k, v, do, lse, di, True),
                 None, *bounds[name], shape=f"flash_bwd_{name} {shape}",
-                dtype=dtype)
+                dtype=peak)
             bwd[name].update(library_ms=lib_bwd,
                              library_eager_ms=lib_bwd_eager,
                              library="SDPA backward (dq, dk, dv together): "
@@ -1354,6 +1485,8 @@ def main():
     card = phase_build()
     errs = phase_kernels()
     phase_dense_equals_paged()
+    phase_dense_equals_paged(amp="bfloat16")
+    phase_dense_equals_paged(amp="float16")
     parity = phase_train_parity()
     eng, serve_launches = phase_serve()
     timing = phase_timing(eng)
@@ -1418,9 +1551,13 @@ def main():
                                  for p, c in by_path.items()},
             "max_abs_err": errs[name],
             "max_abs_err_rounded": errs.get(name + "_rounded"),
+            "max_abs_err_tight": errs.get(name + "_tight"),
+            "max_abs_err_f64": errs.get(name + "_f64"),
+            "plain_max_abs_err_f64": errs.get(name + "_plain_f64"),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "bound_peak": t["bound_peak"],
+            "bound_cuda_cores_ms": t.get("bound_cuda_cores_ms"),
             "library_ms": t["library_ms"], "shape": t["shape"],
             "eager_ms": t["eager_ms"], "plain_eager_ms": t["plain_eager_ms"],
             "library_eager_ms": t["library_eager_ms"],

@@ -7,8 +7,9 @@ Counterpart of the policy half of ``mxnet_tpu/contrib/amp.py``:
 ``TrainStep`` keeps the f32 master weights and runs the forward and
 backward on low-precision copies of them; only float16 needs dynamic loss
 scaling, since bfloat16 shares float32's exponent range. Under a global
-``init`` dtype, ``ops.nn.fully_connected`` and full-sequence attention
-compute their products in that dtype from f32 inputs. The host-side
+``init`` dtype, :func:`matmul` (``ops.nn.fully_connected``, the tied LM
+head of ``models.gpt2``) and ``multi_head_attention`` (full-sequence and
+cached) compute their products in that dtype from f32 inputs. The host-side
 ``LossScaler``, ``init_trainer`` and ``scale_loss`` belong to the
 imperative ``gluon.Trainer``, which is not ported yet.
 """
@@ -19,8 +20,8 @@ import threading
 
 import torch
 
-__all__ = ["init", "amp_dtype", "compute_dtype", "cast_inputs", "Policy",
-           "resolve_policy", "list_lp16_ops", "list_fp16_ops",
+__all__ = ["init", "amp_dtype", "compute_dtype", "cast_inputs", "matmul",
+           "Policy", "resolve_policy", "list_lp16_ops", "list_fp16_ops",
            "list_fp32_ops", "list_widest_type_cast_ops"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16}
@@ -50,6 +51,25 @@ def cast_inputs(*tensors):
         return tensors
     return tuple(t.to(cd) if t is not None and t.dtype == torch.float32 else t
                  for t in tensors)
+
+
+def matmul(a, b, data_decides=False):
+    """``a @ b`` under AMP's matmul-class rule. With an active compute
+    dtype the rule rounds both operands to it and multiplies them with an
+    f32 sum and an f32 result, as a ``preferred_element_type=f32`` product
+    (the products of the rounded values are exact in f32). It applies when
+    both operands are f32, as the JAX ``dot`` (``ops/core.py``
+    ``_amp_pair``), or, with ``data_decides``, when ``a`` is f32, as the
+    JAX ``fully_connected``, which then rounds the weight whatever its
+    dtype. Otherwise the operands are promoted to one dtype and multiplied
+    as they are (``jnp.matmul``'s promotion), so ``TrainStep(amp=...)``'s
+    low-precision copies pass through unchanged."""
+    cd = compute_dtype()
+    f32 = torch.float32
+    if cd is not None and a.dtype == f32 and (data_decides or b.dtype == f32):
+        return torch.matmul(a.to(cd).float(), b.to(cd).float())
+    ct = torch.promote_types(a.dtype, b.dtype)
+    return torch.matmul(a.to(ct), b.to(ct))
 
 
 @dataclasses.dataclass(frozen=True)

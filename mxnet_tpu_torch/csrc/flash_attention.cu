@@ -16,40 +16,37 @@
 // no key outputs 0 and stores lse = 0, so the backward gives it p = 0.
 // Scores, softmax and every sum are f32; outputs are cast to q's dtype.
 //
-// Bound on the H100: operations. At GPT-2 shapes (D = 64, T = 1024) the
-// forward does 4*D flops per live (query, key) pair and moves 4*T*D
-// elements per slice, about 200 flops per byte, far above the ~20 that the
-// f32 CUDA cores do per byte of HBM (H100 SXM data sheet, 700 W power
-// limit: 67 TFLOP/s over 3.35 TB/s), so the least time of the kernels
-// below, which use no tensor cores, is the flops over 67 TFLOP/s. The
-// backward does 7 block products per tile pair against the forward's 2,
-// split 4 (dK/dV) and 3 (dQ). For bf16 inputs the forward and the backward
-// run on the tensor cores instead: see "The bf16 backward on the tensor
-// cores" and "The bf16 forward on the tensor cores" below.
-//
-// Design of the f32 forward and backward: the TPU kernels walk a
-// sequential grid axis and carry m, l and the accumulators in VMEM scratch
-// from one grid step to the next. Blocks
-// on the card run in no order, so each block owns one output tile and
-// walks the other operand's tiles in a loop of its own:
-//   forward and dQ: one block per (b*h, tile of 64 queries), looping over
-//   the 64-key tiles its rows can see;
-//   dK/dV: one block per (b*h, tile of 64 keys), looping over the query
-//   tiles that can see it.
+// Four designs share the file:
+//   the f32 forward on the CUDA cores (flash_fwd_kernel, just below);
+//   the bf16 backward and forward on the tensor cores (namespace bf16tc);
+//   the f32 backward on the tensor cores in 3xTF32 (namespace tf32x3).
+// Every block owns one output tile and walks the other operand's tiles in
+// a loop of its own (the TPU kernels walk a sequential grid axis and carry
+// the accumulators in VMEM scratch; blocks on the card run in no order):
+//   forward and dQ: one block per (b*h, tile of queries), looping over the
+//   key tiles its rows can see;
+//   dK/dV: one block per (b*h, tile of keys), looping over the query tiles
+//   that can see it.
 // No block writes another's output, so there are no atomics and results
 // are the same from run to run. Tiles that the causal mask hides entirely
-// are skipped, as _causal_gated does on the TPU. Every tile sits in shared
-// memory as f32, transposed to [channel][row] with a row stride of 65
-// floats: a warp reading one channel across 32 rows and a warp reading one
-// row across 32 channels both hit 32 distinct banks, so one layout serves
-// the score products (q k^T, do v^T) and the accumulating products
-// (p v, p^T do, ds^T q, ds k). 256 threads form a 16 x 16 grid; thread
+// are skipped, as _causal_gated does on the TPU. Ragged lengths are masked
+// in the kernels: rows past Tq load zeros and are not stored, keys past Tk
+// are masked out of the softmax.
+//
+// The f32 forward. Bound on the H100: operations. At GPT-2 shapes (D = 64,
+// T = 1024) it does 4*D flops per live (query, key) pair and moves 4*T*D
+// elements per slice, about 200 flops per byte, far above the ~20 that the
+// f32 CUDA cores do per byte of HBM (H100 SXM data sheet, 700 W power
+// limit: 67 TFLOP/s over 3.35 TB/s); it uses no tensor cores, so its least
+// time is the flops over 67 TFLOP/s. Blocks of 64 queries; every tile sits
+// in shared memory as f32, transposed to [channel][row] with a row stride
+// of 65 floats: a warp reading one channel across 32 rows and a warp
+// reading one row across 32 channels both hit 32 distinct banks, so one
+// layout serves q k^T and p v. 256 threads form a 16 x 16 grid; thread
 // (ty, tx) holds the 4 x 4 scores of rows ty*4+i and columns tx+16*j in
 // registers, and the 4 x D/16 accumulator entries of rows ty*4+i and
 // channels tx+16*c. A row's 16 owners are the lanes of one half-warp, so
-// the row max and row sum of the online softmax are 4 shuffles. Ragged
-// lengths are masked in the kernel: rows past Tq load zeros and are not
-// stored, keys past Tk are masked out of the softmax.
+// the row max and row sum of the online softmax are 4 shuffles.
 #include <type_traits>
 
 #include "common.cuh"
@@ -63,14 +60,6 @@ constexpr unsigned FULL = 0xffffffffu;
 template <int D>
 __host__ __device__ constexpr size_t fwd_smem_floats() {
   return 3 * D * TS + BT * TS;  // q, k, v tiles and the p tile
-}
-template <int D>
-__host__ __device__ constexpr size_t dkv_smem_floats() {
-  return 4 * D * TS + 2 * BT * TS + 2 * BT;  // k, v, q, do, p, ds, lse, di
-}
-template <int D>
-__host__ __device__ constexpr size_t dq_smem_floats() {
-  return 4 * D * TS + BT * TS;  // q, do, k, v and the ds tile
 }
 
 // Rows [r0, r0 + BT) of a (n, D) row-major slice into sm[d * TS + r] as f32
@@ -222,151 +211,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
-template <int D, typename T>
-__global__ void __launch_bounds__(NT)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ di,
-                     T* __restrict__ dk, T* __restrict__ dv, int Tq, int Tk, int causal,
-                     float scale) {
-  extern __shared__ float sm[];
-  float* ks = sm;
-  float* vs = ks + D * TS;
-  float* qs = vs + D * TS;
-  float* dos = qs + D * TS;
-  float* ps = dos + D * TS;
-  float* dss = ps + BT * TS;
-  float* lse_s = dss + BT * TS;
-  float* di_s = lse_s + BT;
-  const int bh = blockIdx.y, k0 = blockIdx.x * BT;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int off = Tk - Tq;
-  const size_t qoff = static_cast<size_t>(bh) * Tq * D, koff = static_cast<size_t>(bh) * Tk * D;
-
-  load_tile<D>(ks, k + koff, k0, Tk, 1.f);
-  load_tile<D>(vs, v + koff, k0, Tk, 1.f);
-  float dk_acc[4][D / 16], dv_acc[4][D / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
-
-  // the first query tile with a row that sees key k0 (query r sees k0 when
-  // r + off >= k0); every tile before it is masked out entirely
-  const int q_begin = causal ? (max(0, k0 - off) / BT) * BT : 0;
-  for (int q0 = q_begin; q0 < Tq; q0 += BT) {
-    __syncthreads();  // the previous tile's q, do, p and ds are no longer read
-    load_tile<D>(qs, q + qoff, q0, Tq, scale);
-    load_tile<D>(dos, dout + qoff, q0, Tq, 1.f);
-    if (threadIdx.x < BT) {
-      const int row = q0 + threadIdx.x;
-      lse_s[threadIdx.x] = row < Tq ? lse[static_cast<size_t>(bh) * Tq + row] : 0.f;
-      di_s[threadIdx.x] = row < Tq ? di[static_cast<size_t>(bh) * Tq + row] : 0.f;
-    }
-    __syncthreads();
-    // transposed scores: rows are keys ty*4+i, columns queries tx+16j
-    float s[4][4] = {}, dp[4][4] = {};
-    tile_dot<D>(s, ks, ty * 4, qs, tx);
-    tile_dot<D>(dp, vs, ty * 4, dos, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int key = k0 + ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = tx + 16 * j, row = q0 + r;
-        const bool live = row < Tq && key < Tk && (!causal || key <= row + off);
-        const float p = live ? expf(s[i][j] - lse_s[r]) : 0.f;
-        ps[(ty * 4 + i) * TS + r] = p;
-        dss[(ty * 4 + i) * TS + r] = p * (dp[i][j] - di_s[r]);
-      }
-    }
-    __syncthreads();
-    tile_acc<D>(dv_acc, ps, ty * 4, dos, tx);
-    tile_acc<D>(dk_acc, dss, ty * 4, qs, tx);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + ty * 4 + i;
-    if (key >= Tk) continue;
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) {
-      const size_t at = koff + static_cast<size_t>(key) * D + tx + 16 * c;
-      dk[at] = from_f32<T>(dk_acc[i][c]);
-      dv[at] = from_f32<T>(dv_acc[i][c]);
-    }
-  }
-}
-
-template <int D, typename T>
-__global__ void __launch_bounds__(NT)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ di,
-                    T* __restrict__ dq, int Tq, int Tk, int causal, float scale) {
-  extern __shared__ float sm[];
-  float* qs = sm;
-  float* dos = qs + D * TS;
-  float* ks = dos + D * TS;
-  float* vs = ks + D * TS;
-  float* dss = vs + D * TS;
-  const int bh = blockIdx.y, q0 = blockIdx.x * BT;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int off = Tk - Tq;
-  const size_t qoff = static_cast<size_t>(bh) * Tq * D, koff = static_cast<size_t>(bh) * Tk * D;
-
-  load_tile<D>(qs, q + qoff, q0, Tq, scale);
-  load_tile<D>(dos, dout + qoff, q0, Tq, 1.f);
-  float lse_r[4], di_r[4], dq_acc[4][D / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    lse_r[i] = row < Tq ? lse[static_cast<size_t>(bh) * Tq + row] : 0.f;
-    di_r[i] = row < Tq ? di[static_cast<size_t>(bh) * Tq + row] : 0.f;
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) dq_acc[i][c] = 0.f;
-  }
-
-  const int k_end = key_end(q0, Tq, Tk, causal);
-  for (int k0 = 0; k0 < k_end; k0 += BT) {
-    __syncthreads();  // the previous tile's k, v and ds are no longer read
-    load_tile<D>(ks, k + koff, k0, Tk, 1.f);
-    load_tile<D>(vs, v + koff, k0, Tk, 1.f);
-    __syncthreads();
-    float s[4][4] = {}, dp[4][4] = {};
-    tile_dot<D>(s, qs, ty * 4, ks, tx);
-    tile_dot<D>(dp, dos, ty * 4, vs, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        const bool live = row < Tq && col < Tk && (!causal || col <= row + off);
-        const float p = live ? expf(s[i][j] - lse_r[i]) : 0.f;
-        dss[(ty * 4 + i) * TS + tx + 16 * j] = p * (dp[i][j] - di_r[i]);
-      }
-    }
-    __syncthreads();
-    tile_acc<D>(dq_acc, dss, ty * 4, ks, tx);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= Tq) continue;
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c)  // chain rule through q * scale
-      dq[qoff + static_cast<size_t>(row) * D + tx + 16 * c] = from_f32<T>(dq_acc[i][c] * scale);
-  }
-}
-
 // ---------------------------------------------------------------------------
 // The bf16 backward on the tensor cores.
 //
 // Replaces, for bf16 q/k/v/do: _bwd_dkv_kernel and _bwd_dq_kernel in
 // mxnet_tpu/ops/flash_attention.py (:256 and :285). The f32 instantiations
-// keep the CUDA-core kernels above.
+// are the 3xTF32 kernels of namespace tf32x3 below.
 //
 // Bound on the H100: operations. At B=4 H=16 T=1024 D=64 causal, dK/dV does
 // 4 block products of 2*D flops per live (query, key) pair, 17.2 GFLOP, and
@@ -866,6 +716,325 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 }  // namespace bf16tc
 
+// ---------------------------------------------------------------------------
+// The f32 backward on the tensor cores, in 3xTF32.
+//
+// Replaces, for f32 q/k/v/do: _bwd_dkv_kernel and _bwd_dq_kernel in
+// mxnet_tpu/ops/flash_attention.py (:256 and :285).
+//
+// Bound on the H100: operations. At B=4 H=16 T=1024 D=64 causal dK/dV does
+// 4 block products of 2*D flops per live (query, key) pair, 17.2 GFLOP, and
+// dQ 3, 12.9 GFLOP. An f32-accurate product on the tensor cores takes three
+// TF32 products, so the least time of this work on this card is 3 x flops
+// over 494.7 TFLOP/s of dense TF32 (H100 SXM data sheet, 700 W): 104 and
+// 78 us, against 257 and 193 us for the flops over the 67 TFLOP/s of the
+// f32 CUDA cores. The bytes (about 100 MB) take about 30 us at 3.35 TB/s.
+//
+// Design: the structure of the bf16 kernels above (4 warps per block, 64
+// output rows a block and 16 a warp, the looped operand double-buffered
+// with cp.async, masked tiles skipped, the element mask only on the
+// frontier and ragged tiles, no atomics) with every product on mma.sync
+// m16n8k8 TF32 in 3xTF32 (mma_sm90.cuh): each f32 operand is split in
+// registers into tf32 hi + lo, and each product is a_lo b_hi + a_hi b_lo
+// + a_hi b_hi with f32 accumulators, f32-accurate where one TF32 pass is
+// not. Per looped tile:
+//   dK/dV: s^T = K Q^T and dp^T = V dO^T, p^T = exp(s^T scale - lse) under
+//          the mask, ds^T = p^T (dp^T - di); dV += p^T dO, dK += ds^T Q;
+//   dQ:    s = Q K^T, dp = dO V^T, p and ds as above; dQ += ds K.
+// Shared memory: tiles as f32 [row][channel] with a row stride of D + 4
+// floats (D + 4 = 4 mod 32 banks), so that each fragment load of a warp hits
+// 32 distinct banks: the A loads (rows g and g + 8, columns t and t + 4:
+// bank 4g + t), the score products' B loads (row g, column t: 4g + t) and
+// the accumulating products' k-permuted B loads (rows 2t and 2t + 1,
+// column g: 8t + g and 8t + 4 + g). The C fragments of p and ds are the A
+// fragments of the accumulating products under the k-permutation of
+// mma_sm90.cuh (B rows read in the order 2t, 2t + 1), so p and ds never
+// touch shared memory. Every operand is read from shared memory at each
+// use and split there, the resident tile's A fragments too: split, one
+// resident operand's fragments take 64 registers a thread at D = 64, and
+// two of them do not fit beside the 128 of the accumulators. The looped
+// tile is 64 rows at D = 64 (105,472 bytes of shared memory: two blocks an
+// SM) and 32 rows at D = 128 (135,680 bytes), double-buffered at both.
+//
+// Numerics: scores, exp, lse, di, p, ds and every accumulator are f32, as
+// in the plain version; each product misses only the lo x lo term (about
+// 2^-22 of it) and the sums run in another order, so the kernels are close
+// to, but no longer bit-identical with, the plain FA-2 backward.
+// chip_smoke.py holds them at the f32 tolerance and at a tight limit that a
+// single TF32 pass fails.
+namespace tf32x3 {
+
+using bf16tc::BR;
+using bf16tc::LOG2E;
+using bf16tc::NTH;
+using bf16tc::load_vec;
+
+template <int D>
+struct Tile {
+  static constexpr int LD = D + 4;              // shared-memory row stride (floats)
+  static constexpr int BN = D == 64 ? 64 : 32;  // rows of the looped tile
+};
+
+template <int D>
+__host__ __device__ constexpr size_t smem_bytes() {
+  // two resident tiles, two double-buffered looped tiles, two f32 vectors
+  return ((2 * BR + 4 * Tile<D>::BN) * Tile<D>::LD + 4 * Tile<D>::BN) * sizeof(float);
+}
+
+// Rows [r0, r0 + ROWS) of an (n, D) row-major f32 slice into a [ROWS][D + 4]
+// tile by 16-byte cp.async; rows at or past n are zeros.
+template <int ROWS, int D>
+__device__ __forceinline__ void load_rows(float* sm, const float* __restrict__ src, int r0,
+                                          int n) {
+  constexpr int CH = D / 4;
+  static_assert(ROWS * CH % NTH == 0, "whole copies per thread");
+#pragma unroll
+  for (int it = 0; it < ROWS * CH / NTH; ++it) {
+    const int i = threadIdx.x + it * NTH;
+    const int r = i / CH, c = (i % CH) * 4, row = r0 + r;
+    const bool ok = row < n;
+    cp_async16(sm + r * Tile<D>::LD + c, src + static_cast<size_t>(ok ? row : 0) * D + c,
+               ok ? 16 : 0);
+  }
+}
+
+// n-tiles that share one split A fragment in a 3xTF32 pass (mma_3xtf32)
+template <int TILES>
+__host__ __device__ constexpr int chunk() { return TILES < 8 ? TILES : 8; }
+
+// acc (16 x N) += the warp's 16 rows `res` of a resident [BR][D + 4] tile
+// times the transpose of an (N, D) tile stored [row][channel]: the score
+// products.
+template <int D, int N>
+__device__ __forceinline__ void scores(float (&acc)[N / 8][4], const float* res,
+                                       const float* tile, int lane) {
+  constexpr int LD = Tile<D>::LD, JC = chunk<N / 8>();
+  const int g = lane >> 2, t = lane & 3;
+  const float* a = res + g * LD + t;
+  const float* b = tile + g * LD + t;
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    uint32_t a_hi[4], a_lo[4];
+    split_a(a_hi, a_lo, a[8 * kk], a[8 * LD + 8 * kk], a[8 * kk + 4], a[8 * LD + 8 * kk + 4]);
+#pragma unroll
+    for (int j0 = 0; j0 < N / 8; j0 += JC) {
+      uint32_t b_hi[JC][2], b_lo[JC][2];
+#pragma unroll
+      for (int j = 0; j < JC; ++j) {
+        const float* bj = b + 8 * (j0 + j) * LD + 8 * kk;
+        split_tf32(bj[0], b_hi[j][0], b_lo[j][0]);
+        split_tf32(bj[4], b_hi[j][1], b_lo[j][1]);
+      }
+      mma_3xtf32<JC>(acc + j0, a_hi, a_lo, b_hi, b_lo);
+    }
+  }
+}
+
+// acc (16 x D) += w (16 x N, f32 C fragments) times an (N, D) tile stored
+// [row][channel]: the accumulating products, over the k-permutation of
+// mma_sm90.cuh (k-slot t is row 2t, k-slot t + 4 row 2t + 1).
+template <int D, int N>
+__device__ __forceinline__ void accumulate(float (&acc)[D / 8][4], const float (&w)[N / 8][4],
+                                           const float* tile, int lane) {
+  constexpr int LD = Tile<D>::LD, JC = chunk<D / 8>();
+  const int g = lane >> 2, t = lane & 3;
+  const float* b_row0 = tile + 2 * t * LD + g;  // b0: k-slot t, row 2t
+  const float* b_row1 = b_row0 + LD;            // b1: k-slot t + 4, row 2t + 1
+#pragma unroll
+  for (int kk = 0; kk < N / 8; ++kk) {
+    uint32_t a_hi[4], a_lo[4];
+    split_a(a_hi, a_lo, w[kk][0], w[kk][2], w[kk][1], w[kk][3]);
+#pragma unroll
+    for (int j0 = 0; j0 < D / 8; j0 += JC) {
+      uint32_t b_hi[JC][2], b_lo[JC][2];
+#pragma unroll
+      for (int j = 0; j < JC; ++j) {
+        const int at = 8 * kk * LD + 8 * (j0 + j);
+        split_tf32(b_row0[at], b_hi[j][0], b_lo[j][0]);
+        split_tf32(b_row1[at], b_hi[j][1], b_lo[j][1]);
+      }
+      mma_3xtf32<JC>(acc + j0, a_hi, a_lo, b_hi, b_lo);
+    }
+  }
+}
+
+// A warp's 16 x D f32 accumulator times mul into rows [row0, row0 + 16) of
+// an (n, D) f32 slice; rows at or past n are not written.
+template <int D>
+__device__ __forceinline__ void store_rows(float* dst, const float (&acc)[D / 8][4], int row0,
+                                           int n, int lane, float mul) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + g + 8 * h;
+    if (row >= n) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(dst + static_cast<size_t>(row) * D + 8 * j + 2 * t) =
+          make_float2(acc[j][2 * h] * mul, acc[j][2 * h + 1] * mul);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(NTH)
+flash_bwd_dkv_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const float* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ di,
+                        float* __restrict__ dk, float* __restrict__ dv, int Tq, int Tk,
+                        int causal, float scale) {
+  constexpr int LD = Tile<D>::LD, BQ = Tile<D>::BN;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ks = reinterpret_cast<float*>(smem);
+  float* vs = ks + BR * LD;
+  float* qs = vs + BR * LD;          // [2][BQ][LD]
+  float* dos = qs + 2 * BQ * LD;     // [2][BQ][LD]
+  float* lse_s = dos + 2 * BQ * LD;  // [2][BQ]
+  float* di_s = lse_s + 2 * BQ;      // [2][BQ]
+  const int bh = blockIdx.y, k0 = blockIdx.x * BR;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int off = Tk - Tq;
+  const size_t qoff = static_cast<size_t>(bh) * Tq * D, koff = static_cast<size_t>(bh) * Tk * D;
+  const float* lse_b = lse + static_cast<size_t>(bh) * Tq;
+  const float* di_b = di + static_cast<size_t>(bh) * Tq;
+  const float sl2 = scale * LOG2E;
+
+  // the first query tile with a row that sees key k0; the tiles before it
+  // are masked out entirely
+  const int q_begin = causal ? (max(0, k0 - off) / BQ) * BQ : 0;
+  const int n_tiles = q_begin < Tq ? (Tq - q_begin + BQ - 1) / BQ : 0;
+  auto load_q_tile = [&](int q0, int st) {
+    load_rows<BQ, D>(qs + st * BQ * LD, q + qoff, q0, Tq);
+    load_rows<BQ, D>(dos + st * BQ * LD, dout + qoff, q0, Tq);
+    load_vec<BQ>(lse_s + st * BQ, lse_b, q0, Tq, 0);
+    load_vec<BQ>(di_s + st * BQ, di_b, q0, Tq, BQ);
+  };
+  load_rows<BR, D>(ks, k + koff, k0, Tk);
+  load_rows<BR, D>(vs, v + koff, k0, Tk);
+  cp_async_commit();
+  if (n_tiles > 0) load_q_tile(q_begin, 0);
+  cp_async_commit();
+  const float* kw = ks + warp * 16 * LD;  // this warp's 16 keys
+  const float* vw = vs + warp * 16 * LD;
+
+  float dk_acc[D / 8][4] = {}, dv_acc[D / 8][4] = {};
+  for (int it = 0; it < n_tiles; ++it) {
+    const int q0 = q_begin + it * BQ, st = it & 1;
+    cp_async_wait<0>();  // tile it (and K, V) has landed ...
+    __syncthreads();     // ... for every thread, and tile it - 1 is no longer read
+    if (it + 1 < n_tiles) load_q_tile(q0 + BQ, st ^ 1);
+    cp_async_commit();
+    const float* qt = qs + st * BQ * LD;
+    const float* dot = dos + st * BQ * LD;
+    const float* lse_t = lse_s + st * BQ;
+    const float* di_t = di_s + st * BQ;
+    // transposed: rows are this warp's keys, columns the tile's queries
+    float pt[BQ / 8][4] = {}, dst[BQ / 8][4] = {};
+    scores<D, BQ>(pt, kw, qt, lane);
+    scores<D, BQ>(dst, vw, dot, lane);
+    // key rows past Tk are never stored, so only the queries' end and the
+    // causal frontier need the element mask
+    const bool edge = q0 + BQ > Tq || (causal && k0 + BR - 1 > q0 + off);
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * j + 2 * t + (e & 1);
+        float p = exp2f(pt[j][e] * sl2 - lse_t[c] * LOG2E);
+        if (edge) {
+          const int row = q0 + c, key = k0 + warp * 16 + g + 8 * (e >> 1);
+          if (row >= Tq || (causal && key - row > off)) p = 0.f;
+        }
+        pt[j][e] = p;
+        dst[j][e] = p * (dst[j][e] - di_t[c]);
+      }
+    }
+    accumulate<D, BQ>(dv_acc, pt, dot, lane);   // dv += p^T do
+    accumulate<D, BQ>(dk_acc, dst, qt, lane);   // dk += ds^T q
+  }
+  cp_async_wait<0>();
+  store_rows<D>(dk + koff, dk_acc, k0 + warp * 16, Tk, lane, scale);
+  store_rows<D>(dv + koff, dv_acc, k0 + warp * 16, Tk, lane, 1.f);
+}
+
+template <int D>
+__global__ void __launch_bounds__(NTH)
+flash_bwd_dq_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, const float* __restrict__ dout,
+                       const float* __restrict__ lse, const float* __restrict__ di,
+                       float* __restrict__ dq, int Tq, int Tk, int causal, float scale) {
+  constexpr int LD = Tile<D>::LD, BK = Tile<D>::BN;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem);
+  float* dos = qs + BR * LD;
+  float* kts = dos + BR * LD;      // [2][BK][LD]
+  float* vts = kts + 2 * BK * LD;  // [2][BK][LD]
+  // the last query tiles see the most keys: start them first
+  const int bh = blockIdx.y, q0 = (gridDim.x - 1 - blockIdx.x) * BR;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int off = Tk - Tq;
+  const size_t qoff = static_cast<size_t>(bh) * Tq * D, koff = static_cast<size_t>(bh) * Tk * D;
+  const float sl2 = scale * LOG2E;
+
+  const int n_tiles = (key_end(q0, Tq, Tk, causal) + BK - 1) / BK;
+  auto load_kv_tile = [&](int k0, int st) {
+    load_rows<BK, D>(kts + st * BK * LD, k + koff, k0, Tk);
+    load_rows<BK, D>(vts + st * BK * LD, v + koff, k0, Tk);
+  };
+  load_rows<BR, D>(qs, q + qoff, q0, Tq);
+  load_rows<BR, D>(dos, dout + qoff, q0, Tq);
+  cp_async_commit();
+  if (n_tiles > 0) load_kv_tile(0, 0);
+  cp_async_commit();
+  // this thread's rows: q0 + 16 warp + g and + 8
+  float lse2[2], di_q[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + warp * 16 + g + 8 * h;
+    const size_t at = static_cast<size_t>(bh) * Tq + row;
+    lse2[h] = row < Tq ? lse[at] * LOG2E : 0.f;
+    di_q[h] = row < Tq ? di[at] : 0.f;
+  }
+  const float* qw = qs + warp * 16 * LD;  // this warp's 16 queries
+  const float* dow = dos + warp * 16 * LD;
+
+  float dq_acc[D / 8][4] = {};
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * BK, st = it & 1;
+    cp_async_wait<0>();
+    __syncthreads();
+    if (it + 1 < n_tiles) load_kv_tile(k0 + BK, st ^ 1);
+    cp_async_commit();
+    const float* kt = kts + st * BK * LD;
+    const float* vt = vts + st * BK * LD;
+    float s[BK / 8][4] = {}, ds[BK / 8][4] = {};
+    scores<D, BK>(s, qw, kt, lane);
+    scores<D, BK>(ds, dow, vt, lane);
+    // query rows past Tq are never stored, so only the keys' end and the
+    // causal frontier need the element mask
+    const bool edge = k0 + BK > Tk || (causal && k0 + BK - 1 > q0 + off);
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        float p = exp2f(s[j][e] * sl2 - lse2[h]);
+        if (edge) {
+          const int col = k0 + 8 * j + 2 * t + (e & 1), row = q0 + warp * 16 + g + 8 * h;
+          if (col >= Tk || (causal && col - row > off)) p = 0.f;
+        }
+        ds[j][e] = p * (ds[j][e] - di_q[h]);
+      }
+    }
+    accumulate<D, BK>(dq_acc, ds, kt, lane);  // dq += ds k
+  }
+  cp_async_wait<0>();
+  store_rows<D>(dq + qoff, dq_acc, q0 + warp * 16, Tq, lane, scale);
+}
+
+}  // namespace tf32x3
+
 static bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 // Opt a kernel in to its dynamic shared memory (above the 48 KB default)
@@ -916,11 +1085,11 @@ static int bwd_dkv(const void* q, const void* k, const void* v, const void* dout
                    int Tk, int causal, cudaStream_t s) {
   static bool attr = false;
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout) || !aligned16(dk) ||
+      !aligned16(dv))
+    return static_cast<int>(cudaErrorMisalignedAddress);
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     using bf16tc::bf16;
-    if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout) ||
-        !aligned16(dk) || !aligned16(dv))
-      return static_cast<int>(cudaErrorMisalignedAddress);
     const size_t smem = bf16tc::smem_bytes<D>();
     auto kern = bf16tc::flash_bwd_dkv_tc_kernel<D>;
     const cudaError_t e = allow_smem(kern, smem, attr);
@@ -930,16 +1099,16 @@ static int bwd_dkv(const void* q, const void* k, const void* v, const void* dout
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         static_cast<const bf16*>(dout), lse, di, static_cast<bf16*>(dk),
         static_cast<bf16*>(dv), Tq, Tk, causal, scale);
-  } else {
-    const size_t smem = dkv_smem_floats<D>() * sizeof(float);
-    auto kern = flash_bwd_dkv_kernel<D, T>;
+  } else {  // f32: 3xTF32 on the tensor cores
+    const size_t smem = tf32x3::smem_bytes<D>();
+    auto kern = tf32x3::flash_bwd_dkv_tc_kernel<D>;
     const cudaError_t e = allow_smem(kern, smem, attr);
     if (e != cudaSuccess) return static_cast<int>(e);
-    dim3 grid((Tk + BT - 1) / BT, BH);
-    kern<<<grid, NT, smem, s>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                static_cast<const T*>(v), static_cast<const T*>(dout), lse, di,
-                                static_cast<T*>(dk), static_cast<T*>(dv), Tq, Tk, causal,
-                                scale);
+    dim3 grid((Tk + bf16tc::BR - 1) / bf16tc::BR, BH);
+    kern<<<grid, bf16tc::NTH, smem, s>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<const float*>(dout), lse, di, static_cast<float*>(dk),
+        static_cast<float*>(dv), Tq, Tk, causal, scale);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -950,10 +1119,10 @@ static int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                   int causal, cudaStream_t s) {
   static bool attr = false;
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout) || !aligned16(dq))
+    return static_cast<int>(cudaErrorMisalignedAddress);
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     using bf16tc::bf16;
-    if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout) || !aligned16(dq))
-      return static_cast<int>(cudaErrorMisalignedAddress);
     const size_t smem = bf16tc::smem_bytes<D>();
     auto kern = bf16tc::flash_bwd_dq_tc_kernel<D>;
     const cudaError_t e = allow_smem(kern, smem, attr);
@@ -963,15 +1132,16 @@ static int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         static_cast<const bf16*>(dout), lse, di, static_cast<bf16*>(dq), Tq, Tk, causal,
         scale);
-  } else {
-    const size_t smem = dq_smem_floats<D>() * sizeof(float);
-    auto kern = flash_bwd_dq_kernel<D, T>;
+  } else {  // f32: 3xTF32 on the tensor cores
+    const size_t smem = tf32x3::smem_bytes<D>();
+    auto kern = tf32x3::flash_bwd_dq_tc_kernel<D>;
     const cudaError_t e = allow_smem(kern, smem, attr);
     if (e != cudaSuccess) return static_cast<int>(e);
-    dim3 grid((Tq + BT - 1) / BT, BH);
-    kern<<<grid, NT, smem, s>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                static_cast<const T*>(v), static_cast<const T*>(dout), lse, di,
-                                static_cast<T*>(dq), Tq, Tk, causal, scale);
+    dim3 grid((Tq + bf16tc::BR - 1) / bf16tc::BR, BH);
+    kern<<<grid, bf16tc::NTH, smem, s>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<const float*>(dout), lse, di, static_cast<float*>(dq), Tq, Tk, causal,
+        scale);
   }
   return static_cast<int>(cudaGetLastError());
 }

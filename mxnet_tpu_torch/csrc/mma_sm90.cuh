@@ -1,7 +1,8 @@
-// Warp-level tensor-core helpers for the port's bf16 kernels: 16-byte
-// cp.async copies into shared memory, ldmatrix fragment loads and the
-// m16n8k16 bf16 mma with f32 accumulation (inline PTX, sm_80 and later;
-// built here for sm_90a).
+// Warp-level tensor-core helpers for the port's bf16 and f32 kernels:
+// 16-byte cp.async copies into shared memory, ldmatrix fragment loads, the
+// m16n8k16 bf16 mma and the m16n8k8 TF32 mma with f32 accumulation, and the
+// split of an f32 value into two TF32 values for 3xTF32 products (inline
+// PTX, sm_80 and later; built here for sm_90a).
 //
 // Fragment layouts of mma.m16n8k16.row.col (g = lane / 4, t = lane % 4):
 //   A (16 x 16, row-major), 4 registers of two bf16 each:
@@ -95,3 +96,72 @@ __device__ __forceinline__ int bn_off(int lane, int ld) {
   return ((lane & 7) + ((lane >> 4) << 3)) * ld + (((lane >> 3) & 1) << 3);
 }
 __device__ __forceinline__ int bk_off(int lane, int ld) { return a_off(lane, ld); }
+
+// ---------------------------------------------------------------------------
+// TF32 and 3xTF32.
+//
+// Fragment layouts of mma.m16n8k8.row.col.f32.tf32.tf32.f32 (g = lane / 4,
+// t = lane % 4), one value a register:
+//   A (16 x 8): a0 = A[g][t], a1 = A[g+8][t], a2 = A[g][t+4], a3 = A[g+8][t+4];
+//   B (8 x 8, k x n): b0 = B[t][g], b1 = B[t+4][g];
+//   C (16 x 8, f32): c0, c1 = C[g][2t, 2t+1], c2, c3 = C[g+8][2t, 2t+1].
+// A thread's C fragment holds columns 2t and 2t+1, its A fragment needs
+// columns t and t+4. A product sums over k, so any permutation of k that A
+// and B share leaves it unchanged: taking k-slot t as column 2t and k-slot
+// t+4 as column 2t+1, the C fragment (c0, c2, c1, c3) is the A fragment of
+// the 8-wide k-slice it covers, if B's rows are read in the same order
+// (b0 from k-row 2t, b1 from 2t+1). No shuffle, no shared memory.
+//
+// 3xTF32: x = hi + lo with hi = x rounded to TF32 (to nearest, ties away
+// from zero: cvt.rna.tf32.f32) and lo = x - hi, exact in f32 and at most
+// half a TF32 ulp of x; the tensor core reads lo's leading 11 bits. Then
+// a b = a_lo b_hi + a_hi b_lo + a_hi b_hi, small terms first, misses the
+// a_lo b_lo term (2^-22 of a b at most) and the bits of lo past its 11th
+// (2^-21): f32-accurate to a few ulps per sum, where one TF32 pass (a_hi
+// b_hi alone) keeps 11 bits (2^-12).
+
+// x = hi + lo (bit patterns of f32 registers). hi is cvt.rna.tf32.f32 of x
+// for every finite x, in two integer operations: on sm_90a the cvt is a
+// sequence of instructions (NaN and infinity tests and selects in the
+// SASS), which made it the 3xTF32 kernels' bottleneck
+// (tools/torch_flash_ab.py --variant cvt_split times them with it;
+// PERF.md has the H100 numbers).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;  // add half an ulp, truncate
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// c += a b over one 16 x 8 x 8 step, TF32 operands.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// An f32 A fragment (a0..a3 in mma order) split into TF32 hi and lo parts.
+__device__ __forceinline__ void split_a(uint32_t (&hi)[4], uint32_t (&lo)[4], float a0, float a1,
+                                        float a2, float a3) {
+  split_tf32(a0, hi[0], lo[0]);
+  split_tf32(a1, hi[1], lo[1]);
+  split_tf32(a2, hi[2], lo[2]);
+  split_tf32(a3, hi[3], lo[3]);
+}
+
+// c[j] += a b[j] in 3xTF32 over JC n-tiles that share the A fragment: the
+// three passes (lo hi, hi lo, hi hi) each run over all JC tiles, so that
+// consecutive mma's write different accumulators instead of waiting on one.
+template <int JC>
+__device__ __forceinline__ void mma_3xtf32(float (*c)[4], const uint32_t (&a_hi)[4],
+                                           const uint32_t (&a_lo)[4],
+                                           const uint32_t (&b_hi)[JC][2],
+                                           const uint32_t (&b_lo)[JC][2]) {
+#pragma unroll
+  for (int j = 0; j < JC; ++j) mma_tf32(c[j], a_lo, b_hi[j][0], b_hi[j][1]);
+#pragma unroll
+  for (int j = 0; j < JC; ++j) mma_tf32(c[j], a_hi, b_lo[j][0], b_lo[j][1]);
+#pragma unroll
+  for (int j = 0; j < JC; ++j) mma_tf32(c[j], a_hi, b_hi[j][0], b_hi[j][1]);
+}

@@ -9,7 +9,14 @@
 // over the keys k <= position[b] + i (and k < n_pages*ps), where key k of
 // row b lives at pool[table[b, k / ps], h, k % ps]. Scores, softmax and the
 // weighted sum are f32; the output is cast to q's dtype. Page ids outside
-// the pool read the trash page 0.
+// the pool read the trash page 0. q and the pools are f32 or bf16 in any
+// pair, or f16 q over f32 pools. Low-precision q over an f32 pool is what
+// an f32 model's cached read gives under amp.init("bfloat16") or
+// amp.init("float16"): there the softmax weights are rounded to q's dtype
+// before the weighted sum, as the TPU kernel (and, for f16, the JAX gather
+// path) rounds att to q's dtype before its f32 product with v (the weights
+// against the running max, the row sum l from the f32 weights); the other
+// pairs keep f32 weights.
 //
 // Bound on the H100: bytes. Decode (Tq = 1) does 4*Ch flops per key and
 // moves 2*Ch*itemsize bytes of K and V per key, 0.5 flop per byte in f32,
@@ -45,6 +52,8 @@
 // Tmax with an identity table, gives bit-identical results to a paged
 // pool. Keys past a query's frontier are skipped, so they contribute
 // exactly 0 whatever the pool holds there. No tensor cores or TMA.
+#include <type_traits>
+
 #include "common.cuh"
 #include "mma_sm90.cuh"
 
@@ -84,6 +93,15 @@ __device__ __forceinline__ void load16(float (&f)[8], const __nv_bfloat16* p) {
     f[2 * i] = x.x;
     f[2 * i + 1] = x.y;
   }
+}
+
+// The weight p as it enters the weighted sum: rounded to q's dtype for
+// low-precision q over an f32 pool (see above), else unchanged.
+template <typename TQ, typename TKV>
+__device__ __forceinline__ float sum_weight(float p) {
+  if constexpr (!std::is_same<TQ, float>::value && std::is_same<TKV, float>::value)
+    return to_f32(from_f32<TQ>(p));
+  return p;
 }
 
 template <int QT, int CH, typename TQ, typename TKV>
@@ -194,7 +212,7 @@ paged_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pool,
       m[qi] = mnew;
 #pragma unroll
       for (int c = 0; c < CPL; ++c) o[qi][c] *= alpha;
-      s[qi] = p;
+      s[qi] = sum_weight<TQ, TKV>(p);
     }
     // weighted V: keys in order; a key past a query's frontier is skipped
 #pragma unroll 4
@@ -381,6 +399,8 @@ extern "C" int mx_paged_attention(const void* q, const void* k_pool, const void*
                B, H, Tq, ps, n_pages, n_pool, split_keys, n_splits};
   if (q_dtype == MX_F32 && kv_dtype == MX_F32) return by_tile<float, float>(Ch, a, s);
   if (q_dtype == MX_F32 && kv_dtype == MX_BF16) return by_tile<float, __nv_bfloat16>(Ch, a, s);
+  if (q_dtype == MX_BF16 && kv_dtype == MX_F32) return by_tile<__nv_bfloat16, float>(Ch, a, s);
+  if (q_dtype == MX_F16 && kv_dtype == MX_F32) return by_tile<__half, float>(Ch, a, s);
   if (q_dtype == MX_BF16 && kv_dtype == MX_BF16)
     return by_tile<__nv_bfloat16, __nv_bfloat16>(Ch, a, s);
   return static_cast<int>(cudaErrorInvalidValue);

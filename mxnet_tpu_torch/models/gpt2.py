@@ -13,6 +13,7 @@ from torch import nn
 
 from .. import initializer as init
 from ..base import resolve_device
+from ..contrib import amp as _amp
 from ..gluon import nn as gnn
 from ..ops import nn as _ops
 from ..ops.attention import (alloc_kv_cache, alloc_paged_kv_cache,
@@ -149,9 +150,10 @@ class GPT2Model(nn.Module):
                                      page_table=page_table)
                 new_cache.append(layer_cache)
         x = self.ln_f(x)
-        # weight-tied LM head (GPT-2 ties input/output embeddings)
-        logits = torch.matmul(x.reshape(b * t, self._units),
-                              self.word_embed.weight.t()).reshape(b, t, -1)
+        # weight-tied LM head (GPT-2 ties input/output embeddings), under
+        # the AMP rule of the JAX F.dot
+        logits = _amp.matmul(x.reshape(b * t, self._units),
+                             self.word_embed.weight.t()).reshape(b, t, -1)
         return logits if cache is None else (logits, new_cache)
 
 

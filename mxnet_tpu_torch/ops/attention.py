@@ -124,10 +124,14 @@ def multi_head_attention(q, k, v, mask=None, causal=False, cache=None,
     or bf16 inputs (float16 takes the einsum path, as the JAX gate sends
     it there). On a CUDA tensor the flash path raises for what the kernels
     do not take (:func:`flash_attention.flash_supported`) instead of
-    falling back. Under a global ``amp.init`` dtype a full-sequence call
-    casts f32 q, k and v to it, as the JAX package does. Scores and softmax
-    are f32 on every path; the result is q's dtype."""
+    falling back. Under a global ``amp.init`` dtype every call casts f32 q,
+    k and v to it before it branches, as the JAX package does: a cached
+    call then reads with low-precision q and writes the new K/V into the
+    cache in the cache's dtype (a bf16 value widened into an f32 pool is
+    exact). Scores and softmax are f32 on every path; the result is the
+    caller's q dtype."""
     orig_dtype = q.dtype
+    q, k, v = _amp.cast_inputs(q, k, v)
     if cache is not None:
         if position is None:
             raise ValueError("multi_head_attention(cache=...) needs position=")
@@ -144,7 +148,6 @@ def multi_head_attention(q, k, v, mask=None, causal=False, cache=None,
         else:
             out, k_buf, v_buf = _cached_mha(q, k, v, k_buf, v_buf, position)
         return out.to(orig_dtype), k_buf, v_buf
-    q, k, v = _amp.cast_inputs(q, k, v)
     if use_flash == "auto":
         # no sequence-length crossover here: see ops/flash_attention.py
         use_flash = mask is None and _config.get("flash_attention") \

@@ -42,12 +42,13 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
 # dtype codes shared with csrc/common.cuh
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def dtype_code(dtype: torch.dtype) -> int:
     if dtype not in _DTYPE_CODE:
-        raise MXNetError(f"kernel dtype must be float32 or bfloat16, got {dtype}")
+        raise MXNetError(f"kernel dtype must be float32, bfloat16 or float16, "
+                         f"got {dtype}")
     return _DTYPE_CODE[dtype]
 
 

@@ -2,14 +2,16 @@
 dK/dV and dQ) and their plain PyTorch versions.
 
 Counterpart of ``mxnet_tpu/ops/flash_attention.py`` (``_fwd_kernel``,
-``_bwd_dkv_kernel``, ``_bwd_dq_kernel``). Tensors are (B, H, T, D) at the
-public functions, as in the JAX package; the kernels see them as
-contiguous (B·H, T, D) slices. The causal mask is aligned bottom-right (query
-r sees keys c <= r + Tk - Tq); a query that sees no key outputs 0 and
-stores lse = 0. :func:`flash_attention` is differentiable through
-:class:`FlashAttention`, which saves (q, k, v, o, lse) as the JAX custom
-VJP does. Each wrapper launches its kernel for CUDA tensors and takes its
-plain version only for CPU tensors.
+``_bwd_dkv_kernel``, ``_bwd_dq_kernel``). The f32 forward runs on the CUDA
+cores; the bf16 kernels and the f32 backward run on the tensor cores, the
+latter in 3xTF32 (f32-accurate, not bit-identical to the plain version).
+Tensors are (B, H, T, D) at the public functions, as in the JAX package;
+the kernels see them as contiguous (B·H, T, D) slices. The causal mask is
+aligned bottom-right (query r sees keys c <= r + Tk - Tq); a query that
+sees no key outputs 0 and stores lse = 0. :func:`flash_attention` is
+differentiable through :class:`FlashAttention`, which saves (q, k, v, o,
+lse) as the JAX custom VJP does. Each wrapper launches its kernel for
+CUDA tensors and takes its plain version only for CPU tensors.
 
 The JAX package engages flash only past a sequence crossover of 2048
 (``_FLASH_MIN_SEQ``) and only for head dims that are a multiple of 64.
@@ -113,8 +115,8 @@ def _flash_bwd_dkv_plain(q, k, v, do, lse, di, causal, rounded=False):
     """Plain version of the dK/dV kernel: exact f32 math by default. With
     ``rounded`` and bf16 inputs, p and ds are rounded to bf16 before the
     accumulating products and the scale is applied to dk at the end, as the
-    bf16 tensor-core kernel does (f32 inputs: the exact math, as the f32
-    kernel)."""
+    bf16 tensor-core kernel does (f32 inputs: the exact math, which the f32
+    kernel's 3xTF32 products match to a few f32 ulps per sum)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     p, ds = _recompute(q, k, v, do, lse, di, causal)
     if rounded and q.dtype == torch.bfloat16:

@@ -19,17 +19,13 @@ __all__ = ["fully_connected", "layer_norm", "tanh_gelu", "embedding"]
 
 def fully_connected(data, weight, bias=None, flatten=True):
     """``data @ weight.T + bias``; weight is (out, in) as in MXNet and
-    ``torch.nn.Linear``. Under a global ``amp.init`` dtype an f32 input is
-    multiplied in that dtype with an f32 sum and an f32 result, as the JAX
-    ``preferred_element_type=f32`` product: the operands are rounded to the
-    low-precision dtype and their products (exact in f32) summed in f32."""
+    ``torch.nn.Linear``. The product follows the AMP rule of the JAX
+    ``fully_connected`` (:func:`contrib.amp.matmul` with ``data_decides``):
+    under a global ``amp.init`` dtype an f32 ``data`` and the weight are
+    multiplied in that dtype with an f32 sum and result."""
     if flatten and data.dim() > 2:
         data = data.reshape(data.shape[0], -1)
-    adt = _amp.compute_dtype()
-    if adt is not None and data.dtype == torch.float32:
-        out = torch.matmul(data.to(adt).float(), weight.to(adt).float().t())
-    else:
-        out = torch.matmul(data, weight.t())
+    out = _amp.matmul(data, weight.t(), data_decides=True)
     if bias is not None:
         out = out + bias
     return out

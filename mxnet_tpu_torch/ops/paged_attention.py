@@ -104,8 +104,11 @@ def paged_attention_read_plain(q, k_pool, v_pool, page_table, position):
     """Plain version of the kernel: per row, gather only the pages up to
     the row's furthest frontier, cut the history there, and run the
     frontier-masked f32 softmax attention (the JAX
-    ``_frontier_masked_attention`` math). Returns (B, H, Tq, Ch) in the
-    promoted dtype of q and the pool."""
+    ``_frontier_masked_attention`` math): scores in the promoted dtype of q
+    and the pool, softmax in f32, the weights rounded to q's dtype, the
+    weighted sum in the promoted dtype of q and the pool. Returns
+    (B, H, Tq, Ch) in q's dtype, as the kernel and the TPU kernel's
+    ``out_shape``."""
     b, h, tq, ch = q.shape
     ps = k_pool.shape[2]
     cap = page_table.shape[1] * ps
@@ -129,7 +132,7 @@ def paged_attention_read_plain(q, k_pool, v_pool, page_table, position):
         att = torch.softmax(scores, dim=-1).to(q.dtype)
         outs.append(torch.einsum("hqk,hkc->hqc", att.to(out_dt),
                                  v.to(out_dt).contiguous()))
-    return torch.stack(outs)
+    return torch.stack(outs).to(q.dtype)
 
 
 def _check(q, k_pool, v_pool, page_table, position):
@@ -144,12 +147,12 @@ def _check(q, k_pool, v_pool, page_table, position):
                          f"do not match q {tuple(q.shape)}")
     if k_pool.dtype != v_pool.dtype:
         raise MXNetError("k_pool and v_pool dtypes differ")
-    if (q.dtype, k_pool.dtype) not in ((torch.float32, torch.float32),
-                                       (torch.float32, torch.bfloat16),
-                                       (torch.bfloat16, torch.bfloat16)):
-        raise MXNetError(f"paged_attention kernel takes (q, pool) dtypes "
-                         f"f32/f32, f32/bf16 or bf16/bf16, got {q.dtype}/"
-                         f"{k_pool.dtype}")
+    lp = (torch.float32, torch.bfloat16)
+    if not (q.dtype in lp and k_pool.dtype in lp
+            or (q.dtype, k_pool.dtype) == (torch.float16, torch.float32)):
+        raise MXNetError(f"paged_attention kernel takes f32 or bf16 q and "
+                         f"pools in any pair, or f16 q over f32 pools, got "
+                         f"{q.dtype}/{k_pool.dtype}")
     if page_table.dtype != torch.int32 or position.dtype != torch.int32:
         raise MXNetError("page_table and position must be int32")
     if page_table.dim() != 2 or page_table.shape[0] != b \
@@ -167,9 +170,11 @@ def _check(q, k_pool, v_pool, page_table, position):
 def paged_attention_read(q, k_pool, v_pool, page_table, position):
     """Frontier-masked attention of ``q`` (B, H, Tq, Ch) over the keys each
     row's ``page_table`` (B, n_pages) names in the pools (P+1, H, ps, Ch).
-    Query i of row b attends keys ``<= position[b] + i``. Returns
-    (B, H, Tq, Ch) in ``q.dtype`` (the kernel) or the promoted dtype (the
-    plain version, CPU tensors only).
+    Query i of row b attends keys ``<= position[b] + i``. q and the pools
+    are f32 or bf16 in any pair, or f16 q over f32 pools: an f32 model's
+    cached read under ``amp.init("bfloat16")`` or ``amp.init("float16")``
+    gives low-precision q over f32 pools. Returns (B, H, Tq, Ch) in
+    ``q.dtype``.
 
     The read has no backward: the cached paths serve, under no_grad or
     inference mode. With grad mode on and an input that requires grad it

@@ -234,6 +234,43 @@ def test_bf16_tracks_f32_and_the_knobs_agree():
     assert ts_default.amp_policy is None and l_default == l32
 
 
+@pytest.mark.parametrize("init", [False, True], ids=["no_init", "amp_init"])
+def test_bf16_train_step_unchanged_by_the_lm_head_rule(monkeypatch, init):
+    """The tied LM head's AMP rule (contrib.amp.matmul) leaves
+    TrainStep(amp="bfloat16") as it was, with or without amp.init: its bf16
+    copies make both operands bf16, which the rule passes to a plain
+    matmul. Losses and final masters equal those of a head that is a bare
+    torch.matmul, bit for bit."""
+    ids, labels = _batch(2)
+
+    def run():
+        net = tgpt2.GPT2Model(**SMALL, device="cpu", seed=4)
+        ts = TrainStep(net, tloss.SoftmaxCrossEntropyLoss(),
+                       topt.Adam(learning_rate=LR), amp="bfloat16")
+        losses = [float(ts(ids, labels)) for _ in range(STEPS)]
+        return losses, {n: p.detach().clone()
+                        for n, p in net.named_parameters()}
+
+    rule = tgpt2._amp.matmul
+
+    def bare_head(a, b, data_decides=False):
+        # fully_connected (data_decides) keeps the rule; the head is bare
+        return rule(a, b, data_decides=True) if data_decides \
+            else torch.matmul(a, b)
+
+    try:
+        if init:
+            amp.init("bfloat16")
+        ruled = run()
+        monkeypatch.setattr(tgpt2._amp, "matmul", bare_head)
+        bare = run()
+    finally:
+        amp._reset()
+    assert ruled[0] == bare[0]
+    for name, p in ruled[1].items():
+        assert torch.equal(p, bare[1][name]), name
+
+
 # -- float16 dynamic loss scaling --------------------------------------------
 IN, OUT = 6, 4
 

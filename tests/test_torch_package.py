@@ -1,6 +1,8 @@
-"""Boundaries of the PyTorch/CUDA port: it imports neither JAX nor the JAX
-package, its entry points run on the card unless the caller names the CPU,
-and chip_smoke.py fails, printing no result, without a card."""
+"""Boundaries of the PyTorch/CUDA port: it (and chip_smoke.py and the
+port's tools/torch_*.py, which run on the card's machine) imports neither
+JAX nor the JAX package, its entry points run on the card unless the
+caller names the CPU, and chip_smoke.py fails, printing no result, without
+a card."""
 import ast
 import pathlib
 import subprocess
@@ -38,7 +40,8 @@ def test_import_leaves_jax_out_of_sys_modules():
     assert out.stdout.strip() == "[]", out.stdout
 
 
-@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+                         + sorted((ROOT / "tools").glob("torch_*.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_import_in_source(path):
     bad = _imported_roots(path) & set(FORBIDDEN)

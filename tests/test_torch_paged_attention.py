@@ -2,9 +2,10 @@
 the JAX package's Pallas kernel in interpret mode, on the same numpy
 inputs: the cases of tests/test_pallas_paged_attention.py (tq 1 and 5,
 ragged final pages, released rows whose table is all trash). Tolerances:
-1e-5 with f32 pools, 2e-2 with bf16 pools. Within the port, the dense
-cache (identity page table) and the paged cache give bit-identical
-outputs on the CPU."""
+1e-5 with f32 pools, 2e-2 with bf16 pools; low-precision q over f32
+pools (the cached read under amp.init, bf16 or f16 q) at the tolerance
+of q's dtype. Within the port, the dense cache (identity page table) and
+the paged cache give bit-identical outputs on the CPU."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,6 +19,8 @@ from mxnet_tpu_torch.ops import attention as tatt
 from mxnet_tpu_torch.ops import paged_attention as tpa
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# f16 q over f32 pools: f16 outputs one ulp apart (2^-10 relative)
+F16_TOL = 2e-3
 
 
 def _mk_case(rs, b, h, tq, ch, ps, n_pages, pool_pages, trash_rows=False,
@@ -74,6 +77,68 @@ def test_matches_jax_kernel(dtype, tq):
     rs = np.random.RandomState(0)
     _compare(_mk_case(rs, b=3, h=2, tq=tq, ch=16, ps=8, n_pages=8,
                       pool_pages=12), dtype)
+
+
+@pytest.mark.parametrize("tq", [1, 5])
+def test_bf16_q_over_f32_pool_matches_jax_kernel(tq):
+    """The pair an f32 model's cached read gives under amp.init("bfloat16"):
+    bf16 q, k_new and v_new over f32 pools. The new K/V are widened into the
+    pools exactly; the read's scores are f32 from the widened q, its weights
+    rounded to bf16 before their f32 product with v, and the output bf16,
+    as the JAX kernel's ``out_shape`` (tolerance: bf16)."""
+    rs = np.random.RandomState(8)
+    case = _mk_case(rs, b=3, h=2, tq=tq, ch=16, ps=8, n_pages=8,
+                    pool_pages=12, trash_rows=True)
+    low = {k: np.asarray(jnp.asarray(case[k], jnp.bfloat16))
+           for k in ("q", "k_new", "v_new")}
+    out, kp, vp = ppa.paged_attention(
+        *(jnp.asarray(low[k]) for k in ("q", "k_new", "v_new")),
+        jnp.asarray(case["k_pool"]), jnp.asarray(case["v_pool"]),
+        jnp.asarray(case["table"]), jnp.asarray(case["position"]),
+        interpret=True)
+    assert out.dtype == jnp.bfloat16
+    args = [torch.from_numpy(np.asarray(low[k], np.float32)).bfloat16()
+            for k in ("q", "k_new", "v_new")]
+    pools = [torch.from_numpy(case[k].copy()) for k in ("k_pool", "v_pool")]
+    got, tkp, tvp = tpa.paged_attention(
+        *args, *pools, torch.from_numpy(case["table"]),
+        torch.from_numpy(case["position"]))
+    assert got.dtype == torch.bfloat16 and tkp.dtype == torch.float32
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(out, np.float32),
+                               rtol=TOL["bfloat16"], atol=TOL["bfloat16"])
+    np.testing.assert_array_equal(tkp.numpy(), np.asarray(kp))
+    np.testing.assert_array_equal(tvp.numpy(), np.asarray(vp))
+
+
+@pytest.mark.parametrize("tq", [1, 5])
+def test_f16_q_over_f32_pool_matches_jax_kernel(tq):
+    """The pair an f32 model's cached read gives under amp.init("float16"):
+    f16 q, k_new and v_new over f32 pools. Both widen the new K/V into the
+    pools exactly, round the f32 softmax weights to f16 before their f32
+    product with v and return f16 (on a TPU the JAX gate sends f16 q to
+    the gather path, which rounds the same weights and returns f32).
+    Tolerance F16_TOL: f16 outputs whose f32 sums, in another order, round
+    one ulp apart."""
+    rs = np.random.RandomState(9)
+    case = _mk_case(rs, b=3, h=2, tq=tq, ch=16, ps=8, n_pages=8,
+                    pool_pages=12, trash_rows=True)
+    low = {k: case[k].astype(np.float16) for k in ("q", "k_new", "v_new")}
+    out, kp, vp = ppa.paged_attention(
+        *(jnp.asarray(low[k]) for k in ("q", "k_new", "v_new")),
+        jnp.asarray(case["k_pool"]), jnp.asarray(case["v_pool"]),
+        jnp.asarray(case["table"]), jnp.asarray(case["position"]),
+        interpret=True)
+    assert out.dtype == jnp.float16
+    args = [torch.from_numpy(low[k]) for k in ("q", "k_new", "v_new")]
+    pools = [torch.from_numpy(case[k].copy()) for k in ("k_pool", "v_pool")]
+    got, tkp, tvp = tpa.paged_attention(
+        *args, *pools, torch.from_numpy(case["table"]),
+        torch.from_numpy(case["position"]))
+    assert got.dtype == torch.float16 and tkp.dtype == torch.float32
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(out, np.float32),
+                               rtol=F16_TOL, atol=F16_TOL)
+    np.testing.assert_array_equal(tkp.numpy(), np.asarray(kp))
+    np.testing.assert_array_equal(tvp.numpy(), np.asarray(vp))
 
 
 @pytest.mark.parametrize("ps,n_pages", [(6, 11), (8, 3)])
