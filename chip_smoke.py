@@ -8,16 +8,18 @@ prints its last line):
 
   1. build the CUDA kernels from ``mxnet_tpu_torch/csrc/`` (one nvcc per
      source, in parallel), check that the bf16 flash kernels (forward,
-     dK/dV, dQ) and the f32 backward (dK/dV, dQ, 3xTF32) multiply on the
-     tensor cores (HMMA in their SASS, TF32 HMMA for the latter), and
-     print the card's name and power limit;
+     dK/dV, dQ), the f32 flash kernels (forward, dK/dV, dQ, 3xTF32) and
+     the paged prefill read (3xTF32) multiply on the tensor cores (HMMA in
+     their SASS, TF32 HMMA for the 3xTF32 ones), and print the card's name
+     and power limit;
   2. hold each kernel against its plain PyTorch version on the card, at
-     the shapes the serving and training paths give it (the split-key
-     paged read at decode and prefill, frontiers on split boundaries, in
-     five (q, pool) dtype pairs; flash forward and lse, dK/dV, dQ, the
-     bf16 kernels also against plain versions that round p (and ds) as
-     they do, the f32 backward also at a tight limit that one TF32 pass
-     fails; multi-tensor Adam with its
+     the shapes the serving and training paths give it (the paged read at
+     decode, split over the key range, and at prefill, on the tensor
+     cores, frontiers on split boundaries, in five (q, pool) dtype pairs;
+     flash forward and lse, dK/dV, dQ, the bf16 kernels also against plain
+     versions that round p (and ds) as they do, the f32 kernels also at a
+     tight limit that one TF32 pass fails and against an f64 plain
+     version, and a misaligned f32 input refused; multi-tensor Adam with its
      skip flag, inverse loss scale and f16 gradients and copies,
      LayerNorm's gradients through its autograd Function, and the
      softmax-cross-entropy forward (loss and the row statistics) and
@@ -86,13 +88,17 @@ TOL = {
     # f16 q (over f32 pools): the bf16 reasoning at f16's three more
     # mantissa bits, 2e-2 / 8, rounded up
     ("paged_attention", torch.float16): 5e-3,
+    # the prefill read (3xTF32 on the tensor cores) at the same limits: its
+    # products are f32-accurate, its output a convex combination of V rows
+    ("paged_attention_prefill", torch.float32): 1e-5,
+    ("paged_attention_prefill", torch.bfloat16): 2e-2,
+    ("paged_attention_prefill", torch.float16): 5e-3,
     ("layernorm", torch.float32): 2e-5,
     ("layernorm", torch.bfloat16): 3e-2,
     # flash: tests/test_flash_attention.py's forward (2e-4 / 3e-2) and
     # backward (2e-3 / 3e-2) tolerances against the exact plain versions.
-    # The f32 forward keeps f32 scores and sums and differs from them in sum
-    # order only; the f32 backward multiplies in 3xTF32 on the tensor cores,
-    # f32-accurate (each product within about 2^-20 of exact). The
+    # The f32 kernels multiply in 3xTF32 on the tensor cores, f32-accurate
+    # (each product within about 2^-20 of exact). The
     # bf16 backward runs on the tensor cores and rounds p and ds to bf16
     # before the accumulating products (2^-9 relative each, on average over
     # a sum), well inside 3e-2.
@@ -104,6 +110,7 @@ TOL = {
     # below, with no relative term: one TF32 pass instead of three (the lo
     # terms dropped) stays inside 2e-3 but not inside this.
     ("flash_bwd_tight", torch.float32): 0.0,
+    ("flash_fwd_tight", torch.float32): 0.0,
     # ... and against the plain version that rounds p and ds as the kernel
     # does (``rounded=True``). The two compute the same f32 scores in
     # another order (tensor-core sums against cuBLAS's), so p and ds differ
@@ -148,6 +155,8 @@ FLASH_FLIPS = 2
 # the unmodified 3xTF32 kernels over FLASH_CASES at d 64 and 128 (dk, dv,
 # dq together) on the H100 (PERF.md gives the run).
 FLASH_TIGHT_ATOL = 4 * 8.06e-5
+# ... and of the f32 forward (out and lse together), the same way
+FLASH_FWD_TIGHT_ATOL = 4 * 6.199e-6
 # At C classes a row's |dx| averages 2 g / C and most of its elements are
 # far below that (the median at the LM head's shape is ~2e-7 g), so an
 # absolute tolerance at the scale of the other checks would pass a backward
@@ -297,11 +306,17 @@ def phase_build():
         f"{time.perf_counter() - t0:.1f}s (sm_90a)")
     for name, path in libs.items():
         log_path = path.with_suffix(".log")
+        fn = spill = None
         for line in (log_path.read_text().splitlines()
                      if log_path.exists() else []):
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
-    check_tensor_cores(libs["flash_attention"])
+            if "Compiling entry function" in line:
+                fn = line.split("'")[1]
+            elif "spill stores" in line:
+                spill = line.strip().split(", ")[1]
+            elif "registers" in line and fn is not None:
+                regs = line.split("Used ")[1].split(",")[0]
+                log(f"  {name}: {fn[:72]}: {regs}, {spill}")
+    check_tensor_cores(libs)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
@@ -310,46 +325,55 @@ def phase_build():
     return card
 
 
-# the flash kernels that must multiply on the tensor cores: (namespace,
-# kernel, TF32): the bf16 forward and backward, and the f32 backward in
-# 3xTF32, whose HMMA must have the TF32 m16n8k8 shape (.TF32, 1688)
-TC_KERNELS = [(ns, f"{kern}ILi{d}", ns == "tf32x3")
-              for ns, kerns in (("bf16tc", ("flash_fwd_tc_kernel",
-                                            "flash_bwd_dkv_tc_kernel",
-                                            "flash_bwd_dq_tc_kernel")),
-                                ("tf32x3", ("flash_bwd_dkv_tc_kernel",
-                                            "flash_bwd_dq_tc_kernel")))
-              for kern in kerns for d in (64, 128)]
+# the kernels that must multiply on the tensor cores, by library: (name
+# fragments of the kernel, TF32): the bf16 flash forward and backward, the
+# f32 flash forward and backward in 3xTF32, and the paged prefill read in
+# 3xTF32 (every instantiation), whose HMMA must have the TF32 m16n8k8 shape
+# (.TF32, 1688)
+TC_KERNELS = {
+    "flash_attention": [((ns, f"{kern}ILi{d}"), ns == "tf32x3")
+                        for ns in ("bf16tc", "tf32x3")
+                        for kern in ("flash_fwd_tc_kernel",
+                                     "flash_bwd_dkv_tc_kernel",
+                                     "flash_bwd_dq_tc_kernel")
+                        for d in (64, 128)],
+    "paged_attention": [((f"paged_prefill_tc_kernelILi{ch}",), True)
+                        for ch in (16, 32, 64, 128)],
+}
 
 
-def check_tensor_cores(lib):
-    """Count the tensor-core instructions (HMMA, HGMMA) of each flash kernel
-    in the built library's SASS (``cuobjdump -sass``), and among them the
-    TF32 ones, and fail unless every kernel of TC_KERNELS has some (TF32
-    ones for the 3xTF32 kernels)."""
+def check_tensor_cores(libs):
+    """Count the tensor-core instructions (HMMA, HGMMA) of each kernel of
+    the libraries in TC_KERNELS in their SASS (``cuobjdump -sass``), and
+    among them the TF32 ones, and fail unless every kernel that a
+    TC_KERNELS entry names has some (TF32 ones where it says so): each
+    instantiation of a name on its own."""
     from mxnet_tpu_torch.ops import cuda_common
 
     cuobjdump = Path(cuda_common._nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
-                          capture_output=True, text=True, check=True,
-                          timeout=300).stdout
-    counts, fn = {}, None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            fn = line.split("Function :", 1)[1].strip()
-            counts[fn] = [0, 0]
-        elif fn is not None and "HMMA" in line:  # HMMA and HGMMA
-            counts[fn][0] += 1
-            counts[fn][1] += ".TF32" in line or "1688" in line
-    for fn, (n, n_tf32) in sorted(counts.items()):
-        log(f"  flash_attention SASS: {n} tensor-core instructions "
-            f"({n_tf32} TF32) in {fn[:72]}")
-    for ns, want, tf32 in TC_KERNELS:
-        n = sum(c[1 if tf32 else 0] for fn, c in counts.items()
-                if want in fn and ns in fn)
-        if n == 0:
-            raise AssertionError(f"no {'TF32 ' if tf32 else ''}tensor-core "
-                                 f"instruction in {ns}::{want}")
+    for name, wants in TC_KERNELS.items():
+        sass = subprocess.run([str(cuobjdump), "-sass", str(libs[name])],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        counts, fn = {}, None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :", 1)[1].strip()
+                counts[fn] = [0, 0]
+            elif fn is not None and "HMMA" in line:  # HMMA and HGMMA
+                counts[fn][0] += 1
+                counts[fn][1] += ".TF32" in line or "1688" in line
+        for fn, (n, n_tf32) in sorted(counts.items()):
+            if n:
+                log(f"  {name} SASS: {n} tensor-core instructions "
+                    f"({n_tf32} TF32) in {fn[:80]}")
+        for parts, tf32 in wants:
+            fns = [fn for fn in counts if all(p in fn for p in parts)]
+            bare = [fn for fn in fns if counts[fn][1 if tf32 else 0] == 0]
+            if not fns or bare:
+                raise AssertionError(
+                    f"no {'TF32 ' if tf32 else ''}tensor-core instruction "
+                    f"in {'::'.join(parts)} ({bare or 'no such kernel'})")
 
 
 def _paged_case(gen, b, h, tq, ch, ps, n_pages, pool_pages, qdtype, dtype,
@@ -373,17 +397,21 @@ def _paged_case(gen, b, h, tq, ch, ps, n_pages, pool_pages, qdtype, dtype,
     return q, k_pool, v_pool, table, position
 
 
-# (B, tq, positions or None for random, what): the serving shapes (decode
-# and a 128-query prefill chunk at B=8, 16 heads, row 0 all trash), then
-# decode rows whose frontiers sit on a split boundary (key 128 and 256 open
-# a split), a key past one and a key before one, spanning 1 to 8 splits of
-# a 1024-key capacity, and a small prefill (few blocks, so the key range is
-# split) whose first queries see no key of the second split
-PAGED_CASES = [(8, 1, None, "(row 0 all trash)"),
-               (8, 128, None, "(row 0 all trash)"),
-               (8, 1, [127, 128, 129, 255, 256, 300, 511, 1023],
+# (B, H, tq, positions or None for random, what): the serving shapes
+# (decode and a 128-query prefill chunk at B=8, 16 heads, row 0 all trash),
+# then decode rows whose frontiers sit on a split boundary (key 128 and 256
+# open a split), a key past one and a key before one, spanning 1 to 8
+# splits of a 1024-key capacity, a small prefill chunk, the serve path's
+# largest prefill (one row of 512 queries from position 0, 16 heads), and
+# a ragged prefill whose 100 queries cross a 64-query tile and whose
+# frontiers cross key tiles
+PAGED_CASES = [(8, 16, 1, None, "(row 0 all trash)"),
+               (8, 16, 128, None, "(row 0 all trash)"),
+               (8, 16, 1, [127, 128, 129, 255, 256, 300, 511, 1023],
                 "(frontiers at split boundaries)"),
-               (2, 16, [120, 500], "(prefill across splits)")]
+               (2, 4, 16, [120, 500], "(small prefill)"),
+               (1, 16, 512, [0], "(serve prefill from position 0)"),
+               (2, 4, 100, [37, 600], "(ragged prefill across tiles)")]
 
 
 # (q, pool) dtypes of the paged read: f32 and bf16 models, an f32 model's
@@ -399,9 +427,10 @@ PAGED_DTYPES = [(torch.float32, torch.float32),
 def phase_paged_kernels(errs, failures=None):
     """The paged read against its plain version at PAGED_CASES and
     PAGED_DTYPES, page sizes 16 and 6, head width 64, at the tolerance of
-    the output's (q's) dtype; decode errors under ``paged_attention``,
-    prefill under ``paged_attention_prefill``. ``failures`` as in
-    check_close (tools/torch_flash_faults.py)."""
+    the output's (q's) dtype; decode (the CUDA-core kernel) checks and
+    errors under ``paged_attention``, prefill (the tensor-core kernel)
+    under ``paged_attention_prefill``. ``failures`` as in check_close
+    (tools/torch_flash_faults.py)."""
     from mxnet_tpu_torch.ops import paged_attention as pa
 
     dev = torch.device("cuda")
@@ -409,10 +438,9 @@ def phase_paged_kernels(errs, failures=None):
     for qdtype, dtype in PAGED_DTYPES:
         dn = str(dtype)[6:] if qdtype == dtype \
             else f"{str(qdtype)[6:]}/{str(dtype)[6:]}"
-        for b, tq, positions, what in PAGED_CASES:
+        for b, h, tq, positions, what in PAGED_CASES:
             for ps in (16, 6):
                 n_pages = -(-1024 // ps)
-                h = 16 if b == 8 else 4
                 case = _paged_case(gen, b, h, tq, 64, ps, n_pages,
                                    b * n_pages // 2 + 1, qdtype, dtype,
                                    positions is None, dev, positions)
@@ -424,7 +452,7 @@ def phase_paged_kernels(errs, failures=None):
                                          f"{got.dtype} / {want.dtype}")
                 key = "paged_attention" + ("" if tq == 1 else "_prefill")
                 errs[key] = max(errs.get(key, 0.0), check_close(
-                    "paged_attention", qdtype, got, want,
+                    key, qdtype, got, want,
                     f"{dn} B={b} tq={tq} ps={ps} {what}",
                     failures=failures))
 
@@ -449,6 +477,10 @@ def phase_kernels():
                 f"{str(dtype)[6:]} ({rows}, 1024)"))
     phase_layernorm_grads(errs)
     phase_flash_kernels(errs)
+    phase_flash_alignment()
+    log("[flash] f32 forward against the f64 plain version: kernel "
+        f"{errs['flash_fwd_f64']:.3e}, the f32 plain version "
+        f"{errs['flash_fwd_plain_f64']:.3e}")
     log("[flash] f32 backward against the f64 plain version: kernels "
         f"dK/dV {errs['flash_bwd_dkv_f64']:.3e}, dQ "
         f"{errs['flash_bwd_dq_f64']:.3e}; the f32 plain version dK/dV "
@@ -529,18 +561,39 @@ def _flash_bwd_f64(q, k, v, do, lse, di, causal):
             torch.matmul(ds, k) * scale)
 
 
+def _flash_fwd_f64(q, k, v, causal):
+    """The plain forward (``flash_fwd_plain``) in f64 on the same inputs:
+    the witness that tells the f32 kernel's error from the f32 plain
+    version's. Returns (out, lse) in f64."""
+    q, k, v = (t.double() for t in (q, k, v))
+    s = torch.matmul(q * q.shape[-1] ** -0.5, k.transpose(-1, -2))
+    if causal:
+        tq, tk = s.shape[-2], s.shape[-1]
+        live = torch.ones((tq, tk), dtype=torch.bool,
+                          device=q.device).tril(tk - tq)
+        s = s.masked_fill(~live, float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    dead = m == float("-inf")
+    m = torch.where(dead, torch.zeros_like(m), m)
+    l = torch.exp(s - m).sum(dim=-1, keepdim=True)
+    lse = torch.where(dead, torch.zeros_like(m), m + torch.log(l))
+    p = torch.exp(s - lse).masked_fill(dead, 0.0)
+    return torch.matmul(p, v), lse.squeeze(-1)
+
+
 def phase_flash_kernels(errs, dtypes=(torch.float32, torch.bfloat16),
                         failures=None):
     """Flash forward + lse, dK/dV and dQ against their plain versions, f32
-    and bf16, head dims 64 and 128. The bf16 backward is held twice:
-    against the exact plain version and against the one that rounds p and
-    ds as the tensor-core kernels do; the f32 backward (3xTF32) twice too:
-    at the f32 tolerance and at FLASH_TIGHT_ATOL. Errors go to ``errs``
-    under the kernel's name, with ``_bf16`` for bf16 and ``_rounded`` or
-    ``_tight`` for the second check. The f32 backward and its plain version
-    are also measured against the f64 plain version (``_f64`` and
-    ``_plain_f64``; no limit: the witness of what sets the tight limit).
-    ``failures`` as in check_close (tools/torch_flash_faults.py)."""
+    and bf16, head dims 64 and 128. The bf16 kernels are held twice:
+    against the exact plain version and against the one that rounds p (and
+    ds) as the tensor-core kernels do; the f32 kernels (3xTF32) twice too:
+    at the f32 tolerance and at FLASH_FWD_TIGHT_ATOL / FLASH_TIGHT_ATOL.
+    Errors go to ``errs`` under the kernel's name, with ``_bf16`` for bf16
+    and ``_rounded`` or ``_tight`` for the second check. The f32 kernels
+    and their plain versions are also measured against the f64 plain
+    versions (``_f64`` and ``_plain_f64``; no limit: the witness of what
+    sets the tight limits). ``failures`` as in check_close
+    (tools/torch_flash_faults.py)."""
     from mxnet_tpu_torch.ops import flash_attention as fa
 
     dev = torch.device("cuda")
@@ -564,6 +617,20 @@ def phase_flash_kernels(errs, dtypes=(torch.float32, torch.bfloat16),
                      f"out {what}")
                 held("flash_fwd" + sfx, "flash_fwd", dtype, lse, ref_lse,
                      f"lse {what}")
+                if not sfx:  # 3xTF32: the tight limit and the f64 witness
+                    for grad, got, want in (("out", out, ref),
+                                            ("lse", lse, ref_lse)):
+                        held("flash_fwd_tight", "flash_fwd_tight", dtype, got,
+                             want, f"{grad} {what} (tight)",
+                             atol=FLASH_FWD_TIGHT_ATOL)
+                    exact = _flash_fwd_f64(q, k, v, causal)
+                    for key, xs in (("_f64", (out, lse)),
+                                    ("_plain_f64", (ref, ref_lse))):
+                        err = max((x.double() - w).abs().max().item()
+                                  for x, w in zip(xs, exact))
+                        errs["flash_fwd" + key] = max(
+                            errs.get("flash_fwd" + key, 0.0), err)
+                    del exact
                 if sfx:  # the tensor-core forward rounds p as rounded=True
                     rref, rlse = fa.flash_fwd_plain(q, k, v, causal,
                                                     rounded=True)
@@ -614,6 +681,37 @@ def phase_flash_kernels(errs, dtypes=(torch.float32, torch.bfloat16),
                                 errs[kern + key] = max(errs.get(kern + key, 0.0),
                                                        err)
                         del exact
+
+
+def phase_flash_alignment():
+    """A misaligned f32 input (a contiguous view 4 bytes past a 16-byte
+    boundary) is refused: by the forward's wrapper with MXNetError, and by
+    the C launcher itself with cudaErrorMisalignedAddress, before any
+    launch."""
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.ops import cuda_common
+    from mxnet_tpu_torch.ops import flash_attention as fa
+
+    shape = (1, 2, 64, 64)
+    k = torch.zeros(shape, device="cuda")
+    q = torch.zeros(1 + k.numel(), device="cuda")[1:].view(shape)
+    try:
+        fa._flash_fwd(q, k, k, True)
+    except MXNetError as e:
+        log(f"  flash_fwd f32 misaligned q: refused ({e})")
+    else:
+        raise AssertionError("flash_fwd took a misaligned f32 q")
+    out = torch.empty_like(k)
+    lib = cuda_common.load("flash_attention")
+    rc = lib.mx_flash_fwd(q.data_ptr(), k.data_ptr(), k.data_ptr(),
+                          out.data_ptr(), None, 2, 64, 64, 64, 1,
+                          cuda_common.dtype_code(torch.float32),
+                          cuda_common.stream_ptr(q.device))
+    msg = lib.mx_error_string(rc).decode() if rc else "success"
+    if "misaligned" not in msg:
+        raise AssertionError(f"mx_flash_fwd on a misaligned f32 q returned "
+                             f"{rc} ({msg}), not cudaErrorMisalignedAddress")
+    log(f"  mx_flash_fwd f32 misaligned q: refused ({rc}: {msg})")
 
 
 def _adam_close(got, want, tol, what):
@@ -1000,7 +1098,8 @@ def _launch_counts():
 
     return {"flash_fwd": fa.launches["fwd"], "flash_bwd_dkv": fa.launches["dkv"],
             "flash_bwd_dq": fa.launches["dq"], "adam": oo.launches,
-            "layernorm": ln.launches, "paged_attention": pa.launches,
+            "layernorm": ln.launches, "paged_attention": pa.launches["decode"],
+            "paged_attention_prefill": pa.launches["prefill"],
             "xent_fwd": sx.launches["fwd"], "xent_bwd": sx.launches["bwd"]}
 
 
@@ -1011,10 +1110,10 @@ def _reset_launch_counts():
     from mxnet_tpu_torch.ops import paged_attention as pa
     from mxnet_tpu_torch.ops import softmax_xent as sx
 
-    for counts in (fa.launches, sx.launches):
+    for counts in (fa.launches, sx.launches, pa.launches):
         for key in counts:
             counts[key] = 0
-    ln.launches = oo.launches = pa.launches = 0
+    ln.launches = oo.launches = 0
 
 
 def phase_train(warmup=2, steps=10, batch=4, seq=1024, amp=None):
@@ -1050,7 +1149,8 @@ def phase_train(warmup=2, steps=10, batch=4, seq=1024, amp=None):
     xent = 0 if amp is None else 1
     want = {"flash_fwd": N_LAYERS, "flash_bwd_dkv": N_LAYERS,
             "flash_bwd_dq": N_LAYERS, "adam": 1, "layernorm": 2 * N_LAYERS + 1,
-            "paged_attention": 0, "xent_fwd": xent, "xent_bwd": xent}
+            "paged_attention": 0, "paged_attention_prefill": 0,
+            "xent_fwd": xent, "xent_bwd": xent}
     total = dict.fromkeys(want, 0)
     losses = []
     torch.cuda.synchronize()
@@ -1125,14 +1225,15 @@ def phase_serve():
 
     reqs = [batcher.submit(rs.randint(0, 50257, int(n)), max_new_tokens=64)
             for n in rs.randint(32, 501, 16)]
-    ln.launches = 0
-    pa.launches = 0
+    _reset_launch_counts()
     torch.cuda.synchronize()
     t = time.perf_counter()
     batcher.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
-    launches = {"layernorm": ln.launches, "paged_attention": pa.launches}
+    launches = {k: v for k, v in _launch_counts().items()
+                if k in ("layernorm", "paged_attention",
+                         "paged_attention_prefill")}
 
     reasons = [r.finish_reason for r in reqs]
     if any(r is None for r in reasons):
@@ -1142,7 +1243,11 @@ def phase_serve():
                 not all(0 <= x < 50257 for x in r.output):
             raise AssertionError(f"request {r.id}: bad output {r.output[:8]}")
     forwards = calls["prefill"] + calls["decode"]
-    want = {"paged_attention": 24 * forwards, "layernorm": 49 * forwards}
+    # prompts of 32 tokens and more: every prefill reads more than one
+    # query (the prefill kernel), every decode step one (the decode kernel)
+    want = {"paged_attention": 24 * calls["decode"],
+            "paged_attention_prefill": 24 * calls["prefill"],
+            "layernorm": 49 * forwards}
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want} "
                              f"(24 attention + 49 LN per forward, "
@@ -1157,7 +1262,8 @@ def phase_serve():
         f"{statistics.median(ttft) * 1e3:.1f} ms (queue wait included), "
         f"decode {calls['tokens'] / calls['decode_s']:.1f} tokens/s "
         f"({calls['decode_s'] / calls['decode'] * 1e3:.2f} ms/step)")
-    log(f"[serve] launches in the run: {launches} (24 and 49 per forward)")
+    log(f"[serve] launches in the run: {launches} (24 attention reads, "
+        f"decode or prefill, and 49 LayerNorms per forward)")
     return eng, launches
 
 
@@ -1508,8 +1614,8 @@ def main():
         "paged_attention": ("mxnet_tpu_torch/csrc/paged_attention.cu",
                             "mxnet_tpu/ops/pallas_paged_attention.py:79",
                             "serve"),
-        # the same kernel at the prefill shape (its launches: the serve
-        # run's, as above)
+        # the prefill read (the tensor-core kernel of the same file; its
+        # launches: the serve run's prefill reads)
         "paged_attention_prefill": ("mxnet_tpu_torch/csrc/paged_attention.cu",
                                     "mxnet_tpu/ops/pallas_paged_attention.py:79",
                                     "serve"),
@@ -1542,8 +1648,8 @@ def main():
     kernels = []
     for name, (src, rep, path) in meta.items():
         t = timing[name]
-        # one counter for both dtypes, and for decode and prefill
-        counter = name.removesuffix("_bf16").removesuffix("_prefill")
+        # one counter for both dtypes
+        counter = name.removesuffix("_bf16")
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": by_path[path][counter], "launches_path": path,

@@ -16,199 +16,35 @@
 // no key outputs 0 and stores lse = 0, so the backward gives it p = 0.
 // Scores, softmax and every sum are f32; outputs are cast to q's dtype.
 //
-// Four designs share the file:
-//   the f32 forward on the CUDA cores (flash_fwd_kernel, just below);
-//   the bf16 backward and forward on the tensor cores (namespace bf16tc);
-//   the f32 backward on the tensor cores in 3xTF32 (namespace tf32x3).
+// Three designs share the file, all on the tensor cores:
+//   the bf16 backward and forward (namespace bf16tc, mma.sync m16n8k16);
+//   the f32 forward and backward in 3xTF32 (namespace tf32x3, mma.sync
+//   m16n8k8 TF32, with the tile helpers of tf32x3.cuh).
 // Every block owns one output tile and walks the other operand's tiles in
 // a loop of its own (the TPU kernels walk a sequential grid axis and carry
 // the accumulators in VMEM scratch; blocks on the card run in no order):
-//   forward and dQ: one block per (b*h, tile of queries), looping over the
-//   key tiles its rows can see;
-//   dK/dV: one block per (b*h, tile of keys), looping over the query tiles
-//   that can see it.
+//   forward and dQ: one block per (b*h, tile of 64 queries), looping over
+//   the key tiles its rows can see;
+//   dK/dV: one block per (b*h, tile of 64 keys), looping over the query
+//   tiles that can see it.
 // No block writes another's output, so there are no atomics and results
 // are the same from run to run. Tiles that the causal mask hides entirely
 // are skipped, as _causal_gated does on the TPU. Ragged lengths are masked
 // in the kernels: rows past Tq load zeros and are not stored, keys past Tk
-// are masked out of the softmax.
-//
-// The f32 forward. Bound on the H100: operations. At GPT-2 shapes (D = 64,
-// T = 1024) it does 4*D flops per live (query, key) pair and moves 4*T*D
-// elements per slice, about 200 flops per byte, far above the ~20 that the
-// f32 CUDA cores do per byte of HBM (H100 SXM data sheet, 700 W power
-// limit: 67 TFLOP/s over 3.35 TB/s); it uses no tensor cores, so its least
-// time is the flops over 67 TFLOP/s. Blocks of 64 queries; every tile sits
-// in shared memory as f32, transposed to [channel][row] with a row stride
-// of 65 floats: a warp reading one channel across 32 rows and a warp
-// reading one row across 32 channels both hit 32 distinct banks, so one
-// layout serves q k^T and p v. 256 threads form a 16 x 16 grid; thread
-// (ty, tx) holds the 4 x 4 scores of rows ty*4+i and columns tx+16*j in
-// registers, and the 4 x D/16 accumulator entries of rows ty*4+i and
-// channels tx+16*c. A row's 16 owners are the lanes of one half-warp, so
-// the row max and row sum of the online softmax are 4 shuffles.
+// are masked out of the softmax. Every kernel reads its operands by 16-byte
+// cp.async, so every pointer must be 16-byte aligned (the launchers return
+// cudaErrorMisalignedAddress otherwise).
 #include <type_traits>
 
 #include "common.cuh"
 #include "mma_sm90.cuh"
+#include "tf32x3.cuh"
 
-constexpr int BT = 64;        // rows of a query or key tile
-constexpr int TS = BT + 1;    // row stride of a transposed tile in shared memory
-constexpr int NT = 256;       // threads per block, a 16 x 16 grid
-constexpr unsigned FULL = 0xffffffffu;
-
-template <int D>
-__host__ __device__ constexpr size_t fwd_smem_floats() {
-  return 3 * D * TS + BT * TS;  // q, k, v tiles and the p tile
-}
-
-// Rows [r0, r0 + BT) of a (n, D) row-major slice into sm[d * TS + r] as f32
-// times mul; rows at or past n read as 0. Consecutive threads take
-// consecutive channels: coalesced in device memory, distinct banks here.
-template <int D, typename T>
-__device__ __forceinline__ void load_tile(float* sm, const T* __restrict__ src, int r0,
-                                          int n, float mul) {
-  for (int i = threadIdx.x; i < BT * D; i += NT) {
-    const int r = i / D, d = i % D;
-    const int row = r0 + r;
-    sm[d * TS + r] = row < n ? to_f32(src[static_cast<size_t>(row) * D + d]) * mul : 0.f;
-  }
-}
-
-// Sum (or max) over the 16 lanes of a half-warp: the owners of one row.
-__device__ __forceinline__ float row_sum16(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  return v;
-}
-__device__ __forceinline__ float row_max16(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
-  return v;
-}
-
-// End (exclusive) of the keys that query rows [q0, q0 + BT) can see.
+// End (exclusive) of the keys that query rows [q0, q0 + 64) can see.
 __device__ __forceinline__ int key_end(int q0, int Tq, int Tk, int causal) {
   if (!causal) return Tk;
-  const int last = min(q0 + BT, Tq) - 1 + (Tk - Tq);  // frontier of the last row
+  const int last = min(q0 + tf32x3::BR, Tq) - 1 + (Tk - Tq);  // frontier of the last row
   return max(0, min(Tk, last + 1));
-}
-
-// acc[i][j] += sum_d a[d * TS + ra + i] * b[d * TS + rb + 16 j] over d < D:
-// the 4 x 4 register tile of a product of two transposed tiles.
-template <int D>
-__device__ __forceinline__ void tile_dot(float (&acc)[4][4], const float* a, int ra,
-                                         const float* b, int rb) {
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float x[4], y[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) x[i] = a[d * TS + ra + i];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) y[j] = b[d * TS + rb + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(x[i], y[j], acc[i][j]);
-  }
-}
-
-// acc[i][c] += sum_r w[(ra + i) * TS + r] * t[(tx + 16 c) * TS + r] over
-// r < BT: the accumulating product of a row-major (64 x 64) weight tile and
-// a transposed (D x 64) operand tile.
-template <int D>
-__device__ __forceinline__ void tile_acc(float (&acc)[4][D / 16], const float* w, int ra,
-                                         const float* t, int tx) {
-#pragma unroll 4
-  for (int r = 0; r < BT; ++r) {
-    float x[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) x[i] = w[(ra + i) * TS + r];
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) {
-      const float y = t[(tx + 16 * c) * TS + r];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(x[i], y, acc[i][c]);
-    }
-  }
-}
-
-// The f32 forward (bf16 goes to bf16tc::flash_fwd_tc_kernel).
-template <int D, typename T>
-__global__ void __launch_bounds__(NT)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, float* __restrict__ lse, int Tq, int Tk, int causal,
-                 float scale) {
-  extern __shared__ float sm[];
-  float* qs = sm;
-  float* ks = qs + D * TS;
-  float* vs = ks + D * TS;
-  float* ps = vs + D * TS;
-  const int bh = blockIdx.y, q0 = blockIdx.x * BT;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int off = Tk - Tq;
-  const size_t qoff = static_cast<size_t>(bh) * Tq * D, koff = static_cast<size_t>(bh) * Tk * D;
-
-  load_tile<D>(qs, q + qoff, q0, Tq, scale);
-  float m[4], l[4], acc[4][D / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) acc[i][c] = 0.f;
-  }
-
-  const int k_end = key_end(q0, Tq, Tk, causal);
-  for (int k0 = 0; k0 < k_end; k0 += BT) {
-    __syncthreads();  // the previous tile's k, v and p are no longer read
-    load_tile<D>(ks, k + koff, k0, Tk, 1.f);
-    load_tile<D>(vs, v + koff, k0, Tk, 1.f);
-    __syncthreads();
-    float s[4][4] = {};
-    tile_dot<D>(s, qs, ty * 4, ks, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        const bool live = col < Tk && (!causal || col <= row + off);
-        s[i][j] = live ? s[i][j] : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max16(mx));
-      // a row with no live key yet keeps m = -inf: guard exp against nan
-      const float m_safe = m_new == -INFINITY ? 0.f : m_new;
-      const float corr = m[i] == -INFINITY ? 0.f : expf(m[i] - m_safe);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = s[i][j] == -INFINITY ? 0.f : expf(s[i][j] - m_safe);
-        ps[(ty * 4 + i) * TS + tx + 16 * j] = p;
-        rs += p;
-      }
-      l[i] = corr * l[i] + row_sum16(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < D / 16; ++c) acc[i][c] *= corr;
-    }
-    __syncthreads();
-    tile_acc<D>(acc, ps, ty * 4, vs, tx);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= Tq) continue;
-    const float den = l[i] == 0.f ? 1.f : l[i];
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c)
-      o[qoff + static_cast<size_t>(row) * D + tx + 16 * c] = from_f32<T>(acc[i][c] / den);
-    if (lse != nullptr && tx == 0)
-      lse[static_cast<size_t>(bh) * Tq + row] = l[i] == 0.f ? 0.f : m[i] + logf(l[i]);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -256,10 +92,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 namespace bf16tc {
 
 using bf16 = __nv_bfloat16;
-constexpr int NW = 4;          // warps a block
-constexpr int NTH = 32 * NW;   // threads a block
-constexpr int BR = 16 * NW;    // rows of the resident tile, 16 a warp
-constexpr float LOG2E = 1.4426950408889634f;
+// 4 warps a block, 64 rows of the resident tile (16 a warp), as tf32x3
+using tf32x3::BR;
+using tf32x3::FULL;
+using tf32x3::LOG2E;
+using tf32x3::NTH;
 
 template <int D>
 struct Tile {
@@ -562,7 +399,7 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // The bf16 forward on the tensor cores.
 //
 // Replaces, for bf16 q/k/v: _fwd_kernel in mxnet_tpu/ops/flash_attention.py
-// (:100). The f32 instantiation keeps flash_fwd_kernel above, unchanged.
+// (:100). The f32 instantiation is tf32x3::flash_fwd_tc_kernel below.
 //
 // Bound on the H100: operations, barely. At B=4 H=16 T=1024 D=64 causal it
 // does 2 block products of 2*D flops per live (query, key) pair, 8.6 GFLOP,
@@ -582,7 +419,7 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // of accumulate. Exponentials are exp2f of s * scale * log2(e). Each lane
 // keeps the partial row sums l of its own columns; the four are added at the
 // end. Epilogue: o = acc * (1 / l) rounded to bf16, lse = m + log(l) in f32
-// for rows with l > 0, else 0 (out 0), as flash_fwd_kernel. Tiles that the
+// for rows with l > 0, else 0 (out 0). Tiles that the
 // causal mask hides entirely are skipped, the element mask runs only on the
 // tiles on the causal frontier or the ragged end, and blocks start from the
 // last query tiles, which see the most keys.
@@ -717,56 +554,55 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }  // namespace bf16tc
 
 // ---------------------------------------------------------------------------
-// The f32 backward on the tensor cores, in 3xTF32.
+// The f32 forward and backward on the tensor cores, in 3xTF32.
 //
-// Replaces, for f32 q/k/v/do: _bwd_dkv_kernel and _bwd_dq_kernel in
-// mxnet_tpu/ops/flash_attention.py (:256 and :285).
+// Replace, for f32 q/k/v/do: _fwd_kernel, _bwd_dkv_kernel and _bwd_dq_kernel
+// in mxnet_tpu/ops/flash_attention.py (:100, :256 and :285).
 //
-// Bound on the H100: operations. At B=4 H=16 T=1024 D=64 causal dK/dV does
-// 4 block products of 2*D flops per live (query, key) pair, 17.2 GFLOP, and
-// dQ 3, 12.9 GFLOP. An f32-accurate product on the tensor cores takes three
-// TF32 products, so the least time of this work on this card is 3 x flops
-// over 494.7 TFLOP/s of dense TF32 (H100 SXM data sheet, 700 W): 104 and
-// 78 us, against 257 and 193 us for the flops over the 67 TFLOP/s of the
-// f32 CUDA cores. The bytes (about 100 MB) take about 30 us at 3.35 TB/s.
+// Bound on the H100: operations. At B=4 H=16 T=1024 D=64 causal the forward
+// does 2 block products of 2*D flops per live (query, key) pair, 8.6 GFLOP,
+// dK/dV 4, 17.2 GFLOP, and dQ 3, 12.9 GFLOP. An f32-accurate product on the
+// tensor cores takes three TF32 products, so the least time of this work on
+// this card is 3 x flops over 494.7 TFLOP/s of dense TF32 (H100 SXM data
+// sheet, 700 W): 52, 104 and 78 us, against 128, 257 and 193 us for the
+// flops over the 67 TFLOP/s of the f32 CUDA cores. The bytes (34 MB for the
+// forward, about 100 MB for the backward) take 10 and 30 us at 3.35 TB/s.
 //
 // Design: the structure of the bf16 kernels above (4 warps per block, 64
 // output rows a block and 16 a warp, the looped operand double-buffered
 // with cp.async, masked tiles skipped, the element mask only on the
-// frontier and ragged tiles, no atomics) with every product on mma.sync
-// m16n8k8 TF32 in 3xTF32 (mma_sm90.cuh): each f32 operand is split in
+// frontier and ragged tiles, the forward and dQ starting from the last
+// query tiles, which see the most keys, no atomics) with every product on
+// mma.sync m16n8k8 TF32 in 3xTF32 (tf32x3.cuh): each f32 operand is split in
 // registers into tf32 hi + lo, and each product is a_lo b_hi + a_hi b_lo
 // + a_hi b_hi with f32 accumulators, f32-accurate where one TF32 pass is
 // not. Per looped tile:
-//   dK/dV: s^T = K Q^T and dp^T = V dO^T, p^T = exp(s^T scale - lse) under
-//          the mask, ds^T = p^T (dp^T - di); dV += p^T dO, dK += ds^T Q;
-//   dQ:    s = Q K^T, dp = dO V^T, p and ds as above; dQ += ds K.
+//   forward: s = Q K^T, the online softmax on the C fragments in registers
+//            (softmax_tile: exp2 of s scale log2(e), O rescaled when a row's
+//            max moves), O += P V with the f32 p as A fragments;
+//   dK/dV:   s^T = K Q^T and dp^T = V dO^T, p^T = exp(s^T scale - lse) under
+//            the mask, ds^T = p^T (dp^T - di); dV += p^T dO, dK += ds^T Q;
+//   dQ:      s = Q K^T, dp = dO V^T, p and ds as above; dQ += ds K.
 // Shared memory: tiles as f32 [row][channel] with a row stride of D + 4
-// floats (D + 4 = 4 mod 32 banks), so that each fragment load of a warp hits
-// 32 distinct banks: the A loads (rows g and g + 8, columns t and t + 4:
-// bank 4g + t), the score products' B loads (row g, column t: 4g + t) and
-// the accumulating products' k-permuted B loads (rows 2t and 2t + 1,
-// column g: 8t + g and 8t + 4 + g). The C fragments of p and ds are the A
-// fragments of the accumulating products under the k-permutation of
-// mma_sm90.cuh (B rows read in the order 2t, 2t + 1), so p and ds never
-// touch shared memory. Every operand is read from shared memory at each
-// use and split there, the resident tile's A fragments too: split, one
-// resident operand's fragments take 64 registers a thread at D = 64, and
-// two of them do not fit beside the 128 of the accumulators. The looped
-// tile is 64 rows at D = 64 (105,472 bytes of shared memory: two blocks an
-// SM) and 32 rows at D = 128 (135,680 bytes), double-buffered at both.
+// floats, conflict-free for the three fragment loads (tf32x3.cuh). The C
+// fragments of p and ds are the A fragments of the accumulating products
+// under the k-permutation of mma_sm90.cuh, so p and ds never touch shared
+// memory. Every operand is read from shared memory at each use and split
+// there, the resident tile's A fragments too: split, one resident operand's
+// fragments take 64 registers a thread at D = 64, and in the backward two
+// of them do not fit beside the 128 of the accumulators. The looped tile is
+// 64 rows at D = 64 and 32 rows at D = 128, double-buffered at both. Shared
+// memory, forward: 87,040 bytes (D = 64) and 101,376 (D = 128), two blocks
+// an SM at both; backward: 105,472 (two blocks an SM) and 135,680 (one).
 //
 // Numerics: scores, exp, lse, di, p, ds and every accumulator are f32, as
-// in the plain version; each product misses only the lo x lo term (about
+// in the plain versions; each product misses only the lo x lo term (about
 // 2^-22 of it) and the sums run in another order, so the kernels are close
-// to, but no longer bit-identical with, the plain FA-2 backward.
-// chip_smoke.py holds them at the f32 tolerance and at a tight limit that a
+// to, but not bit-identical with, the plain forward and FA-2 backward.
+// chip_smoke.py holds each at the f32 tolerance and at a tight limit that a
 // single TF32 pass fails.
 namespace tf32x3 {
 
-using bf16tc::BR;
-using bf16tc::LOG2E;
-using bf16tc::NTH;
 using bf16tc::load_vec;
 
 template <int D>
@@ -781,97 +617,88 @@ __host__ __device__ constexpr size_t smem_bytes() {
   return ((2 * BR + 4 * Tile<D>::BN) * Tile<D>::LD + 4 * Tile<D>::BN) * sizeof(float);
 }
 
-// Rows [r0, r0 + ROWS) of an (n, D) row-major f32 slice into a [ROWS][D + 4]
-// tile by 16-byte cp.async; rows at or past n are zeros.
-template <int ROWS, int D>
-__device__ __forceinline__ void load_rows(float* sm, const float* __restrict__ src, int r0,
-                                          int n) {
-  constexpr int CH = D / 4;
-  static_assert(ROWS * CH % NTH == 0, "whole copies per thread");
-#pragma unroll
-  for (int it = 0; it < ROWS * CH / NTH; ++it) {
-    const int i = threadIdx.x + it * NTH;
-    const int r = i / CH, c = (i % CH) * 4, row = r0 + r;
-    const bool ok = row < n;
-    cp_async16(sm + r * Tile<D>::LD + c, src + static_cast<size_t>(ok ? row : 0) * D + c,
-               ok ? 16 : 0);
-  }
-}
-
-// n-tiles that share one split A fragment in a 3xTF32 pass (mma_3xtf32)
-template <int TILES>
-__host__ __device__ constexpr int chunk() { return TILES < 8 ? TILES : 8; }
-
-// acc (16 x N) += the warp's 16 rows `res` of a resident [BR][D + 4] tile
-// times the transpose of an (N, D) tile stored [row][channel]: the score
-// products.
-template <int D, int N>
-__device__ __forceinline__ void scores(float (&acc)[N / 8][4], const float* res,
-                                       const float* tile, int lane) {
-  constexpr int LD = Tile<D>::LD, JC = chunk<N / 8>();
-  const int g = lane >> 2, t = lane & 3;
-  const float* a = res + g * LD + t;
-  const float* b = tile + g * LD + t;
-#pragma unroll
-  for (int kk = 0; kk < D / 8; ++kk) {
-    uint32_t a_hi[4], a_lo[4];
-    split_a(a_hi, a_lo, a[8 * kk], a[8 * LD + 8 * kk], a[8 * kk + 4], a[8 * LD + 8 * kk + 4]);
-#pragma unroll
-    for (int j0 = 0; j0 < N / 8; j0 += JC) {
-      uint32_t b_hi[JC][2], b_lo[JC][2];
-#pragma unroll
-      for (int j = 0; j < JC; ++j) {
-        const float* bj = b + 8 * (j0 + j) * LD + 8 * kk;
-        split_tf32(bj[0], b_hi[j][0], b_lo[j][0]);
-        split_tf32(bj[4], b_hi[j][1], b_lo[j][1]);
-      }
-      mma_3xtf32<JC>(acc + j0, a_hi, a_lo, b_hi, b_lo);
-    }
-  }
-}
-
-// acc (16 x D) += w (16 x N, f32 C fragments) times an (N, D) tile stored
-// [row][channel]: the accumulating products, over the k-permutation of
-// mma_sm90.cuh (k-slot t is row 2t, k-slot t + 4 row 2t + 1).
-template <int D, int N>
-__device__ __forceinline__ void accumulate(float (&acc)[D / 8][4], const float (&w)[N / 8][4],
-                                           const float* tile, int lane) {
-  constexpr int LD = Tile<D>::LD, JC = chunk<D / 8>();
-  const int g = lane >> 2, t = lane & 3;
-  const float* b_row0 = tile + 2 * t * LD + g;  // b0: k-slot t, row 2t
-  const float* b_row1 = b_row0 + LD;            // b1: k-slot t + 4, row 2t + 1
-#pragma unroll
-  for (int kk = 0; kk < N / 8; ++kk) {
-    uint32_t a_hi[4], a_lo[4];
-    split_a(a_hi, a_lo, w[kk][0], w[kk][2], w[kk][1], w[kk][3]);
-#pragma unroll
-    for (int j0 = 0; j0 < D / 8; j0 += JC) {
-      uint32_t b_hi[JC][2], b_lo[JC][2];
-#pragma unroll
-      for (int j = 0; j < JC; ++j) {
-        const int at = 8 * kk * LD + 8 * (j0 + j);
-        split_tf32(b_row0[at], b_hi[j][0], b_lo[j][0]);
-        split_tf32(b_row1[at], b_hi[j][1], b_lo[j][1]);
-      }
-      mma_3xtf32<JC>(acc + j0, a_hi, a_lo, b_hi, b_lo);
-    }
-  }
-}
-
-// A warp's 16 x D f32 accumulator times mul into rows [row0, row0 + 16) of
-// an (n, D) f32 slice; rows at or past n are not written.
 template <int D>
-__device__ __forceinline__ void store_rows(float* dst, const float (&acc)[D / 8][4], int row0,
-                                           int n, int lane, float mul) {
+__host__ __device__ constexpr size_t fwd_smem_bytes() {
+  // the resident Q tile and double-buffered K and V tiles
+  return (BR + 4 * Tile<D>::BN) * Tile<D>::LD * sizeof(float);
+}
+
+template <int D>
+__global__ void __launch_bounds__(NTH)
+flash_fwd_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                    int Tq, int Tk, int causal, float scale) {
+  constexpr int LD = Tile<D>::LD, BK = Tile<D>::BN;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem);
+  float* kts = qs + BR * LD;       // [2][BK][LD]
+  float* vts = kts + 2 * BK * LD;  // [2][BK][LD]
+  // the last query tiles see the most keys: start them first
+  const int bh = blockIdx.y, q0 = (gridDim.x - 1 - blockIdx.x) * BR;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
+  const int off = Tk - Tq;
+  const size_t qoff = static_cast<size_t>(bh) * Tq * D, koff = static_cast<size_t>(bh) * Tk * D;
+  const float sl2 = scale * LOG2E;
+
+  const int n_tiles = (key_end(q0, Tq, Tk, causal) + BK - 1) / BK;
+  auto load_kv_tile = [&](int k0, int st) {
+    load_rows<BK, D, LD>(kts + st * BK * LD, k + koff, k0, Tk);
+    load_rows<BK, D, LD>(vts + st * BK * LD, v + koff, k0, Tk);
+  };
+  load_rows<BR, D, LD>(qs, q + qoff, q0, Tq);
+  cp_async_commit();
+  if (n_tiles > 0) load_kv_tile(0, 0);
+  cp_async_commit();
+  const float* qw = qs + warp * 16 * LD;  // this warp's 16 queries
+
+  // this thread's rows q0 + 16 warp + g (h = 0) and + 8 (h = 1); m in
+  // units of s * scale * log2(e), l this lane's share of the row sum
+  float acc[D / 8][4] = {};
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * BK, st = it & 1;
+    cp_async_wait<0>();  // tile it (and Q) has landed ...
+    __syncthreads();     // ... for every thread, and tile it - 1 is no longer read
+    if (it + 1 < n_tiles) load_kv_tile(k0 + BK, st ^ 1);
+    cp_async_commit();
+    const float* kt = kts + st * BK * LD;
+    const float* vt = vts + st * BK * LD;
+    float s[BK / 8][4] = {};
+    scores<D, BK, LD, LD>(s, qw, kt, lane);
+    // query rows past Tq are never stored, so only the keys' end and the
+    // causal frontier need the element mask
+    const bool edge = k0 + BK > Tk || (causal && k0 + BK - 1 > q0 + off);
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = row0 + g + 8 * h;
-    if (row >= n) continue;
+    for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<float2*>(dst + static_cast<size_t>(row) * D + 8 * j + 2 * t) =
-          make_float2(acc[j][2 * h] * mul, acc[j][2 * h + 1] * mul);
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * sl2;
+        if (edge) {
+          const int col = k0 + 8 * j + 2 * t + (e & 1), row = q0 + warp * 16 + g + 8 * (e >> 1);
+          if (col >= Tk || (causal && col - row > off)) x = -INFINITY;
+        }
+        s[j][e] = x;
+      }
+    }
+    float corr[2], pv[D / 8][4] = {};
+    softmax_tile<BK>(s, m, l, corr);
+    accumulate<D, BK, LD>(pv, s, vt, lane);  // this tile's p v
+    add_tile<D>(acc, corr, pv);               // o = o corr + p v
+  }
+  cp_async_wait<0>();
+
+  float inv[2];
+  finish_rows(l, inv);
+  store_rows<D>(o + qoff, acc, q0 + warp * 16, Tq, lane, inv);
+  if (lse != nullptr && t == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = q0 + warp * 16 + g + 8 * h;
+      if (row < Tq)
+        lse[static_cast<size_t>(bh) * Tq + row] =
+            l[h] > 0.f ? m[h] * (1.f / LOG2E) + logf(l[h]) : 0.f;
+    }
   }
 }
 
@@ -904,13 +731,13 @@ flash_bwd_dkv_tc_kernel(const float* __restrict__ q, const float* __restrict__ k
   const int q_begin = causal ? (max(0, k0 - off) / BQ) * BQ : 0;
   const int n_tiles = q_begin < Tq ? (Tq - q_begin + BQ - 1) / BQ : 0;
   auto load_q_tile = [&](int q0, int st) {
-    load_rows<BQ, D>(qs + st * BQ * LD, q + qoff, q0, Tq);
-    load_rows<BQ, D>(dos + st * BQ * LD, dout + qoff, q0, Tq);
+    load_rows<BQ, D, LD>(qs + st * BQ * LD, q + qoff, q0, Tq);
+    load_rows<BQ, D, LD>(dos + st * BQ * LD, dout + qoff, q0, Tq);
     load_vec<BQ>(lse_s + st * BQ, lse_b, q0, Tq, 0);
     load_vec<BQ>(di_s + st * BQ, di_b, q0, Tq, BQ);
   };
-  load_rows<BR, D>(ks, k + koff, k0, Tk);
-  load_rows<BR, D>(vs, v + koff, k0, Tk);
+  load_rows<BR, D, LD>(ks, k + koff, k0, Tk);
+  load_rows<BR, D, LD>(vs, v + koff, k0, Tk);
   cp_async_commit();
   if (n_tiles > 0) load_q_tile(q_begin, 0);
   cp_async_commit();
@@ -930,8 +757,8 @@ flash_bwd_dkv_tc_kernel(const float* __restrict__ q, const float* __restrict__ k
     const float* di_t = di_s + st * BQ;
     // transposed: rows are this warp's keys, columns the tile's queries
     float pt[BQ / 8][4] = {}, dst[BQ / 8][4] = {};
-    scores<D, BQ>(pt, kw, qt, lane);
-    scores<D, BQ>(dst, vw, dot, lane);
+    scores<D, BQ, LD, LD>(pt, kw, qt, lane);
+    scores<D, BQ, LD, LD>(dst, vw, dot, lane);
     // key rows past Tk are never stored, so only the queries' end and the
     // causal frontier need the element mask
     const bool edge = q0 + BQ > Tq || (causal && k0 + BR - 1 > q0 + off);
@@ -949,8 +776,8 @@ flash_bwd_dkv_tc_kernel(const float* __restrict__ q, const float* __restrict__ k
         dst[j][e] = p * (dst[j][e] - di_t[c]);
       }
     }
-    accumulate<D, BQ>(dv_acc, pt, dot, lane);   // dv += p^T do
-    accumulate<D, BQ>(dk_acc, dst, qt, lane);   // dk += ds^T q
+    accumulate<D, BQ, LD>(dv_acc, pt, dot, lane);   // dv += p^T do
+    accumulate<D, BQ, LD>(dk_acc, dst, qt, lane);   // dk += ds^T q
   }
   cp_async_wait<0>();
   store_rows<D>(dk + koff, dk_acc, k0 + warp * 16, Tk, lane, scale);
@@ -979,11 +806,11 @@ flash_bwd_dq_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int n_tiles = (key_end(q0, Tq, Tk, causal) + BK - 1) / BK;
   auto load_kv_tile = [&](int k0, int st) {
-    load_rows<BK, D>(kts + st * BK * LD, k + koff, k0, Tk);
-    load_rows<BK, D>(vts + st * BK * LD, v + koff, k0, Tk);
+    load_rows<BK, D, LD>(kts + st * BK * LD, k + koff, k0, Tk);
+    load_rows<BK, D, LD>(vts + st * BK * LD, v + koff, k0, Tk);
   };
-  load_rows<BR, D>(qs, q + qoff, q0, Tq);
-  load_rows<BR, D>(dos, dout + qoff, q0, Tq);
+  load_rows<BR, D, LD>(qs, q + qoff, q0, Tq);
+  load_rows<BR, D, LD>(dos, dout + qoff, q0, Tq);
   cp_async_commit();
   if (n_tiles > 0) load_kv_tile(0, 0);
   cp_async_commit();
@@ -1009,8 +836,8 @@ flash_bwd_dq_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float* kt = kts + st * BK * LD;
     const float* vt = vts + st * BK * LD;
     float s[BK / 8][4] = {}, ds[BK / 8][4] = {};
-    scores<D, BK>(s, qw, kt, lane);
-    scores<D, BK>(ds, dow, vt, lane);
+    scores<D, BK, LD, LD>(s, qw, kt, lane);
+    scores<D, BK, LD, LD>(ds, dow, vt, lane);
     // query rows past Tq are never stored, so only the keys' end and the
     // causal frontier need the element mask
     const bool edge = k0 + BK > Tk || (causal && k0 + BK - 1 > q0 + off);
@@ -1027,7 +854,7 @@ flash_bwd_dq_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
         ds[j][e] = p * (ds[j][e] - di_q[h]);
       }
     }
-    accumulate<D, BK>(dq_acc, ds, kt, lane);  // dq += ds k
+    accumulate<D, BK, LD>(dq_acc, ds, kt, lane);  // dq += ds k
   }
   cp_async_wait<0>();
   store_rows<D>(dq + qoff, dq_acc, q0 + warp * 16, Tq, lane, scale);
@@ -1053,28 +880,28 @@ static int fwd(const void* q, const void* k, const void* v, void* o, float* lse,
                int Tq, int Tk, int causal, cudaStream_t s) {
   static bool attr = false;
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const dim3 grid((Tq + tf32x3::BR - 1) / tf32x3::BR, BH);
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     using bf16tc::bf16;
-    if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o))
-      return static_cast<int>(cudaErrorMisalignedAddress);
     const size_t smem = bf16tc::fwd_tc_smem_bytes<D>();
     auto kern = bf16tc::flash_fwd_tc_kernel<D>;
     const cudaError_t e = allow_smem(kern, smem, attr);
     if (e != cudaSuccess) return static_cast<int>(e);
-    dim3 grid((Tq + bf16tc::BR - 1) / bf16tc::BR, BH);
-    kern<<<grid, bf16tc::NTH, smem, s>>>(static_cast<const bf16*>(q),
+    kern<<<grid, tf32x3::NTH, smem, s>>>(static_cast<const bf16*>(q),
                                          static_cast<const bf16*>(k),
                                          static_cast<const bf16*>(v), static_cast<bf16*>(o), lse,
                                          Tq, Tk, causal, scale);
-  } else {
-    const size_t smem = fwd_smem_floats<D>() * sizeof(float);
-    auto kern = flash_fwd_kernel<D, T>;
+  } else {  // f32: 3xTF32 on the tensor cores
+    const size_t smem = tf32x3::fwd_smem_bytes<D>();
+    auto kern = tf32x3::flash_fwd_tc_kernel<D>;
     const cudaError_t e = allow_smem(kern, smem, attr);
     if (e != cudaSuccess) return static_cast<int>(e);
-    dim3 grid((Tq + BT - 1) / BT, BH);
-    kern<<<grid, NT, smem, s>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                static_cast<const T*>(v), static_cast<T*>(o), lse, Tq, Tk,
-                                causal, scale);
+    kern<<<grid, tf32x3::NTH, smem, s>>>(static_cast<const float*>(q),
+                                         static_cast<const float*>(k),
+                                         static_cast<const float*>(v), static_cast<float*>(o),
+                                         lse, Tq, Tk, causal, scale);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -1094,8 +921,8 @@ static int bwd_dkv(const void* q, const void* k, const void* v, const void* dout
     auto kern = bf16tc::flash_bwd_dkv_tc_kernel<D>;
     const cudaError_t e = allow_smem(kern, smem, attr);
     if (e != cudaSuccess) return static_cast<int>(e);
-    dim3 grid((Tk + bf16tc::BR - 1) / bf16tc::BR, BH);
-    kern<<<grid, bf16tc::NTH, smem, s>>>(
+    dim3 grid((Tk + tf32x3::BR - 1) / tf32x3::BR, BH);
+    kern<<<grid, tf32x3::NTH, smem, s>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         static_cast<const bf16*>(dout), lse, di, static_cast<bf16*>(dk),
         static_cast<bf16*>(dv), Tq, Tk, causal, scale);
@@ -1104,8 +931,8 @@ static int bwd_dkv(const void* q, const void* k, const void* v, const void* dout
     auto kern = tf32x3::flash_bwd_dkv_tc_kernel<D>;
     const cudaError_t e = allow_smem(kern, smem, attr);
     if (e != cudaSuccess) return static_cast<int>(e);
-    dim3 grid((Tk + bf16tc::BR - 1) / bf16tc::BR, BH);
-    kern<<<grid, bf16tc::NTH, smem, s>>>(
+    dim3 grid((Tk + tf32x3::BR - 1) / tf32x3::BR, BH);
+    kern<<<grid, tf32x3::NTH, smem, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         static_cast<const float*>(dout), lse, di, static_cast<float*>(dk),
         static_cast<float*>(dv), Tq, Tk, causal, scale);
@@ -1127,8 +954,8 @@ static int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
     auto kern = bf16tc::flash_bwd_dq_tc_kernel<D>;
     const cudaError_t e = allow_smem(kern, smem, attr);
     if (e != cudaSuccess) return static_cast<int>(e);
-    dim3 grid((Tq + bf16tc::BR - 1) / bf16tc::BR, BH);
-    kern<<<grid, bf16tc::NTH, smem, s>>>(
+    dim3 grid((Tq + tf32x3::BR - 1) / tf32x3::BR, BH);
+    kern<<<grid, tf32x3::NTH, smem, s>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         static_cast<const bf16*>(dout), lse, di, static_cast<bf16*>(dq), Tq, Tk, causal,
         scale);
@@ -1137,8 +964,8 @@ static int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
     auto kern = tf32x3::flash_bwd_dq_tc_kernel<D>;
     const cudaError_t e = allow_smem(kern, smem, attr);
     if (e != cudaSuccess) return static_cast<int>(e);
-    dim3 grid((Tq + bf16tc::BR - 1) / bf16tc::BR, BH);
-    kern<<<grid, bf16tc::NTH, smem, s>>>(
+    dim3 grid((Tq + tf32x3::BR - 1) / tf32x3::BR, BH);
+    kern<<<grid, tf32x3::NTH, smem, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         static_cast<const float*>(dout), lse, di, static_cast<float*>(dq), Tq, Tk, causal,
         scale);

@@ -2,9 +2,10 @@
 dK/dV and dQ) and their plain PyTorch versions.
 
 Counterpart of ``mxnet_tpu/ops/flash_attention.py`` (``_fwd_kernel``,
-``_bwd_dkv_kernel``, ``_bwd_dq_kernel``). The f32 forward runs on the CUDA
-cores; the bf16 kernels and the f32 backward run on the tensor cores, the
-latter in 3xTF32 (f32-accurate, not bit-identical to the plain version).
+``_bwd_dkv_kernel``, ``_bwd_dq_kernel``). Every kernel runs on the tensor
+cores: bf16 in bf16, f32 in 3xTF32 (f32-accurate, not bit-identical to the
+plain versions). The kernels read their operands by 16-byte copies, so the
+wrappers refuse a tensor whose data is not 16-byte aligned.
 Tensors are (B, H, T, D) at the public functions, as in the JAX package;
 the kernels see them as contiguous (B·H, T, D) slices. The causal mask is
 aligned bottom-right (query r sees keys c <= r + Tk - Tq); a query that
@@ -76,8 +77,8 @@ def flash_fwd_plain(q, k, v, causal, rounded=False):
     with no live key gives out 0 and lse 0. With ``rounded`` and bf16
     inputs, the numerators exp(s - m) are rounded to bf16 before the
     product with v and the sum is divided by the f32 row sum l afterwards,
-    as the bf16 tensor-core kernel does (f32 inputs: the exact math, as the
-    f32 kernel)."""
+    as the bf16 tensor-core kernel does (f32 inputs: the exact math, which
+    the f32 kernel's 3xTF32 products match to a few f32 ulps per sum)."""
     s, _ = _scores(q, k, causal)
     m = s.amax(dim=-1, keepdim=True)
     dead = m == float("-inf")
@@ -166,6 +167,17 @@ def _check(q, k, v):
             raise MXNetError(f"{name} is on {t.device}, q on {q.device}")
 
 
+def _check_aligned(**tensors):
+    """Raise unless every tensor's data starts on a 16-byte boundary: the
+    kernels copy their operands 16 bytes at a time (a view at an odd
+    offset, e.g. ``x[1:]`` of an f32 tensor, is contiguous but not
+    aligned). The C launchers refuse such pointers too."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise MXNetError(f"flash attention kernels need 16-byte aligned "
+                             f"tensors; {name} starts at {t.data_ptr():#x}")
+
+
 def _flash_fwd(q, k, v, causal, return_lse=False):
     """The forward: the kernel for CUDA tensors, the plain version for CPU
     tensors. Returns ``out`` or ``(out, lse)`` with lse (B, H, Tq) f32."""
@@ -176,6 +188,7 @@ def _flash_fwd(q, k, v, causal, return_lse=False):
     b, h, tq, d = q.shape
     tk = k.shape[2]
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    _check_aligned(q=q, k=k, v=v)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device) \
         if return_lse else None
@@ -207,6 +220,7 @@ def _bwd_args(q, k, v, do, lse, di, causal):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise MXNetError(f"flash backward kernels need a contiguous {name}")
+    _check_aligned(q=q, k=k, v=v, do=do)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), di.data_ptr())
     tail = (b * h, tq, k.shape[2], d, int(causal), _cc.dtype_code(q.dtype),

@@ -6,7 +6,10 @@ Counterpart of ``mxnet_tpu/ops/pallas_paged_attention.py``
 in the JAX wrapper; only the read (page lookup + frontier-masked f32
 softmax attention) is the kernel. :func:`paged_attention_read` launches the
 kernel for CUDA tensors and takes :func:`paged_attention_read_plain` only
-for CPU tensors.
+for CPU tensors. The kernel reads a decode step (one query a row) on the
+CUDA cores, split over the key range when the batch is small, and a
+prefill chunk on the tensor cores in 3xTF32 (f32-accurate), 64 queries a
+block.
 
 The read serves the dense cache too: a contiguous (B, H, Tmax, Ch) buffer
 is a pool of B pages of ``Tmax`` slots under the identity table
@@ -31,8 +34,9 @@ __all__ = ["paged_attention", "paged_attention_read",
 #: head widths the kernel is instantiated for
 KERNEL_CHANNELS = (16, 32, 64, 128)
 
-#: kernel launches since the last reset (read by chip_smoke.py)
-launches = 0
+#: kernel launches since the last reset, decode reads (Tq = 1) and prefill
+#: reads (Tq > 1) apart (read by chip_smoke.py)
+launches = {"decode": 0, "prefill": 0}
 
 #: logical keys of one split of the key range (flash-decoding): 4 tiles of
 #: 32 keys, one a warp. At gpt2_345m's serve shape (B=8, 16 heads, 512 live
@@ -41,9 +45,8 @@ launches = 0
 SPLIT_KEYS = 128
 #: one split covering every key (a multiple of 128 past any capacity)
 _WHOLE = 1 << 30
-#: (row, head, query tile) blocks from which the read does not split: a
-#: few per SM of the H100's 132 (a prefill chunk of 512 queries of one row
-#: at 16 heads gives 1024)
+#: (row, head) decode blocks from which the read does not split: a few per
+#: SM of the H100's 132
 _SPLIT_BELOW = 4 * 132
 
 # per (device, stream): int32 arrival counters of the split combine, all
@@ -52,19 +55,19 @@ _SPLIT_BELOW = 4 * 132
 _arrivals = {}
 
 
-def _query_tile(tq):
-    """Queries of one block: 1 for decode, 8 for prefill chunks."""
-    return 1 if tq == 1 else 8
-
-
 def _split_plan(cap, tq, bh):
     """``(split_keys, n_splits)`` of a read of ``tq`` queries for ``bh``
     (row, head) pairs over a table of ``cap`` = n_pages * ps keys. Split s
     covers logical keys [s * split_keys, (s + 1) * split_keys); the kernel
     works only on the splits up to each block's frontier, so the
     boundaries depend on ``tq`` and ``bh`` only, not on the page size: a
-    larger ``cap`` adds only splits past every frontier."""
-    if bh * -(-tq // _query_tile(tq)) >= _SPLIT_BELOW:
+    larger ``cap`` adds only splits past every frontier. A decode read
+    (``tq`` 1) splits when its (row, head) blocks are too few to fill the
+    card. A prefill read (the tensor-core kernel, 64 queries a block) never
+    splits: on the H100 one split was as fast as 128- or 256-key splits or
+    faster at every shape measured, one to eight rows of 128 to 512
+    queries (PERF.md)."""
+    if tq > 1 or bh >= _SPLIT_BELOW:
         return _WHOLE, 1
     return SPLIT_KEYS, max(1, -(-cap // SPLIT_KEYS))
 
@@ -180,7 +183,6 @@ def paged_attention_read(q, k_pool, v_pool, page_table, position):
     inference mode. With grad mode on and an input that requires grad it
     raises, on either device, rather than return a result cut off from
     the graph."""
-    global launches
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k_pool, v_pool)):
         raise MXNetError("paged_attention_read has no backward; run the "
@@ -201,8 +203,7 @@ def paged_attention_read(q, k_pool, v_pool, page_table, position):
     if n_splits > 1:
         part = torch.empty((b * h * tq, n_splits, ch + 2), dtype=torch.float32,
                            device=q.device)
-        arrivals = _arrival_counters(q.device, stream,
-                                     b * h * -(-tq // _query_tile(tq)))
+        arrivals = _arrival_counters(q.device, stream, b * h)
     lib = _cc.load("paged_attention")
     rc = lib.mx_paged_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
@@ -212,7 +213,7 @@ def paged_attention_read(q, k_pool, v_pool, page_table, position):
         b, h, tq, ch, ps, n_pages, k_pool.shape[0], split_keys, n_splits,
         _cc.dtype_code(q.dtype), _cc.dtype_code(k_pool.dtype), stream)
     _cc.check_launch(lib, rc, "paged_attention")
-    launches += 1
+    launches["decode" if tq == 1 else "prefill"] += 1
     return out
 
 

@@ -200,6 +200,43 @@ def test_wrappers_refuse_non_cuda_tensors():
                        True)
 
 
+def test_wrappers_refuse_misaligned_inputs():
+    """The kernels copy their operands 16 bytes at a time: the wrappers'
+    check refuses a contiguous view that starts off a 16-byte boundary (an
+    f32 tensor's ``x[1:]``) before any launch, naming it, and passes the
+    tensors torch allocates."""
+    base = torch.zeros(1 + 2 * 64 * 64)
+    q = base[1:].view(1, 2, 64, 64)
+    assert q.is_contiguous() and q.data_ptr() % 16 == 4
+    k = torch.zeros(1, 2, 64, 64)
+    with pytest.raises(MXNetError, match="16-byte aligned.*q starts"):
+        tfa._check_aligned(q=q, k=k, v=k)
+    with pytest.raises(MXNetError, match="do starts"):
+        tfa._check_aligned(q=k, k=k, v=k, do=q)
+    tfa._check_aligned(q=k, k=k.clone(), v=k.clone(), do=k.clone())
+
+
+def test_cuda_forward_checks_alignment_before_launch(monkeypatch):
+    """The forward's CUDA branch, with the card mocked (meta tensors and a
+    library that must not be reached): the alignment check runs on q, k
+    and v before the launch and stops it."""
+    from mxnet_tpu_torch.ops import cuda_common as cc
+
+    seen = []
+
+    def refuse(**tensors):
+        seen.append(sorted(tensors))
+        raise MXNetError("misaligned")
+
+    monkeypatch.setattr(cc, "check_device", lambda t: None)
+    monkeypatch.setattr(cc, "load", lambda name: pytest.fail("launched"))
+    monkeypatch.setattr(tfa, "_check_aligned", refuse)
+    q = torch.zeros(1, 2, 64, 64, device="meta")
+    with pytest.raises(MXNetError, match="misaligned"):
+        tfa._flash_fwd(q, q, q, True, return_lse=True)
+    assert seen == [["k", "q", "v"]]
+
+
 def test_cpu_path_counts_no_launch():
     before = dict(tfa.launches)
     q, k, v = (torch.from_numpy(a).requires_grad_()

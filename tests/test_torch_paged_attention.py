@@ -1,7 +1,9 @@
 """The port's paged attention (mxnet_tpu_torch.ops.paged_attention) against
 the JAX package's Pallas kernel in interpret mode, on the same numpy
 inputs: the cases of tests/test_pallas_paged_attention.py (tq 1 and 5,
-ragged final pages, released rows whose table is all trash). Tolerances:
+ragged final pages, released rows whose table is all trash), and tq 70
+from nonzero positions, which crosses the prefill kernel's 64-query tile
+on the card. Tolerances:
 1e-5 with f32 pools, 2e-2 with bf16 pools; low-precision q over f32
 pools (the cached read under amp.init, bf16 or f16 q) at the tolerance
 of q's dtype. Within the port, the dense cache (identity page table) and
@@ -21,6 +23,25 @@ from mxnet_tpu_torch.ops import paged_attention as tpa
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # f16 q over f32 pools: f16 outputs one ulp apart (2^-10 relative)
 F16_TOL = 2e-3
+# query counts of a read: decode, a short prefill chunk, and one that
+# crosses the prefill kernel's query tile
+TQS = [1, 5, 70]
+
+
+def _small_case(rs, tq, trash_rows=False):
+    """The parity tests' case: 3 rows, 2 heads, Ch 16, pages of 8; a table
+    of 8 pages for tq < 64. For tq >= 64: 24 pages a row (192 keys), every
+    row on pages of its own, at positions 3, 37 and the last one that fits,
+    and no released row: a chunk that long would write its tokens over one
+    another in the 8 slots of a shared page, in an order that neither
+    package's scatter defines."""
+    if tq < 64:
+        return _mk_case(rs, b=3, h=2, tq=tq, ch=16, ps=8, n_pages=8,
+                        pool_pages=12, trash_rows=trash_rows)
+    case = _mk_case(rs, b=3, h=2, tq=tq, ch=16, ps=8, n_pages=24,
+                    pool_pages=72, position=[3, 37, 24 * 8 - tq])
+    case["table"] = (rs.permutation(72) + 1).reshape(3, 24).astype(np.int32)
+    return case
 
 
 def _mk_case(rs, b, h, tq, ch, ps, n_pages, pool_pages, trash_rows=False,
@@ -72,14 +93,13 @@ def _compare(case, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("tq", [1, 5])
+@pytest.mark.parametrize("tq", TQS)
 def test_matches_jax_kernel(dtype, tq):
     rs = np.random.RandomState(0)
-    _compare(_mk_case(rs, b=3, h=2, tq=tq, ch=16, ps=8, n_pages=8,
-                      pool_pages=12), dtype)
+    _compare(_small_case(rs, tq), dtype)
 
 
-@pytest.mark.parametrize("tq", [1, 5])
+@pytest.mark.parametrize("tq", TQS)
 def test_bf16_q_over_f32_pool_matches_jax_kernel(tq):
     """The pair an f32 model's cached read gives under amp.init("bfloat16"):
     bf16 q, k_new and v_new over f32 pools. The new K/V are widened into the
@@ -87,8 +107,7 @@ def test_bf16_q_over_f32_pool_matches_jax_kernel(tq):
     rounded to bf16 before their f32 product with v, and the output bf16,
     as the JAX kernel's ``out_shape`` (tolerance: bf16)."""
     rs = np.random.RandomState(8)
-    case = _mk_case(rs, b=3, h=2, tq=tq, ch=16, ps=8, n_pages=8,
-                    pool_pages=12, trash_rows=True)
+    case = _small_case(rs, tq, trash_rows=True)
     low = {k: np.asarray(jnp.asarray(case[k], jnp.bfloat16))
            for k in ("q", "k_new", "v_new")}
     out, kp, vp = ppa.paged_attention(
@@ -110,7 +129,7 @@ def test_bf16_q_over_f32_pool_matches_jax_kernel(tq):
     np.testing.assert_array_equal(tvp.numpy(), np.asarray(vp))
 
 
-@pytest.mark.parametrize("tq", [1, 5])
+@pytest.mark.parametrize("tq", TQS)
 def test_f16_q_over_f32_pool_matches_jax_kernel(tq):
     """The pair an f32 model's cached read gives under amp.init("float16"):
     f16 q, k_new and v_new over f32 pools. Both widen the new K/V into the
@@ -120,8 +139,7 @@ def test_f16_q_over_f32_pool_matches_jax_kernel(tq):
     Tolerance F16_TOL: f16 outputs whose f32 sums, in another order, round
     one ulp apart."""
     rs = np.random.RandomState(9)
-    case = _mk_case(rs, b=3, h=2, tq=tq, ch=16, ps=8, n_pages=8,
-                    pool_pages=12, trash_rows=True)
+    case = _small_case(rs, tq, trash_rows=True)
     low = {k: case[k].astype(np.float16) for k in ("q", "k_new", "v_new")}
     out, kp, vp = ppa.paged_attention(
         *(jnp.asarray(low[k]) for k in ("q", "k_new", "v_new")),
@@ -171,14 +189,14 @@ def test_overflow_tokens_go_to_trash_page():
     np.testing.assert_array_equal(kp[untouched], case["k_pool"][untouched])
 
 
-@pytest.mark.parametrize("tq", [1, 5])
+@pytest.mark.parametrize("tq", TQS)
 @pytest.mark.parametrize("ps", [8, 6])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_dense_equals_paged_bit_identical(tq, ps, dtype):
     """The same history in a dense (B, H, Tmax, Ch) buffer and in a paged
     pool gives bit-identical attention outputs and equal written K/V."""
     rs = np.random.RandomState(4)
-    b, h, ch, tmax = 3, 2, 16, 40
+    b, h, ch, tmax = 3, 2, 16, 40 if tq < 64 else 160
     dt = getattr(torch, dtype)
     n_pages = -(-tmax // ps)
     hist_k = torch.from_numpy(rs.randn(b, h, tmax, ch).astype(np.float32)).to(dt)
@@ -209,13 +227,13 @@ def test_dense_equals_paged_bit_identical(tq, ps, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("tq", [1, 5])
+@pytest.mark.parametrize("tq", TQS)
 def test_frontier_masked_attention_matches_jax(dtype, tq):
     """The plain cached read over contiguous histories against the JAX
     ``_frontier_masked_attention``; history past each frontier is garbage
     that must get a weight of exactly 0."""
     rs = np.random.RandomState(6)
-    b, h, tmax, ch = 3, 2, 24, 16
+    b, h, tmax, ch = 3, 2, 24 if tq < 64 else 96, 16
     q, k, v = (rs.randn(b, h, n, ch).astype(np.float32)
                for n in (tq, tmax, tmax))
     position = np.array([0, 9, tmax - tq], np.int32)
@@ -260,7 +278,7 @@ def test_knob_off_selects_plain_version():
 
 
 @pytest.mark.parametrize("tq,bh", [(1, 128), (1, 2), (16, 8), (128, 128),
-                                   (512, 16)])
+                                   (512, 16), (70, 6), (512, 128)])
 def test_split_plan_does_not_depend_on_page_size(tq, bh):
     """The split boundaries of a read are the same for the dense view of a
     1000-key cache (one page of Tmax per row) and for paged tables of the
@@ -284,24 +302,71 @@ def test_split_plan_does_not_depend_on_page_size(tq, bh):
 
 def test_split_plan_at_the_serving_shapes():
     """Decode at B=8 with 16 heads splits a 1024-key table in 8 splits of
-    SPLIT_KEYS; a 512-query prefill chunk of one row already gives 1024
-    (row, head, query tile) blocks and is not split."""
+    SPLIT_KEYS, and at 33 rows (528 blocks) not at all. A prefill read does
+    not split, whatever its batch: the serve path's chunk of one row of 512
+    queries at 16 heads, a small chunk, and a batch of chunks."""
     assert tpa._split_plan(1024, 1, 8 * 16) == (tpa.SPLIT_KEYS, 8)
-    assert tpa._split_plan(1024, 512, 16)[1] == 1
+    assert tpa._split_plan(1024, 1, 33 * 16) == (tpa._WHOLE, 1)
+    for tq, bh in ((512, 16), (5, 2), (128, 8 * 16)):
+        assert tpa._split_plan(1024, tq, bh) == (tpa._WHOLE, 1)
 
 
-@pytest.mark.parametrize("tq", [1, 5])
+@pytest.mark.parametrize("tq", TQS)
 def test_cpu_read_counts_no_launch(tq):
-    """On CPU tensors the wrapper takes the plain version and launches
-    nothing."""
+    """On CPU tensors the wrapper takes the plain version and counts no
+    launch, decode or prefill."""
     rs = np.random.RandomState(7)
-    case = _mk_case(rs, b=2, h=2, tq=tq, ch=16, ps=8, n_pages=4, pool_pages=8)
-    before = tpa.launches
+    case = _small_case(rs, tq)
+    before = dict(tpa.launches)
+    assert set(before) == {"decode", "prefill"}
     with torch.no_grad():
         out = tpa.paged_attention_read(*[torch.from_numpy(case[k]) for k in (
             "q", "k_pool", "v_pool", "table", "position")])
-    assert tuple(out.shape) == (2, 2, tq, 16)
+    assert tuple(out.shape) == (3, 2, tq, 16)
     assert tpa.launches == before
+
+
+class _FakeLib:
+    """Stands in for the built library: records the launch arguments."""
+
+    def __init__(self):
+        self.calls = []
+
+    def mx_paged_attention(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("tq", TQS)
+def test_kernel_launch_counts_decode_and_prefill_apart(tq, monkeypatch):
+    """The CUDA branch, with the card mocked (meta tensors, a stand-in
+    library): a decode read (tq 1) counts under "decode", a prefill read
+    under "prefill", one launch each; the launch gets the plan's split and,
+    when it splits, an arrival counter a (row, head)."""
+    from mxnet_tpu_torch.ops import cuda_common as cc
+
+    lib = _FakeLib()
+    monkeypatch.setattr(cc, "check_device", lambda t: None)
+    monkeypatch.setattr(cc, "load", lambda name: lib)
+    monkeypatch.setattr(cc, "stream_ptr", lambda device: 0)
+    monkeypatch.setattr(tpa, "_arrivals", {})
+    monkeypatch.setattr(tpa, "launches", {"decode": 0, "prefill": 0})
+    b, h, ch, ps, n_pages = 1, 16, 64, 16, 64
+    meta = dict(device="meta")
+    with torch.no_grad():
+        tpa.paged_attention_read(
+            torch.zeros(b, h, tq, ch, **meta),
+            *(torch.zeros(b * n_pages + 1, h, ps, ch, **meta),) * 2,
+            torch.zeros(b, n_pages, dtype=torch.int32, **meta),
+            torch.zeros(b, dtype=torch.int32, **meta))
+    kind = "decode" if tq == 1 else "prefill"
+    assert tpa.launches == {"decode": int(kind == "decode"),
+                            "prefill": int(kind == "prefill")}
+    (args,) = lib.calls
+    split_keys, n_splits = tpa._split_plan(n_pages * ps, tq, b * h)
+    assert args[-5:-3] == (split_keys, n_splits)
+    if n_splits > 1:
+        assert tpa._arrivals[(torch.device("meta"), 0)].numel() >= b * h
 
 
 def test_wrapper_refuses_non_cuda_device():

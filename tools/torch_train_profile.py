@@ -35,7 +35,7 @@ import torch
 
 GROUPS = (  # (group, substrings of the kernel name), first match wins
     ("flash forward", ("flash_fwd_",)),  # the f32 and the bf16 kernel
-    ("paged attention", ("paged_attention_kernel",)),
+    ("paged attention", ("paged_attention_kernel", "paged_prefill_tc_kernel")),
     ("flash dK/dV", ("flash_bwd_dkv_",)),  # the f32 and the bf16 kernel
     ("flash dQ", ("flash_bwd_dq_",)),
     ("adam", ("adam_kernel",)),
