@@ -35,24 +35,43 @@ prints its last line):
      the same seeded weights; per-step losses and final weights agree. Then
      the same under amp="bfloat16" with SoftmaxCrossEntropyLoss and Adam
      on a warm-up schedule;
-  5. serve 16 requests through the paged engine and the continuous
+  5. the step graphs (``engine_type="graph"``, the port's default: one
+     captured CUDA graph per step signature) against the eager steps
+     (``"naive"``, the same steps uncaptured): seeded top-k serving at
+     full width and 3 training steps (f32 and bf16, 2 layers)
+     bit-identical; a host sync planted in a captured step raises and
+     leaves the allocator as it was; two engines' decode graphs replayed
+     at once on two streams match their replays alone;
+  6. serve 16 requests through the paged engine and the continuous
      batcher with gpt2_345m at full width (seeded random weights, f32),
-     with both serving kernels' launch counts read around that run;
-  6. train gpt2_345m at full width (B=4, T=1024, f32, Adam) through
+     with both serving kernels' launch counts read around that run and the
+     engine's program count (prefill buckets used + 1) held flat, four
+     times: naive, graph, graph, naive, tokens and decode logits
+     bit-identical across the four; after each graph run one replay of
+     each captured graph is profiled, and the port's kernels it ran must
+     be the launches the graph records (``check_replay_launches``; the
+     same for the training graphs in 7);
+  7. train gpt2_345m at full width (B=4, T=1024, f32, Adam) through
      TrainStep: 2 warm-up and 10 timed steps, with the launch counts of
      every kernel read around each step; then the same in bf16
      (``train_amp``): TrainStep(net, SoftmaxCrossEntropyLoss(),
-     Adam(lr_scheduler=...), amp="bfloat16");
-  7. time each kernel, its plain version and a PyTorch library yardstick
+     Adam(lr_scheduler=...), amp="bfloat16"); each naive, graph, graph,
+     naive from the same weights, losses, weights and Adam moments
+     bit-identical across the four;
+  8. time each kernel, its plain version and a PyTorch library yardstick
      with CUDA events, on the device (CUDA graph replay) and per eager
-     call, at the shapes the three paths give them;
-  8. print the kernel table as one JSON line, then the result line.
+     call, at the shapes the three paths give them, and the launch floor
+     (``EMPTY_CU``, a kernel that does nothing on LayerNorm's grid, built
+     here);
+  9. print the kernel table as one JSON line, then the result line.
 
 It needs one CUDA card and imports nothing of JAX or ``mxnet_tpu``.
 """
 from __future__ import annotations
 
 import contextlib
+import ctypes
+import gc
 import json
 import statistics
 import subprocess
@@ -297,12 +316,54 @@ def check_close(name, dtype, got, want, what, atol=None, failures=None):
 
 
 # ---------------------------------------------------------------------------
+# A kernel that does nothing, launched on LayerNorm's grid (one block of
+# LN_THREADS = 256 threads per row, csrc/layernorm.cu, and the row's d floats
+# of dynamic shared memory): the device time of a launch itself, which
+# LayerNorm's times at the serving shapes are read against. No path of the
+# port launches it, so it is built here, beside the port's kernels.
+EMPTY_CU = r"""
+__global__ void __launch_bounds__(256) empty_kernel() {}
+
+extern "C" int mx_empty(int rows, int d, void* stream) {
+  empty_kernel<<<rows, 256, d * sizeof(float),
+                 static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+_EMPTY = {}  # "lib": the loaded empty kernel
+
+
+def empty_launch(x):
+    """Launch the empty kernel on the grid LayerNorm takes for ``x``."""
+    from mxnet_tpu_torch.ops import cuda_common
+
+    d = x.shape[-1]
+    rc = _EMPTY["lib"].mx_empty(x.numel() // d, d,
+                                cuda_common.stream_ptr(x.device))
+    if rc != 0:
+        raise RuntimeError(f"empty kernel: CUDA error {rc}")
+
+
 def phase_build():
     from mxnet_tpu_torch.ops import cuda_common
 
     t0 = time.perf_counter()
+    cuda_common.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = cuda_common.BUILD_DIR / "empty_kernel.cu"
+    src.write_text(EMPTY_CU)
+    empty_so = src.with_suffix(".so")
+    empty = subprocess.Popen(
+        [cuda_common._nvcc(), *cuda_common.NVCC_FLAGS, "-o", str(empty_so),
+         str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
     libs = cuda_common.build()
-    log(f"[build] {len(libs)} kernel libraries in "
+    out, _ = empty.communicate(timeout=300)
+    if empty.returncode != 0:
+        raise RuntimeError(f"nvcc of the empty kernel failed:\n{out}")
+    _EMPTY["lib"] = ctypes.CDLL(str(empty_so))
+    _EMPTY["lib"].mx_empty.argtypes = [ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_void_p]
+    log(f"[build] {len(libs)} kernel libraries and the empty kernel in "
         f"{time.perf_counter() - t0:.1f}s (sm_90a)")
     for name, path in libs.items():
         log_path = path.with_suffix(".log")
@@ -969,7 +1030,10 @@ def _dense_equals_paged(amp):
     kw = dict(batch_size=2, eos_id=None, device="cuda")
     dense = GenerationEngine(net, paged=False, **kw)
     paged = GenerationEngine(net, paged=True, page_size=16, **kw)
-    plain = GenerationEngine(net, paged=True, page_size=16, **kw)
+    # the reference runs eagerly: the plain paged read syncs with the host,
+    # which a CUDA graph cannot capture
+    plain = GenerationEngine(net, paged=True, page_size=16,
+                             engine_type="naive", **kw)
     worst = 0.0
 
     def against_plain(what, logits, ref):
@@ -1041,7 +1105,10 @@ def phase_train_parity(amp=None, seed=1, batch_seed=0, check=True):
             else:
                 opt = Adam(learning_rate=AMP_LR, lr_scheduler=amp_schedule())
                 loss_fn = SoftmaxCrossEntropyLoss()
-            ts = TrainStep(net, loss_fn, opt, amp=amp)
+            # the kernels through the step graphs (the default), the plain
+            # versions eagerly: the reference
+            ts = TrainStep(net, loss_fn, opt, amp=amp,
+                           engine_type="naive" if plain else "graph")
             rates, losses = [], []
             for _ in range(TRAIN_STEPS):
                 rates.append(opt.learning_rate)
@@ -1116,36 +1183,141 @@ def _reset_launch_counts():
     ln.launches = oo.launches = 0
 
 
-def phase_train(warmup=2, steps=10, batch=4, seq=1024, amp=None):
-    """gpt2_345m at full width through TrainStep, modelbench's setting:
-    B=4, T=1024, dropout 0, seed 0, one fixed batch. With ``amp=None``: f32,
-    ``lm_loss``, Adam(1e-4). With ``amp="bfloat16"`` (the ``train_amp``
-    path): bf16 copies of the f32 masters, SoftmaxCrossEntropyLoss through
-    the xent kernels, Adam on the warm-up schedule from AMP_LR. Every step
-    must launch each flash kernel once per layer, Adam once, LayerNorm 49
-    times and (bf16) each xent kernel once; every loss is finite and the
-    last is below the first. Returns the net (for timing Adam on its
-    parameters), the per-kernel launches of the run and the step
-    metrics."""
-    from mxnet_tpu_torch import TrainStep
-    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
-    from mxnet_tpu_torch.models import get_gpt2, lm_loss
-    from mxnet_tpu_torch.optimizer import Adam
+# each launch counter (chip_smoke's names, by the wrapper's module and key)
+# and the name of the kernel it counts, as the profiler sees it on the card
+COUNTERS = {("flash_attention", "fwd"): ("flash_fwd", "flash_fwd_tc_kernel"),
+            ("flash_attention", "dkv"): ("flash_bwd_dkv",
+                                         "flash_bwd_dkv_tc_kernel"),
+            ("flash_attention", "dq"): ("flash_bwd_dq",
+                                        "flash_bwd_dq_tc_kernel"),
+            ("optimizer", None): ("adam", "adam_kernel"),
+            ("layernorm", None): ("layernorm", "layernorm_kernel"),
+            ("paged_attention", "decode"): ("paged_attention",
+                                            "paged_attention_kernel"),
+            ("paged_attention", "prefill"): ("paged_attention_prefill",
+                                             "paged_prefill_tc_kernel"),
+            ("softmax_xent", "fwd"): ("xent_fwd", "xent_fwd_kernel"),
+            ("softmax_xent", "bwd"): ("xent_bwd", "xent_bwd_kernel")}
 
-    name = "train" if amp is None else "train_amp"
+
+def check_replay_launches(prog, what):
+    """Replay the captured step graph ``prog`` under the profiler and
+    count the port's kernels the card ran in one replay, by name: they must equal the
+    launches that the graph adds to the wrapper counts at every replay
+    (recorded when it was captured). So the counts of a "graph" run are
+    what the card launched, not only what the capture saw. Returns the
+    counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    recorded = {name: 0 for name, _ in COUNTERS.values()}
+    for (mod, key), n in prog.launches.items():
+        recorded[COUNTERS[(mod.split(".")[-1], key)][0]] += n
+    torch.cuda.synchronize()
+    # a warm-up replay that the profiler discards (a trace's first kernels
+    # can be lost while tracing starts), then the replay it counts
+    once = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    with profile(activities=[ProfilerActivity.CUDA], schedule=once) as prof:
+        for _ in range(2):
+            prog.graph.replay()
+            torch.cuda.synchronize()
+            prof.step()
+    seen = dict.fromkeys(recorded, 0)
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for name, kernel in COUNTERS.values():
+            if kernel in evt.key:
+                seen[name] += evt.count
+    if seen != recorded or not any(seen.values()):
+        raise AssertionError(f"{what}: one replay ran the kernels {seen}, "
+                             f"the graph records {recorded} launches")
+    log(f"[replay] {what}: one replay under the profiler ran "
+        f"{ {k: v for k, v in seen.items() if v} }, as recorded at capture")
+    return seen
+
+
+# the engine types in the order the timed phases run them: naive, graph,
+# graph, naive, so that drift over the call does not favour either
+MODE_TURNS = ("naive", "graph", "graph", "naive")
+
+
+def _release():
+    """Free what dropped engines and TrainSteps held (the serving wrappers
+    below make cycles) and hand the cached memory back."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _state(net, ts, host=False):
+    """Copies of every parameter and optimizer state tensor, in a fixed
+    order (what bit-identity between engine types is checked on); in host
+    memory with ``host``, for the full-width runs."""
+    copy = (lambda t: t.detach().cpu()) if host else \
+        (lambda t: t.detach().clone())
+    out = [copy(p) for _, p in sorted(net.named_parameters())]
+    for name in sorted(ts.opt_state):
+        st = ts.opt_state[name]
+        out.extend(copy(t) for t in
+                   (st if isinstance(st, (tuple, list)) else (st,))
+                   if t is not None)
+    return out
+
+
+def _same_state(a, b):
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _train_net(amp):
+    """gpt2_345m at full width (seed 0, dropout 0) and a copy of its
+    initial weights, so that every timed run starts from the same place."""
+    from mxnet_tpu_torch.models import get_gpt2
+
     t0 = time.perf_counter()
     net = get_gpt2("gpt2_345m", dropout=0.0, device="cuda", seed=0)
-    if amp is None:
-        ts = TrainStep(net, lm_loss, Adam(learning_rate=1e-4), amp=None)
-    else:
-        ts = TrainStep(net, SoftmaxCrossEntropyLoss(),
-                       Adam(learning_rate=AMP_LR, lr_scheduler=amp_schedule()),
-                       amp=amp)
-    ids, labels = _train_batch(batch, seq)
-    n_params = sum(p.numel() for p in net.parameters())
-    log(f"[{name}] gpt2_345m {amp or 'f32'}, {len(list(net.parameters()))} "
-        f"parameters, {n_params} elements, built in "
+    init = [p.detach().clone() for _, p in sorted(net.named_parameters())]
+    log(f"[{'train' if amp is None else 'train_amp'}] gpt2_345m "
+        f"{amp or 'f32'}, {len(init)} parameters, "
+        f"{sum(p.numel() for p in init)} elements, built in "
         f"{time.perf_counter() - t0:.1f}s")
+    return net, init
+
+
+def _train_step(net, amp, engine_type, layers=N_LAYERS):
+    """chip_smoke's TrainStep of the ``train`` (amp None) or ``train_amp``
+    path."""
+    from mxnet_tpu_torch import TrainStep
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.models import lm_loss
+    from mxnet_tpu_torch.optimizer import Adam
+
+    if amp is None:
+        return TrainStep(net, lm_loss, Adam(learning_rate=1e-4), amp=None,
+                         engine_type=engine_type)
+    return TrainStep(net, SoftmaxCrossEntropyLoss(),
+                     Adam(learning_rate=AMP_LR, lr_scheduler=amp_schedule()),
+                     amp=amp, engine_type=engine_type)
+
+
+def phase_train(net, init, engine_type, warmup=2, steps=10, batch=4,
+                seq=1024, amp=None):
+    """gpt2_345m at full width through TrainStep, modelbench's setting:
+    B=4, T=1024, dropout 0, seed 0, one fixed batch, from the weights
+    ``init``. With ``amp=None``: f32, ``lm_loss``, Adam(1e-4). With
+    ``amp="bfloat16"`` (the ``train_amp`` path): bf16 copies of the f32
+    masters, SoftmaxCrossEntropyLoss through the xent kernels, Adam on the
+    warm-up schedule from AMP_LR. ``engine_type`` "graph" (the default of
+    the port: one captured CUDA graph per step signature) or "naive" (the
+    eager step). Every step must launch each flash kernel once per layer,
+    Adam once, LayerNorm 49 times and (bf16) each xent kernel once, under
+    either engine type; every loss is finite and the last is below the
+    first. Returns the per-kernel launches of the run, the step metrics and
+    the final weights and Adam moments."""
+    name = "train" if amp is None else "train_amp"
+    with torch.no_grad():
+        for (_, p), w in zip(sorted(net.named_parameters()), init):
+            p.copy_(w)
+    ts = _train_step(net, amp, engine_type)
+    ids, labels = _train_batch(batch, seq)
     xent = 0 if amp is None else 1
     want = {"flash_fwd": N_LAYERS, "flash_bwd_dkv": N_LAYERS,
             "flash_bwd_dq": N_LAYERS, "adam": 1, "layernorm": 2 * N_LAYERS + 1,
@@ -1154,6 +1326,7 @@ def phase_train(warmup=2, steps=10, batch=4, seq=1024, amp=None):
     total = dict.fromkeys(want, 0)
     losses = []
     torch.cuda.synchronize()
+    _release()  # the peaks below start from what this run holds
     torch.cuda.reset_peak_memory_stats()
     _reset_launch_counts()
     for i in range(warmup + steps):
@@ -1164,8 +1337,8 @@ def phase_train(warmup=2, steps=10, batch=4, seq=1024, amp=None):
         losses.append(ts(ids, labels))
         got = {k: v - before[k] for k, v in _launch_counts().items()}
         if got != want:
-            raise AssertionError(f"{name} step {i}: launches {got}, expected "
-                                 f"{want}")
+            raise AssertionError(f"{name} {engine_type} step {i}: launches "
+                                 f"{got}, expected {want}")
         for k in total:
             total[k] += got[k]
     torch.cuda.synchronize()
@@ -1174,37 +1347,86 @@ def phase_train(warmup=2, steps=10, batch=4, seq=1024, amp=None):
     peak = torch.cuda.max_memory_allocated()
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"{name} losses {losses}: not finite and falling")
-    res = {"ms_per_step": wall / steps * 1e3,
+    programs = ts.compiled_programs
+    if programs != 1:
+        raise AssertionError(f"{name} {engine_type}: {programs} programs")
+    res = {"engine_type": engine_type, "ms_per_step": wall / steps * 1e3,
            "tokens_per_s": batch * seq * steps / wall,
-           "peak_bytes": peak, "losses": losses, "steps": steps,
-           "warmup": warmup, "amp": amp}
-    log(f"[{name}] losses {['%.4f' % x for x in losses]}")
-    log(f"[{name}] {steps} timed steps: {res['ms_per_step']:.1f} ms/step, "
-        f"{res['tokens_per_s']:.0f} tokens/s, peak memory "
-        f"{peak / 2**30:.2f} GiB; launches per step {want}")
+           "peak_bytes": peak,
+           "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
+           "losses": losses, "steps": steps, "warmup": warmup, "amp": amp}
+    log(f"[{name} {engine_type}] losses {['%.4f' % x for x in losses]}")
+    log(f"[{name} {engine_type}] {steps} timed steps: "
+        f"{res['ms_per_step']:.2f} ms/step, {res['tokens_per_s']:.0f} "
+        f"tokens/s, peak memory {peak / 2**30:.2f} GiB (reserved "
+        f"{res['peak_reserved_bytes'] / 2**30:.2f}); launches per step "
+        f"{want}")
+    state = _state(net, ts, host=True)
+    if engine_type == "graph":  # replays more: after the state was read
+        (prog, _, _), = ts._programs.values()
+        check_replay_launches(prog, f"{name} step graph")
     del ts
-    return net, total, res
+    _release()
+    return total, res, state
 
 
-def phase_serve():
+def phase_train_turns(amp=None):
+    """``phase_train`` under MODE_TURNS from one start: every run's losses,
+    final weights and Adam moments bit-identical to the first's. Returns
+    the net, the launches of the first "graph" run and the runs'
+    metrics."""
+    name = "train" if amp is None else "train_amp"
+    net, init = _train_net(amp)
+    runs, ref, launches = [], None, None
+    for mode in MODE_TURNS:
+        total, res, state = phase_train(net, init, mode, amp=amp)
+        if ref is None:
+            ref = (res["losses"], state)
+        elif res["losses"] != ref[0] or not _same_state(state, ref[1]):
+            raise AssertionError(f"{name}: the {mode} run's losses, weights "
+                                 f"or moments differ from the first run's")
+        if mode == "graph" and launches is None:
+            launches = total
+        runs.append(res)
+        del state
+    del ref, init
+    _release()
+    log(f"[{name}] {' '.join(MODE_TURNS)}: losses, weights and Adam moments "
+        f"bit-identical across the runs; ms/step "
+        f"{[round(r['ms_per_step'], 2) for r in runs]}")
+    return net, launches, runs
+
+
+def _serve_run(net, engine_type, requests, sampling=None, warm=True):
+    """Serve ``requests`` ((prompt, max_new_tokens) pairs) through a paged
+    engine (batch 8, page size 16, EOS 50256) and the continuous batcher,
+    after one warm-up request when ``warm``. Returns the engine, the
+    requests, the decode steps' logits in order, the call counts, the
+    launches of the run, its wall time and peak memory, and the program
+    count seen after each call (which must stay at the buckets used + 1)."""
     from mxnet_tpu_torch.inference import ContinuousBatcher, GenerationEngine
-    from mxnet_tpu_torch.models import get_gpt2
-    from mxnet_tpu_torch.ops import layernorm as ln
-    from mxnet_tpu_torch.ops import paged_attention as pa
 
-    t0 = time.perf_counter()
-    net = get_gpt2("gpt2_345m", dropout=0.0, device="cuda", seed=0)
     eng = GenerationEngine(net, batch_size=8, max_length=1024, paged=True,
-                           page_size=16, eos_id=50256, device="cuda")
-    log(f"[serve] gpt2_345m f32 built in {time.perf_counter() - t0:.1f}s; "
-        f"{eng.num_pages} pages of 16, buckets {eng.prefill_buckets}")
-
+                           page_size=16, eos_id=50256, device="cuda",
+                           sampling=sampling, engine_type=engine_type)
     calls = {"prefill": 0, "decode": 0, "decode_s": 0.0, "tokens": 0}
+    buckets, logits, decoded = set(), [], []
     prefill, decode_step = eng.prefill, eng.decode_step
+
+    def check_programs(what):
+        want = len(buckets) + (1 if decoded else 0)
+        if eng.compiled_programs != want or len(eng._programs) != want:
+            raise AssertionError(
+                f"serve {engine_type} after {what}: {eng.compiled_programs} "
+                f"programs ({len(eng._programs)} graphs), expected the "
+                f"{len(buckets)} buckets used + 1")
 
     def counted_prefill(prompt, slot):
         calls["prefill"] += 1
-        return prefill(prompt, slot)
+        buckets.add(eng.bucket_for(len(prompt)))
+        out = prefill(prompt, slot)
+        check_programs("a prefill")
+        return out
 
     def counted_decode():
         calls["decode"] += 1
@@ -1213,20 +1435,26 @@ def phase_serve():
         out = decode_step()
         calls["decode_s"] += time.perf_counter() - t
         calls["tokens"] += active
+        logits.append(out[2])
+        decoded.append(True)
+        check_programs("a decode step")
         return out
 
     eng.prefill, eng.decode_step = counted_prefill, counted_decode
     batcher = ContinuousBatcher(eng, device="cuda")
-    rs = np.random.RandomState(0)
-    # warm-up request (cuBLAS handles, allocator) outside the measured run
-    batcher.submit(rs.randint(0, 50257, 40), max_new_tokens=4)
-    batcher.run()
-    calls.update(prefill=0, decode=0, decode_s=0.0, tokens=0)
-
-    reqs = [batcher.submit(rs.randint(0, 50257, int(n)), max_new_tokens=64)
-            for n in rs.randint(32, 501, 16)]
-    _reset_launch_counts()
+    if warm:
+        # warm-up request (cuBLAS handles, allocator; under "graph" the
+        # decode graph's capture) outside the measured run
+        batcher.submit(np.random.RandomState(9).randint(0, 50257, 40),
+                       max_new_tokens=4)
+        batcher.run()
+        calls.update(prefill=0, decode=0, decode_s=0.0, tokens=0)
+        logits.clear()
+    reqs = [batcher.submit(p, max_new_tokens=n) for p, n in requests]
     torch.cuda.synchronize()
+    _release()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
     t = time.perf_counter()
     batcher.run()
     torch.cuda.synchronize()
@@ -1234,7 +1462,28 @@ def phase_serve():
     launches = {k: v for k, v in _launch_counts().items()
                 if k in ("layernorm", "paged_attention",
                          "paged_attention_prefill")}
+    return dict(eng=eng, reqs=reqs, logits=logits, calls=calls,
+                launches=launches, wall=wall, buckets=buckets,
+                peak=torch.cuda.max_memory_allocated(),
+                peak_reserved=torch.cuda.max_memory_reserved())
 
+
+def _serve_requests(n=16, max_new=64, seed=0):
+    rs = np.random.RandomState(seed)
+    return [(rs.randint(0, 50257, int(m)), max_new)
+            for m in rs.randint(32, 501, n)]
+
+
+def phase_serve(net, engine_type):
+    """16 requests (prompts of 32-500 tokens, 64 new tokens each) through
+    the paged engine and the batcher, gpt2_345m f32 at full width, under
+    ``engine_type``: every request finishes, every forward launches 24
+    attention reads and 49 LayerNorms, and the engine has one program for
+    each prefill bucket used plus the decode step, flat through the run.
+    Returns the run (``_serve_run``) and its metrics."""
+    run = _serve_run(net, engine_type, _serve_requests())
+    eng, reqs, calls, launches = (run["eng"], run["reqs"], run["calls"],
+                                  run["launches"])
     reasons = [r.finish_reason for r in reqs]
     if any(r is None for r in reasons):
         raise AssertionError(f"unfinished requests: {reasons}")
@@ -1254,17 +1503,232 @@ def phase_serve():
                              f"{calls['prefill']} prefills + "
                              f"{calls['decode']} decode steps)")
     ttft = sorted(r.ttft for r in reqs)
-    log(f"[serve] {len(reqs)} requests, prompts {min(len(r.prompt) for r in reqs)}-"
+    used = {eng.bucket_for(len(r.prompt)) for r in reqs} | {eng.bucket_for(40)}
+    if eng.compiled_programs != len(used) + 1:
+        raise AssertionError(f"serve: {eng.compiled_programs} programs for "
+                             f"{len(used)} buckets used + 1")
+    res = {"engine_type": engine_type,
+           "ttft_p50_ms": statistics.median(ttft) * 1e3,
+           "decode_ms_per_step": calls["decode_s"] / calls["decode"] * 1e3,
+           "decode_tokens_per_s": calls["tokens"] / calls["decode_s"],
+           "wall_s": run["wall"], "prefills": calls["prefill"],
+           "decode_steps": calls["decode"],
+           "compiled_programs": eng.compiled_programs,
+           "peak_bytes": run["peak"],
+           "peak_reserved_bytes": run["peak_reserved"]}
+    log(f"[serve {engine_type}] {len(reqs)} requests, prompts "
+        f"{min(len(r.prompt) for r in reqs)}-"
         f"{max(len(r.prompt) for r in reqs)} tokens, finish reasons "
         f"{ {x: reasons.count(x) for x in set(reasons)} }")
-    log(f"[serve] wall {wall:.2f}s, {calls['prefill']} prefills, "
-        f"{calls['decode']} decode steps; TTFT p50 "
-        f"{statistics.median(ttft) * 1e3:.1f} ms (queue wait included), "
-        f"decode {calls['tokens'] / calls['decode_s']:.1f} tokens/s "
-        f"({calls['decode_s'] / calls['decode'] * 1e3:.2f} ms/step)")
-    log(f"[serve] launches in the run: {launches} (24 attention reads, "
-        f"decode or prefill, and 49 LayerNorms per forward)")
-    return eng, launches
+    log(f"[serve {engine_type}] wall {run['wall']:.2f}s, {calls['prefill']} "
+        f"prefills, {calls['decode']} decode steps; TTFT p50 "
+        f"{res['ttft_p50_ms']:.1f} ms (queue wait included), decode "
+        f"{res['decode_tokens_per_s']:.1f} tokens/s "
+        f"({res['decode_ms_per_step']:.2f} ms/step); peak memory "
+        f"{run['peak'] / 2**30:.2f} GiB (reserved "
+        f"{run['peak_reserved'] / 2**30:.2f}); {eng.compiled_programs} "
+        f"programs = {len(used)} prefill buckets used + 1 decode, flat")
+    log(f"[serve {engine_type}] launches in the run: {launches} (24 "
+        f"attention reads, decode or prefill, and 49 LayerNorms per "
+        f"forward)")
+    if engine_type == "graph":  # replays more of each: after the run
+        graphs = {key[0]: prog for key, prog in eng._programs.items()
+                  if prog.graph is not None}
+        # the prefill graphs share the last-token index, which the last
+        # prefill set (it may lie past a smaller bucket): row 0 is in each
+        eng._in_last.zero_()
+        if ("decode", 8, "paged") not in graphs:
+            raise AssertionError(f"serve: no decode graph in {list(graphs)}")
+        for sig, prog in sorted(graphs.items(), key=str):
+            check_replay_launches(prog, f"serve {sig} step graph")
+    return run, res
+
+
+def _same_serving(a, b):
+    """Tokens of every request and the logits of every decode step equal."""
+    return [r.output for r in a["reqs"]] == [r.output for r in b["reqs"]] \
+        and len(a["logits"]) == len(b["logits"]) \
+        and all(torch.equal(x, y) for x, y in zip(a["logits"], b["logits"]))
+
+
+def phase_serve_turns(net):
+    """``phase_serve`` under MODE_TURNS: greedy tokens and every decode
+    step's logits bit-identical across the runs. Returns the launches of
+    the first "graph" run (the main path) and the runs' metrics. No run
+    keeps its engine past its end, so that each run's peak memory is its
+    own."""
+    runs, ref, launches = [], None, None
+    for mode in MODE_TURNS:
+        run, res = phase_serve(net, mode)
+        del run["eng"]
+        if ref is None:
+            ref = run
+        elif not _same_serving(run, ref):
+            raise AssertionError(f"serve: the {mode} run's tokens or decode "
+                                 f"logits differ from the first run's")
+        if mode == "graph" and launches is None:
+            launches = run["launches"]
+        runs.append(res)
+        del run
+        _release()
+    steps = len(ref["logits"])
+    del ref
+    log(f"[serve] {' '.join(MODE_TURNS)}: tokens and the logits of all "
+        f"{steps} decode steps bit-identical across the runs; decode ms/step "
+        f"{[round(r['decode_ms_per_step'], 2) for r in runs]}, TTFT p50 ms "
+        f"{[round(r['ttft_p50_ms'], 1) for r in runs]}")
+    return launches, runs
+
+
+def phase_graph_equals_naive(serve_net):
+    """The step graphs against the eager steps, beyond the timed runs'
+    greedy serving and full training: (1) seeded top-k serving at full
+    width, tokens and every decode step's logits bit-identical; (2) 3
+    TrainStep steps of a 2-layer gpt2_345m-width model in f32 and under
+    amp="bfloat16" (the ``train`` and ``train_amp`` steps): losses, every
+    parameter and every Adam moment bit-identical; (3) a host sync planted
+    in a captured step raises, naming the step, and the card still
+    works; (4) two engines' decode graphs replayed at the same time on two
+    streams serve what each serves alone (``phase_two_streams``)."""
+    from mxnet_tpu_torch import MXNetError, TrainStep
+    from mxnet_tpu_torch.inference import SamplingConfig
+    from mxnet_tpu_torch.models import get_gpt2, lm_loss
+    from mxnet_tpu_torch.optimizer import Adam
+
+    topk = SamplingConfig(method="top_k", top_k=40, seed=7)
+    reqs = _serve_requests(n=8, max_new=16, seed=3)
+    runs = {m: _serve_run(serve_net, m, reqs, sampling=topk, warm=False)
+            for m in ("naive", "graph")}
+    if not _same_serving(runs["naive"], runs["graph"]):
+        raise AssertionError("top-k serving: graph and naive differ")
+    steps = len(runs["graph"]["logits"])
+    del runs
+    _release()
+    log(f"[graph==naive] top-k (k 40, seed 7) serving, 8 requests: tokens "
+        f"and the logits of all {steps} decode steps bit-identical")
+
+    ids, labels = _train_batch(4, 1024)
+    for amp in (None, "bfloat16"):
+        out = {}
+        for mode in ("naive", "graph"):
+            net = get_gpt2("gpt2_345m", dropout=0.0, num_layers=2,
+                           device="cuda", seed=1)
+            ts = _train_step(net, amp, mode)
+            losses = [ts(ids, labels) for _ in range(TRAIN_STEPS)]
+            out[mode] = ([float(x) for x in losses], _state(net, ts),
+                         ts.compiled_programs)
+            del net, ts
+            _release()
+        (ln_, sn, _), (lg, sg, pg) = out["naive"], out["graph"]
+        if ln_ != lg or not _same_state(sn, sg) or pg != 1:
+            raise AssertionError(f"train {amp or 'f32'}: after "
+                                 f"{TRAIN_STEPS} steps graph and naive "
+                                 f"differ (losses {lg} / {ln_})")
+        log(f"[graph==naive] train {amp or 'f32'}, 2 layers at gpt2_345m "
+            f"width, {TRAIN_STEPS} steps: losses {lg}, {len(sg)} parameters "
+            f"and Adam moments bit-identical")
+        del out
+
+    def syncing_loss(out, y):
+        loss = lm_loss(out, y)
+        _ = float(loss)  # a host sync: cannot be captured
+        return loss
+
+    net = get_gpt2("gpt2_345m", dropout=0.0, num_layers=1, device="cuda",
+                   seed=1)
+    ts = TrainStep(net, syncing_loss, Adam(learning_rate=1e-4), amp=None,
+                   engine_type="graph")
+    ts(ids, labels)  # the eager warm-up syncs freely
+    for attempt in (1, 2):  # the next call captures; it never runs eagerly
+        try:
+            ts(ids, labels)
+        except MXNetError as e:
+            msg = str(e)
+            if "capture of step" not in msg or "train_step" not in msg:
+                raise AssertionError(f"planted host sync: wrong error {msg}")
+        else:
+            raise AssertionError("planted host sync: the capture did not "
+                                 "raise")
+    del net, ts
+    x = torch.ones(4, device="cuda")
+    if float((x + 1).sum()) != 8.0:
+        raise AssertionError("the card does not work after a failed capture")
+    # a capture that failed must not leave the allocator believing that a
+    # capture runs: it would then never again return the memory of a block
+    # used on a second stream
+    _release()
+    before = torch.cuda.memory_reserved()
+    t = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    t.record_stream(torch.cuda.Stream())
+    del t
+    _release()
+    if torch.cuda.memory_reserved() != before:
+        raise AssertionError(f"after a failed capture a block used on two "
+                             f"streams stays reserved: "
+                             f"{torch.cuda.memory_reserved() - before} bytes")
+    log(f"[graph==naive] a host sync planted in the captured step raises, "
+        f"twice, with the signature, and leaves the allocator as it was: "
+        f"{' '.join(msg.split())[:400]}")
+    phase_two_streams(serve_net)
+
+
+def phase_two_streams(serve_net, replays=16):
+    """Two paged engines (gpt2_345m, batch 8: the decode read splits its
+    keys and merges the splits through arrival counters) each prefill 8
+    prompts and take two decode steps (the warm-up, then the capture).
+    Each decode graph must own its counters. Then each graph is replayed
+    once alone, and ``replays`` times more with the two graphs launched
+    back to back on two streams, so that they run at the same time: every
+    replay must give the logits of the replay alone, bit for bit (a replay
+    rewrites the same cache entries from the same static inputs)."""
+    from mxnet_tpu_torch.inference import GenerationEngine
+
+    rs = np.random.RandomState(11)
+    engs, graphs = [], []
+    for _ in range(2):
+        eng = GenerationEngine(serve_net, batch_size=8, max_length=1024,
+                               paged=True, page_size=16, device="cuda",
+                               engine_type="graph")
+        for slot, n in enumerate(rs.randint(32, 300, 8)):
+            eng.prefill(rs.randint(0, 50257, int(n)), slot)
+        eng.decode_step()
+        eng.decode_step()
+        engs.append(eng)
+        graphs.append(next(p for (sig, _), p in eng._programs.items()
+                           if sig[0] == "decode"))
+    log(f"[two streams] two engines, 8 prefills and 2 decode steps each: "
+        f"decode graphs captured on streams {[g.stream for g in graphs]}")
+    counters = [g._owned["arrivals"].data_ptr() for g in graphs]
+    if any(g.graph is None for g in graphs) or counters[0] == counters[1]:
+        raise AssertionError(f"two engines: decode graphs captured "
+                             f"{[g.graph is not None for g in graphs]}, "
+                             f"split-merge counters at {counters}")
+    streams = [torch.cuda.Stream() for _ in graphs]
+    alone = []
+    for g, st in zip(graphs, streams):
+        with torch.cuda.stream(st):
+            g.graph.replay()
+            alone.append(g.outputs[0].clone())
+        st.synchronize()
+    outs = [[], []]
+    torch.cuda.synchronize()
+    for _ in range(replays):
+        for i, (g, st) in enumerate(zip(graphs, streams)):
+            with torch.cuda.stream(st):
+                g.graph.replay()
+                outs[i].append(g.outputs[0].clone())
+    torch.cuda.synchronize()
+    for i in (0, 1):
+        if not all(torch.equal(o, alone[i]) for o in outs[i]):
+            raise AssertionError(f"two engines on two streams: engine {i}'s "
+                                 f"decode logits differ from its replay "
+                                 f"alone")
+    del engs, graphs, alone, outs
+    _release()
+    log(f"[two streams] two engines' decode graphs, each with its own "
+        f"split-merge counters, replayed {replays} times back to back on "
+        f"two streams: every replay's logits bit-identical to each graph's "
+        f"replay alone")
 
 
 # the peak an operation count is held against (see HBM_BYTES_PER_S): by the
@@ -1383,11 +1847,14 @@ def phase_timing(eng):
         shape="paged_attention prefill B=1 Tq=512 from position 0 f32",
         plain_graph=False, dtype="3xtf32")
 
-    # LayerNorm at the decode shape (8 rows of 1024) and the largest
-    # prefill bucket (512 rows)
+    # LayerNorm at the decode shape (8 rows of 1024), the largest prefill
+    # bucket (512 rows) and the training shape (B=4 x T=1024 rows: 49
+    # launches a `train` or `train_amp` step), each beside the
+    # launch floor: a kernel that does nothing on LayerNorm's grid
     g = torch.ones(1024, device=dev)
     bb = torch.zeros(1024, device=dev)
-    for n_rows in (8, 512):
+    floor = {}
+    for n_rows in (8, 512, 4096):
         x = torch.randn(n_rows, 1024, generator=gen).to(dev)
         r = _timed(lambda: ln.layer_norm(x, g, bb),
                    lambda: ln.layer_norm_plain(x, g, bb),
@@ -1396,8 +1863,18 @@ def phase_timing(eng):
                    nbytes=4 * (2 * x.numel() + 2 * 1024),
                    flops=8 * x.numel(),
                    shape=f"layernorm ({n_rows}, 1024) f32")
+        floor[n_rows] = {"layernorm_ms": r["ms"], "bound_ms": r["bound_ms"],
+                         "empty_ms": graph_time_ms(lambda: empty_launch(x)),
+                         "empty_eager_ms": cuda_time_ms(
+                             lambda: empty_launch(x))}
+        log(f"[time] empty kernel on LayerNorm's grid ({n_rows}, 1024): "
+            f"{floor[n_rows]['empty_ms'] * 1e3:.2f} us by graph replay "
+            f"(eager {floor[n_rows]['empty_eager_ms'] * 1e3:.2f}); "
+            f"LayerNorm {r['ms'] * 1e3:.2f} us, bound "
+            f"{r['bound_ms'] * 1e3:.2f} us")
         if n_rows == 8:
             rows["layernorm"] = r
+    log("[launch floor] " + json.dumps(floor))
     return rows
 
 
@@ -1594,20 +2071,34 @@ def main():
     phase_dense_equals_paged(amp="bfloat16")
     phase_dense_equals_paged(amp="float16")
     parity = phase_train_parity()
-    eng, serve_launches = phase_serve()
+    from mxnet_tpu_torch.inference import GenerationEngine
+    from mxnet_tpu_torch.models import get_gpt2
+
+    t = time.perf_counter()
+    serve_net = get_gpt2("gpt2_345m", dropout=0.0, device="cuda", seed=0)
+    log(f"[serve] gpt2_345m f32 built in {time.perf_counter() - t:.1f}s; "
+        f"batch 8, 512 pages of 16")
+    phase_graph_equals_naive(serve_net)
+    serve_launches, serve = phase_serve_turns(serve_net)
+    # the serve engine's pools and table, for the kernels' timing
+    eng = GenerationEngine(serve_net, batch_size=8, max_length=1024,
+                           paged=True, page_size=16, device="cuda")
     timing = phase_timing(eng)
-    del eng
-    torch.cuda.empty_cache()
+    del eng, serve_net
+    _release()
     amp_parity = phase_train_parity(amp="bfloat16")
-    net, train_launches, train = phase_train()
+    net, train_launches, train = phase_train_turns()
     timing.update(phase_train_timing(net))
-    log("[train] " + json.dumps(dict(train, parity=parity)))
+    log("[train] " + json.dumps(dict(runs=train, parity=parity)))
     del net
-    torch.cuda.empty_cache()
-    net, amp_launches, train_amp = phase_train(amp="bfloat16")
+    _release()
+    net, amp_launches, train_amp = phase_train_turns(amp="bfloat16")
     del net
-    torch.cuda.empty_cache()
-    log("[train_amp] " + json.dumps(dict(train_amp, parity=amp_parity)))
+    _release()
+    log("[train_amp] " + json.dumps(dict(runs=train_amp, parity=amp_parity)))
+    log("[engine types] " + json.dumps(
+        {"turns": MODE_TURNS, "serve": serve, "train": train,
+         "train_amp": train_amp}))
     timing.update(phase_xent_timing())
     # (source, replaced TPU kernel, the path whose run gives `launches`)
     meta = {

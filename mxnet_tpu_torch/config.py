@@ -1,16 +1,17 @@
 """Runtime knobs of the port: the subset of ``mxnet_tpu/config.py`` that
 the serving and training slices read, under the same names and
-``MXNET_TPU_*`` aliases.
+``MXNET_TPU_*`` (or MXNet's ``MXNET_*``) aliases.
 
 Switching a knob off is an explicit choice of the plain PyTorch version of
-that kernel; it is never a fallback taken on failure.
+that kernel (or, for ``engine_type``, of the eager step); it is never a
+fallback taken on failure.
 """
 from __future__ import annotations
 
 import os
 from typing import Any, Dict
 
-__all__ = ["get", "set"]
+__all__ = ["get", "set", "resolve"]
 
 # name -> (type, default, env aliases, doc)
 _KNOBS: Dict[str, tuple] = {
@@ -51,15 +52,30 @@ _KNOBS: Dict[str, tuple] = {
                            "sparse-label SoftmaxCrossEntropyLoss through the "
                            "CUDA forward and backward kernels (off = the "
                            "log_softmax -> pick composition)"),
+    # MXNet's engine switch. In the JAX package 'naive' turns jit off; here
+    # the default runs each engine and TrainStep step as one captured CUDA
+    # graph (the port's compiled step program) and 'naive' runs it eagerly,
+    # kernel by kernel. Read when an engine or a TrainStep is built.
+    "engine_type": (str, "graph", ("MXNET_ENGINE_TYPE",),
+                    "'graph': one captured CUDA graph per step signature, "
+                    "replayed from static buffers; 'naive': the eager step"),
 }
+
+#: the values a str knob may take; any other raises
+_CHOICES: Dict[str, tuple] = {"engine_type": ("graph", "naive")}
 
 _values: Dict[str, Any] = {}
 
 
-def _parse(typ, raw):
+def _parse(name, raw):
+    typ = _KNOBS[name][0]
     if typ is bool:
         return str(raw).strip().lower() in ("1", "true", "yes", "on")
-    return typ(raw)
+    value = typ(raw)
+    if name in _CHOICES and value not in _CHOICES[name]:
+        raise ValueError(f"knob {name!r} takes one of {_CHOICES[name]}, got "
+                         f"{raw!r}")
+    return value
 
 
 def get(name: str):
@@ -67,14 +83,23 @@ def get(name: str):
         raise KeyError(f"unknown knob {name!r}")
     if name in _values:
         return _values[name]
-    typ, default, envs, _ = _KNOBS[name]
+    _, default, envs, _ = _KNOBS[name]
     for env in envs:
         if env in os.environ:
-            return _parse(typ, os.environ[env])
+            return _parse(name, os.environ[env])
     return default
 
 
 def set(name: str, value) -> None:  # noqa: A001 - mirrors mxnet_tpu.config.set
     if name not in _KNOBS:
         raise KeyError(f"unknown knob {name!r}")
-    _values[name] = _parse(_KNOBS[name][0], value)
+    _values[name] = _parse(name, value)
+
+
+def resolve(name: str, value=None):
+    """``value`` checked as the knob's own values are (a bad one raises
+    ValueError), or the knob's value when ``value`` is None: for an entry
+    point's argument that overrides a knob."""
+    if name not in _KNOBS:
+        raise KeyError(f"unknown knob {name!r}")
+    return get(name) if value is None else _parse(name, value)

@@ -13,10 +13,23 @@ Counterpart of ``mxnet_tpu/inference/engine.py`` (the serving subset):
     next write are force-finished (``page_exhausted``), and a released
     row's device table row is zeroed before the next step writes anything.
 
-PyTorch runs eagerly, so the JAX engine's compiled programs are plain
-method calls here and the caches are updated in place. The host state
-(``positions``, ``done``, ``last_tokens``, the allocator) stays numpy on
-the host; each step ships only the (B,) vectors to the device.
+Where the JAX engine runs each step as one compiled, donated program
+(``_prefill_jit`` per prompt bucket, ``_decode_jit``), this one runs it as
+one captured CUDA graph per step signature (``ops/cuda_graph.py``), all of
+an engine's graphs in one memory pool since they never run at once. The
+graphs read static device buffers that each step fills before its replay:
+the tokens, the positions, the prefill's page-table row (or, dense, its
+slot) and the index of the last prompt token. The caches are updated in
+place. Sampling runs after the replay, from a copy of the graph's logits,
+with the engine's own ``torch.Generator``. ``compiled_programs`` counts the
+signatures as the JAX engine does: ``("prefill", bucket)`` and ``("decode",
+B, "paged")`` or ``("decode", B)``. With ``engine_type="naive"`` the same
+step functions run eagerly at every call, over the same static buffers;
+on the CPU they always do.
+
+The host state (``positions``, ``done``, ``last_tokens``, the allocator)
+stays numpy on the host; each step ships only the (B,) vectors to the
+device.
 """
 from __future__ import annotations
 
@@ -27,7 +40,9 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import config as _config
 from ..base import MXNetError, resolve_device
+from ..ops import cuda_graph as _cg
 from ..ops import sampling as _sampling
 
 __all__ = ["GenerationEngine", "SamplingConfig"]
@@ -73,6 +88,8 @@ class GenerationEngine:
     paged, page_size, num_pages : the paged cache; ``num_pages`` defaults
         to the dense-equivalent ``batch_size * ceil(max_length/page_size)``.
     device : where the engine runs; the default is the card.
+    engine_type : "graph" (one captured CUDA graph per step signature) or
+        "naive" (eager steps); None reads the ``engine_type`` knob.
     """
 
     def __init__(self, net, batch_size: int = 4, max_length: Optional[int] = None,
@@ -80,7 +97,9 @@ class GenerationEngine:
                  eos_id: Optional[int] = None, pad_id: int = 0,
                  sampling=None, cache_dtype: str = "float32",
                  paged: bool = False, page_size: int = 16,
-                 num_pages: Optional[int] = None, device="cuda"):
+                 num_pages: Optional[int] = None, device="cuda",
+                 engine_type: Optional[str] = None):
+        self.engine_type = _config.resolve("engine_type", engine_type)
         self.device = resolve_device(device)
         if net.device != self.device:
             raise MXNetError(f"net is on {net.device}, engine on {self.device}")
@@ -137,6 +156,62 @@ class GenerationEngine:
         self.positions = np.zeros(self.batch_size, np.int32)
         self.done = np.ones(self.batch_size, bool)  # empty slots are "done"
         self.last_tokens = np.full(self.batch_size, self.pad_id, np.int32)
+
+        self._signatures: set = set()  # step signatures run so far
+        self._programs = {}  # (signature, capture state) -> StepGraph
+        self._init_static()
+
+    def _init_static(self):
+        """The device buffers the step programs read, filled before each
+        call; under "graph" on the card, the stream the graphs are
+        captured on and one memory pool for all of them."""
+        dev, b = self.device, self.batch_size
+        self._in_tokens = torch.zeros((b, 1), dtype=torch.int64, device=dev)
+        self._in_positions = torch.zeros(b, dtype=torch.int32, device=dev)
+        self._in_prompt = {}  # bucket -> (1, bucket) int64
+        self._in_start = torch.zeros(1, dtype=torch.int32, device=dev)
+        self._in_last = torch.zeros(1, dtype=torch.int64, device=dev)
+        # the prefill's table: the slot's page-table row (paged), or the
+        # slot itself over the dense cache viewed as B pages of max_length
+        # slots, so that one graph per bucket serves every slot
+        self._in_table = torch.zeros(
+            (1, self._n_row_pages) if self.paged else (1, 1),
+            dtype=torch.int32, device=dev)
+        self._capture = self.engine_type == "graph" and dev.type == "cuda"
+        self._stream = _cg.capture_stream(self, dev) if self._capture \
+            else None
+        self._pool = _cg.GraphPool() if self._capture else None
+
+    # -- program accounting --------------------------------------------------
+    @property
+    def compiled_programs(self) -> int:
+        """Step programs this engine has run: the prefill buckets used, plus
+        the decode step. Under "graph" each is one captured CUDA graph."""
+        return len(self._signatures)
+
+    def _note_program(self, sig) -> None:
+        self._signatures.add(sig)
+
+    def _run_program(self, sig, fn):
+        """The outputs of the step graph of ``sig`` (built from ``fn`` on
+        first use)."""
+        key = (sig, _cg.capture_state())
+        prog = self._programs.get(key)
+        if prog is None:
+            prog = self._programs[key] = _cg.StepGraph(
+                fn, sig, self.device, stream=self._stream, pool=self._pool,
+                capture=self._capture)
+        return prog()
+
+    def _put(self, dst, array) -> None:
+        """Copy a host array into a static device buffer: from pinned memory
+        without waiting, on the card. Every step ends in a host sync, so the
+        copy has landed before the next step writes the same buffer."""
+        src = torch.from_numpy(np.ascontiguousarray(array))
+        if self.device.type == "cuda":
+            dst.copy_(src.pin_memory(), non_blocking=True)
+        else:
+            dst.copy_(src)
 
     # -- page accounting (paged mode) ----------------------------------------
     @property
@@ -239,8 +314,7 @@ class GenerationEngine:
         bucket = self.bucket_for(length)
         padded = np.full((1, bucket), self.pad_id, np.int64)
         padded[0, :length] = prompt
-        tokens = torch.from_numpy(padded).to(self.device)
-        start = torch.zeros(1, dtype=torch.int32, device=self.device)
+        new_row = None
         if self.paged:
             if length >= self.max_length:
                 raise ValueError(f"prompt length {length} >= max_length="
@@ -259,20 +333,44 @@ class GenerationEngine:
             self._row_pages[slot] = pages
             new_row = np.zeros(self._n_row_pages, np.int32)
             new_row[:need] = pages
-            self.page_table[slot] = torch.from_numpy(new_row).to(self.device)
-            logits, _ = self.net(tokens, cache=self.pools, start_pos=start,
-                                 page_table=self.page_table[slot:slot + 1])
-        else:
-            row_cache = [(k[slot:slot + 1], v[slot:slot + 1])
-                         for k, v in self.cache]  # views: written in place
-            logits, _ = self.net(tokens, cache=row_cache, start_pos=start)
-        last = logits[0, length - 1]
+        self._note_program(("prefill", bucket))
+        last = self._prefill_program(padded, slot, length, new_row)
         tok = int(self._sample(last[None, :])[0])  # host sync: TTFT
         self.positions[slot] = length
         self.last_tokens[slot] = tok
         self.done[slot] = (self.eos_id is not None and tok == self.eos_id)
         self._last_logits = last
         return tok
+
+    def _prefill_program(self, padded, slot, length, new_row):
+        """The prefill's forward as the step program of its bucket, over
+        the static buffers; returns a copy of the last prompt token's logits
+        (V,). The LM head runs over the whole bucket and the last row is
+        taken by a device index, so one program serves every length."""
+        bucket = padded.shape[1]
+        buf = self._in_prompt.get(bucket)
+        if buf is None:
+            buf = self._in_prompt[bucket] = torch.zeros(
+                (1, bucket), dtype=torch.int64, device=self.device)
+        if self.paged:
+            self._put(self.page_table[slot], new_row)
+            self._in_table.copy_(self.page_table[slot:slot + 1])
+        else:
+            self._put(self._in_table, np.full((1, 1), slot, np.int32))
+        self._put(buf, padded)
+        self._put(self._in_last, np.array([length - 1], np.int64))
+        # the step reads no attribute of the engine (no cycle through the
+        # program, which would keep the graphs' pool alive)
+        net, cache, start = self.net, self._cache(), self._in_start
+        table, last_idx = self._in_table, self._in_last
+
+        def step():
+            logits, _ = net(buf, cache=cache, start_pos=start,
+                            page_table=table)
+            return (logits[0].index_select(0, last_idx),)
+
+        (last,) = self._run_program(("prefill", bucket), step)
+        return last[0].clone()
 
     @torch.inference_mode()
     def decode_step(self):
@@ -284,12 +382,20 @@ class GenerationEngine:
             clear = self._take_clear_mask()
             self._apply_table_updates(updates, clear)
         active_in = ~self.done  # exhaustion may have finished rows
-        tokens = torch.from_numpy(self.last_tokens.astype(np.int64)) \
-            .to(self.device).reshape(self.batch_size, 1)
-        positions = torch.from_numpy(self.positions).to(self.device)
-        logits, _ = self.net(tokens, cache=self._cache(), start_pos=positions,
-                             page_table=self.page_table if self.paged else None)
-        logits = logits[:, 0]
+        sig = ("decode", self.batch_size) + (("paged",) if self.paged else ())
+        self._note_program(sig)
+        self._put(self._in_tokens, self.last_tokens.astype(np.int64)[:, None])
+        self._put(self._in_positions, self.positions)
+        net, cache, tokens = self.net, self._cache(), self._in_tokens
+        positions = self._in_positions
+        table = self.page_table if self.paged else None
+
+        def step():
+            logits, _ = net(tokens, cache=cache, start_pos=positions,
+                            page_table=table)
+            return (logits[:, 0],)
+
+        logits = self._run_program(sig, step)[0].clone()
         sampled = self._sample(logits).cpu().numpy()
         tok = np.where(self.done, np.int32(self.pad_id), sampled) \
             .astype(np.int32)

@@ -30,6 +30,7 @@ import torch
 
 from ..base import MXNetError
 from . import cuda_common as _cc
+from . import cuda_graph as _cg
 
 __all__ = ["adam_update", "adam_update_multi", "adam_update_fused",
            "sgd_update",
@@ -188,7 +189,14 @@ def _flags(grad, low):
 def _table(ws, gs, ms, vs, lows):
     """The (N, 8) int64 device table of (w, g, m, v, low | 0, n, first
     chunk, flags), and the total chunk count. Sent to the card (pinned,
-    asynchronously) only when a pointer or a size changed."""
+    asynchronously) only when a pointer or a size changed.
+
+    Inside a step graph's capture (``ops/cuda_graph.py``) the table is not
+    a graph node: a captured copy would read its pinned host source again
+    at every replay, after that memory was freed. The capture allocates the
+    device table outside the graph's memory pool and fills it once, after
+    the capture ends; the graph keeps it. Inside any other capture only a
+    table already on the card serves."""
     rows = np.zeros((len(ws), 8), dtype=np.int64)
     chunk = 0
     for i, (w, g, m, v) in enumerate(zip(ws, gs, ms, vs)):
@@ -199,7 +207,16 @@ def _table(ws, gs, ms, vs, lows):
                    _flags(g, low))
         chunk += -(-n // CHUNK)
     key = (ws[0].device, rows.tobytes())
+    if _cg.capturing():
+        table = _cg.persistent_empty(rows.shape, torch.int64)
+        host = torch.from_numpy(rows)
+        _cg.after_capture(lambda: table.copy_(host))
+        return table, chunk
     if _table_cache["key"] != key:
+        if torch.cuda.is_current_stream_capturing():
+            raise MXNetError("adam kernel: a new pointer table cannot be sent "
+                             "to the card inside a CUDA graph capture; "
+                             "capture through ops.cuda_graph.StepGraph")
         host = torch.from_numpy(rows).pin_memory()
         _table_cache["table"] = host.to(ws[0].device, non_blocking=True)
         _table_cache["key"] = key

@@ -27,6 +27,7 @@ import torch
 
 from ..base import MXNetError
 from . import cuda_common as _cc
+from . import cuda_graph as _cg
 
 __all__ = ["paged_attention", "paged_attention_read",
            "paged_attention_read_plain", "scatter_tokens"]
@@ -73,12 +74,24 @@ def _split_plan(cap, tq, bh):
 
 
 def _arrival_counters(device, stream, n):
-    """At least ``n`` zeroed int32 counters for reads on ``stream`` of
-    ``device``, cached."""
-    buf = _arrivals.get((device, stream))
+    """At least ``n`` zeroed int32 counters for the split merge of a read
+    on ``stream`` of ``device``. Eager reads share one cached buffer per
+    stream (stream order keeps them apart). A step graph's capture takes
+    counters of its own (``cuda_graph.owned``), allocated outside its memory
+    pool, held as long as the graph and zeroed after the capture, so that
+    graphs replayed on different streams, or beside an eager read, never
+    share counters."""
+    cache, key = _arrivals, (device, stream)
+    if _cg.capturing():
+        cache, key = _cg.owned(), "arrivals"
+    buf = cache.get(key)
     if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _arrivals[(device, stream)] = buf
+        if _cg.capturing():
+            buf = _cg.persistent_empty((max(n, 1024),), torch.int32)
+            _cg.after_capture(buf.zero_)
+        else:
+            buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        cache[key] = buf
     return buf
 
 

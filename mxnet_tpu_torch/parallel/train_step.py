@@ -3,8 +3,18 @@
 Counterpart of the ``mesh=None`` subset of ``mxnet_tpu/parallel/train_step.py``:
 one call is forward, backward and the optimizer update of every trainable
 parameter. Where the JAX step is one compiled program with donated
-buffers, this one runs eagerly and updates the module's parameters and
-the optimizer state in place. The step count lives on the card and the
+buffers, cached per signature (``_compiled``), this one is one captured
+CUDA graph per signature (``ops/cuda_graph.py``; with
+``engine_type="naive"``, and on the CPU, the same step function runs
+eagerly at every call over the same static buffers), and it updates the
+module's
+parameters and the optimizer state in place. The signature is the batch's
+shapes and dtypes, the AMP policy and the storage of every parameter,
+moment and low-precision copy: a parameter given new storage (``p.data =
+...``) drops the graph, and the next calls capture anew (counted in
+``recaptures``). Each call copies the batch and the per-parameter rates
+into static buffers before the replay, and returns a copy of the graph's
+loss. The step count lives on the card and the
 bias-corrected learning rate is computed there from it, so a step issues
 its work without waiting for the card: the returned loss is a 0-d device
 tensor, and reading it is the caller's sync.
@@ -33,11 +43,15 @@ sync.
 """
 from __future__ import annotations
 
+import weakref
+
 import numpy as np
 import torch
 
+from .. import config as _config
 from ..base import MXNetError
 from ..contrib import amp as _amp
+from ..ops import cuda_graph as _cg
 
 __all__ = ["TrainStep"]
 
@@ -57,6 +71,8 @@ class TrainStep:
         ``"float16"`` or a ``contrib.amp.Policy`` force one; ``None`` trains
         in the parameters' dtype.
     mesh, layout : not ported yet; anything but None raises.
+    engine_type : "graph" (one captured CUDA graph per step signature) or
+        "naive" (the eager step); None reads the ``engine_type`` knob.
 
     Parameters with ``requires_grad=False`` are frozen (the JAX
     ``grad_req='null'``). Per-parameter ``lr_mult``/``wd_mult`` resolve as
@@ -65,10 +81,12 @@ class TrainStep:
     """
 
     def __init__(self, net, loss_fn, optimizer, mesh=None,
-                 n_model_inputs: int = 1, amp="auto", layout=None):
+                 n_model_inputs: int = 1, amp="auto", layout=None,
+                 engine_type=None):
         if mesh is not None or layout is not None:
             raise MXNetError("TrainStep(mesh=/layout=) is not ported yet: the "
                              "port's TrainStep runs on one device")
+        self.engine_type = _config.resolve("engine_type", engine_type)
         self.amp_policy = _amp.resolve_policy(amp)
         self.net = net
         self.loss_fn = loss_fn
@@ -78,6 +96,10 @@ class TrainStep:
         if not self._plist:
             raise MXNetError("TrainStep: the net has no parameters")
         self.device = self._plist[0][1].device
+        self._capture = self.engine_type == "graph" and \
+            self.device.type == "cuda"
+        self._stream = _cg.capture_stream(self, self.device) \
+            if self._capture else None
         self._train = [(i, name, p) for i, (name, p) in enumerate(self._plist)
                        if p.requires_grad]
         self.opt_state = {name: optimizer.create_state(i, p.detach())
@@ -105,6 +127,11 @@ class TrainStep:
                                           device=dev),
                     "good": torch.zeros((), dtype=torch.int32, device=dev),
                     "skipped": torch.zeros((), dtype=torch.int32, device=dev)}
+        # (batch shapes and dtypes, capture state) -> the step program, its
+        # static inputs and the storage it was captured over
+        self._programs = {}
+        #: programs dropped because a parameter, moment or copy moved
+        self.recaptures = 0
 
     @staticmethod
     def _stamp(p):
@@ -171,14 +198,6 @@ class TrainStep:
             self._rate_key = key
         return self._lr_wd
 
-    def _as_batch(self, b):
-        if torch.is_tensor(b):
-            if b.device != self.device:
-                raise MXNetError(f"batch tensor on {b.device}, the net on "
-                                 f"{self.device}")
-            return b
-        return torch.as_tensor(np.asarray(b), device=self.device)
-
     def _forward_loss(self, batch):
         """The f32 mean loss (times the loss scale under float16) and the
         gradient leaves: the parameters, or their low-precision copies."""
@@ -223,9 +242,83 @@ class TrainStep:
         """Run one step. ``batch = (x, label, ...)`` as tensors on the net's
         device or numpy arrays. Returns the loss as a 0-d f32 device
         tensor."""
-        batch = tuple(self._as_batch(b) for b in batch)
+        loss = self._program_step(batch)
+        for _, name, p in self._train:  # the update wrote masters and copies
+            if name in self._stamps:
+                self._stamps[name] = self._stamp(p)
+        self.optimizer.num_update += 1
+        return loss
+
+    @property
+    def compiled_programs(self) -> int:
+        """Step programs held now, one per batch signature (under "graph",
+        on the card, each is one captured CUDA graph)."""
+        return len(self._programs)
+
+    def _storage(self):
+        """The storage a step graph is captured over: every parameter,
+        moment and low-precision copy."""
+        out = [p.data_ptr() for _, p in self._plist]
+        for st in self.opt_state.values():
+            out.extend(t.data_ptr() for t in
+                       (st if isinstance(st, (tuple, list)) else (st,))
+                       if t is not None)
+        out.extend(low.data_ptr() for low in self._low.values())
+        return tuple(out)
+
+    def _program_step(self, batch):
+        """One step through the step graph of the batch's signature."""
+        for b in batch:
+            if torch.is_tensor(b) and b.device != self.device:
+                raise MXNetError(f"batch tensor on {b.device}, the net on "
+                                 f"{self.device}")
+        # host arrays as CPU tensors, in the dtypes _as_batch would give
+        host = [not torch.is_tensor(b) for b in batch]
+        arrays = [torch.as_tensor(np.asarray(b)) if h else b
+                  for b, h in zip(batch, host)]
+        shapes = tuple((tuple(b.shape), b.dtype) for b in arrays)
+        key = (shapes, _cg.capture_state())
+        storage = self._storage()
+        entry = self._programs.get(key)
+        if entry is not None and entry[2] != storage:
+            del self._programs[key]  # a parameter moved: capture again
+            self.recaptures += 1
+            entry = None
+        if entry is None:
+            entry = self._programs[key] = self._new_program(shapes, storage)
+        prog, (static_batch, lr_buf, wd_buf), _ = entry
+        for dst, b, h in zip(static_batch, arrays, host):
+            if h and self.device.type == "cuda":
+                dst.copy_(b.pin_memory(), non_blocking=True)
+            else:
+                dst.copy_(b)
         if self._low:
             self._refresh_copies()
+        lr, wd = self._rates()
+        lr_buf.copy_(lr)
+        wd_buf.copy_(wd)
+        return prog()[0].clone()
+
+    def _new_program(self, shapes, storage):
+        """A step graph over new static batch and (N,) rate buffers."""
+        dev = self.device
+        static_batch = tuple(torch.zeros(shape, dtype=dt, device=dev)
+                             for shape, dt in shapes)
+        n = len(self._train)
+        lr_buf = torch.zeros(n, dtype=torch.float32, device=dev)
+        wd_buf = torch.zeros(n, dtype=torch.float32, device=dev)
+        # the program holds its owner weakly: a cycle through it would keep
+        # the graph's memory pool alive after the TrainStep is dropped
+        owner = weakref.ref(self)
+        prog = _cg.StepGraph(
+            lambda: (owner()._step(static_batch, lr_buf, wd_buf),),
+            ("train_step", shapes, self.amp_policy), dev,
+            stream=self._stream, capture=self._capture)
+        return prog, (static_batch, lr_buf, wd_buf), storage
+
+    def _step(self, batch, lr, wd):
+        """Forward, backward and update over device ``batch`` at the (N,)
+        rates ``lr`` and ``wd``. Returns the detached loss."""
         was_training = self.net.training
         self.net.train()
         try:
@@ -236,7 +329,6 @@ class TrainStep:
             self.net.train(was_training)
         grads = [torch.zeros_like(x) if g is None else g
                  for x, g in zip(leaves, grads)]
-        lr, wd = self._rates()
         lows = [self._low.get(name) for _, name, _ in self._train] \
             if self._low else None
         with torch.no_grad():
@@ -257,10 +349,6 @@ class TrainStep:
                 # Adam's t advances only on applied steps
                 self.step_count.copy_(torch.where(finite, t2, self.step_count))
                 self._next_amp_state(finite)
-        for _, name, p in self._train:  # the update wrote masters and copies
-            if name in self._stamps:
-                self._stamps[name] = self._stamp(p)
-        self.optimizer.num_update += 1
         return loss.detach()
 
     @property
