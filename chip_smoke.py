@@ -21,7 +21,10 @@ prints its last line):
      tight limit that one TF32 pass fails and against an f64 plain
      version, and a misaligned f32 input refused; multi-tensor Adam with its
      skip flag, inverse loss scale and f16 gradients and copies,
-     LayerNorm's gradients through its autograd Function, and the
+     LayerNorm forward and backward on both routes (one warp a row, one
+     block a row: d 1000, 1023, 2048 and 8192 and misaligned bases beside
+     the paths' (8 | 512 | 4096, 1024)) in the four (x, gamma) dtype pairs,
+     its gradients through its autograd Function, and the
      softmax-cross-entropy forward (loss and the row statistics) and
      backward, including extreme and -inf logits, labels -1 and C, and
      rows past the TPU's 65536 cap);
@@ -61,14 +64,15 @@ prints its last line):
   8. time each kernel, its plain version and a PyTorch library yardstick
      with CUDA events, on the device (CUDA graph replay) and per eager
      call, at the shapes the three paths give them, and the launch floor
-     (``EMPTY_CU``, a kernel that does nothing on LayerNorm's grid, built
-     here);
+     (``EMPTY_CU``, a kernel that does nothing on the grid and block of
+     the route LayerNorm's forward takes, built here);
   9. print the kernel table as one JSON line, then the result line.
 
 It needs one CUDA card and imports nothing of JAX or ``mxnet_tpu``.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import gc
@@ -316,30 +320,47 @@ def check_close(name, dtype, got, want, what, atol=None, failures=None):
 
 
 # ---------------------------------------------------------------------------
-# A kernel that does nothing, launched on LayerNorm's grid (one block of
-# LN_THREADS = 256 threads per row, csrc/layernorm.cu, and the row's d floats
-# of dynamic shared memory): the device time of a launch itself, which
-# LayerNorm's times at the serving shapes are read against. No path of the
-# port launches it, so it is built here, beside the port's kernels.
+# A kernel that does nothing, launched on the grid and block of the route
+# that LayerNorm's forward takes (csrc/layernorm.cu): the warp route's
+# ceil(rows / FWD_WARPS) blocks of 32 * FWD_WARPS threads, or the block
+# route's one block of 256 threads a row with the row's d floats of dynamic
+# shared memory. The device time of a launch itself, which LayerNorm's
+# times at the serving shapes are read against. No path of the port
+# launches it, so it is built here, beside the port's kernels.
 EMPTY_CU = r"""
 __global__ void __launch_bounds__(256) empty_kernel() {}
 
-extern "C" int mx_empty(int rows, int d, void* stream) {
-  empty_kernel<<<rows, 256, d * sizeof(float),
-                 static_cast<cudaStream_t>(stream)>>>();
+extern "C" int mx_empty(int grid, int threads, int smem, void* stream) {
+  empty_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }
 """
 _EMPTY = {}  # "lib": the loaded empty kernel
 
 
-def empty_launch(x):
-    """Launch the empty kernel on the grid LayerNorm takes for ``x``."""
+def ln_route(x, gamma, beta):
+    """The route LayerNorm's forward takes for these tensors (its output,
+    a fresh allocation, is aligned)."""
+    from mxnet_tpu_torch.ops import layernorm as ln
+
+    return ln._route(x.shape[-1], x.dtype,
+                     (x.data_ptr(), gamma.data_ptr(), beta.data_ptr()),
+                     ln.FWD_WARP_MAX_BYTES // x.element_size())
+
+
+def empty_launch(x, gamma, beta):
+    """Launch the empty kernel on the grid and block that LayerNorm's
+    forward takes for ``x``."""
     from mxnet_tpu_torch.ops import cuda_common
+    from mxnet_tpu_torch.ops import layernorm as ln
 
     d = x.shape[-1]
-    rc = _EMPTY["lib"].mx_empty(x.numel() // d, d,
-                                cuda_common.stream_ptr(x.device))
+    rows = x.numel() // d
+    if ln_route(x, gamma, beta) == "warp":
+        shape = (-(-rows // ln.FWD_WARPS), 32 * ln.FWD_WARPS, 0)
+    else:
+        shape = (rows, 256, 4 * d)
+    rc = _EMPTY["lib"].mx_empty(*shape, cuda_common.stream_ptr(x.device))
     if rc != 0:
         raise RuntimeError(f"empty kernel: CUDA error {rc}")
 
@@ -361,8 +382,7 @@ def phase_build():
     if empty.returncode != 0:
         raise RuntimeError(f"nvcc of the empty kernel failed:\n{out}")
     _EMPTY["lib"] = ctypes.CDLL(str(empty_so))
-    _EMPTY["lib"].mx_empty.argtypes = [ctypes.c_int, ctypes.c_int,
-                                       ctypes.c_void_p]
+    _EMPTY["lib"].mx_empty.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
     log(f"[build] {len(libs)} kernel libraries and the empty kernel in "
         f"{time.perf_counter() - t0:.1f}s (sm_90a)")
     for name, path in libs.items():
@@ -519,23 +539,9 @@ def phase_paged_kernels(errs, failures=None):
 
 
 def phase_kernels():
-    from mxnet_tpu_torch.ops import layernorm as ln
-
-    dev = torch.device("cuda")
-    gen = torch.Generator().manual_seed(0)
-    errs = {"layernorm": 0.0, "adam": 0.0}
+    errs = {"adam": 0.0}
     phase_paged_kernels(errs)
-    for dtype in (torch.float32, torch.bfloat16):
-        for rows in (8, 512):
-            x = torch.randn(rows, 1024, generator=gen).to(dev, dtype)
-            g = (1 + 0.1 * torch.randn(1024, generator=gen)).to(dev, dtype)
-            b = (0.1 * torch.randn(1024, generator=gen)).to(dev, dtype)
-            got = ln.layer_norm(x, g, b)
-            want = ln.layer_norm_plain(x, g, b)
-            torch.cuda.synchronize()
-            errs["layernorm"] = max(errs["layernorm"], check_close(
-                "layernorm", dtype, got, want,
-                f"{str(dtype)[6:]} ({rows}, 1024)"))
+    phase_layernorm_kernels(errs)
     phase_layernorm_grads(errs)
     phase_flash_kernels(errs)
     phase_flash_alignment()
@@ -958,9 +964,124 @@ def phase_xent_kernels(errs):
             del x, dx, rdx
 
 
+# LayerNorm cases held against the plain versions: (rows, d, offset, the
+# routes forward and backward take, by x's dtype). The serving and training
+# paths' rows of 1024 (warp route); a ragged width that is a whole number of
+# 16-byte vectors (warp); one that is not (block); rows of 2048 (the
+# forward's warp route takes 4 KiB rows: bf16 ones); the widest (block);
+# and x starting one element into its buffer, a contiguous view at a
+# misaligned address (block): as x[1:] of a (rows, 1023) tensor, and at
+# d = 1024.
+_WARP = {torch.float32: ("warp", "warp"), torch.bfloat16: ("warp", "warp")}
+_BLOCK = {torch.float32: ("block", "block"),
+          torch.bfloat16: ("block", "block")}
+LN_CASES = ((8, 1024, 0, _WARP), (512, 1024, 0, _WARP),
+            (4096, 1024, 0, _WARP), (64, 1000, 0, _WARP),
+            (64, 1023, 0, _BLOCK),
+            (64, 2048, 0, {torch.float32: ("block", "block"),
+                           torch.bfloat16: ("warp", "block")}),
+            (64, 8192, 0, _BLOCK), (64, 1023, 1, _BLOCK),
+            (64, 1024, 1, _BLOCK))
+# the (x, gamma) dtype pairs the kernels take: f32 and bf16 training, and
+# bf16 activations under f32 parameters or the other way round
+LN_PAIRS = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+            (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16))
+
+
+def _ln_case(gen, rows, d, offset, xdt, pdt, dev):
+    """x (rows, d) with mean 0.5 and std 2 (the CPU tests' inputs),
+    starting ``offset`` elements into its buffer; gamma, beta and a
+    cotangent."""
+    buf = (torch.randn(rows * d + offset, generator=gen) * 2 + 0.5)
+    x = buf.to(dev, xdt)[offset:].view(rows, d)
+    g = (1 + 0.1 * torch.randn(d, generator=gen)).to(dev, pdt)
+    b = (0.1 * torch.randn(d, generator=gen)).to(dev, pdt)
+    cot = torch.randn(rows, d, generator=gen).to(dev, xdt)
+    return x, g, b, cot
+
+
+def _ln_bwd_f64(x, gamma, g, eps=1e-5):
+    """layer_norm_bwd's arithmetic in f64: the witness for the f32 sums of
+    dgamma and dbeta over many rows."""
+    d = x.shape[-1]
+    xf, gf = x.reshape(-1, d).double(), g.reshape(-1, d).double()
+    mean = xf.mean(dim=-1, keepdim=True)
+    xc = xf - mean
+    rstd = torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + eps)
+    xhat = xc * rstd
+    dy = gf * gamma.double()
+    dx = rstd * (dy - dy.mean(dim=-1, keepdim=True)
+                 - xhat * (dy * xhat).mean(dim=-1, keepdim=True))
+    return dx, (gf * xhat).sum(dim=0), gf.sum(dim=0)
+
+
+def phase_layernorm_kernels(errs):
+    """LayerNorm's forward and backward kernels against their plain
+    versions (``layer_norm_plain``, ``layer_norm_bwd``) at LN_CASES: the
+    paths' shape in every dtype pair, the others in f32 and bf16. Each case
+    must take its routes. The backward at (4096, 1024) f32 is also measured
+    against an f64 version of the plain arithmetic, beside the f32 plain
+    version (logged: the f32 sums of dgamma and dbeta over 4096 rows in
+    another order)."""
+    from mxnet_tpu_torch.ops import layernorm as ln
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(0)
+    routes = {}
+    for rows, d, offset, case_routes in LN_CASES:
+        pairs = LN_PAIRS if (d, offset) == (1024, 0) else LN_PAIRS[:2]
+        for xdt, pdt in pairs:
+            route = case_routes[xdt]
+            x, g, b, cot = _ln_case(gen, rows, d, offset, xdt, pdt, dev)
+            what = (f"{str(xdt)[6:]}/{str(pdt)[6:]} ({rows}, {d})"
+                    + (f" at +{offset * x.element_size()} bytes"
+                       if offset else ""))
+            took = ln_route(x, g, b)
+            bwd_took = ln._route(d, xdt, (x.data_ptr(), g.data_ptr(),
+                                          cot.data_ptr()), ln.BWD_WARP_MAX_D)
+            if (took, bwd_took) != route:
+                raise AssertionError(f"layernorm {what}: routes {took} / "
+                                     f"{bwd_took}, expected {route}")
+            routes[what] = route
+            # the kernel table's rows: f32 (train), bf16 (train_amp); the
+            # mixed pairs apart
+            sfx = {(torch.float32, torch.float32): "",
+                   (torch.bfloat16, torch.bfloat16): "_bf16"}.get(
+                (xdt, pdt), f"_{str(xdt)[6:]}_{str(pdt)[6:]}")
+            got = ln.layer_norm(x, g, b)
+            want = ln.layer_norm_plain(x, g, b)
+            grads = ln._backward(x, g, cot, 1e-5)
+            wants = ln.layer_norm_bwd(x, g, cot, 1e-5)
+            torch.cuda.synchronize()
+            errs["layernorm" + sfx] = max(errs.get("layernorm" + sfx, 0.0),
+                                          check_close("layernorm", xdt, got,
+                                                      want,
+                                                      f"{what} {route[0]}"))
+            for a, r, name in zip(grads, wants, ("dx", "dgamma", "dbeta")):
+                if a.dtype != r.dtype or a.shape != r.shape:
+                    raise AssertionError(f"layernorm backward {what}: {name} "
+                                         f"{a.dtype} {tuple(a.shape)}, plain "
+                                         f"{r.dtype} {tuple(r.shape)}")
+                errs["layernorm_bwd" + sfx] = max(
+                    errs.get("layernorm_bwd" + sfx, 0.0),
+                    check_close("layernorm_grad", a.dtype, a, r,
+                                f"backward {name} {what} {route[1]}"))
+            if (rows, xdt, pdt) == (4096, torch.float32, torch.float32):
+                w64 = _ln_bwd_f64(x, g, cot)
+                log("[layernorm] backward at (4096, 1024) f32 against the f64 "
+                    "plain version, max |err| of dx, dgamma, dbeta: kernel "
+                    + ", ".join(f"{(a.double() - w).abs().max().item():.3e}"
+                                for a, w in zip(grads, w64))
+                    + "; f32 plain version "
+                    + ", ".join(f"{(a.double() - w).abs().max().item():.3e}"
+                                for a, w in zip(wants, w64)))
+            del x, g, b, cot, got, want, grads, wants
+    log(f"[layernorm] routes held: {routes}")
+
+
 def phase_layernorm_grads(errs):
-    """LayerNorm gradients through the autograd Function (kernel forward,
-    analytic backward) against autograd through the plain composition."""
+    """LayerNorm gradients through the autograd Function (forward and
+    backward kernels) against autograd through the plain composition."""
     from mxnet_tpu_torch.ops import layernorm as ln
 
     dev = torch.device("cuda")
@@ -1165,7 +1286,10 @@ def _launch_counts():
 
     return {"flash_fwd": fa.launches["fwd"], "flash_bwd_dkv": fa.launches["dkv"],
             "flash_bwd_dq": fa.launches["dq"], "adam": oo.launches,
-            "layernorm": ln.launches, "paged_attention": pa.launches["decode"],
+            "layernorm": ln.launches["fwd"],
+            "layernorm_bwd": ln.launches["bwd"],
+            "layernorm_bwd_merge": ln.launches["bwd_merge"],
+            "paged_attention": pa.launches["decode"],
             "paged_attention_prefill": pa.launches["prefill"],
             "xent_fwd": sx.launches["fwd"], "xent_bwd": sx.launches["bwd"]}
 
@@ -1177,21 +1301,27 @@ def _reset_launch_counts():
     from mxnet_tpu_torch.ops import paged_attention as pa
     from mxnet_tpu_torch.ops import softmax_xent as sx
 
-    for counts in (fa.launches, sx.launches, pa.launches):
+    for counts in (fa.launches, sx.launches, pa.launches, ln.launches):
         for key in counts:
             counts[key] = 0
-    ln.launches = oo.launches = 0
+    oo.launches = 0
 
 
 # each launch counter (chip_smoke's names, by the wrapper's module and key)
-# and the name of the kernel it counts, as the profiler sees it on the card
+# and the names of the kernels it counts, as the profiler sees them on the
+# card (one name, or a tuple: the routes of one wrapper's launch)
 COUNTERS = {("flash_attention", "fwd"): ("flash_fwd", "flash_fwd_tc_kernel"),
             ("flash_attention", "dkv"): ("flash_bwd_dkv",
                                          "flash_bwd_dkv_tc_kernel"),
             ("flash_attention", "dq"): ("flash_bwd_dq",
                                         "flash_bwd_dq_tc_kernel"),
             ("optimizer", None): ("adam", "adam_kernel"),
-            ("layernorm", None): ("layernorm", "layernorm_kernel"),
+            ("layernorm", "fwd"): ("layernorm", "layernorm_fwd_"),
+            ("layernorm", "bwd"): ("layernorm_bwd",
+                                   ("layernorm_bwd_warp_kernel",
+                                    "layernorm_bwd_block_kernel")),
+            ("layernorm", "bwd_merge"): ("layernorm_bwd_merge",
+                                         "layernorm_bwd_merge_kernel"),
             ("paged_attention", "decode"): ("paged_attention",
                                             "paged_attention_kernel"),
             ("paged_attention", "prefill"): ("paged_attention_prefill",
@@ -1225,8 +1355,9 @@ def check_replay_launches(prog, what):
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        for name, kernel in COUNTERS.values():
-            if kernel in evt.key:
+        for name, kernels in COUNTERS.values():
+            if any(k in evt.key for k in ((kernels,) if isinstance(
+                    kernels, str) else kernels)):
                 seen[name] += evt.count
     if seen != recorded or not any(seen.values()):
         raise AssertionError(f"{what}: one replay ran the kernels {seen}, "
@@ -1298,6 +1429,29 @@ def _train_step(net, amp, engine_type, layers=N_LAYERS):
                      amp=amp, engine_type=engine_type)
 
 
+@contextlib.contextmanager
+def _ln_dtypes():
+    """Count the (x, gamma) dtype pairs of the LayerNorm forward and
+    backward wrapper calls made inside, by direction (under a step graph
+    only its eager first call and its capture call the wrappers)."""
+    from mxnet_tpu_torch.ops import layernorm as ln
+
+    pairs = collections.Counter()
+    fwd, bwd = ln._forward, ln._backward
+
+    def counted(direction, fn):
+        def call(x, gamma, *args):
+            pairs[(direction, x.dtype, gamma.dtype)] += 1
+            return fn(x, gamma, *args)
+        return call
+
+    ln._forward, ln._backward = counted("fwd", fwd), counted("bwd", bwd)
+    try:
+        yield pairs
+    finally:
+        ln._forward, ln._backward = fwd, bwd
+
+
 def phase_train(net, init, engine_type, warmup=2, steps=10, batch=4,
                 seq=1024, amp=None):
     """gpt2_345m at full width through TrainStep, modelbench's setting:
@@ -1308,10 +1462,12 @@ def phase_train(net, init, engine_type, warmup=2, steps=10, batch=4,
     warm-up schedule from AMP_LR. ``engine_type`` "graph" (the default of
     the port: one captured CUDA graph per step signature) or "naive" (the
     eager step). Every step must launch each flash kernel once per layer,
-    Adam once, LayerNorm 49 times and (bf16) each xent kernel once, under
-    either engine type; every loss is finite and the last is below the
-    first. Returns the per-kernel launches of the run, the step metrics and
-    the final weights and Adam moments."""
+    Adam once, LayerNorm's forward, backward and merge 49 times each (on
+    f32 tensors, or under amp on bf16 x and the bf16 copies of gamma and
+    beta) and (bf16) each xent kernel once, under either engine type;
+    every loss is finite and the last is below the first. Returns the
+    per-kernel launches of the run, the step metrics and the final weights
+    and Adam moments."""
     name = "train" if amp is None else "train_amp"
     with torch.no_grad():
         for (_, p), w in zip(sorted(net.named_parameters()), init):
@@ -1321,6 +1477,8 @@ def phase_train(net, init, engine_type, warmup=2, steps=10, batch=4,
     xent = 0 if amp is None else 1
     want = {"flash_fwd": N_LAYERS, "flash_bwd_dkv": N_LAYERS,
             "flash_bwd_dq": N_LAYERS, "adam": 1, "layernorm": 2 * N_LAYERS + 1,
+            "layernorm_bwd": 2 * N_LAYERS + 1,
+            "layernorm_bwd_merge": 2 * N_LAYERS + 1,
             "paged_attention": 0, "paged_attention_prefill": 0,
             "xent_fwd": xent, "xent_bwd": xent}
     total = dict.fromkeys(want, 0)
@@ -1329,20 +1487,27 @@ def phase_train(net, init, engine_type, warmup=2, steps=10, batch=4,
     _release()  # the peaks below start from what this run holds
     torch.cuda.reset_peak_memory_stats()
     _reset_launch_counts()
-    for i in range(warmup + steps):
-        if i == warmup:
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-        before = _launch_counts()
-        losses.append(ts(ids, labels))
-        got = {k: v - before[k] for k, v in _launch_counts().items()}
-        if got != want:
-            raise AssertionError(f"{name} {engine_type} step {i}: launches "
-                                 f"{got}, expected {want}")
-        for k in total:
-            total[k] += got[k]
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t
+    with _ln_dtypes() as ln_pairs:
+        for i in range(warmup + steps):
+            if i == warmup:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+            before = _launch_counts()
+            losses.append(ts(ids, labels))
+            got = {k: v - before[k] for k, v in _launch_counts().items()}
+            if got != want:
+                raise AssertionError(f"{name} {engine_type} step {i}: "
+                                     f"launches {got}, expected {want}")
+            for k in total:
+                total[k] += got[k]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    dt = torch.float32 if amp is None else torch.bfloat16
+    if set(ln_pairs) != {("fwd", dt, dt), ("bwd", dt, dt)}:
+        raise AssertionError(f"{name} {engine_type}: LayerNorm ran on "
+                             f"(x, gamma) dtypes {dict(ln_pairs)}")
+    log(f"[{name} {engine_type}] LayerNorm wrapper calls by (direction, x, "
+        f"gamma dtype): {dict(ln_pairs)}")
     losses = [float(x) for x in losses]
     peak = torch.cuda.max_memory_allocated()
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
@@ -1460,8 +1625,8 @@ def _serve_run(net, engine_type, requests, sampling=None, warm=True):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = {k: v for k, v in _launch_counts().items()
-                if k in ("layernorm", "paged_attention",
-                         "paged_attention_prefill")}
+                if k in ("layernorm", "layernorm_bwd", "layernorm_bwd_merge",
+                         "paged_attention", "paged_attention_prefill")}
     return dict(eng=eng, reqs=reqs, logits=logits, calls=calls,
                 launches=launches, wall=wall, buckets=buckets,
                 peak=torch.cuda.max_memory_allocated(),
@@ -1478,7 +1643,7 @@ def phase_serve(net, engine_type):
     """16 requests (prompts of 32-500 tokens, 64 new tokens each) through
     the paged engine and the batcher, gpt2_345m f32 at full width, under
     ``engine_type``: every request finishes, every forward launches 24
-    attention reads and 49 LayerNorms, and the engine has one program for
+    attention reads and 49 LayerNorms (and no backward), and the engine has one program for
     each prefill bucket used plus the decode step, flat through the run.
     Returns the run (``_serve_run``) and its metrics."""
     run = _serve_run(net, engine_type, _serve_requests())
@@ -1496,7 +1661,8 @@ def phase_serve(net, engine_type):
     # query (the prefill kernel), every decode step one (the decode kernel)
     want = {"paged_attention": 24 * calls["decode"],
             "paged_attention_prefill": 24 * calls["prefill"],
-            "layernorm": 49 * forwards}
+            "layernorm": 49 * forwards, "layernorm_bwd": 0,
+            "layernorm_bwd_merge": 0}
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want} "
                              f"(24 attention + 49 LN per forward, "
@@ -1791,7 +1957,6 @@ def phase_timing(eng):
     and a library call; bound = max(bytes / HBM rate, flops / the peak for
     the work at the inputs' accuracy, PEAKS), each input read once and each
     output written once."""
-    from mxnet_tpu_torch.ops import layernorm as ln
     from mxnet_tpu_torch.ops import paged_attention as pa
 
     dev = torch.device("cuda")
@@ -1847,33 +2012,83 @@ def phase_timing(eng):
         shape="paged_attention prefill B=1 Tq=512 from position 0 f32",
         plain_graph=False, dtype="3xtf32")
 
-    # LayerNorm at the decode shape (8 rows of 1024), the largest prefill
-    # bucket (512 rows) and the training shape (B=4 x T=1024 rows: 49
-    # launches a `train` or `train_amp` step), each beside the
-    # launch floor: a kernel that does nothing on LayerNorm's grid
-    g = torch.ones(1024, device=dev)
-    bb = torch.zeros(1024, device=dev)
-    floor = {}
-    for n_rows in (8, 512, 4096):
-        x = torch.randn(n_rows, 1024, generator=gen).to(dev)
+    rows.update(phase_layernorm_timing())
+    return rows
+
+
+def phase_layernorm_timing():
+    """LayerNorm's forward at the decode shape (8 rows of 1024), the
+    largest prefill bucket (512 rows) and the training shape (B=4 x T=1024
+    rows: 49 launches a ``train`` or ``train_amp`` step) in f32, and at the
+    training shape in bf16 (``train_amp``'s bf16 x, gamma and beta), each
+    beside the launch floor: a kernel that does nothing on the grid and
+    block of the route taken. The backward at the training shape in f32
+    and bf16, its library yardstick F.layer_norm's forward + backward minus
+    its forward (device, CUDA graph replay; and eager). Bounds: each input
+    read once, each output written once (forward: x, gamma, beta in, y out;
+    backward: x, g, gamma in, dx, dgamma, dbeta out), ~8 flops an element
+    forward and ~16 backward at the f32 CUDA-core rate."""
+    from mxnet_tpu_torch.ops import layernorm as ln
+
+    F = torch.nn.functional
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(2)
+    rows, floor = {}, {}
+    for n_rows, dtype in ((8, torch.float32), (512, torch.float32),
+                          (4096, torch.float32), (4096, torch.bfloat16)):
+        x, g, bb, cot = _ln_case(gen, n_rows, 1024, 0, dtype, dtype, dev)
+        size = x.element_size()
+        shape = f"({n_rows}, 1024) {str(dtype)[6:]}"
+        route = ln_route(x, g, bb)
         r = _timed(lambda: ln.layer_norm(x, g, bb),
                    lambda: ln.layer_norm_plain(x, g, bb),
-                   lambda: torch.nn.functional.layer_norm(x, (1024,), g, bb,
-                                                          1e-5),
-                   nbytes=4 * (2 * x.numel() + 2 * 1024),
-                   flops=8 * x.numel(),
-                   shape=f"layernorm ({n_rows}, 1024) f32")
-        floor[n_rows] = {"layernorm_ms": r["ms"], "bound_ms": r["bound_ms"],
-                         "empty_ms": graph_time_ms(lambda: empty_launch(x)),
-                         "empty_eager_ms": cuda_time_ms(
-                             lambda: empty_launch(x))}
-        log(f"[time] empty kernel on LayerNorm's grid ({n_rows}, 1024): "
-            f"{floor[n_rows]['empty_ms'] * 1e3:.2f} us by graph replay "
-            f"(eager {floor[n_rows]['empty_eager_ms'] * 1e3:.2f}); "
+                   lambda: F.layer_norm(x, (1024,), g, bb, 1e-5),
+                   nbytes=size * (2 * x.numel() + 2 * 1024),
+                   flops=8 * x.numel(), shape=f"layernorm {shape} {route}")
+        r["library"] = "F.layer_norm"
+        floor[shape] = {"route": route, "layernorm_ms": r["ms"],
+                        "bound_ms": r["bound_ms"],
+                        "empty_ms": graph_time_ms(
+                            lambda: empty_launch(x, g, bb)),
+                        "empty_eager_ms": cuda_time_ms(
+                            lambda: empty_launch(x, g, bb))}
+        log(f"[time] empty kernel on LayerNorm's {route} grid {shape}: "
+            f"{floor[shape]['empty_ms'] * 1e3:.2f} us by graph replay "
+            f"(eager {floor[shape]['empty_eager_ms'] * 1e3:.2f}); "
             f"LayerNorm {r['ms'] * 1e3:.2f} us, bound "
             f"{r['bound_ms'] * 1e3:.2f} us")
+        sfx = "" if dtype == torch.float32 else "_bf16"
         if n_rows == 8:
             rows["layernorm"] = r
+        elif n_rows == 4096:
+            if sfx:
+                rows["layernorm_bf16"] = r
+            xg, gg, bg = (t.clone().requires_grad_() for t in (x, g, bb))
+
+            def lib_fwd_bwd():
+                torch.autograd.grad(F.layer_norm(xg, (1024,), gg, bg, 1e-5),
+                                    (xg, gg, bg), cot)
+
+            def lib_fwd():
+                F.layer_norm(xg, (1024,), gg, bg, 1e-5)
+
+            fb_ms, f_ms = graph_time_ms(lib_fwd_bwd), graph_time_ms(lib_fwd)
+            lib_bwd = fb_ms - f_ms
+            lib_bwd_eager = cuda_time_ms(lib_fwd_bwd) - cuda_time_ms(lib_fwd)
+            log(f"[time] F.layer_norm backward at {shape}: "
+                f"{lib_bwd * 1e3:.2f} us (fwd+bwd {fb_ms * 1e3:.2f} - fwd "
+                f"{f_ms * 1e3:.2f}, device); eager {lib_bwd_eager * 1e3:.2f} "
+                f"us")
+            bwd = _timed(lambda: ln._backward(x, g, cot, 1e-5),
+                         lambda: ln.layer_norm_bwd(x, g, cot, 1e-5), None,
+                         nbytes=size * 3 * x.numel() + 3 * 1024 * size,
+                         flops=16 * x.numel(),
+                         shape=f"layernorm_bwd {shape} {route}")
+            bwd.update(library_ms=lib_bwd, library_eager_ms=lib_bwd_eager,
+                       library="F.layer_norm backward: fwd+bwd minus fwd")
+            rows["layernorm_bwd" + sfx] = bwd
+            del xg, gg, bg
+        del x, g, bb, cot
     log("[launch floor] " + json.dumps(floor))
     return rows
 
@@ -2112,6 +2327,18 @@ def main():
                                     "serve"),
         "layernorm": ("mxnet_tpu_torch/csrc/layernorm.cu",
                       "mxnet_tpu/ops/pallas_layernorm.py:53", "serve"),
+        # the same kernel on bf16 x, gamma and beta (train_amp), and the
+        # backward kernels (row kernel and merge; their launches: the row
+        # kernel's), the VJP of _ln_kernel's custom_vjp (_ln_bwd, plain jnp
+        # on the TPU)
+        "layernorm_bf16": ("mxnet_tpu_torch/csrc/layernorm.cu",
+                           "mxnet_tpu/ops/pallas_layernorm.py:53",
+                           "train_amp"),
+        "layernorm_bwd": ("mxnet_tpu_torch/csrc/layernorm.cu",
+                          "mxnet_tpu/ops/pallas_layernorm.py:97", "train"),
+        "layernorm_bwd_bf16": ("mxnet_tpu_torch/csrc/layernorm.cu",
+                               "mxnet_tpu/ops/pallas_layernorm.py:97",
+                               "train_amp"),
         "flash_fwd": ("mxnet_tpu_torch/csrc/flash_attention.cu",
                       "mxnet_tpu/ops/flash_attention.py:100", "train"),
         "flash_bwd_dkv": ("mxnet_tpu_torch/csrc/flash_attention.cu",

@@ -118,9 +118,17 @@ def check_device(t: torch.Tensor) -> None:
 
 
 _ARGTYPES = {
+    # (x, gamma, beta, y), then rows, d, eps, x dtype, gamma dtype, warps
+    # (0: the block route), stream
     "mx_layernorm": [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
                                              ctypes.c_float, ctypes.c_int,
-                                             ctypes.c_int, ctypes.c_void_p],
+                                             ctypes.c_int, ctypes.c_int,
+                                             ctypes.c_void_p],
+    # (x, gamma, g, dx, dgamma, dbeta, partial), then rows, d, eps, x dtype,
+    # gamma dtype, warps (0: the block route), blocks, stream
+    "mx_layernorm_bwd": [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int,
+                                                 ctypes.c_float]
+                        + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     # (q, k_pool, v_pool, table, position, out, part | NULL,
     # arrivals | NULL), then B, H, Tq, Ch, ps, n_pages, n_pool, split_keys,
     # n_splits, q dtype, kv dtype, stream

@@ -354,7 +354,8 @@ def test_launch_counts_cover_every_kernel_wrapper():
     """The counters a capture takes back and a replay adds again: one per
     kernel wrapper (dicts by key)."""
     names = {(m.split(".")[-1], k) for m, k in tcg.launch_counts()}
-    assert names == {("layernorm", None), ("optimizer", None),
+    assert names == {("layernorm", "fwd"), ("layernorm", "bwd"),
+                     ("layernorm", "bwd_merge"), ("optimizer", None),
                      ("flash_attention", "fwd"), ("flash_attention", "dkv"),
                      ("flash_attention", "dq"), ("paged_attention", "decode"),
                      ("paged_attention", "prefill"), ("softmax_xent", "fwd"),

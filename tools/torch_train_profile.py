@@ -57,7 +57,10 @@ GROUPS = (  # (group, substrings of the kernel name), first match wins
     ("adam", ("adam_kernel",)),
     ("softmax xent forward", ("xent_fwd_kernel",)),
     ("softmax xent backward", ("xent_bwd_kernel",)),
-    ("layernorm forward", ("layernorm_kernel",)),
+    ("layernorm forward", ("layernorm_fwd_",)),  # warp and block routes
+    # the backward kernels (row kernel, merge of the column sums); the
+    # plain backward's chain falls in the groups below
+    ("layernorm backward", ("layernorm_bwd_",)),
     ("matmul", ("gemm", "Gemm", "GEMM", "cutlass", "xmma", "splitK",
                 "nvjet")),
     ("softmax / log-softmax", ("softmax", "Softmax")),
