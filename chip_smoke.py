@@ -37,7 +37,9 @@ prints its last line):
      width with every kernel knob on, then off (the plain versions), with
      the same seeded weights; per-step losses and final weights agree. Then
      the same under amp="bfloat16" with SoftmaxCrossEntropyLoss and Adam
-     on a warm-up schedule;
+     on a warm-up schedule; then both for a 2-layer BERT at bert_large
+     width (B=8, T=128, 20 masked positions, ragged valid_length, both
+     token types, ``bert_loss``);
   5. the step graphs (``engine_type="graph"``, the port's default: one
      captured CUDA graph per step signature) against the eager steps
      (``"naive"``, the same steps uncaptured): seeded top-k serving at
@@ -60,10 +62,16 @@ prints its last line):
      (``train_amp``): TrainStep(net, SoftmaxCrossEntropyLoss(),
      Adam(lr_scheduler=...), amp="bfloat16"); each naive, graph, graph,
      naive from the same weights, losses, weights and Adam moments
-     bit-identical across the four;
+     bit-identical across the four; then bench.py's BERT step
+     (``bert_amp``: bert_large, B=64, T=128, 20 masked positions,
+     TrainStep(net, bert_loss, Adam(1e-4), n_model_inputs=4,
+     amp="bfloat16")) the same way, with its MFU by bench.py's
+     ``bert_flops``, and dropout inside its step graph: at lr 0 two
+     replays give equal losses at dropout 0 and different ones at 0.1
+     (a fresh mask each replay), then one timed graph run at 0.1;
   8. time each kernel, its plain version and a PyTorch library yardstick
      with CUDA events, on the device (CUDA graph replay) and per eager
-     call, at the shapes the three paths give them, and the launch floor
+     call, at the shapes the four paths give them, and the launch floor
      (``EMPTY_CU``, a kernel that does nothing on the grid and block of
      the route LayerNorm's forward takes, built here);
   9. print the kernel table as one JSON line, then the result line.
@@ -976,7 +984,8 @@ _WARP = {torch.float32: ("warp", "warp"), torch.bfloat16: ("warp", "warp")}
 _BLOCK = {torch.float32: ("block", "block"),
           torch.bfloat16: ("block", "block")}
 LN_CASES = ((8, 1024, 0, _WARP), (512, 1024, 0, _WARP),
-            (4096, 1024, 0, _WARP), (64, 1000, 0, _WARP),
+            (4096, 1024, 0, _WARP), (8192, 1024, 0, _WARP),
+            (1280, 1024, 0, _WARP), (64, 1000, 0, _WARP),
             (64, 1023, 0, _BLOCK),
             (64, 2048, 0, {torch.float32: ("block", "block"),
                            torch.bfloat16: ("warp", "block")}),
@@ -1018,8 +1027,9 @@ def _ln_bwd_f64(x, gamma, g, eps=1e-5):
 def phase_layernorm_kernels(errs):
     """LayerNorm's forward and backward kernels against their plain
     versions (``layer_norm_plain``, ``layer_norm_bwd``) at LN_CASES: the
-    paths' shape in every dtype pair, the others in f32 and bf16. Each case
-    must take its routes. The backward at (4096, 1024) f32 is also measured
+    paths' shapes in every dtype pair (BERT's (8192 | 1280, 1024) also
+    recorded apart, as ``layernorm<sfx>_<rows>``), the others in f32 and
+    bf16. Each case must take its routes. The backward at (4096, 1024) f32 is also measured
     against an f64 version of the plain arithmetic, beside the f32 plain
     version (logged: the f32 sums of dgamma and dbeta over 4096 rows in
     another order)."""
@@ -1048,24 +1058,28 @@ def phase_layernorm_kernels(errs):
             sfx = {(torch.float32, torch.float32): "",
                    (torch.bfloat16, torch.bfloat16): "_bf16"}.get(
                 (xdt, pdt), f"_{str(xdt)[6:]}_{str(pdt)[6:]}")
+            keys = [sfx] + ([f"{sfx}_{rows}"] if rows in (8192, 1280)
+                            else [])
             got = ln.layer_norm(x, g, b)
             want = ln.layer_norm_plain(x, g, b)
             grads = ln._backward(x, g, cot, 1e-5)
             wants = ln.layer_norm_bwd(x, g, cot, 1e-5)
             torch.cuda.synchronize()
-            errs["layernorm" + sfx] = max(errs.get("layernorm" + sfx, 0.0),
-                                          check_close("layernorm", xdt, got,
-                                                      want,
-                                                      f"{what} {route[0]}"))
+            err = check_close("layernorm", xdt, got, want,
+                              f"{what} {route[0]}")
             for a, r, name in zip(grads, wants, ("dx", "dgamma", "dbeta")):
                 if a.dtype != r.dtype or a.shape != r.shape:
                     raise AssertionError(f"layernorm backward {what}: {name} "
                                          f"{a.dtype} {tuple(a.shape)}, plain "
                                          f"{r.dtype} {tuple(r.shape)}")
-                errs["layernorm_bwd" + sfx] = max(
-                    errs.get("layernorm_bwd" + sfx, 0.0),
-                    check_close("layernorm_grad", a.dtype, a, r,
-                                f"backward {name} {what} {route[1]}"))
+                bwd_err = check_close("layernorm_grad", a.dtype, a, r,
+                                      f"backward {name} {what} {route[1]}")
+                for k in keys:
+                    errs["layernorm_bwd" + k] = max(
+                        errs.get("layernorm_bwd" + k, 0.0), bwd_err)
+            for k in keys:
+                errs["layernorm" + k] = max(errs.get("layernorm" + k, 0.0),
+                                            err)
             if (rows, xdt, pdt) == (4096, torch.float32, torch.float32):
                 w64 = _ln_bwd_f64(x, g, cot)
                 log("[layernorm] backward at (4096, 1024) f32 against the f64 "
@@ -1202,45 +1216,65 @@ def _train_batch(batch, seq, vocab=50257, seed=0):
             torch.from_numpy(np.roll(ids, -1, 1).astype(np.int32)).cuda())
 
 
-def phase_train_parity(amp=None, seed=1, batch_seed=0, check=True):
-    """3 TrainStep steps of a 2-layer GPT-2 at gpt2_345m width (B=4,
-    T=1024), every kernel knob on and then off, from the same seeded
-    weights: per-step losses and final weights agree. In f32 (``amp=None``)
-    through ``lm_loss`` and Adam at TRAIN_LR (TRAIN_* above); under
-    ``amp="bfloat16"`` through SoftmaxCrossEntropyLoss and Adam on the
-    warm-up schedule, the masters staying f32 (AMP_* above). With
-    ``check=False`` it only measures (tools/torch_amp_parity.py)."""
+def phase_train_parity(amp=None, seed=1, batch_seed=0, check=True,
+                       model="gpt2"):
+    """3 TrainStep steps of a 2-layer model at full width, every kernel
+    knob on and then off, from the same seeded weights: per-step losses
+    and final weights agree. ``model="gpt2"``: GPT-2 at gpt2_345m width
+    (B=4, T=1024); ``"bert"``: BERT at bert_large width (units 1024, hidden
+    4096, 16 heads, vocab 30522; B=8, T=128, M=20, ragged valid_length
+    and both token types, ``bert_loss``). In f32 (``amp=None``) through
+    ``lm_loss`` (or ``bert_loss``) and Adam at TRAIN_LR (TRAIN_* above);
+    under ``amp="bfloat16"`` through SoftmaxCrossEntropyLoss (or
+    ``bert_loss``) and Adam on the warm-up schedule, the masters staying
+    f32 (AMP_* above). With ``check=False`` it only measures
+    (tools/torch_amp_parity.py)."""
     from mxnet_tpu_torch import TrainStep
     from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
-    from mxnet_tpu_torch.models import get_gpt2, lm_loss
+    from mxnet_tpu_torch.models import get_bert, get_gpt2, lm_loss
     from mxnet_tpu_torch.optimizer import Adam
 
-    ids, labels = _train_batch(4, 1024, seed=batch_seed)
+    if model == "gpt2":
+        batch, n_inputs = _train_batch(4, 1024, seed=batch_seed), 1
+        what = "2 layers at gpt2_345m width, B=4 T=1024"
+    else:
+        batch, n_inputs = _bert_batch(8, BERT_T, BERT_M, seed=batch_seed,
+                                      ragged=True), 4
+        what = (f"2 layers at bert_large width, B=8 T={BERT_T} M={BERT_M}, "
+                f"valid_length {batch[2].tolist()}")
     runs = []
     for plain in (False, True):
         with plain_versions() if plain else contextlib.nullcontext():
-            net = get_gpt2("gpt2_345m", dropout=0.0, num_layers=2,
-                           device="cuda", seed=seed)
+            if model == "gpt2":
+                net = get_gpt2("gpt2_345m", dropout=0.0, num_layers=2,
+                               device="cuda", seed=seed)
+                loss_fn = lm_loss if amp is None else \
+                    SoftmaxCrossEntropyLoss()
+            else:
+                net = get_bert("bert_large", dropout=0.0, num_layers=2,
+                               max_length=BERT_T, device="cuda", seed=seed)
+                loss_fn = bert_loss
             if amp is None:
-                opt, loss_fn = Adam(learning_rate=TRAIN_LR), lm_loss
+                opt = Adam(learning_rate=TRAIN_LR)
             else:
                 opt = Adam(learning_rate=AMP_LR, lr_scheduler=amp_schedule())
-                loss_fn = SoftmaxCrossEntropyLoss()
             # the kernels through the step graphs (the default), the plain
             # versions eagerly: the reference
             ts = TrainStep(net, loss_fn, opt, amp=amp,
+                           n_model_inputs=n_inputs,
                            engine_type="naive" if plain else "graph")
             rates, losses = [], []
             for _ in range(TRAIN_STEPS):
                 rates.append(opt.learning_rate)
-                losses.append(float(ts(ids, labels)))
+                losses.append(float(ts(*batch)))
         params = {n: p.detach().clone() for n, p in net.named_parameters()}
         if any(p.dtype != torch.float32 for p in params.values()):
             raise AssertionError("training parity: the masters left f32")
         runs.append((losses, params))
         del net, ts
     (lk, pk), (lp, pp) = runs
-    name = "train parity" if amp is None else f"train {amp} parity"
+    name = ("train" if model == "gpt2" else "bert") + \
+        (" parity" if amp is None else f" {amp} parity")
     rtol, atol = TRAIN_LOSS_TOL if amp is None else (AMP_LOSS_RTOL, 0.0)
     far_limit = 1e-2 if amp is None else AMP_FAR_SHARE
     gaps = [abs(a - b) / abs(b) for a, b in zip(lk, lp)]
@@ -1251,7 +1285,7 @@ def phase_train_parity(amp=None, seed=1, batch_seed=0, check=True):
     worst = err.max().item()
     far = (err > 1e-2 * opt.lr).float().mean().item()
     bound = 2.01 * sum(rates)
-    log(f"[{name}] 2 layers at gpt2_345m width, B=4 T=1024, seeds "
+    log(f"[{name}] {what}, seeds "
         f"{seed}/{batch_seed}, {TRAIN_STEPS} steps at lr {rates}: losses "
         f"kernels {lk} / plain {lp}, relative gaps {gaps} (limit {rtol}); "
         f"loss falls {drop_k:.6f} / {drop_p:.6f}, relative gap "
@@ -1330,40 +1364,63 @@ COUNTERS = {("flash_attention", "fwd"): ("flash_fwd", "flash_fwd_tc_kernel"),
             ("softmax_xent", "bwd"): ("xent_bwd", "xent_bwd_kernel")}
 
 
+# profiled replays check_replay_launches may take. On the H100 (torch
+# 2.11) a replay launched as the profiler's window opened came back
+# without its first 1 to 20 port kernels (the forward's LayerNorms and
+# flash launches; never a backward one), from one replay to the next: the
+# replay now starts REPLAY_QUIET_S after the window opens and the window
+# closes that long after it ends. A replay that really launched fewer
+# kernels would miss them at every attempt.
+REPLAY_ATTEMPTS = 3
+REPLAY_QUIET_S = 0.2
+
+
 def check_replay_launches(prog, what):
     """Replay the captured step graph ``prog`` under the profiler and
-    count the port's kernels the card ran in one replay, by name: they must equal the
-    launches that the graph adds to the wrapper counts at every replay
-    (recorded when it was captured). So the counts of a "graph" run are
-    what the card launched, not only what the capture saw. Returns the
-    counts."""
+    count the port's kernels the card ran in one replay, by name: they must
+    equal the launches that the graph adds to the wrapper counts at every
+    replay (recorded when it was captured), in one of REPLAY_ATTEMPTS
+    profiled replays (a trace can lose a record; it never adds one). So the
+    counts of a "graph" run are what the card launched, not only what the
+    capture saw. Returns the counts."""
     from torch.profiler import ProfilerActivity, profile
 
     recorded = {name: 0 for name, _ in COUNTERS.values()}
     for (mod, key), n in prog.launches.items():
         recorded[COUNTERS[(mod.split(".")[-1], key)][0]] += n
-    torch.cuda.synchronize()
-    # a warm-up replay that the profiler discards (a trace's first kernels
-    # can be lost while tracing starts), then the replay it counts
-    once = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
-    with profile(activities=[ProfilerActivity.CUDA], schedule=once) as prof:
-        for _ in range(2):
-            prog.graph.replay()
-            torch.cuda.synchronize()
-            prof.step()
-    seen = dict.fromkeys(recorded, 0)
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        for name, kernels in COUNTERS.values():
-            if any(k in evt.key for k in ((kernels,) if isinstance(
-                    kernels, str) else kernels)):
-                seen[name] += evt.count
-    if seen != recorded or not any(seen.values()):
-        raise AssertionError(f"{what}: one replay ran the kernels {seen}, "
-                             f"the graph records {recorded} launches")
+    misses = []
+    for _ in range(REPLAY_ATTEMPTS):
+        torch.cuda.synchronize()
+        # a warm-up replay that the profiler discards (a trace's first
+        # kernels can be lost while tracing starts), then the replay it
+        # counts
+        once = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=once) as prof:
+            for _ in range(2):
+                time.sleep(REPLAY_QUIET_S)
+                prog.graph.replay()
+                torch.cuda.synchronize()
+                time.sleep(REPLAY_QUIET_S)
+                prof.step()
+        seen = dict.fromkeys(recorded, 0)
+        for evt in prof.key_averages():
+            if evt.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            for name, kernels in COUNTERS.values():
+                if any(k in evt.key for k in ((kernels,) if isinstance(
+                        kernels, str) else kernels)):
+                    seen[name] += evt.count
+        if seen == recorded and any(seen.values()):
+            break
+        misses.append(seen)
+    else:
+        raise AssertionError(f"{what}: {REPLAY_ATTEMPTS} profiled replays "
+                             f"ran the kernels {misses}, the graph records "
+                             f"{recorded} launches")
     log(f"[replay] {what}: one replay under the profiler ran "
-        f"{ {k: v for k, v in seen.items() if v} }, as recorded at capture")
+        f"{ {k: v for k, v in seen.items() if v} }, as recorded at capture"
+        + (f" (earlier profiled replays traced {misses})" if misses else ""))
     return seen
 
 
@@ -1452,6 +1509,12 @@ def _ln_dtypes():
         ln._forward, ln._backward = fwd, bwd
 
 
+def _restore(net, init):
+    with torch.no_grad():
+        for (_, p), w in zip(sorted(net.named_parameters()), init):
+            p.copy_(w)
+
+
 def phase_train(net, init, engine_type, warmup=2, steps=10, batch=4,
                 seq=1024, amp=None):
     """gpt2_345m at full width through TrainStep, modelbench's setting:
@@ -1464,16 +1527,11 @@ def phase_train(net, init, engine_type, warmup=2, steps=10, batch=4,
     eager step). Every step must launch each flash kernel once per layer,
     Adam once, LayerNorm's forward, backward and merge 49 times each (on
     f32 tensors, or under amp on bf16 x and the bf16 copies of gamma and
-    beta) and (bf16) each xent kernel once, under either engine type;
-    every loss is finite and the last is below the first. Returns the
-    per-kernel launches of the run, the step metrics and the final weights
-    and Adam moments."""
+    beta) and (bf16) each xent kernel once, under either engine type
+    (``_timed_steps``)."""
     name = "train" if amp is None else "train_amp"
-    with torch.no_grad():
-        for (_, p), w in zip(sorted(net.named_parameters()), init):
-            p.copy_(w)
+    _restore(net, init)
     ts = _train_step(net, amp, engine_type)
-    ids, labels = _train_batch(batch, seq)
     xent = 0 if amp is None else 1
     want = {"flash_fwd": N_LAYERS, "flash_bwd_dkv": N_LAYERS,
             "flash_bwd_dq": N_LAYERS, "adam": 1, "layernorm": 2 * N_LAYERS + 1,
@@ -1481,6 +1539,25 @@ def phase_train(net, init, engine_type, warmup=2, steps=10, batch=4,
             "layernorm_bwd_merge": 2 * N_LAYERS + 1,
             "paged_attention": 0, "paged_attention_prefill": 0,
             "xent_fwd": xent, "xent_bwd": xent}
+    dt = torch.float32 if amp is None else torch.bfloat16
+    total, res, state = _timed_steps(
+        f"{name} {engine_type}", net, ts, _train_batch(batch, seq), want, dt,
+        warmup, steps, batch, seq)
+    res["amp"] = amp
+    return total, res, state
+
+
+def _timed_steps(name, net, ts, batch, want, dt, warmup, steps, samples,
+                 seq):
+    """``warmup`` + ``steps`` calls of the TrainStep ``ts`` on one fixed
+    ``batch``, the launch counts read around each call and held to
+    ``want``; LayerNorm's wrappers must see (x, gamma) of dtype ``dt`` only;
+    every loss finite and the last below the first; one step program. The
+    timed steps (host clock, ending in a synchronize) give ms a step,
+    samples/s and tokens/s (``samples`` sequences of ``seq`` tokens a step),
+    with the peak memory of the run. After a "graph" run one replay is
+    profiled (``check_replay_launches``). Returns the launches of the run,
+    the metrics and the final weights and Adam moments (in host memory)."""
     total = dict.fromkeys(want, 0)
     losses = []
     torch.cuda.synchronize()
@@ -1493,41 +1570,41 @@ def phase_train(net, init, engine_type, warmup=2, steps=10, batch=4,
                 torch.cuda.synchronize()
                 t = time.perf_counter()
             before = _launch_counts()
-            losses.append(ts(ids, labels))
+            losses.append(ts(*batch))
             got = {k: v - before[k] for k, v in _launch_counts().items()}
             if got != want:
-                raise AssertionError(f"{name} {engine_type} step {i}: "
-                                     f"launches {got}, expected {want}")
+                raise AssertionError(f"{name} step {i}: launches {got}, "
+                                     f"expected {want}")
             for k in total:
                 total[k] += got[k]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    dt = torch.float32 if amp is None else torch.bfloat16
     if set(ln_pairs) != {("fwd", dt, dt), ("bwd", dt, dt)}:
-        raise AssertionError(f"{name} {engine_type}: LayerNorm ran on "
-                             f"(x, gamma) dtypes {dict(ln_pairs)}")
-    log(f"[{name} {engine_type}] LayerNorm wrapper calls by (direction, x, "
-        f"gamma dtype): {dict(ln_pairs)}")
+        raise AssertionError(f"{name}: LayerNorm ran on (x, gamma) dtypes "
+                             f"{dict(ln_pairs)}")
+    log(f"[{name}] LayerNorm wrapper calls by (direction, x, gamma dtype): "
+        f"{dict(ln_pairs)}")
     losses = [float(x) for x in losses]
     peak = torch.cuda.max_memory_allocated()
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"{name} losses {losses}: not finite and falling")
     programs = ts.compiled_programs
     if programs != 1:
-        raise AssertionError(f"{name} {engine_type}: {programs} programs")
-    res = {"engine_type": engine_type, "ms_per_step": wall / steps * 1e3,
-           "tokens_per_s": batch * seq * steps / wall,
+        raise AssertionError(f"{name}: {programs} programs")
+    res = {"engine_type": ts.engine_type, "ms_per_step": wall / steps * 1e3,
+           "samples_per_s": samples * steps / wall,
+           "tokens_per_s": samples * seq * steps / wall,
            "peak_bytes": peak,
            "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
-           "losses": losses, "steps": steps, "warmup": warmup, "amp": amp}
-    log(f"[{name} {engine_type}] losses {['%.4f' % x for x in losses]}")
-    log(f"[{name} {engine_type}] {steps} timed steps: "
-        f"{res['ms_per_step']:.2f} ms/step, {res['tokens_per_s']:.0f} "
+           "losses": losses, "steps": steps, "warmup": warmup}
+    log(f"[{name}] losses {['%.4f' % x for x in losses]}")
+    log(f"[{name}] {steps} timed steps: {res['ms_per_step']:.2f} ms/step, "
+        f"{res['samples_per_s']:.1f} samples/s, {res['tokens_per_s']:.0f} "
         f"tokens/s, peak memory {peak / 2**30:.2f} GiB (reserved "
         f"{res['peak_reserved_bytes'] / 2**30:.2f}); launches per step "
         f"{want}")
     state = _state(net, ts, host=True)
-    if engine_type == "graph":  # replays more: after the state was read
+    if ts.engine_type == "graph":  # replays more: after the state was read
         (prog, _, _), = ts._programs.values()
         check_replay_launches(prog, f"{name} step graph")
     del ts
@@ -1535,16 +1612,13 @@ def phase_train(net, init, engine_type, warmup=2, steps=10, batch=4,
     return total, res, state
 
 
-def phase_train_turns(amp=None):
-    """``phase_train`` under MODE_TURNS from one start: every run's losses,
-    final weights and Adam moments bit-identical to the first's. Returns
-    the net, the launches of the first "graph" run and the runs'
-    metrics."""
-    name = "train" if amp is None else "train_amp"
-    net, init = _train_net(amp)
+def _turns(name, run):
+    """``run(engine_type)`` under MODE_TURNS: every run's losses, final
+    weights and Adam moments bit-identical to the first's. Returns the
+    launches of the first "graph" run and the runs' metrics."""
     runs, ref, launches = [], None, None
     for mode in MODE_TURNS:
-        total, res, state = phase_train(net, init, mode, amp=amp)
+        total, res, state = run(mode)
         if ref is None:
             ref = (res["losses"], state)
         elif res["losses"] != ref[0] or not _same_state(state, ref[1]):
@@ -1554,12 +1628,191 @@ def phase_train_turns(amp=None):
             launches = total
         runs.append(res)
         del state
-    del ref, init
+    del ref
     _release()
     log(f"[{name}] {' '.join(MODE_TURNS)}: losses, weights and Adam moments "
         f"bit-identical across the runs; ms/step "
         f"{[round(r['ms_per_step'], 2) for r in runs]}")
+    return launches, runs
+
+
+def phase_train_turns(amp=None):
+    """``phase_train`` under MODE_TURNS from one start (``_turns``).
+    Returns the net, the launches of the first "graph" run and the runs'
+    metrics."""
+    name = "train" if amp is None else "train_amp"
+    net, init = _train_net(amp)
+    launches, runs = _turns(name, lambda mode: phase_train(net, init, mode,
+                                                           amp=amp))
+    del init
+    _release()
     return net, launches, runs
+
+
+# ---------------------------------------------------------------------------
+# BERT pretraining (models/bert.py): bench.py's step, BERT-large at seq 128,
+# batch 64, 20 masked positions (bench.py:470), through
+# TrainStep(n_model_inputs=4, amp="bfloat16"): f32 masters, bf16 compute
+BERT_LAYERS, BERT_UNITS, BERT_HIDDEN, BERT_VOCAB = 24, 1024, 4096, 30522
+BERT_B, BERT_T, BERT_M = 64, 128, 20
+
+
+def bert_flops(batch, seq, masked, num_layers, units, hidden, vocab):
+    """bench.py's ``bert_flops`` (bench.py:342): training FLOPs of a step,
+    3x the forward's matrix products (the encoder's and the MLM decoder's
+    over the masked positions)."""
+    per_token_layer = (4 * units * units * 2 + 2 * units * hidden * 2
+                       + 2 * seq * units * 2)
+    fwd = batch * seq * per_token_layer * num_layers
+    head = batch * masked * units * vocab * 2
+    return 3 * (fwd + head)
+
+
+def bert_loss(out, labels, weights, nsp_labels):
+    """bench.py's loss_fn: both heads cast to f32, then pretrain_loss."""
+    from mxnet_tpu_torch.models.bert import pretrain_loss
+
+    mlm, nsp = out
+    return pretrain_loss(mlm.float(), nsp.float(), labels, weights,
+                         nsp_labels)
+
+
+def _bert_batch(batch, seq, masked, seed=0, ragged=False):
+    """bench.py:306-331's batch from np.random.RandomState(seed): ids, zero
+    token types, valid_length = seq, masked positions, labels, unit
+    weights, NSP labels; the model's 4 int32 inputs then the 3 loss
+    inputs, on the card. With ``ragged``, token types of both kinds and
+    valid lengths from seq / 2 to seq (the first row full), drawn after
+    the rest."""
+    rs = np.random.RandomState(seed)
+    ids = rs.randint(0, BERT_VOCAB, (batch, seq))
+    types = np.zeros((batch, seq))
+    valid = np.full((batch,), seq)
+    pos = rs.randint(0, seq, (batch, masked))
+    labels = rs.randint(0, BERT_VOCAB, (batch, masked))
+    weights = np.ones((batch, masked))
+    nsp = rs.randint(0, 2, (batch,))
+    if ragged:
+        types = rs.randint(0, 2, (batch, seq))
+        valid = rs.randint(seq // 2, seq + 1, (batch,))
+        valid[0] = seq
+    arrays = [a.astype(np.int32) for a in (ids, types, valid, pos, labels)]
+    arrays += [weights.astype(np.float32), nsp.astype(np.int32)]
+    return tuple(torch.from_numpy(a).cuda() for a in arrays)
+
+
+def _bert_step(net, engine_type, lr=1e-4):
+    from mxnet_tpu_torch import TrainStep
+    from mxnet_tpu_torch.optimizer import Adam
+
+    return TrainStep(net, bert_loss, Adam(learning_rate=lr), n_model_inputs=4,
+                     amp="bfloat16", engine_type=engine_type)
+
+
+def _bert_net(dropout=0.0):
+    """``get_bert("bert_large", max_length=128)`` on the card (seed 0)."""
+    from mxnet_tpu_torch.models import get_bert
+
+    t0 = time.perf_counter()
+    net = get_bert("bert_large", max_length=BERT_T, dropout=dropout,
+                   device="cuda", seed=0)
+    params = list(net.parameters())
+    log(f"[bert_amp] bert_large max_length {BERT_T}, dropout {dropout}: "
+        f"{len(params)} parameters, {sum(p.numel() for p in params)} "
+        f"elements, built in {time.perf_counter() - t0:.1f}s")
+    return net
+
+
+BERT_WANT = {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0,
+             "adam": 1,
+             # embed_ln, ln1 and ln2 of each of the 24 layers, mlm_ln
+             "layernorm": 2 * BERT_LAYERS + 2,
+             "layernorm_bwd": 2 * BERT_LAYERS + 2,
+             "layernorm_bwd_merge": 2 * BERT_LAYERS + 2,
+             "paged_attention": 0, "paged_attention_prefill": 0,
+             "xent_fwd": 0, "xent_bwd": 0}
+
+
+def phase_bert(net, init, engine_type, card, warmup=2, steps=10,
+               name="bert_amp"):
+    """bench.py's BERT step on ``net`` (from the weights ``init``, unless
+    None): B=64, T=128, M=20, Adam(1e-4), amp="bfloat16"; each step 50
+    LayerNorm forwards, backwards and merges (bf16), 1 Adam and no flash,
+    paged or xent launch (``_timed_steps``). Adds the MFU by bench.py's
+    ``bert_flops`` over the bf16 dense peak, beside the card."""
+    if init is not None:
+        _restore(net, init)
+    ts = _bert_step(net, engine_type)
+    total, res, state = _timed_steps(
+        f"{name} {engine_type}", net, ts, _bert_batch(BERT_B, BERT_T, BERT_M),
+        BERT_WANT, torch.bfloat16, warmup, steps, BERT_B, BERT_T)
+    flops = bert_flops(BERT_B, BERT_T, BERT_M, BERT_LAYERS, BERT_UNITS,
+                       BERT_HIDDEN, BERT_VOCAB)
+    res.update(flops_per_step=flops,
+               mfu=flops / (res["ms_per_step"] * 1e-3) / BF16_TC_FLOPS_PER_S,
+               floor_ms=flops / BF16_TC_FLOPS_PER_S * 1e3, card=card)
+    log(f"[{name} {engine_type}] {res['ms_per_step']:.2f} ms/step, "
+        f"{res['samples_per_s']:.1f} samples/s, {res['tokens_per_s']:.0f} "
+        f"tokens/s, peak {res['peak_bytes'] / 2**30:.2f} GiB allocated / "
+        f"{res['peak_reserved_bytes'] / 2**30:.2f} reserved, MFU "
+        f"{res['mfu']:.4f} ({flops:.4e} flops a step over 989 TFLOP/s: "
+        f"floor {res['floor_ms']:.2f} ms) on {card}")
+    return total, res, state
+
+
+def phase_bert_turns(card):
+    """``phase_bert`` under MODE_TURNS from one start at dropout 0
+    (``_turns``). Returns the net, the launches of the first "graph" run
+    and the runs' metrics."""
+    net = _bert_net()
+    init = [p.detach().clone() for _, p in sorted(net.named_parameters())]
+    launches, runs = _turns("bert_amp", lambda mode: phase_bert(
+        net, init, mode, card))
+    del init
+    _release()
+    return net, launches, runs
+
+
+def _replayed_losses(net, batch):
+    """Four calls of a "graph" TrainStep at lr 0 on one batch (the eager
+    warm-up, the capture and its replay, two more replays): the weights
+    never move, so the last two losses differ only by dropout."""
+    ts = _bert_step(net, "graph", lr=0.0)
+    losses = [float(ts(*batch)) for _ in range(4)]
+    (prog, _, _), = ts._programs.values()
+    if prog.graph is None or prog.calls != 4:
+        raise AssertionError(f"dropout check: the step was not replayed "
+                             f"({prog.calls} calls)")
+    del ts
+    _release()
+    return losses
+
+
+def phase_bert_dropout(net, card):
+    """Dropout inside a captured step: at lr 0 on one batch two
+    consecutive replays give equal losses at dropout 0 (``net``, the timed
+    runs' model) and different losses at bench.py's dropout 0.1 (a fresh
+    model): each replay draws new masks. Then one timed "graph" run at
+    dropout 0.1, as bench.py trains: finite losses and the launch counts of
+    ``phase_bert``. Returns that run's metrics."""
+    batch = _bert_batch(BERT_B, BERT_T, BERT_M)
+    at0 = _replayed_losses(net, batch)
+    if at0[2] != at0[3]:
+        raise AssertionError(f"dropout 0: two replays at lr 0 gave losses "
+                             f"{at0[2:]}")
+    net = _bert_net(dropout=0.1)
+    at1 = _replayed_losses(net, batch)
+    if at1[2] == at1[3] or not all(np.isfinite(at1)):
+        raise AssertionError(f"dropout 0.1: two replays at lr 0 gave losses "
+                             f"{at1[2:]}: one frozen mask")
+    log(f"[bert dropout] lr 0, one batch, calls warm-up, capture, replay, "
+        f"replay: losses at dropout 0 {at0}, at dropout 0.1 {at1}: a fresh "
+        f"mask at each replay")
+    _, res, _ = phase_bert(net, None, "graph", card, name="bert_amp_dropout")
+    del net
+    _release()
+    return {"losses_lr0_dropout0": at0, "losses_lr0_dropout0.1": at1,
+            "run": res}
 
 
 def _serve_run(net, engine_type, requests, sampling=None, warm=True):
@@ -2023,74 +2276,82 @@ def phase_layernorm_timing():
     training shape in bf16 (``train_amp``'s bf16 x, gamma and beta), each
     beside the launch floor: a kernel that does nothing on the grid and
     block of the route taken. The backward at the training shape in f32
-    and bf16, its library yardstick F.layer_norm's forward + backward minus
-    its forward (device, CUDA graph replay; and eager). Bounds: each input
-    read once, each output written once (forward: x, gamma, beta in, y out;
-    backward: x, g, gamma in, dx, dgamma, dbeta out), ~8 flops an element
-    forward and ~16 backward at the f32 CUDA-core rate."""
-    from mxnet_tpu_torch.ops import layernorm as ln
-
-    F = torch.nn.functional
-    dev = torch.device("cuda")
+    and bf16 (``_ln_rows``)."""
     gen = torch.Generator().manual_seed(2)
     rows, floor = {}, {}
     for n_rows, dtype in ((8, torch.float32), (512, torch.float32),
                           (4096, torch.float32), (4096, torch.bfloat16)):
-        x, g, bb, cot = _ln_case(gen, n_rows, 1024, 0, dtype, dtype, dev)
-        size = x.element_size()
         shape = f"({n_rows}, 1024) {str(dtype)[6:]}"
-        route = ln_route(x, g, bb)
-        r = _timed(lambda: ln.layer_norm(x, g, bb),
-                   lambda: ln.layer_norm_plain(x, g, bb),
-                   lambda: F.layer_norm(x, (1024,), g, bb, 1e-5),
-                   nbytes=size * (2 * x.numel() + 2 * 1024),
-                   flops=8 * x.numel(), shape=f"layernorm {shape} {route}")
-        r["library"] = "F.layer_norm"
-        floor[shape] = {"route": route, "layernorm_ms": r["ms"],
-                        "bound_ms": r["bound_ms"],
-                        "empty_ms": graph_time_ms(
-                            lambda: empty_launch(x, g, bb)),
-                        "empty_eager_ms": cuda_time_ms(
-                            lambda: empty_launch(x, g, bb))}
-        log(f"[time] empty kernel on LayerNorm's {route} grid {shape}: "
-            f"{floor[shape]['empty_ms'] * 1e3:.2f} us by graph replay "
-            f"(eager {floor[shape]['empty_eager_ms'] * 1e3:.2f}); "
-            f"LayerNorm {r['ms'] * 1e3:.2f} us, bound "
-            f"{r['bound_ms'] * 1e3:.2f} us")
+        fwd, bwd, floor[shape] = _ln_rows(gen, n_rows, dtype,
+                                          backward=n_rows == 4096)
         sfx = "" if dtype == torch.float32 else "_bf16"
         if n_rows == 8:
-            rows["layernorm"] = r
+            rows["layernorm"] = fwd
         elif n_rows == 4096:
             if sfx:
-                rows["layernorm_bf16"] = r
-            xg, gg, bg = (t.clone().requires_grad_() for t in (x, g, bb))
-
-            def lib_fwd_bwd():
-                torch.autograd.grad(F.layer_norm(xg, (1024,), gg, bg, 1e-5),
-                                    (xg, gg, bg), cot)
-
-            def lib_fwd():
-                F.layer_norm(xg, (1024,), gg, bg, 1e-5)
-
-            fb_ms, f_ms = graph_time_ms(lib_fwd_bwd), graph_time_ms(lib_fwd)
-            lib_bwd = fb_ms - f_ms
-            lib_bwd_eager = cuda_time_ms(lib_fwd_bwd) - cuda_time_ms(lib_fwd)
-            log(f"[time] F.layer_norm backward at {shape}: "
-                f"{lib_bwd * 1e3:.2f} us (fwd+bwd {fb_ms * 1e3:.2f} - fwd "
-                f"{f_ms * 1e3:.2f}, device); eager {lib_bwd_eager * 1e3:.2f} "
-                f"us")
-            bwd = _timed(lambda: ln._backward(x, g, cot, 1e-5),
-                         lambda: ln.layer_norm_bwd(x, g, cot, 1e-5), None,
-                         nbytes=size * 3 * x.numel() + 3 * 1024 * size,
-                         flops=16 * x.numel(),
-                         shape=f"layernorm_bwd {shape} {route}")
-            bwd.update(library_ms=lib_bwd, library_eager_ms=lib_bwd_eager,
-                       library="F.layer_norm backward: fwd+bwd minus fwd")
+                rows["layernorm_bf16"] = fwd
             rows["layernorm_bwd" + sfx] = bwd
-            del xg, gg, bg
-        del x, g, bb, cot
     log("[launch floor] " + json.dumps(floor))
     return rows
+
+
+def _ln_rows(gen, n_rows, dtype, backward=True):
+    """The forward kernel's row at (n_rows, 1024) in ``dtype`` (x, gamma
+    and beta), with the launch floor on its route's grid, and, with
+    ``backward``, the backward's row, its library yardstick
+    F.layer_norm's forward + backward minus its forward (device, CUDA
+    graph replay; and eager). Bounds: each input read once, each output
+    written once (forward: x, gamma, beta in, y out; backward: x, g, gamma
+    in, dx, dgamma, dbeta out), ~8 flops an element forward and ~16
+    backward at the f32 CUDA-core rate. Returns (forward row, backward row
+    or None, floor entry)."""
+    from mxnet_tpu_torch.ops import layernorm as ln
+
+    F = torch.nn.functional
+    dev = torch.device("cuda")
+    x, g, bb, cot = _ln_case(gen, n_rows, 1024, 0, dtype, dtype, dev)
+    size = x.element_size()
+    shape = f"({n_rows}, 1024) {str(dtype)[6:]}"
+    route = ln_route(x, g, bb)
+    r = _timed(lambda: ln.layer_norm(x, g, bb),
+               lambda: ln.layer_norm_plain(x, g, bb),
+               lambda: F.layer_norm(x, (1024,), g, bb, 1e-5),
+               nbytes=size * (2 * x.numel() + 2 * 1024),
+               flops=8 * x.numel(), shape=f"layernorm {shape} {route}")
+    r["library"] = "F.layer_norm"
+    floor = {"route": route, "layernorm_ms": r["ms"],
+             "bound_ms": r["bound_ms"],
+             "empty_ms": graph_time_ms(lambda: empty_launch(x, g, bb)),
+             "empty_eager_ms": cuda_time_ms(lambda: empty_launch(x, g, bb))}
+    log(f"[time] empty kernel on LayerNorm's {route} grid {shape}: "
+        f"{floor['empty_ms'] * 1e3:.2f} us by graph replay "
+        f"(eager {floor['empty_eager_ms'] * 1e3:.2f}); "
+        f"LayerNorm {r['ms'] * 1e3:.2f} us, bound "
+        f"{r['bound_ms'] * 1e3:.2f} us")
+    if not backward:
+        return r, None, floor
+    xg, gg, bg = (t.clone().requires_grad_() for t in (x, g, bb))
+
+    def lib_fwd_bwd():
+        torch.autograd.grad(F.layer_norm(xg, (1024,), gg, bg, 1e-5),
+                            (xg, gg, bg), cot)
+
+    def lib_fwd():
+        F.layer_norm(xg, (1024,), gg, bg, 1e-5)
+
+    fb_ms, f_ms = graph_time_ms(lib_fwd_bwd), graph_time_ms(lib_fwd)
+    lib_bwd = fb_ms - f_ms
+    lib_bwd_eager = cuda_time_ms(lib_fwd_bwd) - cuda_time_ms(lib_fwd)
+    log(f"[time] F.layer_norm backward at {shape}: "
+        f"{lib_bwd * 1e3:.2f} us (fwd+bwd {fb_ms * 1e3:.2f} - fwd "
+        f"{f_ms * 1e3:.2f}, device); eager {lib_bwd_eager * 1e3:.2f} us")
+    bwd = _timed(lambda: ln._backward(x, g, cot, 1e-5),
+                 lambda: ln.layer_norm_bwd(x, g, cot, 1e-5), None,
+                 nbytes=size * 3 * x.numel() + 3 * 1024 * size,
+                 flops=16 * x.numel(), shape=f"layernorm_bwd {shape} {route}")
+    bwd.update(library_ms=lib_bwd, library_eager_ms=lib_bwd_eager,
+               library="F.layer_norm backward: fwd+bwd minus fwd")
+    return r, bwd, floor
 
 
 def _flash_bounds(b, h, t, d, itemsize):
@@ -2110,10 +2371,9 @@ def phase_train_timing(net):
     """The training kernels at the shapes gpt2_345m training gives them:
     flash (B=4, H=16, T=1024, D=64, causal) in f32 (the ``train`` path; also
     T=2048) and in bf16 (``train_amp``), and Adam over the model's 292
-    parameters. Bounds as in phase_timing. Returns the rows by kernel name,
-    the bf16 flash rows under ``<name>_bf16``."""
+    parameters (``_adam_row``). Bounds as in phase_timing. Returns the rows
+    by kernel name, the bf16 flash rows under ``<name>_bf16``."""
     from mxnet_tpu_torch.ops import flash_attention as fa
-    from mxnet_tpu_torch.ops import optimizer as oo
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(6)
@@ -2177,8 +2437,21 @@ def phase_train_timing(net):
             rows["flash_bwd_dq" + sfx] = bwd["dq"]
         del q, k, v, do, out, lse, di
 
-    # Adam over gpt2_345m's parameters: f32 grads, lr 1e-4, wd 0
-    ws = [p.detach() for p in net.parameters()]
+    rows["adam"] = _adam_row(net, gen)
+    return rows
+
+
+def _adam_row(net, gen):
+    """The Adam kernel over ``net``'s parameters (f32 grads, lr 1e-4, wd
+    0), its plain version tensor by tensor and torch.optim.Adam(fused=True,
+    capturable=True); first one update of the kernel against the plain
+    version from the same state at ADAM_TOL["step"] (``max_abs_err`` of the
+    row, at the path's shapes). Bound: 28 bytes an element (w, g, m, v
+    read, w, m, v written), ~12 flops an element."""
+    from mxnet_tpu_torch.ops import optimizer as oo
+
+    dev = torch.device("cuda")
+    ws = [p.detach().clone() for p in net.parameters()]
     gs = [torch.randn(w.shape, generator=gen).to(dev) * 1e-3 for w in ws]
     ms = [torch.zeros_like(w) for w in ws]
     vs = [torch.zeros_like(w) for w in ws]
@@ -2187,11 +2460,24 @@ def phase_train_timing(net):
     wd = torch.zeros(len(ws), device=dev)
     kw = dict(beta1=0.9, beta2=0.999, epsilon=1e-8)
 
-    def plain_adam():
+    def plain_adam(ws=ws, ms=ms, vs=vs):
         for i in range(len(ws)):
             oo.adam_update(ws[i], gs[i], ms[i], vs[i], lr[i], 0.9, 0.999,
                            1e-8, wd[i])
 
+    shape = f"adam {len(ws)} tensors, {n} elements, f32 grads"
+    ref = [[t.clone() for t in ts] for ts in (ws, ms, vs)]
+    oo.adam_update_fused(ws, gs, ms, vs, lr, wd, **kw)
+    plain_adam(*ref)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, got, want in zip(("w", "m", "v"), (ws, ms, vs), ref):
+        for i, (a, b) in enumerate(zip(got, want)):
+            err = max(err, _adam_close(a, b, ADAM_TOL["step"],
+                                       f"{shape}, {name} {i}"))
+    log(f"[adam] {shape}: one update against the plain version, max abs err "
+        f"{err:.3e} (rtol, atol {ADAM_TOL['step']})")
+    del ref
     lib_params = [torch.nn.Parameter(w.clone()) for w in ws]
     for p, g in zip(lib_params, gs):
         p.grad = g
@@ -2200,16 +2486,15 @@ def phase_train_timing(net):
     lib_opt = torch.optim.Adam(lib_params, lr=1e-4, betas=(0.9, 0.999),
                                eps=1e-8, weight_decay=0.0, fused=True,
                                capturable=True)
-    rows["adam"] = _timed(
-        lambda: oo.adam_update_fused(ws, gs, ms, vs, lr, wd, **kw),
-        plain_adam, lib_opt.step, nbytes=28 * n, flops=12 * n,
-        shape=f"adam {len(ws)} tensors, {n} elements, f32 grads",
-        small=True)
-    rows["adam"]["library"] = (
+    row = _timed(lambda: oo.adam_update_fused(ws, gs, ms, vs, lr, wd, **kw),
+                 plain_adam, lib_opt.step, nbytes=28 * n, flops=12 * n,
+                 shape=shape, small=True)
+    row["library"] = (
         "torch.optim.Adam(fused=True, capturable=True).step(), wd 0 "
         "(epsilon added after the bias correction, not before as here)")
-    del lib_opt, lib_params, gs, ms, vs
-    return rows
+    row["max_abs_err_at_shape"] = err
+    del lib_opt, lib_params, gs, ms, vs, ws
+    return row
 
 
 def phase_xent_timing():
@@ -2270,6 +2555,22 @@ def phase_xent_timing():
     return rows
 
 
+def phase_bert_timing(net):
+    """The kernels at the shapes bert_amp gives them: LayerNorm forward and
+    backward in bf16 at (8192, 1024) (embed_ln and the encoder's 48, B=64 x
+    T=128 rows) and at (1280, 1024) (mlm_ln over the B x M=20 gathered
+    rows), and Adam over BERT's 303 parameters (``_ln_rows``,
+    ``_adam_row``)."""
+    gen = torch.Generator().manual_seed(12)
+    rows, floor = {}, {}
+    for n_rows, name in ((BERT_B * BERT_T, "bert"), (BERT_B * BERT_M, "mlm")):
+        fwd, bwd, floor[n_rows] = _ln_rows(gen, n_rows, torch.bfloat16)
+        rows[f"layernorm_{name}"], rows[f"layernorm_bwd_{name}"] = fwd, bwd
+    log("[launch floor] bert_amp " + json.dumps(floor))
+    rows["adam_bert"] = _adam_row(net, gen)
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this script needs one "
@@ -2302,6 +2603,8 @@ def main():
     del eng, serve_net
     _release()
     amp_parity = phase_train_parity(amp="bfloat16")
+    bert_parity = {amp or "f32": phase_train_parity(amp=amp, model="bert")
+                   for amp in (None, "bfloat16")}
     net, train_launches, train = phase_train_turns()
     timing.update(phase_train_timing(net))
     log("[train] " + json.dumps(dict(runs=train, parity=parity)))
@@ -2311,11 +2614,20 @@ def main():
     del net
     _release()
     log("[train_amp] " + json.dumps(dict(runs=train_amp, parity=amp_parity)))
+    net, bert_launches, bert_amp = phase_bert_turns(card)
+    timing.update(phase_bert_timing(net))
+    bert_dropout = phase_bert_dropout(net, card)
+    del net
+    _release()
+    log("[bert_amp] " + json.dumps(dict(runs=bert_amp, parity=bert_parity,
+                                        dropout=bert_dropout)))
     log("[engine types] " + json.dumps(
         {"turns": MODE_TURNS, "serve": serve, "train": train,
-         "train_amp": train_amp}))
+         "train_amp": train_amp, "bert_amp": bert_amp}))
     timing.update(phase_xent_timing())
-    # (source, replaced TPU kernel, the path whose run gives `launches`)
+    # (source, replaced TPU kernel, the path whose run gives `launches`[,
+    # its counter when the name without "_bf16" is not; the BERT rows'
+    # max_abs_err is that of the check at their shape])
     meta = {
         "paged_attention": ("mxnet_tpu_torch/csrc/paged_attention.cu",
                             "mxnet_tpu/ops/pallas_paged_attention.py:79",
@@ -2360,20 +2672,40 @@ def main():
                      "mxnet_tpu/ops/pallas_softmax_xent.py:54", "train_amp"),
         "xent_bwd": ("mxnet_tpu_torch/csrc/softmax_xent.cu",
                      "mxnet_tpu/ops/pallas_softmax_xent.py:54", "train_amp"),
+        # BERT's shapes on bert_amp (bf16): the encoder's (8192, 1024) rows
+        # and mlm_ln's (1280, 1024); the launches count both shapes
+        "layernorm_bert": ("mxnet_tpu_torch/csrc/layernorm.cu",
+                           "mxnet_tpu/ops/pallas_layernorm.py:53", "bert_amp",
+                           "layernorm", "layernorm_bf16_8192"),
+        "layernorm_bwd_bert": ("mxnet_tpu_torch/csrc/layernorm.cu",
+                               "mxnet_tpu/ops/pallas_layernorm.py:97",
+                               "bert_amp", "layernorm_bwd",
+                               "layernorm_bwd_bf16_8192"),
+        "layernorm_mlm": ("mxnet_tpu_torch/csrc/layernorm.cu",
+                          "mxnet_tpu/ops/pallas_layernorm.py:53", "bert_amp",
+                          "layernorm", "layernorm_bf16_1280"),
+        "layernorm_bwd_mlm": ("mxnet_tpu_torch/csrc/layernorm.cu",
+                              "mxnet_tpu/ops/pallas_layernorm.py:97",
+                              "bert_amp", "layernorm_bwd",
+                              "layernorm_bwd_bf16_1280"),
+        "adam_bert": ("mxnet_tpu_torch/csrc/adam.cu",
+                      "mxnet_tpu/ops/pallas_optimizer.py:63", "bert_amp",
+                      "adam", None),
     }
+    errs["adam_bert"] = timing["adam_bert"]["max_abs_err_at_shape"]
     by_path = {"serve": serve_launches, "train": train_launches,
-               "train_amp": amp_launches}
+               "train_amp": amp_launches, "bert_amp": bert_launches}
     kernels = []
-    for name, (src, rep, path) in meta.items():
+    for name, (src, rep, path, *extra) in meta.items():
         t = timing[name]
         # one counter for both dtypes
-        counter = name.removesuffix("_bf16")
+        counter, err_key = extra or (name.removesuffix("_bf16"), name)
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": by_path[path][counter], "launches_path": path,
             "launches_by_path": {p: c.get(counter, 0)
                                  for p, c in by_path.items()},
-            "max_abs_err": errs[name],
+            "max_abs_err": errs[err_key or name],
             "max_abs_err_rounded": errs.get(name + "_rounded"),
             "max_abs_err_tight": errs.get(name + "_tight"),
             "max_abs_err_f64": errs.get(name + "_f64"),

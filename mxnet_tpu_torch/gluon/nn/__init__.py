@@ -1,6 +1,6 @@
 """Gluon ``nn`` layers of the port."""
-from .basic_layers import (Dense, Dropout, Embedding, HybridSequential,
-                           LayerNorm, initialize)
+from .basic_layers import (Activation, Dense, Dropout, Embedding,
+                           HybridSequential, LayerNorm, initialize)
 
-__all__ = ["Dense", "Dropout", "Embedding", "HybridSequential", "LayerNorm",
-           "initialize"]
+__all__ = ["Activation", "Dense", "Dropout", "Embedding", "HybridSequential",
+           "LayerNorm", "initialize"]

@@ -15,8 +15,8 @@ from ... import initializer as _init
 from ...base import dtype_torch, resolve_device
 from ...ops import nn as _ops
 
-__all__ = ["Dense", "Embedding", "LayerNorm", "Dropout", "HybridSequential",
-           "initialize"]
+__all__ = ["Dense", "Embedding", "LayerNorm", "Dropout", "Activation",
+           "HybridSequential", "initialize"]
 
 
 def _param(shape, dtype, device):
@@ -25,15 +25,17 @@ def _param(shape, dtype, device):
 
 
 class Dense(nn.Module):
-    """``y = x @ weight.T + bias`` with weight (units, in_units)."""
+    """``y = act(x @ weight.T + bias)`` with weight (units, in_units);
+    ``activation`` is None or an ``act_type`` of :func:`ops.nn.activation`."""
 
     def __init__(self, units, flatten=True, in_units=0, use_bias=True,
                  dtype="float32", weight_initializer=None,
-                 bias_initializer="zeros", device="cuda"):
+                 bias_initializer="zeros", device="cuda", activation=None):
         super().__init__()
         if in_units <= 0:
             raise ValueError("Dense needs in_units (no deferred shapes)")
         self._flatten = flatten
+        self._act = activation
         self._weight_init = _init.create(weight_initializer or "uniform")
         self._bias_init = _init.create(bias_initializer)
         self.weight = _param((units, in_units), dtype, device)
@@ -45,8 +47,9 @@ class Dense(nn.Module):
             self._bias_init(self.bias, generator)
 
     def forward(self, x):
-        return _ops.fully_connected(x, self.weight, self.bias,
-                                    flatten=self._flatten)
+        out = _ops.fully_connected(x, self.weight, self.bias,
+                                   flatten=self._flatten)
+        return out if self._act is None else _ops.activation(out, self._act)
 
 
 class Embedding(nn.Module):
@@ -100,6 +103,18 @@ class Dropout(nn.Module):
         if not self.training or self._rate == 0.0:
             return x
         return torch.nn.functional.dropout(x, self._rate, training=True)
+
+
+class Activation(nn.Module):
+    """The elementwise activation ``activation`` (an ``act_type`` of
+    :func:`ops.nn.activation`)."""
+
+    def __init__(self, activation):
+        super().__init__()
+        self._act = activation
+
+    def forward(self, x):
+        return _ops.activation(x, self._act)
 
 
 class HybridSequential(nn.Sequential):

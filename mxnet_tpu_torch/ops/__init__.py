@@ -1,8 +1,8 @@
 """Operators of the port: plain PyTorch around the hand-written CUDA
 kernels (``layernorm``, ``paged_attention``, ``flash_attention``,
 ``optimizer``, ``softmax_xent``) built by ``cuda_common``."""
-from . import (attention, cuda_common, flash_attention, layernorm, nn,
+from . import (attention, core, cuda_common, flash_attention, layernorm, nn,
                optimizer, paged_attention, sampling, softmax_xent)
 
-__all__ = ["attention", "cuda_common", "flash_attention", "layernorm", "nn",
-           "optimizer", "paged_attention", "sampling", "softmax_xent"]
+__all__ = ["attention", "core", "cuda_common", "flash_attention", "layernorm",
+           "nn", "optimizer", "paged_attention", "sampling", "softmax_xent"]

@@ -1,9 +1,9 @@
 """The NN ops of the serving path.
 
 Counterpart of ``mxnet_tpu/ops/nn.py`` (``fully_connected``, the
-``layer_norm`` dispatch, ``tanh_gelu``) and ``mxnet_tpu/ops/core.py``
-(``embedding``). Matrix products stay ``torch.matmul``, as the JAX package
-leaves them to XLA.
+``layer_norm`` dispatch, ``tanh_gelu``, ``activation``, ``softmax``,
+``log_softmax``) and ``mxnet_tpu/ops/core.py`` (``embedding``). Matrix
+products stay ``torch.matmul``, as the JAX package leaves them to XLA.
 """
 from __future__ import annotations
 
@@ -14,7 +14,8 @@ from .. import config as _config
 from ..contrib import amp as _amp
 from . import layernorm as _ln
 
-__all__ = ["fully_connected", "layer_norm", "tanh_gelu", "embedding"]
+__all__ = ["fully_connected", "layer_norm", "tanh_gelu", "embedding",
+           "activation", "softmax", "log_softmax"]
 
 
 def fully_connected(data, weight, bias=None, flatten=True):
@@ -53,3 +54,59 @@ def embedding(data, weight):
     out-of-range index here is a device-side assert on the card, so
     callers clamp or validate first."""
     return F.embedding(data.long(), weight)
+
+
+# the act_type table of the JAX ``Activation`` op; "gelu" is the erf form
+_ACTS = {
+    "relu": torch.relu,
+    "sigmoid": torch.sigmoid,
+    "tanh": torch.tanh,
+    "softrelu": F.softplus,
+    "softsign": F.softsign,
+    "gelu": F.gelu,
+    "erf_gelu": F.gelu,
+    "tanh_gelu": tanh_gelu,
+    "silu": F.silu,
+}
+
+
+def activation(data, act_type="relu"):
+    """The elementwise activation ``act_type`` (a key of the JAX table:
+    relu, sigmoid, tanh, softrelu, softsign, gelu, erf_gelu, tanh_gelu,
+    silu)."""
+    if act_type not in _ACTS:
+        raise ValueError(f"unknown act_type {act_type!r}")
+    return _ACTS[act_type](data)
+
+
+def _f32_policy(fn, data, axis):
+    """``fn`` over ``axis`` with the AMP f32 rule of the JAX softmax
+    family: bf16 or f16 input is normalised in f32 and returned in its own
+    dtype."""
+    if data.dtype in (torch.float16, torch.bfloat16):
+        return fn(data.float(), dim=int(axis)).to(data.dtype)
+    return fn(data, dim=int(axis))
+
+
+def softmax(data, axis=-1, temperature=None, length=None):
+    """Softmax over ``axis``. With ``length`` (B,), only the first
+    ``length[b]`` entries of row b along ``axis`` take part (the others are
+    -inf before the softmax, so they come out 0)."""
+    if temperature is not None and temperature != 1.0:
+        data = data / temperature
+    if length is not None:
+        ax = int(axis) % data.dim()
+        steps = torch.arange(data.shape[ax], device=data.device)
+        mask = steps[None, :] < length.long()[:, None]
+        shape = [1] * data.dim()
+        shape[0], shape[ax] = mask.shape
+        data = data.masked_fill(~mask.reshape(shape), float("-inf"))
+    return _f32_policy(torch.softmax, data, axis)
+
+
+def log_softmax(data, axis=-1, temperature=None):
+    """Log-softmax over ``axis``, under the same f32 rule as
+    :func:`softmax`."""
+    if temperature is not None and temperature != 1.0:
+        data = data / temperature
+    return _f32_policy(torch.log_softmax, data, axis)

@@ -13,6 +13,7 @@ import torch
 
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch import MXNetError
+from mxnet_tpu_torch.models import bert as tbert
 from mxnet_tpu_torch.models import gpt2 as tgpt2
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -20,6 +21,7 @@ PKG = ROOT / "mxnet_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "mxnet_tpu")
 TINY = dict(num_layers=1, units=16, num_heads=2, max_length=32,
             vocab_size=11, dropout=0.0)
+TINY_BERT = dict(TINY, hidden_size=32)
 
 
 def _imported_roots(path):
@@ -52,6 +54,8 @@ def test_entry_points_default_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(MXNetError, match="CUDA is not available"):
         mt.get_gpt2("gpt2_tiny", **TINY)
+    with pytest.raises(MXNetError, match="CUDA is not available"):
+        mt.models.get_bert("bert_tiny", **TINY_BERT)
     net = tgpt2.GPT2Model(**TINY, device="cpu")
     with pytest.raises(MXNetError, match="CUDA is not available"):
         mt.GenerationEngine(net, batch_size=1, prefill_buckets=(8,))
@@ -78,6 +82,10 @@ CONSTRUCTORS = {
     "alloc_paged_kv_cache": lambda **kw: mt.ops.attention.alloc_paged_kv_cache(
         3, 2, 4, 4, 2, **kw),
     "GPT2Block": lambda **kw: tgpt2.GPT2Block(16, 2, **kw),
+    "BERTModel": lambda **kw: tbert.BERTModel(
+        **dict(TINY_BERT, dropout=0.0), **kw),
+    "BERTEncoderLayer": lambda **kw: tbert.BERTEncoderLayer(16, 32, 2, **kw),
+    "get_bert": lambda **kw: tbert.get_bert("bert_tiny", **TINY_BERT, **kw),
 }
 
 

@@ -4,6 +4,7 @@ card.
 
     python3 tools/torch_train_profile.py [--layers 24] [--steps 3] [--amp bfloat16]
     python3 tools/torch_train_profile.py --decode [--steps 20]
+    python3 tools/torch_train_profile.py --model bert_large [--layers 24]
     python3 tools/torch_train_profile.py ... --engine-type naive graph graph naive
 
 Trains gpt2_345m (``mxnet_tpu_torch``, B=4, T=1024, seeded random weights
@@ -11,7 +12,15 @@ and batch, as ``chip_smoke.py``) for two warm-up steps: in f32 with
 ``lm_loss`` and Adam 1e-4 (the ``train`` phase), or with ``--amp bfloat16``
 through ``TrainStep(net, SoftmaxCrossEntropyLoss(), Adam(lr_scheduler=...),
 amp="bfloat16")`` on chip_smoke.py's warm-up schedule (the ``train_amp``
-phase). With ``--decode`` it instead fills chip_smoke.py's serving engine
+phase). With ``--model bert_large`` it trains chip_smoke.py's ``bert_amp``
+step instead: ``get_bert("bert_large", max_length=128)``, bench.py's batch
+(B=64, T=128, 20 masked positions), ``TrainStep(net, bert_loss, Adam(1e-4),
+n_model_inputs=4, amp="bfloat16")``; it then also profiles one encoder
+layer's masked attention (``multi_head_attention`` with the (B, 1, 1, T)
+mask, forward and backward at bf16, one CUDA graph) and prints its device
+time by group times the layer count, the share of the step's groups
+(matmul, softmax, elementwise, copies) that the attention takes. With
+``--decode`` it instead fills chip_smoke.py's serving engine
 (gpt2_345m f32, batch 8, page size 16) with 8 prompts of 500 tokens and
 takes decode steps (``GenerationEngine.decode_step``, B=8, 500-560 cached
 keys a row). It then times ``--steps`` steps untraced and ``--steps`` more
@@ -82,6 +91,10 @@ def main():
     ap.add_argument("--layers", type=int, default=24)
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--amp", choices=("bfloat16",), default=None)
+    ap.add_argument("--model", choices=("gpt2_345m", "bert_large"),
+                    default="gpt2_345m",
+                    help="bert_large: chip_smoke.py's bert_amp step "
+                         "(always amp bfloat16)")
     ap.add_argument("--decode", action="store_true",
                     help="profile serving decode steps instead of training")
     ap.add_argument("--memory", action="store_true",
@@ -92,18 +105,26 @@ def main():
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("torch_train_profile: CUDA is not available")
+    if args.model == "bert_large" and args.decode:
+        ap.error("--decode serves GPT-2 only")
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
-    from mxnet_tpu_torch.models import get_gpt2
+    from mxnet_tpu_torch.models import get_bert, get_gpt2
 
     torch.backends.cuda.matmul.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True, timeout=60).stdout.strip()
-    net = get_gpt2("gpt2_345m", dropout=0.0, device="cuda", seed=0,
-                   num_layers=args.layers)
+    if args.model == "bert_large":
+        net = get_bert("bert_large", max_length=128, dropout=0.0,
+                       device="cuda", seed=0, num_layers=args.layers)
+    else:
+        net = get_gpt2("gpt2_345m", dropout=0.0, device="cuda", seed=0,
+                       num_layers=args.layers)
     for engine_type in args.engine_type:
         (_memory if args.memory else _profile)(args, net, engine_type, card)
         torch.cuda.empty_cache()
+    if args.model == "bert_large" and not args.memory:
+        _attention_profile(args, card)
 
 
 def _profile(args, net, engine_type, card):
@@ -244,11 +265,60 @@ def _step(args, net, engine_type):
         what = (f"gpt2_345m layers={args.layers} f32 decode B=8, paged "
                 f"(ps 16), 500 prompt tokens a row, engine_type "
                 f"{engine_type}")
+    elif args.model == "bert_large":
+        import chip_smoke as cs
+
+        ts = cs._bert_step(net, engine_type)
+        batch = cs._bert_batch(cs.BERT_B, cs.BERT_T, cs.BERT_M)
+        step = lambda: ts(*batch)  # noqa: E731
+        what = (f"bert_large layers={args.layers} B={cs.BERT_B} "
+                f"T={cs.BERT_T} M={cs.BERT_M} bfloat16 (bert_amp), "
+                f"engine_type {engine_type}")
     else:
         step = _train_step(args, net, rs, engine_type)
         what = (f"gpt2_345m layers={args.layers} B=4 T=1024 "
                 f"{args.amp or 'f32'}, engine_type {engine_type}")
     return step, what
+
+
+def _attention_profile(args, card, b=64, h=16, t=128, d=64):
+    """One encoder layer's masked attention at bert_amp's shapes (bf16 q,
+    k, v from the (B, T, 3C) projection, the all-true (B, 1, 1, T) mask of
+    valid_length = T), forward and backward, captured in one CUDA graph and
+    replayed under the profiler: device ms by group, and times the layer
+    count, the part of a bert_amp step it takes."""
+    from mxnet_tpu_torch.ops.attention import multi_head_attention
+
+    gen = torch.Generator().manual_seed(0)
+    qkv = torch.randn(b, t, 3, h, d, generator=gen).to(
+        "cuda", torch.bfloat16).requires_grad_()
+    mask = torch.ones(b, 1, 1, t, dtype=torch.bool, device="cuda")
+    cot = torch.randn(b, h, t, d, generator=gen).to("cuda", torch.bfloat16)
+
+    def fwd_bwd():
+        q, k, v = qkv.permute(2, 0, 3, 1, 4)
+        out = multi_head_attention(q, k, v, mask=mask)
+        torch.autograd.grad(out, qkv, cot)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fwd_bwd()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fwd_bwd()
+    graph.replay()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(args.steps):
+            graph.replay()
+        torch.cuda.synchronize()
+    _report(card, f"masked attention of one layer, B={b} H={h} T={t} D={d} "
+            f"bf16, forward + backward (one CUDA graph); x{args.layers} "
+            f"layers", args.steps, prof, None, None, scale=args.layers)
 
 
 def _train_step(args, net, rs, engine_type):
@@ -274,21 +344,27 @@ def _train_step(args, net, rs, engine_type):
     return lambda: ts(ids, labels)
 
 
-def _report(card, what, steps, prof, wall, plain_wall):
+def _report(card, what, steps, prof, wall, plain_wall, scale=1):
+    """Device time by kernel group and by kernel, per step; ``wall`` None
+    reports no idle share. ``scale`` multiplies every time (a per-layer
+    profile read as the whole model's)."""
     kernels = collections.Counter()
     calls = collections.Counter()
     for evt in prof.key_averages():
         us = _device_us(evt)
         if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
-            kernels[evt.key] += us / steps
-            calls[evt.key] += evt.count / steps
+            kernels[evt.key] += scale * us / steps
+            calls[evt.key] += scale * evt.count / steps
     busy = sum(kernels.values()) / 1e3
     print(card)
     print(f"{what}, {steps} traced steps under the profiler")
-    print(f"wall {wall * 1e3:.2f} ms/step traced, {plain_wall * 1e3:.2f} "
-          f"untraced; device {busy:.2f} ms/step; idle share "
-          f"{1 - busy / (wall * 1e3):.3f} traced, "
-          f"{1 - busy / (plain_wall * 1e3):.3f} untraced")
+    if wall is None:
+        print(f"device {busy:.3f} ms/step")
+    else:
+        print(f"wall {wall * 1e3:.2f} ms/step traced, {plain_wall * 1e3:.2f} "
+              f"untraced; device {busy:.2f} ms/step; idle share "
+              f"{1 - busy / (wall * 1e3):.3f} traced, "
+              f"{1 - busy / (plain_wall * 1e3):.3f} untraced")
     if not kernels:
         print("the profiler recorded no device time: not measured")
         return
