@@ -15,7 +15,10 @@ prints its last line):
   2. hold each kernel against its plain PyTorch version on the card, at
      the shapes the serving and training paths give it (the paged read at
      decode, split over the key range, and at prefill, on the tensor
-     cores, frontiers on split boundaries, in five (q, pool) dtype pairs;
+     cores, frontiers on split boundaries, the speculative verify (8 rows
+     of 5 queries, ragged frontiers), the gpt2_117m draft's decode (12
+     heads) and a suffix prefill after a 384-token prefix, in five (q,
+     pool) dtype pairs;
      flash forward and lse, dK/dV, dQ, the bf16 kernels also against plain
      versions that round p (and ds) as they do, the f32 kernels also at a
      tight limit that one TF32 pass fails and against an f64 plain
@@ -55,7 +58,19 @@ prints its last line):
      bit-identical across the four; after each graph run one replay of
      each captured graph is profiled, and the port's kernels it ran must
      be the launches the graph records (``check_replay_launches``; the
-     same for the training graphs in 7);
+     same for the training graphs in 7); then the serving features at the
+     same width: speculative decoding (``spec``: the same 16 requests,
+     gpt2_117m drafting k = 4 tokens a round, greedy, naive and graph
+     bit-identical, the plain run's tokens under the near-tie rule,
+     buckets used + 2 programs, the paged reads and LayerNorms of each
+     round and prefill counted; then the target as its own draft, every
+     draft accepted; then top-k sampled rounds), the prefix cache
+     (``prefix``: 16 requests behind one 384-token prefix, each after the
+     first adopting its 24 pages, tokens of a cold engine's under the
+     near-tie rule, fewer pages at the peak) and forks (``fork``:
+     ``samples=4`` top-k on two 200-token prompts, shared full pages at
+     refcount 4, one ``("cow", 8)`` program, naive and graph
+     bit-identical, every page free after the run);
   7. train gpt2_345m at full width (B=4, T=1024, f32, Adam) through
      TrainStep: 2 warm-up and 10 timed steps, with the launch counts of
      every kernel read around each step; then the same in bf16
@@ -71,7 +86,8 @@ prints its last line):
      (a fresh mask each replay), then one timed graph run at 0.1;
   8. time each kernel, its plain version and a PyTorch library yardstick
      with CUDA events, on the device (CUDA graph replay) and per eager
-     call, at the shapes the four paths give them, and the launch floor
+     call, at the shapes the paths give them (the paged read also at the
+     verify's and the draft's shapes), and the launch floor
      (``EMPTY_CU``, a kernel that does nothing on the grid and block of
      the route LayerNorm's forward takes, built here);
   9. print the kernel table as one JSON line, then the result line.
@@ -493,14 +509,27 @@ def _paged_case(gen, b, h, tq, ch, ps, n_pages, pool_pages, qdtype, dtype,
 # splits of a 1024-key capacity, a small prefill chunk, the serve path's
 # largest prefill (one row of 512 queries from position 0, 16 heads), and
 # a ragged prefill whose 100 queries cross a 64-query tile and whose
-# frontiers cross key tiles
+# frontiers cross key tiles; then the speculative path's reads: the verify
+# (8 rows of k + 1 = 5 queries, frontiers that differ row by row inside
+# one launch, one near the cache end), the gpt2_117m draft's decode (12
+# heads) and a suffix prefill after a 384-token adopted prefix
 PAGED_CASES = [(8, 16, 1, None, "(row 0 all trash)"),
                (8, 16, 128, None, "(row 0 all trash)"),
                (8, 16, 1, [127, 128, 129, 255, 256, 300, 511, 1023],
                 "(frontiers at split boundaries)"),
                (2, 4, 16, [120, 500], "(small prefill)"),
                (1, 16, 512, [0], "(serve prefill from position 0)"),
-               (2, 4, 100, [37, 600], "(ragged prefill across tiles)")]
+               (2, 4, 100, [37, 600], "(ragged prefill across tiles)"),
+               (8, 16, 5, [31, 127, 128, 129, 300, 511, 600, 1018],
+                "(verify, ragged frontiers)"),
+               (8, 12, 1, [31, 127, 128, 129, 300, 511, 600, 1022],
+                "(draft decode, 12 heads)"),
+               (1, 16, 100, [384], "(suffix prefill after a 384-token "
+                                   "prefix)")]
+#: the kernel-table rows (f32) whose max_abs_err is that of the f32 checks
+#: at their shape (B, H, tq)
+PAGED_ROWS = {(8, 16, 5): "paged_attention_verify",
+              (8, 12, 1): "paged_attention_draft"}
 
 
 # (q, pool) dtypes of the paged read: f32 and bf16 models, an f32 model's
@@ -540,10 +569,13 @@ def phase_paged_kernels(errs, failures=None):
                     raise AssertionError(f"paged read {dn}: output dtypes "
                                          f"{got.dtype} / {want.dtype}")
                 key = "paged_attention" + ("" if tq == 1 else "_prefill")
-                errs[key] = max(errs.get(key, 0.0), check_close(
-                    key, qdtype, got, want,
-                    f"{dn} B={b} tq={tq} ps={ps} {what}",
-                    failures=failures))
+                err = check_close(key, qdtype, got, want,
+                                  f"{dn} B={b} H={h} tq={tq} ps={ps} {what}",
+                                  failures=failures)
+                errs[key] = max(errs.get(key, 0.0), err)
+                row = PAGED_ROWS.get((b, h, tq))
+                if row is not None and qdtype == dtype == torch.float32:
+                    errs[row] = max(errs.get(row, 0.0), err)
 
 
 def phase_kernels():
@@ -1815,74 +1847,151 @@ def phase_bert_dropout(net, card):
             "run": res}
 
 
-def _serve_run(net, engine_type, requests, sampling=None, warm=True):
-    """Serve ``requests`` ((prompt, max_new_tokens) pairs) through a paged
-    engine (batch 8, page size 16, EOS 50256) and the continuous batcher,
-    after one warm-up request when ``warm``. Returns the engine, the
-    requests, the decode steps' logits in order, the call counts, the
-    launches of the run, its wall time and peak memory, and the program
-    count seen after each call (which must stay at the buckets used + 1)."""
+def _serve_run(net, engine_type, requests, sampling=None, warm=True,
+               check=None, warm_samples=1, **engine_kw):
+    """Serve ``requests`` ((prompt, max_new_tokens[, samples]) tuples)
+    through a paged engine (batch 8, page size 16, EOS 50256, the keywords
+    ``engine_kw`` beside) and the continuous batcher, after warm-up
+    requests when ``warm`` (see below). Returns the engine, the requests
+    (with the ``samples`` of each group after its leader), the decode steps' logits
+    in order, the call counts (prefills, decode steps or speculative
+    rounds, their time, tokens, drafted and accepted tokens), the
+    launches of the run, its wall time, peak memory and peak pages in use,
+    each request's top-2 logit margins (``margins``: per output token,
+    the plain decode's (top1 - top2) / max |logit|, for the near-tie rule)
+    and the program count seen after each call (which must stay at the
+    buckets used + the step programs + the copy-on-write program once
+    it ran), and the pages each prefill adopted from the prefix cache.
+    ``check(engine, batcher)`` runs after each batcher step;
+    ``warm_samples`` forks the warm-up request that many ways, so that its
+    first decode step runs the copy-on-write program once."""
     from mxnet_tpu_torch.inference import ContinuousBatcher, GenerationEngine
 
     eng = GenerationEngine(net, batch_size=8, max_length=1024, paged=True,
                            page_size=16, eos_id=50256, device="cuda",
-                           sampling=sampling, engine_type=engine_type)
-    calls = {"prefill": 0, "decode": 0, "decode_s": 0.0, "tokens": 0}
+                           sampling=sampling, engine_type=engine_type,
+                           **engine_kw)
+    calls = {"prefill": 0, "decode": 0, "decode_s": 0.0, "tokens": 0,
+             "drafted": 0, "accepted": 0, "cow": 0, "peak_pages": 0,
+             "adopted": []}
     buckets, logits, decoded = set(), [], []
+    slot_of, rows = {}, {}  # slot -> the prompt's id; id -> logits rows
     prefill, decode_step = eng.prefill, eng.decode_step
+    spec_step, dispatch_cow = eng.spec_step, eng._dispatch_cow
 
     def check_programs(what):
-        want = len(buckets) + (1 if decoded else 0)
+        steps = (2 if eng.speculative else 1) if decoded else 0
+        want = len(buckets) + steps + (1 if calls["cow"] else 0)
         if eng.compiled_programs != want or len(eng._programs) != want:
             raise AssertionError(
                 f"serve {engine_type} after {what}: {eng.compiled_programs} "
                 f"programs ({len(eng._programs)} graphs), expected the "
-                f"{len(buckets)} buckets used + 1")
+                f"{len(buckets)} buckets used + {steps} step programs"
+                f" + {1 if calls['cow'] else 0} copy-on-write")
+
+    def pages():
+        calls["peak_pages"] = max(calls["peak_pages"], eng.pages_in_use)
 
     def counted_prefill(prompt, slot):
         calls["prefill"] += 1
-        buckets.add(eng.bucket_for(len(prompt)))
+        suffix = eng.suffix_for(prompt)
+        calls["adopted"].append((len(prompt) - suffix) // eng.page_size)
+        buckets.add(eng.bucket_for(suffix))
         out = prefill(prompt, slot)
+        slot_of[slot] = id(prompt)
+        rows[id(prompt)] = [eng._last_logits[None]]
+        pages()
         check_programs("a prefill")
         return out
 
     def counted_decode():
         calls["decode"] += 1
-        active = int((~eng.done).sum())
+        active = ~eng.done
         t = time.perf_counter()
         out = decode_step()
         calls["decode_s"] += time.perf_counter() - t
-        calls["tokens"] += active
+        calls["tokens"] += int(active.sum())
         logits.append(out[2])
+        for slot in np.flatnonzero(active):
+            if slot_of.get(slot) is not None:
+                rows[slot_of[slot]].append(out[2][slot][None])
         decoded.append(True)
+        pages()
         check_programs("a decode step")
         return out
 
+    def counted_round():
+        calls["decode"] += 1
+        active = ~eng.done
+        t = time.perf_counter()
+        toks, counts, done = spec_step()
+        calls["decode_s"] += time.perf_counter() - t
+        if (counts[active] < 1).any():
+            raise AssertionError(f"spec {engine_type}: an active row emitted "
+                                 f"no token in a round: {counts}")
+        calls["tokens"] += int(counts.sum())
+        calls["drafted"] += eng.last_round_drafted
+        calls["accepted"] += eng.last_round_accepted
+        decoded.append(True)
+        pages()
+        check_programs("a speculative round")
+        return toks, counts, done
+
+    def counted_cow(copies):
+        calls["cow"] += bool(copies)
+        return dispatch_cow(copies)
+
+    def fork(src, dst, **kw):
+        slot_of[dst] = None  # a fork's rows are no request's plain logits
+        return fork_slot(src, dst, **kw)
+
+    fork_slot = eng.fork_slot
     eng.prefill, eng.decode_step = counted_prefill, counted_decode
+    eng.spec_step, eng._dispatch_cow = counted_round, counted_cow
+    eng.fork_slot = fork
     batcher = ContinuousBatcher(eng, device="cuda")
     if warm:
-        # warm-up request (cuBLAS handles, allocator; under "graph" the
-        # decode graph's capture) outside the measured run
-        batcher.submit(np.random.RandomState(9).randint(0, 50257, 40),
-                       max_new_tokens=4)
+        # warm-up requests outside the measured run (cuBLAS handles, the
+        # allocator; under "graph" the captures of the programs they run):
+        # ``warm`` itself when it is a list, else one 40-token request of
+        # 12 new tokens, which takes 3 decode steps or speculative rounds
+        # at least, so that the step programs are captured. The prefix
+        # cache is emptied after them.
+        for p, n in (warm if isinstance(warm, list) else
+                     [(np.random.RandomState(9).randint(0, 50257, 40), 12)]):
+            batcher.submit(p, max_new_tokens=n, samples=warm_samples)
         batcher.run()
-        calls.update(prefill=0, decode=0, decode_s=0.0, tokens=0)
+        if eng.prefix_cache is not None:
+            eng._evict_prefix(eng.num_pages)
+        calls.update(prefill=0, decode=0, decode_s=0.0, tokens=0, drafted=0,
+                     accepted=0, peak_pages=0, adopted=[])
         logits.clear()
-    reqs = [batcher.submit(p, max_new_tokens=n) for p, n in requests]
+    groups = [batcher.submit(p, max_new_tokens=n, samples=(m or [1])[0])
+              for p, n, *m in requests]
+    reqs = [r for g in groups for r in (g.samples or [g])]
     torch.cuda.synchronize()
     _release()
     torch.cuda.reset_peak_memory_stats()
     _reset_launch_counts()
     t = time.perf_counter()
-    batcher.run()
+    while batcher.step():
+        if check is not None:
+            check(eng, batcher)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = {k: v for k, v in _launch_counts().items()
                 if k in ("layernorm", "layernorm_bwd", "layernorm_bwd_merge",
                          "paged_attention", "paged_attention_prefill")}
+    margins = {}
+    for r in reqs:
+        if id(r.prompt) in rows and not r.forked:
+            lg = torch.cat(rows[id(r.prompt)])
+            top2 = lg.topk(2, dim=-1).values
+            margins[r.id] = ((top2[:, 0] - top2[:, 1])
+                             / lg.abs().amax(dim=-1)).cpu().numpy()
     return dict(eng=eng, reqs=reqs, logits=logits, calls=calls,
                 launches=launches, wall=wall, buckets=buckets,
-                peak=torch.cuda.max_memory_allocated(),
+                margins=margins, peak=torch.cuda.max_memory_allocated(),
                 peak_reserved=torch.cuda.max_memory_reserved())
 
 
@@ -1973,9 +2082,9 @@ def _same_serving(a, b):
 def phase_serve_turns(net):
     """``phase_serve`` under MODE_TURNS: greedy tokens and every decode
     step's logits bit-identical across the runs. Returns the launches of
-    the first "graph" run (the main path) and the runs' metrics. No run
-    keeps its engine past its end, so that each run's peak memory is its
-    own."""
+    the first "graph" run (the main path), the runs' metrics and the
+    reference for the speculative runs (``_reference``). No run keeps its
+    engine past its end, so that each run's peak memory is its own."""
     runs, ref, launches = [], None, None
     for mode in MODE_TURNS:
         run, res = phase_serve(net, mode)
@@ -1991,12 +2100,288 @@ def phase_serve_turns(net):
         del run
         _release()
     steps = len(ref["logits"])
+    plain = _reference(ref)
     del ref
     log(f"[serve] {' '.join(MODE_TURNS)}: tokens and the logits of all "
         f"{steps} decode steps bit-identical across the runs; decode ms/step "
         f"{[round(r['decode_ms_per_step'], 2) for r in runs]}, TTFT p50 ms "
         f"{[round(r['ttft_p50_ms'], 1) for r in runs]}")
+    return launches, runs, plain
+
+
+def _reference(run):
+    """A plain run's tokens and top-2 margins, request by request, for
+    ``near_ties``."""
+    return [(r.output, run["margins"].get(r.id)) for r in run["reqs"]]
+
+
+def near_ties(what, reqs, ref):
+    """Hold each request's tokens against the plain run's ``ref``
+    (``_reference``, same order): where the two first differ, the plain
+    run's two largest logits must lie within ``LOGIT_TOL[None]`` times
+    that row's largest |logit| of each other (a near-tie that another
+    kernel's rounding may flip); any other divergence fails. Returns the
+    near-ties."""
+    tol, ties = LOGIT_TOL[None], []
+    for r, (want, margin) in zip(reqs, ref):
+        got = r.output
+        if got == want:
+            continue
+        j = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                 min(len(got), len(want)))
+        if margin is None or j >= len(margin) or margin[j] >= tol:
+            raise AssertionError(
+                f"{what}: request {r.id} leaves the plain run's tokens at "
+                f"token {j} ({got[j:j + 4]} / {want[j:j + 4]}), where the "
+                f"plain run's top-2 margin is "
+                f"{None if margin is None or j >= len(margin) else margin[j]}"
+                f" of its largest |logit| (a near-tie is < {tol})")
+        ties.append((r.id, j, float(margin[j])))
+    return ties
+
+
+# ---------------------------------------------------------------------------
+# Speculative decoding, the prefix cache and forks at full width: the
+# gpt2_345m serve net as the target, gpt2_117m (seed 1) as the draft
+SPEC_K = 4
+
+
+def _graph_replays(eng, what):
+    """After a "graph" run: one profiled replay of each captured graph
+    that launches the port's kernels (``check_replay_launches``). The
+    prefill graphs share the last-token index, which the last prefill set
+    (it may lie past a smaller bucket): row 0 is in each."""
+    eng._in_last.zero_()
+    for key, prog in sorted(eng._programs.items(), key=str):
+        if prog.graph is not None and prog.launches:
+            check_replay_launches(prog, f"{what} {key[0]} step graph")
+
+
+def _serve_metrics(name, run, want):
+    """Every request finished with an output in range, the run's launches
+    equal ``want``, and the run's metrics."""
+    reqs, calls, launches = run["reqs"], run["calls"], run["launches"]
+    reasons = [r.finish_reason for r in reqs]
+    if any(r is None for r in reasons):
+        raise AssertionError(f"{name}: unfinished requests: {reasons}")
+    for r in reqs:
+        if not 1 <= len(r.output) <= r.max_new_tokens or \
+                not all(0 <= x < 50257 for x in r.output):
+            raise AssertionError(f"{name}: request {r.id}: bad output "
+                                 f"{r.output[:8]}")
+    want = dict(want, layernorm_bwd=0, layernorm_bwd_merge=0)
+    if launches != want:
+        raise AssertionError(f"{name}: launch counts {launches}, expected "
+                             f"{want} ({calls['prefill']} prefills, "
+                             f"{calls['decode']} steps)")
+    ttft = sorted(r.ttft for r in reqs)
+    res = {"ttft_p50_ms": statistics.median(ttft) * 1e3,
+           "ms_per_step": calls["decode_s"] / calls["decode"] * 1e3,
+           "tokens_per_s": calls["tokens"] / calls["decode_s"],
+           "wall_s": run["wall"], "prefills": calls["prefill"],
+           "steps": calls["decode"], "tokens": calls["tokens"],
+           "peak_pages": calls["peak_pages"],
+           "compiled_programs": run["eng"].compiled_programs,
+           "peak_bytes": run["peak"], "launches": launches}
+    if calls["drafted"]:
+        res["accept_rate"] = calls["accepted"] / calls["drafted"]
+    log(f"[{name}] {len(reqs)} requests, finish reasons "
+        f"{ {x: reasons.count(x) for x in set(reasons)} }; wall "
+        f"{run['wall']:.2f}s, {calls['prefill']} prefills, {calls['decode']} "
+        f"steps of {res['ms_per_step']:.2f} ms, {res['tokens_per_s']:.1f} "
+        f"tokens/s, TTFT p50 {res['ttft_p50_ms']:.1f} ms, peak "
+        f"{calls['peak_pages']} pages in use, "
+        f"{run['eng'].compiled_programs} programs"
+        + (f", accept rate {res['accept_rate']:.4f} "
+           f"({calls['accepted']}/{calls['drafted']})"
+           if calls["drafted"] else ""))
+    log(f"[{name}] launches in the run: {launches}")
+    return res
+
+
+def _spec_run(name, net, draft, mode, requests, sampling=None):
+    """A speculative serve run (``_serve_run``, k = SPEC_K). Every round
+    launches k + 1 draft steps (the draft's layers in decode reads, 2
+    LayerNorms a layer and the final one) and one verify (24 prefill-kernel
+    reads, 49 LayerNorms); every prefill the target's and the draft's
+    forward. The programs are the buckets used + draft + verify."""
+    run = _serve_run(net, mode, requests, sampling=sampling, draft_net=draft,
+                     speculate_k=SPEC_K)
+    calls, nd_ = run["calls"], draft._num_layers
+    rounds, prefills = calls["decode"], calls["prefill"]
+    want = {"paged_attention": (SPEC_K + 1) * nd_ * rounds,
+            "paged_attention_prefill": 24 * rounds + (24 + nd_) * prefills,
+            "layernorm": ((SPEC_K + 1) * (2 * nd_ + 1) + 49) * rounds
+            + (49 + 2 * nd_ + 1) * prefills}
+    res = _serve_metrics(name, run, want)
+    eng = run["eng"]
+    if eng.compiled_programs != len(run["buckets"]) + 2:
+        raise AssertionError(f"{name}: {eng.compiled_programs} programs for "
+                             f"{len(run['buckets'])} buckets used + 2")
+    return run, res
+
+
+def phase_spec(net, draft, plain):
+    """Speculative serving of the serve phase's 16 requests at full width:
+    gpt2_345m f32 verifying gpt2_117m's drafts, k = SPEC_K, greedy, naive
+    then graph: the two runs' tokens bit-identical, and the plain serve
+    run's tokens under the near-tie rule (``near_ties``: the verify reads
+    through the tensor-core prefill kernel, plain decode through the
+    decode kernel). Then the target as its own draft (every draft
+    accepted), then top-k sampling with the gpt2_117m draft (every active
+    row emits a token a round). Returns the launches of the graph run and
+    the runs' metrics."""
+    from mxnet_tpu_torch.inference import SamplingConfig
+
+    reqs = _serve_requests()
+    out, runs = {}, {}
+    for mode in ("naive", "graph"):
+        run, runs[mode] = _spec_run(f"spec {mode}", net, draft, mode, reqs)
+        out[mode] = [r.output for r in run["reqs"]]
+        if mode == "graph":
+            ties = near_ties("spec", run["reqs"], plain)
+            launches = run["launches"]
+            _graph_replays(run["eng"], "spec")
+        del run
+        _release()
+    if out["naive"] != out["graph"]:
+        raise AssertionError("spec: graph and naive tokens differ")
+    runs["graph"]["near_ties"] = ties
+    log(f"[spec] naive and graph tokens bit-identical; against the plain "
+        f"serve run {len(ties)} near-ties (request, token, margin) {ties}")
+    run, runs["self"] = _spec_run("spec self-draft", net, net, "graph", reqs)
+    if runs["self"]["accept_rate"] != 1.0:
+        raise AssertionError(f"spec self-draft: accept rate "
+                             f"{runs['self']['accept_rate']}, not 1.0")
+    runs["self"]["near_ties"] = near_ties("spec self-draft", run["reqs"],
+                                          plain)
+    del run
+    _release()
+    topk = SamplingConfig(method="top_k", top_k=40, seed=7)
+    run, runs["top_k"] = _spec_run("spec top-k", net, draft, "graph", reqs,
+                                   sampling=topk)
+    del run
+    _release()
     return launches, runs
+
+
+def _prefix_requests(n=16, seed=4):
+    """A 384-token seeded shared prefix and ``n`` seeded suffixes of 8 to
+    100 tokens, 32 new tokens each. The suffixes' lengths are seed 4's
+    whatever ``seed``, so that other seeds use the same buckets."""
+    rs = np.random.RandomState(seed)
+    prefix = rs.randint(0, 50257, 384)
+    return [(np.concatenate([prefix, rs.randint(0, 50257, int(m))]), 32)
+            for m in np.random.RandomState(4).randint(8, 101, n)]
+
+
+def phase_prefix(net):
+    """The prefix requests (``_prefix_requests``) at full width through a
+    cold engine and one with ``prefix_cache=True`` (graph), each after two
+    warm-up passes of other tokens (its cache emptied after them): every
+    request
+    after the first adopts the prefix's 24 pages, a hit adds no program,
+    the tokens are the cold run's under the near-tie rule, and the peak of
+    pages in use is lower. Returns the hit run's launches and both runs'
+    metrics."""
+    reqs, res = _prefix_requests(), {}
+    # two warm-up passes of other tokens at the same lengths capture every
+    # bucket's prefill graph before the timed run, so that TTFT pays no
+    # capture
+    warm = _prefix_requests(seed=5) + _prefix_requests(seed=6)
+    for name, kw in (("cold", {}), ("hit", {"prefix_cache": True})):
+        run = _serve_run(net, "graph", reqs, warm=warm, **kw)
+        calls = run["calls"]
+        forwards = calls["prefill"] + calls["decode"]
+        res[name] = _serve_metrics(f"prefix {name}", run, {
+            "paged_attention": 24 * calls["decode"],
+            "paged_attention_prefill": 24 * calls["prefill"],
+            "layernorm": 49 * forwards})
+        res[name]["adopted_pages"] = calls["adopted"]
+        if name == "cold":
+            cold = _reference(run)
+        else:
+            launches = run["launches"]
+            res[name]["near_ties"] = near_ties("prefix", run["reqs"], cold)
+            _graph_replays(run["eng"], "prefix")
+        del run
+        _release()
+    want = [0] + [384 // 16] * (len(reqs) - 1)
+    if res["hit"]["adopted_pages"] != want \
+            or any(res["cold"]["adopted_pages"]):
+        raise AssertionError(f"prefix: adopted pages "
+                             f"{res['hit']['adopted_pages']}, expected {want}")
+    if not res["hit"]["peak_pages"] < res["cold"]["peak_pages"]:
+        raise AssertionError(f"prefix: peak pages in use "
+                             f"{res['hit']['peak_pages']} with the cache, "
+                             f"{res['cold']['peak_pages']} cold")
+    log(f"[prefix] every request after the first adopted 24 pages; TTFT p50 "
+        f"{res['hit']['ttft_p50_ms']:.1f} ms hit, "
+        f"{res['cold']['ttft_p50_ms']:.1f} ms cold; peak pages "
+        f"{res['hit']['peak_pages']} hit, {res['cold']['peak_pages']} cold; "
+        f"{len(res['hit']['near_ties'])} near-ties against the cold run")
+    return launches, res
+
+
+def phase_fork(net):
+    """``samples=4`` with top-k sampling on two seeded 200-token prompts, 64
+    new tokens, at full width, naive then graph (the warm-up request is
+    forked too, so that the run's copy-on-write call is the graph's
+    capture): after the forks the prompts' 12 full pages have refcount 4,
+    the copy-on-write program is one ``("cow", 8)`` program, the tokens of
+    the two runs are bit-identical and every page is free after the run.
+    Returns the graph run's launches and the runs' metrics."""
+    from mxnet_tpu_torch.inference import SamplingConfig
+
+    rs = np.random.RandomState(6)
+    reqs = [(rs.randint(0, 50257, 200), 64, 4) for _ in range(2)]
+    topk = SamplingConfig(method="top_k", top_k=40, seed=11)
+    out, res = {}, {}
+    for mode in ("naive", "graph"):
+        shared = []
+
+        def check(eng, batcher):
+            if not shared:  # after the step that admitted the groups
+                for r in batcher._slots:
+                    if r is not None and r.samples is not None:
+                        pages = eng._row_pages[r.slot][:200 // 16]
+                        shared.append(sorted({int(eng._page_rc[p])
+                                              for p in pages}))
+
+        run = _serve_run(net, mode, reqs, sampling=topk, warm_samples=2,
+                         check=check)
+        eng, calls = run["eng"], run["calls"]
+        forwards = calls["prefill"] + calls["decode"]
+        res[mode] = _serve_metrics(f"fork {mode}", run, {
+            "paged_attention": 24 * calls["decode"],
+            "paged_attention_prefill": 24 * calls["prefill"],
+            "layernorm": 49 * forwards})
+        cow = [p for (sig, _), p in eng._programs.items() if sig[0] == "cow"]
+        forked = [r.forked for r in run["reqs"]]
+        if shared != [[4], [4]] or forked != [False, True, True, True] * 2:
+            raise AssertionError(f"fork {mode}: refcounts {shared} of the "
+                                 f"prompts' full pages, forked {forked}")
+        if [s for s in eng._signatures if s[0] == "cow"] != [("cow", 8)] \
+                or len(cow) != 1 or cow[0].calls != 2 \
+                or cow[0].capture and cow[0].graph is None:
+            raise AssertionError(f"fork {mode}: copy-on-write programs "
+                                 f"{eng._signatures}, calls "
+                                 f"{[p.calls for p in cow]}")
+        if eng.free_pages != eng.num_pages:
+            raise AssertionError(f"fork {mode}: {eng.free_pages} pages free "
+                                 f"of {eng.num_pages} after the run")
+        out[mode] = [r.output for r in run["reqs"]]
+        if mode == "graph":
+            launches = run["launches"]
+        del run, eng, cow
+        _release()
+    if out["naive"] != out["graph"]:
+        raise AssertionError("fork: graph and naive tokens differ")
+    log(f"[fork] 2 prompts x 4 samples: full pages at refcount 4 after the "
+        f"forks, one ('cow', 8) program (captured on its second call), "
+        f"every page free after the run, naive and graph tokens "
+        f"bit-identical")
+    return launches, res
 
 
 def phase_graph_equals_naive(serve_net):
@@ -2211,6 +2596,7 @@ def phase_timing(eng):
     the work at the inputs' accuracy, PEAKS), each input read once and each
     output written once."""
     from mxnet_tpu_torch.ops import paged_attention as pa
+    from mxnet_tpu_torch.ops.attention import alloc_paged_kv_cache
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(2)
@@ -2264,6 +2650,52 @@ def phase_timing(eng):
         flops=4 * h * ch * tq * (tq + 1) // 2,
         shape="paged_attention prefill B=1 Tq=512 from position 0 f32",
         plain_graph=False, dtype="3xtf32")
+
+    # the speculative path's reads at L=512 live keys a row: the verify
+    # (k + 1 = 5 queries a row at positions L-5 .. L-1, the tensor-core
+    # prefill kernel) and the gpt2_117m draft's decode (12 heads); the
+    # library call runs on the pre-gathered history with the verify's
+    # causal mask
+    tq, hd = SPEC_K + 1, 12
+    pos_v = torch.full((b,), L - tq, dtype=torch.int32, device=dev)
+    qv = torch.randn(b, h, tq, ch, generator=gen).to(dev)
+    hist = [(k[table[:, :L // 16].long()].transpose(1, 2).reshape(b, h, L, ch),
+             v[table[:, :L // 16].long()].transpose(1, 2).reshape(b, h, L, ch))
+            for k, v in pools]
+    mask = torch.ones(tq, L, dtype=torch.bool, device=dev).tril(L - tq)
+    rows["paged_attention_verify"] = _timed(
+        lambda: pa.paged_attention_read(qv, *pools[next(it) % 4], table,
+                                        pos_v),
+        lambda: pa.paged_attention_read_plain(qv, *pools[next(it) % 4], table,
+                                              pos_v),
+        lambda: sdpa(qv, *hist[next(it) % 4], attn_mask=mask),
+        nbytes=4 * (2 * b * h * L * ch + 2 * b * h * tq * ch)
+        + 4 * b * (L // 16 + 1),
+        flops=4 * b * h * tq * L * ch,
+        shape=f"paged_attention verify B=8 H=16 Tq={tq} Ch=64 L=512 ps=16 "
+              f"f32", plain_graph=False, dtype="3xtf32")
+    del hist
+    dpools = alloc_paged_kv_cache(eng.num_pages, hd, 16, ch, 4, device=dev)
+    for k, v in dpools:
+        k.normal_()
+        v.normal_()
+    qd = torch.randn(b, hd, 1, ch, generator=gen).to(dev)
+    rows_d = table[:, :L // 16].long()
+    hist = [(k[rows_d].transpose(1, 2).reshape(b, hd, L, ch),
+             v[rows_d].transpose(1, 2).reshape(b, hd, L, ch))
+            for k, v in dpools]
+    rows["paged_attention_draft"] = _timed(
+        lambda: pa.paged_attention_read(qd, *dpools[next(it) % 4], table,
+                                        position),
+        lambda: pa.paged_attention_read_plain(qd, *dpools[next(it) % 4],
+                                              table, position),
+        lambda: sdpa(qd, *hist[next(it) % 4]),
+        nbytes=4 * (2 * b * hd * L * ch + 2 * b * hd * ch)
+        + 4 * b * (L // 16 + 1),
+        flops=4 * b * hd * L * ch,
+        shape="paged_attention draft decode B=8 H=12 Tq=1 Ch=64 L=512 ps=16 "
+              "f32", plain_graph=False, dtype="3xtf32")
+    del hist, dpools
 
     rows.update(phase_layernorm_timing())
     return rows
@@ -2595,7 +3027,18 @@ def main():
     log(f"[serve] gpt2_345m f32 built in {time.perf_counter() - t:.1f}s; "
         f"batch 8, 512 pages of 16")
     phase_graph_equals_naive(serve_net)
-    serve_launches, serve = phase_serve_turns(serve_net)
+    serve_launches, serve, plain = phase_serve_turns(serve_net)
+    t = time.perf_counter()
+    draft_net = get_gpt2("gpt2_117m", dropout=0.0, device="cuda", seed=1)
+    log(f"[spec] gpt2_117m f32 draft built in {time.perf_counter() - t:.1f}s;"
+        f" k {SPEC_K}")
+    spec_launches, spec = phase_spec(serve_net, draft_net, plain)
+    del draft_net, plain
+    _release()
+    prefix_launches, prefix = phase_prefix(serve_net)
+    fork_launches, fork = phase_fork(serve_net)
+    log("[serving features] " + json.dumps(
+        {"spec": spec, "prefix": prefix, "fork": fork}))
     # the serve engine's pools and table, for the kernels' timing
     eng = GenerationEngine(serve_net, batch_size=8, max_length=1024,
                            paged=True, page_size=16, device="cuda")
@@ -2637,6 +3080,17 @@ def main():
         "paged_attention_prefill": ("mxnet_tpu_torch/csrc/paged_attention.cu",
                                     "mxnet_tpu/ops/pallas_paged_attention.py:79",
                                     "serve"),
+        # the speculative path's reads: the verify through the prefill
+        # kernel, the gpt2_117m draft's through the decode kernel (their
+        # max_abs_err: the f32 checks at their shapes)
+        "paged_attention_verify": (
+            "mxnet_tpu_torch/csrc/paged_attention.cu",
+            "mxnet_tpu/ops/pallas_paged_attention.py:79", "spec",
+            "paged_attention_prefill", "paged_attention_verify"),
+        "paged_attention_draft": (
+            "mxnet_tpu_torch/csrc/paged_attention.cu",
+            "mxnet_tpu/ops/pallas_paged_attention.py:79", "spec",
+            "paged_attention", "paged_attention_draft"),
         "layernorm": ("mxnet_tpu_torch/csrc/layernorm.cu",
                       "mxnet_tpu/ops/pallas_layernorm.py:53", "serve"),
         # the same kernel on bf16 x, gamma and beta (train_amp), and the
@@ -2693,8 +3147,10 @@ def main():
                       "adam", None),
     }
     errs["adam_bert"] = timing["adam_bert"]["max_abs_err_at_shape"]
-    by_path = {"serve": serve_launches, "train": train_launches,
-               "train_amp": amp_launches, "bert_amp": bert_launches}
+    by_path = {"serve": serve_launches, "spec": spec_launches,
+               "prefix": prefix_launches, "fork": fork_launches,
+               "train": train_launches, "train_amp": amp_launches,
+               "bert_amp": bert_launches}
     kernels = []
     for name, (src, rep, path, *extra) in meta.items():
         t = timing[name]

@@ -59,6 +59,13 @@ _KNOBS: Dict[str, tuple] = {
     "engine_type": (str, "graph", ("MXNET_ENGINE_TYPE",),
                     "'graph': one captured CUDA graph per step signature, "
                     "replayed from static buffers; 'naive': the eager step"),
+    # the batcher's admission aging guard, as in the JAX package
+    "serve_head_aging_steps": (int, 8, ("MXNET_TPU_SERVE_HEAD_AGING_STEPS",),
+                               "admission aging guard: after this many "
+                               "step-boundary deferrals of the queue head "
+                               "on free pages, freed pages are reserved "
+                               "for the head and bypass admission stops "
+                               "(0 = off)"),
 }
 
 #: the values a str knob may take; any other raises

@@ -124,9 +124,9 @@ class GPT2Model(nn.Module):
 
         A finished row that the engine still carries through decode sits
         at ``position == max_length``, one past the position table.
-        ``jnp.take`` gives such a row NaN embeddings; ``F.embedding`` would
-        fail a device-side assert. The ids are clamped instead, so a done
-        row computes finite garbage from the last position's embedding:
+        ``jnp.take`` (and ``ops.nn.embedding``) gives such a row NaN
+        embeddings. The ids are clamped instead, so a done row computes
+        finite garbage from the last position's embedding:
         its token is replaced by pad and its K/V go to the trash page
         (paged) or the clamped last slot of its own row (dense), so no
         live row reads them."""

@@ -49,11 +49,19 @@ def tanh_gelu(x):
 
 
 def embedding(data, weight):
-    """Row lookup ``weight[data]``. Indices must lie in range: unlike
-    ``jnp.take``, which fills NaN for an out-of-range index, an
-    out-of-range index here is a device-side assert on the card, so
-    callers clamp or validate first."""
-    return F.embedding(data.long(), weight)
+    """Row lookup ``weight[data]`` with the semantics of ``jnp.take``:
+    an index in ``[-V, 0)`` counts from the end, and any index outside
+    ``[-V, V)`` gives a NaN row whose gradient is dropped. The index is
+    wrapped and clamped before the gather, so an out-of-range id never
+    reaches ``F.embedding`` (a device-side assert on the card), and the
+    NaN rows are a ``torch.where``: no host sync, so the lookup may run
+    inside a captured step."""
+    v = weight.shape[0]
+    idx = data.long()
+    idx = torch.where(idx < 0, idx + v, idx)
+    inside = (idx >= 0) & (idx < v)
+    rows = F.embedding(idx.clamp(0, v - 1), weight)
+    return torch.where(inside[..., None], rows, float("nan"))
 
 
 # the act_type table of the JAX ``Activation`` op; "gelu" is the erf form

@@ -268,3 +268,85 @@ def test_stochastic_engine_is_seeded(pair):
     a = TEngine(tnet, device="cpu", **kw).generate(PROMPTS, max_new_tokens=8)
     b = TEngine(tnet, device="cpu", **kw).generate(PROMPTS, max_new_tokens=8)
     assert a == b
+
+
+def test_submit_refuses_out_of_range_ids(pair):
+    """An id outside [0, vocab) is refused at submit (the JAX batcher takes
+    it and its engine computes NaN from it), before the request can take
+    a slot; nothing is queued."""
+    _, tnet = pair
+    bat = TBatcher(TEngine(tnet, device="cpu", **_kw(True)), device="cpu")
+    for bad in ([1, 2, VOCAB], [-1, 5], [3, VOCAB + 40]):
+        with pytest.raises(ValueError, match="token ids"):
+            bat.submit(bad, max_new_tokens=3)
+    assert bat.pending == 0 and bat.active == 0
+    bat.submit([1, VOCAB - 1], max_new_tokens=2)
+    bat.run()
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_failed_prefill_holds_no_slot(pair, paged):
+    """A prefill that raises leaves its slot free (``active == 0``) and its
+    request at the head of the queue; once the fault is gone the run
+    serves every request with the tokens of an unfaulted run."""
+    _, tnet = pair
+    reqs = [(_prompt(5, 80), 4), (_prompt(9, 81), 3)]
+    clean = TBatcher(TEngine(tnet, device="cpu", **_kw(paged, batch_size=2)),
+                     device="cpu")
+    want = [clean.submit(p, max_new_tokens=n) for p, n in reqs]
+    clean.run()
+    want = [(h.output, h.finish_reason) for h in want]
+    eng = TEngine(tnet, device="cpu", **_kw(paged, batch_size=2))
+    bat = TBatcher(eng, device="cpu")
+    hs = [bat.submit(p, max_new_tokens=n) for p, n in reqs]
+    prefill = eng.prefill
+
+    def failing(prompt, slot):
+        raise RuntimeError("planted prefill failure")
+
+    eng.prefill = failing
+    with pytest.raises(RuntimeError, match="planted"):
+        bat.run()
+    assert bat.active == 0 and bat.pending == 2
+    assert all(h.slot is None and not h.done and h.output == [] for h in hs)
+    eng.prefill = prefill
+    bat.run()
+    assert [(h.output, h.finish_reason) for h in hs] == want
+
+
+def test_embedding_out_of_range_matches_jnp_take():
+    """``ops.nn.embedding`` against ``jnp.take`` (the JAX ``Embedding``):
+    in-range ids and ids in [-V, 0) gather rows, ids outside [-V, V) give
+    NaN rows, on the forward and through a GPT-2's token embedding; the
+    gradient drops the rows of the ids outside."""
+    from mxnet_tpu_torch.ops import nn as tnn
+
+    rs = np.random.RandomState(3)
+    weight = rs.randn(7, 5).astype(np.float32)
+    ids = np.array([[0, 3, 6, 7], [-1, -7, -8, 100]])
+    cot = rs.randn(2, 4, 5).astype(np.float32)
+    want = np.asarray(jnp.take(jnp.asarray(weight), jnp.asarray(ids), axis=0))
+    want_grad = np.asarray(jax.grad(lambda w: (jnp.take(
+        w, jnp.asarray(ids), axis=0) * cot).sum())(jnp.asarray(weight)))
+    w = torch.tensor(weight, requires_grad=True)
+    got = tnn.embedding(torch.tensor(ids), w)
+    (got * torch.tensor(cot)).sum().backward()
+    nan = np.isnan(want)
+    assert nan.any(axis=-1).tolist() == [[False] * 3 + [True],
+                                         [False, False, True, True]]
+    np.testing.assert_array_equal(np.isnan(got.detach().numpy()), nan)
+    np.testing.assert_array_equal(got.detach().numpy()[~nan], want[~nan])
+    np.testing.assert_allclose(w.grad.numpy(), want_grad, rtol=1e-6,
+                               atol=1e-6)
+
+def test_model_with_out_of_range_id_is_nan_where_jax_is(pair):
+    """An id past the vocabulary in a full GPT-2 forward: no error, and
+    NaN logits where the JAX model has them."""
+    jnet, tnet = pair
+    ids = np.array([[5, VOCAB + 3, 7, 9], [1, 2, 3, 4]])
+    want = jnet(nd.array(ids, dtype="int32")).asnumpy()
+    with torch.no_grad():
+        got = tnet(torch.tensor(ids)).numpy()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    assert np.isnan(got[0]).any() and not np.isnan(got[1]).any()
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-4, atol=1e-4)

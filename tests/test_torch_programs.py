@@ -215,6 +215,34 @@ def test_stochastic_graph_engine_draws_as_naive(pair):
     assert got["graph"] == got["naive"]
 
 
+@pytest.mark.parametrize("method", ["greedy", "top_k"])
+def test_speculative_graph_equals_naive(pair, method):
+    """A seeded speculative run through the batcher (a draft of other
+    weights, so rounds accept partly) gives the same tokens under "graph"
+    and "naive": a sampled round draws its noise before the programs run,
+    from the engine's generator. The programs: buckets used + draft +
+    verify."""
+    from mxnet_tpu_torch.inference import SamplingConfig
+
+    _, tnet = pair
+    draft = tgpt2.GPT2Model(**SMALL, device="cpu", seed=3)
+    sampling = SamplingConfig(method=method, top_k=8, seed=2)
+    reqs = [(_prompt(4 + 3 * i, 300 + i), 4 + i) for i in range(5)]
+    got = {}
+    for mode in MODES:
+        eng = TEngine(tnet, device="cpu", engine_type=mode, draft_net=draft,
+                      speculate_k=3, sampling=sampling, **_kw(True))
+        bat = TBatcher(eng, device="cpu")
+        hs = [bat.submit(p, max_new_tokens=n) for p, n in reqs]
+        bat.run()
+        got[mode] = [(h.output, h.finish_reason) for h in hs]
+        assert eng._signatures == {("prefill", 8), ("prefill", 16),
+                                   ("draft", 3, 3), ("verify", 3, 3)}
+        assert {sig for sig, _ in eng._programs} == eng._signatures
+    assert got["graph"] == got["naive"]
+    assert all(len(out) == n for (out, _), (_, n) in zip(got["graph"], reqs))
+
+
 SCHED = dict(max_update=10, warmup_steps=2, warmup_begin_lr=1e-4)
 
 

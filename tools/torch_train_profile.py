@@ -4,6 +4,7 @@ card.
 
     python3 tools/torch_train_profile.py [--layers 24] [--steps 3] [--amp bfloat16]
     python3 tools/torch_train_profile.py --decode [--steps 20]
+    python3 tools/torch_train_profile.py --spec [--steps 20]
     python3 tools/torch_train_profile.py --model bert_large [--layers 24]
     python3 tools/torch_train_profile.py ... --engine-type naive graph graph naive
 
@@ -23,8 +24,11 @@ time by group times the layer count, the share of the step's groups
 ``--decode`` it instead fills chip_smoke.py's serving engine
 (gpt2_345m f32, batch 8, page size 16) with 8 prompts of 500 tokens and
 takes decode steps (``GenerationEngine.decode_step``, B=8, 500-560 cached
-keys a row). It then times ``--steps`` steps untraced and ``--steps`` more
-traced by ``torch.profiler``, and prints the card's name and power limit,
+keys a row); with ``--spec`` the same engine drafts with chip_smoke.py's
+gpt2_117m (seed 1, k 4) and takes speculative rounds
+(``GenerationEngine.spec_step``: a draft and a verify program). It then
+times ``--steps`` steps untraced and ``--steps`` more traced by
+``torch.profiler``, and prints the card's name and power limit,
 the wall time per step of each, the device time per step summed over
 kernels (one stream, so kernels do not overlap), the idle share (1 -
 device time / wall time) against each wall time (the profiler adds host
@@ -97,6 +101,8 @@ def main():
                          "(always amp bfloat16)")
     ap.add_argument("--decode", action="store_true",
                     help="profile serving decode steps instead of training")
+    ap.add_argument("--spec", action="store_true",
+                    help="profile speculative rounds (gpt2_117m draft)")
     ap.add_argument("--memory", action="store_true",
                     help="report memory per call instead of profiling")
     ap.add_argument("--engine-type", nargs="+", default=["graph"],
@@ -105,8 +111,8 @@ def main():
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("torch_train_profile: CUDA is not available")
-    if args.model == "bert_large" and args.decode:
-        ap.error("--decode serves GPT-2 only")
+    if args.model == "bert_large" and (args.decode or args.spec):
+        ap.error("--decode and --spec serve GPT-2 only")
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
     from mxnet_tpu_torch.models import get_bert, get_gpt2
 
@@ -253,16 +259,22 @@ def _history(snap):
 def _step(args, net, engine_type):
     """The step to run, as a closure, and its description."""
     rs = np.random.RandomState(0)
-    if args.decode:
+    if args.decode or args.spec:
         from mxnet_tpu_torch.inference import GenerationEngine
+        from mxnet_tpu_torch.models import get_gpt2
 
+        spec = dict(draft_net=get_gpt2("gpt2_117m", dropout=0.0,
+                                       device="cuda", seed=1),
+                    speculate_k=4) if args.spec else {}
         eng = GenerationEngine(net, batch_size=8, max_length=1024, paged=True,
                                page_size=16, eos_id=None, device="cuda",
-                               engine_type=engine_type)
+                               engine_type=engine_type, **spec)
         for slot in range(8):
             eng.prefill(rs.randint(0, 50257, 500), slot)
-        step = eng.decode_step
-        what = (f"gpt2_345m layers={args.layers} f32 decode B=8, paged "
+        step = eng.spec_step if args.spec else eng.decode_step
+        mode = "speculative rounds (gpt2_117m draft, k 4)" if args.spec \
+            else "decode"
+        what = (f"gpt2_345m layers={args.layers} f32 {mode} B=8, paged "
                 f"(ps 16), 500 prompt tokens a row, engine_type "
                 f"{engine_type}")
     elif args.model == "bert_large":
