@@ -1847,98 +1847,168 @@ def phase_bert_dropout(net, card):
             "run": res}
 
 
+# Serving runs: one dispatch counter and one launch formula for every
+# serving phase
+SERVE_LAUNCHES = ("layernorm", "layernorm_bwd", "layernorm_bwd_merge",
+                  "paged_attention", "paged_attention_prefill")
+DISPATCHES = ("prefill", "decode_step", "plain_step", "spec_step")
+
+
+def _serving_launches():
+    return {k: v for k, v in _launch_counts().items() if k in SERVE_LAUNCHES}
+
+
+def _count_dispatches(eng):
+    """Count the engine's dispatches that returned (a call that an
+    injected fault stopped launched nothing) by name, their time
+    (``<name>_s``), the decode tokens they emitted, the rounds' drafted
+    and accepted tokens and the peak of pages in use; ``_uncount`` takes
+    the wrappers off. The one dispatch counter of every serving phase."""
+    calls = collections.Counter()
+
+    def wrap(name):
+        fn = getattr(eng, name)
+
+        def counted(*a, **kw):
+            active = int((~eng.done).sum())
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            calls[name + "_s"] += time.perf_counter() - t
+            calls[name] += 1
+            if name == "spec_step":
+                calls["tokens"] += int(out[1].sum())
+                calls["drafted"] += eng.last_round_drafted
+                calls["accepted"] += eng.last_round_accepted
+            elif name != "prefill":
+                calls["tokens"] += active
+            calls["peak_pages"] = max(calls["peak_pages"], eng.pages_in_use)
+            return out
+
+        setattr(eng, name, counted)
+
+    for name in DISPATCHES:
+        wrap(name)
+    return calls
+
+
+def _uncount(eng):
+    for name in DISPATCHES:
+        eng.__dict__.pop(name, None)
+
+
+def _steps(calls):
+    """Decode steps of every kind (plain steps and speculative rounds) in
+    ``calls`` and their seconds."""
+    return (sum(calls[k] for k in DISPATCHES[1:]),
+            sum(calls[k + "_s"] for k in DISPATCHES[1:]))
+
+
+def _want_launches(calls, draft_layers=0):
+    """The serving kernels' launches for ``calls`` (``_count_dispatches``),
+    the one launch formula of every serving phase: a plain step 24 decode
+    reads and 49 LayerNorms; a speculative round k + 1 draft steps (the
+    draft's layers in decode reads, 2 LayerNorms a layer and the final
+    one) and one verify (24 prefill-kernel reads, 49 LayerNorms); a
+    prefill (every one reads more than one query, the prefill kernel) the
+    target's forward and, on a speculative engine, the draft's. No
+    backward."""
+    nd, k = draft_layers, SPEC_K
+    plain = calls["decode_step"] + calls["plain_step"]
+    rounds, pre = calls["spec_step"], calls["prefill"]
+    draft_ln = 2 * nd + 1 if nd else 0
+    return {"paged_attention": 24 * plain + (k + 1) * nd * rounds,
+            "paged_attention_prefill": (24 + nd) * pre + 24 * rounds,
+            "layernorm": 49 * plain + ((k + 1) * draft_ln + 49) * rounds
+            + (49 + draft_ln) * pre,
+            "layernorm_bwd": 0, "layernorm_bwd_merge": 0}
+
+
+def _check_launches(name, launches, want):
+    """The path's launches are exactly ``want``, and each serving kernel
+    ran on it."""
+    if launches != want or not all(launches[k] for k in (
+            "paged_attention", "paged_attention_prefill", "layernorm")):
+        raise AssertionError(f"{name}: launch counts {launches}, expected "
+                             f"{want}")
+
+
 def _serve_run(net, engine_type, requests, sampling=None, warm=True,
-               check=None, warm_samples=1, **engine_kw):
+               check=None, warm_samples=1, batcher_kw=None, **engine_kw):
     """Serve ``requests`` ((prompt, max_new_tokens[, samples]) tuples)
     through a paged engine (batch 8, page size 16, EOS 50256, the keywords
     ``engine_kw`` beside) and the continuous batcher, after warm-up
     requests when ``warm`` (see below). Returns the engine, the requests
     (with the ``samples`` of each group after its leader), the decode steps' logits
-    in order, the call counts (prefills, decode steps or speculative
-    rounds, their time, tokens, drafted and accepted tokens), the
-    launches of the run, its wall time, peak memory and peak pages in use,
+    in order, the call counts (``_count_dispatches``: prefills, decode
+    steps or speculative rounds, their time, tokens, drafted and accepted
+    tokens, peak pages in use), the launches of the run, its wall time and
+    peak memory,
     each request's top-2 logit margins (``margins``: per output token,
     the plain decode's (top1 - top2) / max |logit|, for the near-tie rule)
     and the program count seen after each call (which must stay at the
     buckets used + the step programs + the copy-on-write program once
-    it ran), and the pages each prefill adopted from the prefix cache.
+    it ran), and the pages each prefill adopted from the prefix cache
+    (``adopted``).
     ``check(engine, batcher)`` runs after each batcher step;
     ``warm_samples`` forks the warm-up request that many ways, so that its
-    first decode step runs the copy-on-write program once."""
+    first decode step runs the copy-on-write program once;
+    ``batcher_kw`` are the batcher's knobs."""
     from mxnet_tpu_torch.inference import ContinuousBatcher, GenerationEngine
 
     eng = GenerationEngine(net, batch_size=8, max_length=1024, paged=True,
                            page_size=16, eos_id=50256, device="cuda",
                            sampling=sampling, engine_type=engine_type,
                            **engine_kw)
-    calls = {"prefill": 0, "decode": 0, "decode_s": 0.0, "tokens": 0,
-             "drafted": 0, "accepted": 0, "cow": 0, "peak_pages": 0,
-             "adopted": []}
-    buckets, logits, decoded = set(), [], []
+    calls = _count_dispatches(eng)
+    buckets, logits, decoded, cowed, adopted = set(), [], [], [], []
     slot_of, rows = {}, {}  # slot -> the prompt's id; id -> logits rows
     prefill, decode_step = eng.prefill, eng.decode_step
     spec_step, dispatch_cow = eng.spec_step, eng._dispatch_cow
 
     def check_programs(what):
         steps = (2 if eng.speculative else 1) if decoded else 0
-        want = len(buckets) + steps + (1 if calls["cow"] else 0)
+        want = len(buckets) + steps + (1 if cowed else 0)
         if eng.compiled_programs != want or len(eng._programs) != want:
             raise AssertionError(
                 f"serve {engine_type} after {what}: {eng.compiled_programs} "
                 f"programs ({len(eng._programs)} graphs), expected the "
                 f"{len(buckets)} buckets used + {steps} step programs"
-                f" + {1 if calls['cow'] else 0} copy-on-write")
+                f" + {1 if cowed else 0} copy-on-write")
 
-    def pages():
-        calls["peak_pages"] = max(calls["peak_pages"], eng.pages_in_use)
-
-    def counted_prefill(prompt, slot):
-        calls["prefill"] += 1
+    def checked_prefill(prompt, slot):
         suffix = eng.suffix_for(prompt)
-        calls["adopted"].append((len(prompt) - suffix) // eng.page_size)
+        adopted.append((len(prompt) - suffix) // eng.page_size)
         buckets.add(eng.bucket_for(suffix))
         out = prefill(prompt, slot)
         slot_of[slot] = id(prompt)
         rows[id(prompt)] = [eng._last_logits[None]]
-        pages()
         check_programs("a prefill")
         return out
 
-    def counted_decode():
-        calls["decode"] += 1
+    def checked_decode():
         active = ~eng.done
-        t = time.perf_counter()
         out = decode_step()
-        calls["decode_s"] += time.perf_counter() - t
-        calls["tokens"] += int(active.sum())
         logits.append(out[2])
         for slot in np.flatnonzero(active):
             if slot_of.get(slot) is not None:
                 rows[slot_of[slot]].append(out[2][slot][None])
         decoded.append(True)
-        pages()
         check_programs("a decode step")
         return out
 
-    def counted_round():
-        calls["decode"] += 1
+    def checked_round():
         active = ~eng.done
-        t = time.perf_counter()
         toks, counts, done = spec_step()
-        calls["decode_s"] += time.perf_counter() - t
         if (counts[active] < 1).any():
             raise AssertionError(f"spec {engine_type}: an active row emitted "
                                  f"no token in a round: {counts}")
-        calls["tokens"] += int(counts.sum())
-        calls["drafted"] += eng.last_round_drafted
-        calls["accepted"] += eng.last_round_accepted
         decoded.append(True)
-        pages()
         check_programs("a speculative round")
         return toks, counts, done
 
     def counted_cow(copies):
-        calls["cow"] += bool(copies)
+        if copies:
+            cowed.append(True)
         return dispatch_cow(copies)
 
     def fork(src, dst, **kw):
@@ -1946,10 +2016,10 @@ def _serve_run(net, engine_type, requests, sampling=None, warm=True,
         return fork_slot(src, dst, **kw)
 
     fork_slot = eng.fork_slot
-    eng.prefill, eng.decode_step = counted_prefill, counted_decode
-    eng.spec_step, eng._dispatch_cow = counted_round, counted_cow
+    eng.prefill, eng.decode_step = checked_prefill, checked_decode
+    eng.spec_step, eng._dispatch_cow = checked_round, counted_cow
     eng.fork_slot = fork
-    batcher = ContinuousBatcher(eng, device="cuda")
+    batcher = ContinuousBatcher(eng, device="cuda", **(batcher_kw or {}))
     if warm:
         # warm-up requests outside the measured run (cuBLAS handles, the
         # allocator; under "graph" the captures of the programs they run):
@@ -1963,8 +2033,8 @@ def _serve_run(net, engine_type, requests, sampling=None, warm=True,
         batcher.run()
         if eng.prefix_cache is not None:
             eng._evict_prefix(eng.num_pages)
-        calls.update(prefill=0, decode=0, decode_s=0.0, tokens=0, drafted=0,
-                     accepted=0, peak_pages=0, adopted=[])
+        calls.clear()
+        adopted.clear()
         logits.clear()
     groups = [batcher.submit(p, max_new_tokens=n, samples=(m or [1])[0])
               for p, n, *m in requests]
@@ -1979,9 +2049,7 @@ def _serve_run(net, engine_type, requests, sampling=None, warm=True,
             check(eng, batcher)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
-    launches = {k: v for k, v in _launch_counts().items()
-                if k in ("layernorm", "layernorm_bwd", "layernorm_bwd_merge",
-                         "paged_attention", "paged_attention_prefill")}
+    launches = _serving_launches()
     margins = {}
     for r in reqs:
         if id(r.prompt) in rows and not r.forked:
@@ -1990,7 +2058,7 @@ def _serve_run(net, engine_type, requests, sampling=None, warm=True,
             margins[r.id] = ((top2[:, 0] - top2[:, 1])
                              / lg.abs().amax(dim=-1)).cpu().numpy()
     return dict(eng=eng, reqs=reqs, logits=logits, calls=calls,
-                launches=launches, wall=wall, buckets=buckets,
+                adopted=adopted, launches=launches, wall=wall, buckets=buckets,
                 margins=margins, peak=torch.cuda.max_memory_allocated(),
                 peak_reserved=torch.cuda.max_memory_reserved())
 
@@ -2018,18 +2086,8 @@ def phase_serve(net, engine_type):
         if not 1 <= len(r.output) <= 64 or \
                 not all(0 <= x < 50257 for x in r.output):
             raise AssertionError(f"request {r.id}: bad output {r.output[:8]}")
-    forwards = calls["prefill"] + calls["decode"]
-    # prompts of 32 tokens and more: every prefill reads more than one
-    # query (the prefill kernel), every decode step one (the decode kernel)
-    want = {"paged_attention": 24 * calls["decode"],
-            "paged_attention_prefill": 24 * calls["prefill"],
-            "layernorm": 49 * forwards, "layernorm_bwd": 0,
-            "layernorm_bwd_merge": 0}
-    if launches != want:
-        raise AssertionError(f"launch counts {launches}, expected {want} "
-                             f"(24 attention + 49 LN per forward, "
-                             f"{calls['prefill']} prefills + "
-                             f"{calls['decode']} decode steps)")
+    steps, steps_s = _steps(calls)
+    _check_launches(f"serve {engine_type}", launches, _want_launches(calls))
     ttft = sorted(r.ttft for r in reqs)
     used = {eng.bucket_for(len(r.prompt)) for r in reqs} | {eng.bucket_for(40)}
     if eng.compiled_programs != len(used) + 1:
@@ -2037,10 +2095,10 @@ def phase_serve(net, engine_type):
                              f"{len(used)} buckets used + 1")
     res = {"engine_type": engine_type,
            "ttft_p50_ms": statistics.median(ttft) * 1e3,
-           "decode_ms_per_step": calls["decode_s"] / calls["decode"] * 1e3,
-           "decode_tokens_per_s": calls["tokens"] / calls["decode_s"],
+           "decode_ms_per_step": steps_s / steps * 1e3,
+           "decode_tokens_per_s": calls["tokens"] / steps_s,
            "wall_s": run["wall"], "prefills": calls["prefill"],
-           "decode_steps": calls["decode"],
+           "decode_steps": steps,
            "compiled_programs": eng.compiled_programs,
            "peak_bytes": run["peak"],
            "peak_reserved_bytes": run["peak_reserved"]}
@@ -2049,7 +2107,7 @@ def phase_serve(net, engine_type):
         f"{max(len(r.prompt) for r in reqs)} tokens, finish reasons "
         f"{ {x: reasons.count(x) for x in set(reasons)} }")
     log(f"[serve {engine_type}] wall {run['wall']:.2f}s, {calls['prefill']} "
-        f"prefills, {calls['decode']} decode steps; TTFT p50 "
+        f"prefills, {steps} decode steps; TTFT p50 "
         f"{res['ttft_p50_ms']:.1f} ms (queue wait included), decode "
         f"{res['decode_tokens_per_s']:.1f} tokens/s "
         f"({res['decode_ms_per_step']:.2f} ms/step); peak memory "
@@ -2157,9 +2215,9 @@ def _graph_replays(eng, what):
             check_replay_launches(prog, f"{what} {key[0]} step graph")
 
 
-def _serve_metrics(name, run, want):
+def _serve_metrics(name, run, draft_layers=0):
     """Every request finished with an output in range, the run's launches
-    equal ``want``, and the run's metrics."""
+    are ``_want_launches``' for its dispatches, and the run's metrics."""
     reqs, calls, launches = run["reqs"], run["calls"], run["launches"]
     reasons = [r.finish_reason for r in reqs]
     if any(r is None for r in reasons):
@@ -2169,17 +2227,14 @@ def _serve_metrics(name, run, want):
                 not all(0 <= x < 50257 for x in r.output):
             raise AssertionError(f"{name}: request {r.id}: bad output "
                                  f"{r.output[:8]}")
-    want = dict(want, layernorm_bwd=0, layernorm_bwd_merge=0)
-    if launches != want:
-        raise AssertionError(f"{name}: launch counts {launches}, expected "
-                             f"{want} ({calls['prefill']} prefills, "
-                             f"{calls['decode']} steps)")
+    _check_launches(name, launches, _want_launches(calls, draft_layers))
+    steps, steps_s = _steps(calls)
     ttft = sorted(r.ttft for r in reqs)
     res = {"ttft_p50_ms": statistics.median(ttft) * 1e3,
-           "ms_per_step": calls["decode_s"] / calls["decode"] * 1e3,
-           "tokens_per_s": calls["tokens"] / calls["decode_s"],
+           "ms_per_step": steps_s / steps * 1e3,
+           "tokens_per_s": calls["tokens"] / steps_s,
            "wall_s": run["wall"], "prefills": calls["prefill"],
-           "steps": calls["decode"], "tokens": calls["tokens"],
+           "steps": steps, "tokens": calls["tokens"],
            "peak_pages": calls["peak_pages"],
            "compiled_programs": run["eng"].compiled_programs,
            "peak_bytes": run["peak"], "launches": launches}
@@ -2187,7 +2242,7 @@ def _serve_metrics(name, run, want):
         res["accept_rate"] = calls["accepted"] / calls["drafted"]
     log(f"[{name}] {len(reqs)} requests, finish reasons "
         f"{ {x: reasons.count(x) for x in set(reasons)} }; wall "
-        f"{run['wall']:.2f}s, {calls['prefill']} prefills, {calls['decode']} "
+        f"{run['wall']:.2f}s, {calls['prefill']} prefills, {steps} "
         f"steps of {res['ms_per_step']:.2f} ms, {res['tokens_per_s']:.1f} "
         f"tokens/s, TTFT p50 {res['ttft_p50_ms']:.1f} ms, peak "
         f"{calls['peak_pages']} pages in use, "
@@ -2200,20 +2255,14 @@ def _serve_metrics(name, run, want):
 
 
 def _spec_run(name, net, draft, mode, requests, sampling=None):
-    """A speculative serve run (``_serve_run``, k = SPEC_K). Every round
-    launches k + 1 draft steps (the draft's layers in decode reads, 2
-    LayerNorms a layer and the final one) and one verify (24 prefill-kernel
-    reads, 49 LayerNorms); every prefill the target's and the draft's
-    forward. The programs are the buckets used + draft + verify."""
+    """A speculative serve run (``_serve_run``, k = SPEC_K), its launches
+    ``_want_launches``' for its rounds and prefills. The programs are the
+    buckets used + draft + verify. The
+    speculation governor's floor is 0, so that every step is a round
+    whatever the accept rate (``phase_governed`` runs the governor)."""
     run = _serve_run(net, mode, requests, sampling=sampling, draft_net=draft,
-                     speculate_k=SPEC_K)
-    calls, nd_ = run["calls"], draft._num_layers
-    rounds, prefills = calls["decode"], calls["prefill"]
-    want = {"paged_attention": (SPEC_K + 1) * nd_ * rounds,
-            "paged_attention_prefill": 24 * rounds + (24 + nd_) * prefills,
-            "layernorm": ((SPEC_K + 1) * (2 * nd_ + 1) + 49) * rounds
-            + (49 + 2 * nd_ + 1) * prefills}
-    res = _serve_metrics(name, run, want)
+                     speculate_k=SPEC_K, batcher_kw={"spec_floor": 0.0})
+    res = _serve_metrics(name, run, draft._num_layers)
     eng = run["eng"]
     if eng.compiled_programs != len(run["buckets"]) + 2:
         raise AssertionError(f"{name}: {eng.compiled_programs} programs for "
@@ -2291,13 +2340,8 @@ def phase_prefix(net):
     warm = _prefix_requests(seed=5) + _prefix_requests(seed=6)
     for name, kw in (("cold", {}), ("hit", {"prefix_cache": True})):
         run = _serve_run(net, "graph", reqs, warm=warm, **kw)
-        calls = run["calls"]
-        forwards = calls["prefill"] + calls["decode"]
-        res[name] = _serve_metrics(f"prefix {name}", run, {
-            "paged_attention": 24 * calls["decode"],
-            "paged_attention_prefill": 24 * calls["prefill"],
-            "layernorm": 49 * forwards})
-        res[name]["adopted_pages"] = calls["adopted"]
+        res[name] = _serve_metrics(f"prefix {name}", run)
+        res[name]["adopted_pages"] = run["adopted"]
         if name == "cold":
             cold = _reference(run)
         else:
@@ -2350,12 +2394,8 @@ def phase_fork(net):
 
         run = _serve_run(net, mode, reqs, sampling=topk, warm_samples=2,
                          check=check)
-        eng, calls = run["eng"], run["calls"]
-        forwards = calls["prefill"] + calls["decode"]
-        res[mode] = _serve_metrics(f"fork {mode}", run, {
-            "paged_attention": 24 * calls["decode"],
-            "paged_attention_prefill": 24 * calls["prefill"],
-            "layernorm": 49 * forwards})
+        eng = run["eng"]
+        res[mode] = _serve_metrics(f"fork {mode}", run)
         cow = [p for (sig, _), p in eng._programs.items() if sig[0] == "cow"]
         forked = [r.forked for r in run["reqs"]]
         if shared != [[4], [4]] or forked != [False, True, True, True] * 2:
@@ -2381,6 +2421,368 @@ def phase_fork(net):
         f"forks, one ('cow', 8) program (captured on its second call), "
         f"every page free after the run, naive and graph tokens "
         f"bit-identical")
+    return launches, res
+
+
+# ---------------------------------------------------------------------------
+# Serving resilience at full width: tools/torch_servedrill.py's drill
+# scaled to the serve engine, the speculation governor, the dispatch
+# watchdog and overload control, each with telemetry on and its events read
+# back
+STALL_S, STALL_WATCHDOG_S = 0.5, 0.25
+OVERLOAD = dict(bursts=(0, 20, 40), deadline_s=1.5, max_queue=16,
+                shed_page_floor=32)
+
+
+def _load_drill():
+    """``tools/torch_servedrill.py`` as a module."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "tools" / "torch_servedrill.py"
+    spec = importlib.util.spec_from_file_location("torch_servedrill", path)
+    mod = sys.modules["torch_servedrill"] = \
+        importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _serve_engine(net, engine_type="graph", **kw):
+    from mxnet_tpu_torch.inference import GenerationEngine
+
+    return GenerationEngine(net, batch_size=8, max_length=1024, paged=True,
+                            page_size=16, eos_id=50256, device="cuda",
+                            engine_type=engine_type, **kw)
+
+
+@contextlib.contextmanager
+def _telemetry(run_id):
+    """Telemetry on into a temporary directory, the registry emptied
+    first; yields the directory (its events are read back inside)."""
+    import tempfile
+
+    from mxnet_tpu_torch import observability as obs
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_obs_") as d:
+        obs.REGISTRY.reset()
+        obs.enable(d, run_id=run_id)
+        try:
+            yield d
+        finally:
+            obs.disable()
+
+
+def _by_label(name, label=None):
+    """A counter's total, or its values by ``label``, in the port's
+    registry."""
+    from mxnet_tpu_torch import observability as obs
+
+    c = obs.REGISTRY.get(name)
+    if label is None:
+        return c.total() if c is not None else 0.0
+    return {} if c is None else {k[label]: c.value(**k)
+                                 for k in c.labelsets()}
+
+
+def _events(d, name):
+    from mxnet_tpu_torch import observability as obs
+
+    return [e for e in obs.read_events(d) if e["event"] == name]
+
+
+def phase_drill(net, draft):
+    """``tools/torch_servedrill.py``'s drill at full width
+    (``serve_plan``: the serve engine with the gpt2_117m draft, k =
+    SPEC_K, faults every 3 / 5 / 4 at gen.prefill / gen.decode /
+    gen.verify, a 1 ms retry backoff, deadlines on a fake clock, a
+    cancellation, max_queue 8 with policy "shed", a page floor of 400,
+    the governor at window 8, the watchdog armed at 30 s), in graph and
+    then naive mode: ``validate`` passes in both (every finish reason
+    explicit, deadline in the queue and in a slot, a cancellation, sheds
+    on queue_full and on page_floor, fallback and re-arm, a failed retry
+    at each site, survivors bit-identical to an undisturbed plain run and
+    interrupted rows prefixes of it, 512 free pages after the drain, no
+    reservation, no stall), and the two runs are bit-identical in tokens,
+    finish reasons and counters. Returns the graph run's launches (the
+    drill's traffic, after its baseline) and the runs' metrics."""
+    sd = _load_drill()
+    runs, res = {}, {}
+    for mode in ("graph", "naive"):
+        counted = {}
+
+        def hook(eng, mode=mode):
+            if mode == "graph":
+                _reset_launch_counts()
+                counted["calls"] = _count_dispatches(eng)
+
+        with _telemetry(f"drill-{mode}") as d:
+            t = time.perf_counter()
+            run = sd.run_drill(net, draft, sd.serve_plan(), device="cuda",
+                               engine_type=mode, max_steps=400,
+                               telemetry_dir=d, speculate_k=SPEC_K,
+                               engine_hook=hook)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        if mode == "graph":
+            launches, calls = _serving_launches(), counted["calls"]
+        problems = sd.validate(run)
+        if problems:
+            raise AssertionError(f"drill {mode}: {problems}")
+        runs[mode] = run
+        reasons = [r["reason"] for r in run["requests"].values()]
+        res[mode] = {"wall_s": wall, "steps": run["steps"],
+                     "requests": len(reasons),
+                     "reasons": {x: reasons.count(x) for x in set(reasons)},
+                     "counters": run["counters"],
+                     "shed_causes": run["port"]["shed_causes"],
+                     "compiled_programs": run["port"]["compiled_programs"]}
+        log(f"[drill {mode}] " + json.dumps(res[mode]))
+        del run
+        _release()
+    keys = ("steps", "baseline", "requests", "counters", "events", "drained")
+    diff = [k for k in keys if runs["graph"][k] != runs["naive"][k]]
+    if diff or runs["graph"]["port"]["shed_causes"] != \
+            runs["naive"]["port"]["shed_causes"]:
+        raise AssertionError(f"drill: graph and naive differ in {diff}")
+    _check_launches("drill", launches, _want_launches(calls,
+                                                      draft._num_layers))
+    res["graph"].update(launches=launches, dispatches={
+        k: calls[k] for k in DISPATCHES})
+    log(f"[drill] graph and naive bit-identical (tokens, reasons, counters, "
+        f"events); launches {launches} for {dict(calls)}")
+    return launches, res
+
+
+def _governed_run(net, draft, requests, what):
+    """The requests through the batcher over a speculative serve engine
+    with the governor at its defaults, telemetry on. A warm-up request
+    first, through a batcher whose governor falls back on any round short
+    of a full accept, so that the plain decode program is captured before
+    the run whenever a round can fail."""
+    from mxnet_tpu_torch import observability as obs
+    from mxnet_tpu_torch.inference import ContinuousBatcher
+
+    eng = _serve_engine(net, draft_net=draft, speculate_k=SPEC_K)
+    warm = ContinuousBatcher(eng, device="cuda", spec_window=1,
+                             spec_floor=1.0, spec_cooldown=2)
+    warm.submit(np.random.RandomState(9).randint(0, 50257, 40),
+                max_new_tokens=12)
+    warm.run()
+    plain = [p for (sig, _), p in eng._programs.items()
+             if sig == ("decode", 8, "paged")]
+    warmed = len(plain) == 1 and (plain[0].graph is not None
+                                  or not plain[0].capture)
+    calls = _count_dispatches(eng)
+    with _telemetry(what) as d:
+        bat = ContinuousBatcher(eng, device="cuda")
+        reqs = [bat.submit(p, max_new_tokens=n) for p, n in requests]
+        torch.cuda.synchronize()
+        _release()
+        _reset_launch_counts()
+        t = time.perf_counter()
+        while bat.step():
+            pass
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = _serving_launches()
+        events = [e["event"] for e in obs.read_events(d)
+                  if e["event"] in ("gen_spec_fallback", "gen_spec_rearm")]
+        counters = {k: _by_label(k) for k in ("gen_spec_fallbacks_total",
+                                              "gen_spec_rearms_total")}
+    _check_launches(what, launches, _want_launches(calls, draft._num_layers))
+    steps = calls["spec_step"] + calls["plain_step"]
+    step_s = calls["spec_step_s"] + calls["plain_step_s"]
+    g = bat.governor
+    if counters != {"gen_spec_fallbacks_total": g.fallbacks,
+                    "gen_spec_rearms_total": g.rearms} or \
+            events.count("gen_spec_fallback") != g.fallbacks or \
+            events.count("gen_spec_rearm") != g.rearms:
+        raise AssertionError(f"{what}: governor {g.fallbacks} fallbacks, "
+                             f"{g.rearms} re-arms; counters {counters}, "
+                             f"events {events}")
+    sigs = {s[0] for s in eng._signatures}
+    if eng.compiled_programs != len(eng._programs) or not \
+            {"prefill", "draft", "verify"} <= sigs <= \
+            {"prefill", "draft", "verify", "decode"}:
+        raise AssertionError(f"{what}: programs {eng._signatures}, "
+                             f"{len(eng._programs)} graphs")
+    res = {"ms_per_step": step_s / steps * 1e3,
+           "tokens_per_s": calls["tokens"] / step_s,
+           "rounds": calls["spec_step"], "plain_steps": calls["plain_step"],
+           "plain_share": calls["plain_step"] / steps,
+           "ms_per_round": calls["spec_step_s"] / max(calls["spec_step"], 1)
+           * 1e3,
+           "ms_per_plain_step": calls["plain_step_s"]
+           / max(calls["plain_step"], 1) * 1e3,
+           "fallbacks": g.fallbacks, "rearms": g.rearms,
+           "plain_program_warmed": warmed,
+           "tokens": calls["tokens"], "prefills": calls["prefill"],
+           "wall_s": wall, "peak_pages": calls["peak_pages"],
+           "compiled_programs": eng.compiled_programs, "launches": launches}
+    _uncount(eng)
+    return eng, reqs, res
+
+
+def phase_governed(net, draft, plain):
+    """The ``spec`` phase's requests (serve's 16, 64 new tokens, greedy)
+    through the batcher with the speculation governor at its defaults
+    (window 8, floor 0.125, cooldown 16): with the random gpt2_117m draft
+    (accept rate 0) at least one fallback and one re-arm, the plain
+    program captured before the run; with the target as its own draft
+    (accept rate 1.0) no fallback. Both runs' tokens are the plain serve
+    run's (``near_ties``). Returns the random-draft run's launches and
+    both runs' metrics."""
+    res = {}
+    for name, d in (("random", draft), ("self", net)):
+        eng, reqs, res[name] = _governed_run(net, d, _serve_requests(),
+                                             f"governed {name}")
+        res[name]["near_ties"] = near_ties(f"governed {name}", reqs, plain)
+        del eng, reqs
+        _release()
+        log(f"[governed {name}] " + json.dumps(res[name]))
+    r, s = res["random"], res["self"]
+    if r["fallbacks"] < 1 or r["rearms"] < 1 or not r["plain_program_warmed"]:
+        raise AssertionError(f"governed random: {r['fallbacks']} fallbacks, "
+                             f"{r['rearms']} re-arms, plain program warmed "
+                             f"{r['plain_program_warmed']}")
+    if s["fallbacks"] or s["plain_steps"]:
+        raise AssertionError(f"governed self: {s['fallbacks']} fallbacks, "
+                             f"{s['plain_steps']} plain steps")
+    return r.pop("launches"), res
+
+
+def phase_stall(net, plain):
+    """The dispatch watchdog at ``STALL_WATCHDOG_S`` on the serve engine
+    (graph): serve's first 8 requests, after a pass of the same prompts
+    twice with the watchdog off (every bucket they use captured), with the
+    third decode dispatch wrapped in a ``STALL_S`` host sleep (as the JAX
+    test monkeypatches): exactly one ``gen_stuck_dispatch`` event, naming
+    family "decode", that dispatch's step id and the 8 rows riding it,
+    and every request's tokens the plain serve run's. Returns the engine
+    (warm, for ``phase_overload``), the stalled pass's launches and its
+    metrics."""
+    from mxnet_tpu_torch.inference import ContinuousBatcher
+
+    eng, eight = _serve_engine(net), _serve_requests()[:8]
+    bat = ContinuousBatcher(eng, device="cuda")
+    first = [bat.submit(p, max_new_tokens=n) for p, n in eight + eight]
+    bat.run()
+    calls = _count_dispatches(eng)
+    counted, stall = eng.decode_step, {}
+
+    def stalled():
+        if calls["decode_step"] == 2 and not stall:
+            stall["step_id"] = bat._step_id
+            time.sleep(STALL_S)
+        return counted()
+
+    eng.decode_step = stalled
+    with _telemetry("stall") as d:
+        bat = ContinuousBatcher(eng, device="cuda",
+                                watchdog_s=STALL_WATCHDOG_S)
+        reqs = [bat.submit(p, max_new_tokens=n) for p, n in eight]
+        _reset_launch_counts()
+        t = time.perf_counter()
+        bat.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = _serving_launches()
+        ev = _events(d, "gen_stuck_dispatch")
+    _uncount(eng)
+    _check_launches("stall", launches, _want_launches(calls))
+    got = [(e["family"], e["step_id"], len(e["victims"])) for e in ev]
+    if got != [("decode", stall.get("step_id"), 8)] or \
+            bat.watchdog.stalls != 1:
+        raise AssertionError(f"stall: events {got}, expected one ('decode', "
+                             f"{stall.get('step_id')}, 8); watchdog "
+                             f"{bat.watchdog.stalls} stalls")
+    outs = [r.output for r in first + reqs]
+    if outs != [plain[i % 8][0] for i in range(24)]:
+        raise AssertionError("stall: tokens differ from the plain serve run")
+    res = {"event": ev[0], "watchdog_s": STALL_WATCHDOG_S, "sleep_s": STALL_S,
+           "wall_s": wall, "decode_steps": calls["decode_step"]}
+    log(f"[stall] one gen_stuck_dispatch: {json.dumps(ev[0])}; 8 requests' "
+        f"tokens unchanged; launches {launches}")
+    return eng, launches, res
+
+
+def phase_overload(eng, plain):
+    """Overload control on the real clock (the warm serve engine, graph):
+    serve's 16 prompts submitted three times, in bursts of 16 at steps 0,
+    20 and 40, each with ``deadline_s`` 1.5, into a batcher with
+    max_queue 16, policy "shed" and a page floor of 32. Gates only on the
+    invariants: an explicit finish reason for every request, a clean
+    drain, every completed row the plain run's tokens for its prompt and
+    every interrupted row a prefix of them. At this width the run takes
+    under a second and holds about a third of the 512 pages, so neither
+    the deadline nor the page floor fires and the sheds are all
+    ``queue_full``; ``not_fired`` names the settings that did not bite.
+    ``phase_drill`` alone holds deadline expiry (queue and slot) and
+    page-floor shedding at full width, and gates on them. Returns the
+    run's launches and metrics: the count of each finish reason, TTFT p50
+    / p99 of the admitted requests (``ttft_seconds``' bucket edges, and
+    exact), tokens a second and peak pages."""
+    from mxnet_tpu_torch import observability as obs
+    from mxnet_tpu_torch.inference import FINISH_REASONS, ContinuousBatcher
+
+    serve = _serve_requests()
+    calls = _count_dispatches(eng)
+    with _telemetry("overload"):
+        bat = ContinuousBatcher(eng, device="cuda",
+                                max_queue=OVERLOAD["max_queue"],
+                                queue_policy="shed",
+                                shed_page_floor=OVERLOAD["shed_page_floor"])
+        reqs, step = [], 0
+        _reset_launch_counts()
+        t = time.perf_counter()
+        while True:
+            if step in OVERLOAD["bursts"]:
+                reqs += [(j, bat.submit(p, max_new_tokens=n,
+                                        deadline_s=OVERLOAD["deadline_s"]))
+                         for j, (p, n) in enumerate(serve)]
+            alive = bat.step()
+            step += 1
+            if not alive and step > max(OVERLOAD["bursts"]):
+                break
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = _serving_launches()
+        h = obs.REGISTRY.get("ttft_seconds")
+        hist = {"p50": h.percentile(0.5), "p99": h.percentile(0.99)}
+        shed = _by_label("gen_shed_total", "cause")
+        expired = _by_label("gen_deadline_expired_total", "where")
+    _uncount(eng)
+    _check_launches("overload", launches, _want_launches(calls))
+    reasons = [r.finish_reason for _, r in reqs]
+    if any(x not in FINISH_REASONS for x in reasons):
+        raise AssertionError(f"overload: finish reasons {reasons}")
+    drained = (bat.active, bat.pending, eng.free_pages, eng.reserved_pages)
+    if drained != (0, 0, eng.num_pages, 0):
+        raise AssertionError(f"overload: not drained clean (active, pending, "
+                             f"free pages, reserved) = {drained}")
+    for j, r in reqs:
+        want = plain[j][0]
+        if r.finish_reason in ("eos", "length") and r.output != want or \
+                r.output != want[:len(r.output)]:
+            raise AssertionError(f"overload: request {r.id} "
+                                 f"({r.finish_reason}) is not the plain "
+                                 f"run's tokens for prompt {j}")
+    ttft = sorted(r.ttft for _, r in reqs if r.ttft is not None)
+    res = {"reasons": {x: reasons.count(x) for x in FINISH_REASONS
+                       if x in reasons},
+           "shed_causes": shed, "deadlines": expired,
+           "not_fired": [k for k, fired in (("deadline_s", expired),
+                                            ("shed_page_floor",
+                                             shed.get("page_floor")))
+                         if not fired],
+           "ttft_hist_p50_s": hist["p50"], "ttft_hist_p99_s": hist["p99"],
+           "ttft_p50_s": ttft[len(ttft) // 2] if ttft else None,
+           "ttft_p99_s": ttft[min(len(ttft) - 1, int(0.99 * len(ttft)))]
+           if ttft else None,
+           "admitted": len(ttft), "requests": len(reqs),
+           "tokens_per_s": sum(len(r.output) for _, r in reqs) / wall,
+           "peak_pages": calls["peak_pages"], "steps": step, "wall_s": wall,
+           "ms_per_step": calls["decode_step_s"] / calls["decode_step"] * 1e3}
+    log(f"[overload] " + json.dumps(res))
     return launches, res
 
 
@@ -3033,7 +3435,14 @@ def main():
     log(f"[spec] gpt2_117m f32 draft built in {time.perf_counter() - t:.1f}s;"
         f" k {SPEC_K}")
     spec_launches, spec = phase_spec(serve_net, draft_net, plain)
-    del draft_net, plain
+    governed_launches, governed = phase_governed(serve_net, draft_net, plain)
+    drill_launches, drill = phase_drill(serve_net, draft_net)
+    eng, stall_launches, stall = phase_stall(serve_net, plain)
+    overload_launches, overload = phase_overload(eng, plain)
+    log("[serving resilience] " + json.dumps(
+        {"governed": governed, "drill": drill, "stall": stall,
+         "overload": overload}))
+    del draft_net, plain, eng
     _release()
     prefix_launches, prefix = phase_prefix(serve_net)
     fork_launches, fork = phase_fork(serve_net)
@@ -3149,6 +3558,8 @@ def main():
     errs["adam_bert"] = timing["adam_bert"]["max_abs_err_at_shape"]
     by_path = {"serve": serve_launches, "spec": spec_launches,
                "prefix": prefix_launches, "fork": fork_launches,
+               "governed": governed_launches, "drill": drill_launches,
+               "stall": stall_launches, "overload": overload_launches,
                "train": train_launches, "train_amp": amp_launches,
                "bert_amp": bert_launches}
     kernels = []

@@ -1,6 +1,7 @@
 """Runtime knobs of the port: the subset of ``mxnet_tpu/config.py`` that
-the serving and training slices read, under the same names and
-``MXNET_TPU_*`` (or MXNet's ``MXNET_*``) aliases.
+the serving, training, resilience and telemetry slices read, under the
+same names, types, defaults and ``MXNET_TPU_*`` (or MXNet's ``MXNET_*``)
+aliases.
 
 Switching a knob off is an explicit choice of the plain PyTorch version of
 that kernel (or, for ``engine_type``, of the eager step); it is never a
@@ -59,6 +60,39 @@ _KNOBS: Dict[str, tuple] = {
     "engine_type": (str, "graph", ("MXNET_ENGINE_TYPE",),
                     "'graph': one captured CUDA graph per step signature, "
                     "replayed from static buffers; 'naive': the eager step"),
+    # -- fault injection and retries (resilience/faults.py, retry.py) -------
+    "faults": (str, "", ("MXNET_TPU_FAULTS",),
+               "fault-injection spec armed at first use, e.g. "
+               "'gen.decode:every=5;gen.verify:on=2:times=2;seed=7' — "
+               "deterministic failures at named sites for chaos testing"),
+    "retry_max_attempts": (int, 3, ("MXNET_TPU_RETRY_MAX_ATTEMPTS",),
+                           "attempts per retried site before RetryError"),
+    "retry_base_delay": (float, 0.05, ("MXNET_TPU_RETRY_BASE_DELAY",),
+                         "first backoff delay in seconds"),
+    "retry_max_delay": (float, 2.0, ("MXNET_TPU_RETRY_MAX_DELAY",),
+                        "backoff ceiling in seconds"),
+    "retry_jitter": (float, 0.25, ("MXNET_TPU_RETRY_JITTER",),
+                     "max fractional jitter added to each backoff delay"),
+    "retry_timeout": (float, 0.0, ("MXNET_TPU_RETRY_TIMEOUT",),
+                      "per-site wall-clock budget across all attempts of "
+                      "one call, seconds (0 = unlimited)"),
+    # -- serving resilience (inference/batcher.py, resilience/serving.py) ----
+    "serve_default_deadline": (float, 0.0, ("MXNET_TPU_SERVE_DEADLINE",),
+                               "default per-request deadline in seconds "
+                               "applied at submit when the caller passes "
+                               "none (0 = no deadline)"),
+    "serve_max_queue": (int, 0, ("MXNET_TPU_SERVE_MAX_QUEUE",),
+                        "bounded admission queue: submits past this depth "
+                        "are shed per serve_queue_policy (0 = unbounded)"),
+    "serve_queue_policy": (str, "reject", ("MXNET_TPU_SERVE_QUEUE_POLICY",),
+                           "full-queue policy: 'reject' sheds the NEW "
+                           "request; 'shed' evicts the oldest queued "
+                           "request already past its deadline (falls back "
+                           "to reject when none is)"),
+    "serve_shed_page_floor": (int, 0, ("MXNET_TPU_SERVE_SHED_PAGE_FLOOR",),
+                              "load-shed watermark: with a backlog queued, "
+                              "shed new submits while free KV pages are "
+                              "below this floor (0 = off)"),
     # the batcher's admission aging guard, as in the JAX package
     "serve_head_aging_steps": (int, 8, ("MXNET_TPU_SERVE_HEAD_AGING_STEPS",),
                                "admission aging guard: after this many "
@@ -66,6 +100,38 @@ _KNOBS: Dict[str, tuple] = {
                                "on free pages, freed pages are reserved "
                                "for the head and bypass admission stops "
                                "(0 = off)"),
+    "serve_spec_window": (int, 8, ("MXNET_TPU_SERVE_SPEC_WINDOW",),
+                          "speculative accept-rate window (rounds) the "
+                          "degradation governor decides on"),
+    "serve_spec_floor": (float, 0.125, ("MXNET_TPU_SERVE_SPEC_FLOOR",),
+                         "windowed accept rate below which speculation "
+                         "falls back to plain paged decode (break-even "
+                         "is ~1/speculate_k)"),
+    "serve_spec_cooldown": (int, 16, ("MXNET_TPU_SERVE_SPEC_COOLDOWN",),
+                            "plain decode steps before a fallen-back "
+                            "engine re-arms speculation"),
+    "serve_watchdog_s": (float, 0.0, ("MXNET_TPU_SERVE_WATCHDOG_S",),
+                         "soft per-dispatch timeout for the serving loop: "
+                         "a dispatch exceeding it emits gen_stuck_dispatch "
+                         "(event + counter) instead of hanging silently "
+                         "(0 = off)"),
+    # -- telemetry (observability/) ------------------------------------------
+    "telemetry": (bool, False, ("MXNET_TPU_TELEMETRY",),
+                  "arm hot-path telemetry at first use: the engine's "
+                  "histograms + the JSONL event log (off = one bool check "
+                  "per instrumented call)"),
+    "telemetry_dir": (str, "", ("MXNET_TPU_TELEMETRY_DIR",),
+                      "run directory for events-h{host}.jsonl + metrics.json/"
+                      ".prom exports (empty = a new directory of this "
+                      "process's own under the temporary directory, which "
+                      "honours TMPDIR)"),
+    "telemetry_rotate_mb": (int, 64, ("MXNET_TPU_TELEMETRY_ROTATE_MB",),
+                            "event-log rotation threshold per file (rotated "
+                            "segments are gzip-compressed)"),
+    "events_keep_bytes": (int, 0, ("MXNET_TPU_EVENTS_KEEP_BYTES",),
+                          "cap on total bytes of retained rotated event-log "
+                          "segments (.jsonl.N.gz); 0 = keep exactly one "
+                          "rotated segment"),
 }
 
 #: the values a str knob may take; any other raises

@@ -58,10 +58,22 @@ CPU they always do.
 The host state (``positions``, ``done``, ``last_tokens``, the allocator
 and its refcounts) stays numpy on the host; each step ships only small
 vectors to the device.
+
+Resilience and telemetry, as in the JAX engine: the fault sites
+``gen.prefill`` (top of :meth:`prefill`), ``gen.decode`` (top of a plain
+step and of a speculative round) fire before any allocator or page-table
+change, so the batcher's ``retry_call`` replays them cleanly;
+``gen.verify`` fires between the draft and the verify program and is
+retried inside the round under ``retry_policy`` (the draft's writes are
+deterministic, and a sampled round's uniforms are drawn once per round).
+The ``gen_*`` counters and gauges (pages, prefix hits, copy-on-write,
+speculative accept stats) always record; the per-step histograms only
+under ``observability.enabled()``.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from collections import deque
 from typing import List, Optional, Sequence, Tuple
 
@@ -69,9 +81,12 @@ import numpy as np
 import torch
 
 from .. import config as _config
+from .. import observability as _obs
 from ..base import MXNetError, resolve_device
 from ..ops import cuda_graph as _cg
 from ..ops import sampling as _sampling
+from ..resilience import faults as _faults
+from ..resilience import retry as _retry
 from .prefix_cache import RadixPrefixCache
 
 __all__ = ["GenerationEngine", "SamplingConfig"]
@@ -93,6 +108,11 @@ class SamplingConfig:
     @property
     def stochastic(self) -> bool:
         return self.method != "greedy" and self.temperature > 0
+
+
+#: the JAX engine's family label of each step program (``_note_program``)
+_PROGRAM_FAMILY = {"prefill": "prefill_bucket", "decode": "decode",
+                   "draft": "decode", "verify": "verify", "cow": "cow_copy"}
 
 
 def _default_buckets(max_length: int) -> Tuple[int, ...]:
@@ -243,6 +263,7 @@ class GenerationEngine:
             self._prefill_logits = {}
             self.prefix_cache = (RadixPrefixCache(self.page_size)
                                  if prefix_cache else None)
+            self._page_gauges()
         else:
             self.cache = net.init_cache(self.batch_size, self.max_length,
                                         dtype=cache_dtype)
@@ -259,9 +280,17 @@ class GenerationEngine:
             self.draft_pools = draft_net.init_paged_cache(
                 self.num_pages, self.page_size, dtype=cache_dtype)
 
-        #: accept stats of the most recent speculative round
+        #: accept stats of the most recent speculative round (read by the
+        #: batcher's degradation governor)
         self.last_round_drafted = 0
         self.last_round_accepted = 0
+        #: RetryPolicy for the in-round gen.verify retry (None = config
+        #: defaults); ContinuousBatcher installs its own policy here so
+        #: one knob governs every serving retry
+        self.retry_policy = None
+        #: a sampled round's uniforms are drawn, and not yet consumed by a
+        #: committed round: a retried round reuses them
+        self._noise_drawn = False
 
         self.positions = np.zeros(self.batch_size, np.int32)
         self.done = np.ones(self.batch_size, bool)  # empty slots are "done"
@@ -325,7 +354,17 @@ class GenerationEngine:
         return self.speculate_k > 0
 
     def _note_program(self, sig) -> None:
+        """Count a step program the first time its signature runs, under
+        the JAX engine's family labels (``gen_recompiles_total{reason}``
+        and a ``recompile`` event)."""
+        if sig in self._signatures:
+            return
         self._signatures.add(sig)
+        family = _PROGRAM_FAMILY[sig[0]]
+        _obs.counter("gen_recompiles_total",
+                     "generation program lowerings (cache misses)").inc(
+                         reason=family)
+        _obs.emit("recompile", reason=family, sig=list(map(str, sig)))
 
     def _run_program(self, sig, fn):
         """The outputs of the step graph of ``sig`` (built from ``fn`` on
@@ -417,22 +456,48 @@ class GenerationEngine:
         :meth:`prefill`, whose admission they are saved for; ``n=0``
         releases the reservation. A row that cannot cover its next write
         because of a reservation finishes as ``page_exhausted``."""
-        if self.paged:
-            self._reserved_pages = max(0, int(n))
+        if not self.paged:
+            return
+        self._reserved_pages = max(0, int(n))
+        _obs.gauge("gen_pages_reserved",
+                   "free pages held back for a parked queue head").set(
+                       self._reserved_pages)
 
-    def _unref_pages(self, pages) -> None:
+    def _page_gauges(self):
+        free = len(self._free_pages)
+        _obs.gauge("gen_pages_free",
+                   "free pages in the paged KV pool").set(free)
+        _obs.gauge("gen_pages_in_use",
+                   "allocated pages in the paged KV pool").set(
+                       self.num_pages - free)
+        _obs.gauge("gen_page_refcount_max",
+                   "highest per-page refcount (sharing depth)").set(
+                       int(self._page_rc.max()) if self.num_pages else 0)
+
+    def _unref_pages(self, pages) -> int:
         """Drop one reference from each page; refcount-0 pages return to
         the free list (a page still backing another row or the prefix cache
-        stays allocated)."""
+        stays allocated). Returns the pages freed."""
+        freed = 0
         for pid in pages:
             self._page_rc[pid] -= 1
             if self._page_rc[pid] <= 0:
                 self._page_rc[pid] = 0
                 self._free_pages.append(pid)
+                freed += 1
+        return freed
 
-    def _reclaim_row(self, slot: int) -> None:
-        self._unref_pages(self._row_pages[slot])
+    def _reclaim_row(self, slot: int) -> int:
+        pages = self._row_pages[slot]
+        if not pages:
+            return 0
         self._row_pages[slot] = []
+        freed = self._unref_pages(pages)
+        if freed:
+            _obs.counter("gen_pages_reclaimed_total",
+                         "pages returned to the free pool").inc(freed)
+        self._page_gauges()
+        return freed
 
     def _avail(self) -> int:
         # pages past the reservation are off-limits to growth
@@ -445,7 +510,12 @@ class GenerationEngine:
             return 0
         evicted = self.prefix_cache.evict(
             n, lambda pid: self._page_rc[pid] == 1, protect=protect)
-        self._unref_pages(evicted)
+        if evicted:
+            self._unref_pages(evicted)
+            _obs.counter("gen_prefix_evictions_total",
+                         "prefix-cache pages evicted under free-page "
+                         "pressure").inc(len(evicted))
+            self._page_gauges()
         return len(evicted)
 
     def _take_page(self) -> int:
@@ -461,6 +531,9 @@ class GenerationEngine:
     def _evict_row(self, row: int) -> None:
         self.done[row] = True
         self.page_exhausted[row] = True
+        _obs.counter("gen_page_evictions_total",
+                     "rows force-finished on page exhaustion").inc(
+                         reason="exhausted")
 
     def _grow_pages(self, window: int):
         """Allocate pages so every active row's table covers positions
@@ -472,6 +545,7 @@ class GenerationEngine:
         table."""
         ps = self.page_size
         updates, copies = [], []
+        allocated = 0
         for row in range(self.batch_size):
             if self.done[row]:
                 continue
@@ -487,6 +561,7 @@ class GenerationEngine:
                 if not new:
                     short = True
                     break
+                allocated += 1
                 copies.append((row, s, pid, new))
                 self._page_rc[pid] -= 1
                 pages[s] = new
@@ -503,6 +578,12 @@ class GenerationEngine:
                     break
                 updates.append((row, len(pages), pid))
                 pages.append(pid)
+                allocated += 1
+        if allocated:
+            _obs.counter("gen_page_allocs_total",
+                         "pages taken from the free pool").inc(
+                             allocated, site="decode")
+            self._page_gauges()
         self._dispatch_cow(copies)
         return updates
 
@@ -540,6 +621,8 @@ class GenerationEngine:
             self._note_program(sig)
             self._put(cow, entries)
             self._run_program(sig, step)
+        _obs.counter("gen_cow_copies_total",
+                     "copy-on-write page copies").inc(len(copies))
 
     def _take_clear_mask(self) -> List[int]:
         """Rows released since the last step: their device table rows are
@@ -597,6 +680,11 @@ class GenerationEngine:
             raise ValueError(f"slot {slot} out of range")
         if prompt.min() < 0 or prompt.max() >= self._vocab:
             raise ValueError(f"prompt token ids must lie in [0, {self._vocab})")
+        # fault site BEFORE any allocator mutation: a retried admission
+        # (ContinuousBatcher wraps prefill in retry_call) must replay
+        # against untouched page/clear state
+        _faults.fire("gen.prefill")
+        t0 = time.perf_counter()
         start, new_row = 0, None
         if self.paged:
             if length >= self.max_length:
@@ -621,6 +709,11 @@ class GenerationEngine:
                 for pid in self.prefix_cache.insert(prompt.tolist(),
                                                     self._row_pages[slot]):
                     self._page_rc[pid] += 1
+                self._page_gauges()
+        if _obs.enabled():
+            _obs.histogram("gen_prefill_seconds", "prompt prefill wall clock",
+                           unit="s").observe(time.perf_counter() - t0,
+                                             bucket=bucket)
         self._last_logits = last
         return tok
 
@@ -672,6 +765,17 @@ class GenerationEngine:
             fresh.append(pid)
         pages = adopt + fresh
         self._row_pages[slot] = list(pages)
+        if need:
+            _obs.counter("gen_page_allocs_total",
+                         "pages taken from the free pool").inc(
+                             need, site="prefill")
+        if start:
+            _obs.counter("gen_prefix_hits_total",
+                         "prefills that adopted a cached prefix").inc()
+            _obs.counter("gen_prefix_hit_tokens",
+                         "prompt tokens served from the prefix "
+                         "cache").inc(int(start))
+        self._page_gauges()
         if tail_src:
             # the copy lands before the prefill writes the suffix into it
             self._dispatch_cow([(slot, len(adopt), tail_src, fresh[0])])
@@ -738,6 +842,8 @@ class GenerationEngine:
         return self._plain_decode_step()
 
     def _plain_decode_step(self):
+        _faults.fire("gen.decode")
+        t0 = time.perf_counter()
         if self.paged:
             updates = self._grow_pages(0)
             clear = self._take_clear_mask()
@@ -766,9 +872,21 @@ class GenerationEngine:
         # rows active going into the step consumed one cache index
         self.positions = self.positions + active_in.astype(np.int32)
         # a row whose frontier hit the buffer end cannot take another token
-        done |= active_in & (self.positions >= self.max_length)
+        full = active_in & (self.positions >= self.max_length)
+        if full.any():
+            done |= full
+            _obs.counter("gen_cache_overflow_total",
+                         "rows force-finished at the KV-cache end").inc(
+                             int(full.sum()))
         self.done = done
         self.last_tokens = tok
+        if _obs.enabled():
+            _obs.histogram("gen_decode_step_seconds",
+                           "one decode step wall clock",
+                           unit="s").observe(time.perf_counter() - t0)
+            _obs.gauge("gen_slot_utilization",
+                       "fraction of decode slots active this step").set(
+                           float(active_in.sum()) / self.batch_size)
         return tok, done, logits
 
     # -- speculative rounds --------------------------------------------------
@@ -886,6 +1004,9 @@ class GenerationEngine:
         length."""
         if not self.speculative:
             raise RuntimeError("spec_step() needs draft_net=/speculate_k=")
+        _faults.fire("gen.decode")  # before any allocator mutation: the
+        # batcher's retry_call replays the whole round cleanly
+        t0 = time.perf_counter()
         k, b = self.speculate_k, self.batch_size
         updates = self._grow_pages(k)
         clear = self._take_clear_mask()
@@ -900,25 +1021,64 @@ class GenerationEngine:
         self._put(self._in_positions, self.positions)
         self._put(self._in_done, self.done)
         self._put(self._in_room, room)
-        if self.sampling.stochastic:
+        if self.sampling.stochastic and not self._noise_drawn:
+            # once per round: a round replayed after a failure draws the
+            # same tokens
             for buf in (self._noise_draft, self._noise_accept,
                         self._noise_resid):
                 buf.uniform_(generator=self._generator)
-        for sig, make in ((("draft", b, k), self._draft_step),
-                          (("verify", b, k), self._verify_step)):
-            self._note_program(sig)
-            outs = self._run_program(sig, make())
+            self._noise_drawn = True
+        draft_sig, verify_sig = ("draft", b, k), ("verify", b, k)
+        self._note_program(draft_sig)
+        self._run_program(draft_sig, self._draft_step())
+        # the draft's writes are deterministic overwrites, so the verify
+        # dispatch is re-entrant here: retry it inside the round
+        self._note_program(verify_sig)
+
+        def _dispatch_verify():
+            _faults.fire("gen.verify")
+            return self._run_program(verify_sig, self._verify_step())
+
+        outs = _retry.retry_call(_dispatch_verify, site="gen.verify",
+                                 policy=self.retry_policy)
         out, m, done, acc = (t.cpu().numpy() for t in outs)
+        self._noise_drawn = False
         out, m = out.astype(np.int32), m.astype(np.int32)
         self.positions = self.positions + m
         last = out[np.arange(b), np.maximum(m - 1, 0)]
         self.last_tokens = np.where(m > 0, last, self.last_tokens) \
             .astype(np.int32)
-        done = done | (active_in & (self.positions >= self.max_length))
+        full = active_in & (self.positions >= self.max_length)
+        if full.any():
+            done = done | full
+            _obs.counter("gen_cache_overflow_total",
+                         "rows force-finished at the KV-cache end").inc(
+                             int(full.sum()))
         self.done = done
         n_active = int(active_in.sum())
+        _obs.counter("gen_spec_rounds_total",
+                     "speculative draft+verify rounds").inc()
         self.last_round_drafted = k * n_active
         self.last_round_accepted = int(acc[active_in].sum())
+        if n_active:
+            accepted = self.last_round_accepted
+            _obs.counter("gen_spec_drafted_tokens_total",
+                         "draft tokens proposed").inc(k * n_active)
+            _obs.counter("gen_spec_accepted_tokens_total",
+                         "draft tokens the target accepted").inc(accepted)
+            _obs.counter("gen_spec_emitted_tokens_total",
+                         "tokens emitted by speculative rounds").inc(
+                             int(m.sum()))
+            _obs.gauge("gen_spec_accept_rate",
+                       "accepted/drafted ratio of the last round").set(
+                           accepted / float(k * n_active))
+        if _obs.enabled():
+            _obs.histogram("gen_spec_round_seconds",
+                           "one draft+verify round wall clock",
+                           unit="s").observe(time.perf_counter() - t0)
+            _obs.gauge("gen_slot_utilization",
+                       "fraction of decode slots active this step").set(
+                           float(active_in.sum()) / self.batch_size)
         return out, m, done
 
     # -- forks, sessions, release ---------------------------------------------
@@ -958,6 +1118,8 @@ class GenerationEngine:
             self._prefill_logits[dst] = logits
         self.last_tokens[dst] = tok
         self.done[dst] = (self.eos_id is not None and tok == self.eos_id)
+        self._page_gauges()
+        _obs.counter("gen_forks_total", "copy-on-write row forks").inc()
         return tok
 
     def cache_sequence(self, slot: int, tokens) -> int:
@@ -973,6 +1135,7 @@ class GenerationEngine:
         for pid in self.prefix_cache.insert(list(tokens)[:n],
                                             self._row_pages[slot]):
             self._page_rc[pid] += 1
+        self._page_gauges()
         return (n // self.page_size) * self.page_size
 
     def release_slot(self, slot: int) -> None:

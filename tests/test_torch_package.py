@@ -34,8 +34,25 @@ def _imported_roots(path):
     return roots
 
 
+#: the modules of the serving-resilience slice, imported by name
+RESILIENCE_MODULES = (
+    "mxnet_tpu_torch.observability", "mxnet_tpu_torch.observability.metrics",
+    "mxnet_tpu_torch.observability.events", "mxnet_tpu_torch.resilience",
+    "mxnet_tpu_torch.resilience.faults", "mxnet_tpu_torch.resilience.retry",
+    "mxnet_tpu_torch.resilience.serving", "mxnet_tpu_torch.inference.batcher")
+
+
 def test_import_leaves_jax_out_of_sys_modules():
-    code = ("import sys, mxnet_tpu_torch, mxnet_tpu_torch.ops.cuda_common; "
+    """Importing the package, its kernel build module, the resilience and
+    telemetry modules and the port's drill tool (and building its tiny
+    plan and net) pulls in no JAX module."""
+    code = ("import sys, importlib, importlib.util, mxnet_tpu_torch, "
+            "mxnet_tpu_torch.ops.cuda_common; "
+            f"[importlib.import_module(m) for m in {RESILIENCE_MODULES!r}]; "
+            "spec = importlib.util.spec_from_file_location('drill', "
+            "'tools/torch_servedrill.py'); "
+            "mod = sys.modules['drill'] = importlib.util.module_from_spec(spec); "
+            "spec.loader.exec_module(mod); mod.tiny_plan(); mod.tiny_net(device='cpu'); "
             f"print(sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                          capture_output=True, text=True, timeout=120)
