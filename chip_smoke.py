@@ -84,6 +84,15 @@ prints its last line):
      ``bert_flops``, and dropout inside its step graph: at lr 0 two
      replays give equal losses at dropout 0 and different ones at 0.1
      (a fresh mask each replay), then one timed graph run at 0.1;
+     between ``train_amp`` and BERT, the imperative MXNet surface
+     (``gluon``): 3 steps of ``autograd.record`` / ``loss.backward()`` /
+     ``gluon.Trainer.step`` on a 2-layer net in f32, bit-identical to
+     TrainStep naive, and in bf16 with ``multi_precision`` f32 masters,
+     kernels against plain versions; then gpt2_345m at full width through
+     that loop (bf16 weights, f32 masters, 2+10 eager steps, each
+     launching what a ``train_amp`` step launches), and a
+     ``save_parameters``/``load_parameters`` round trip giving bitwise
+     equal logits;
   8. time each kernel, its plain version and a PyTorch library yardstick
      with CUDA events, on the device (CUDA graph replay) and per eager
      call, at the shapes the paths give them (the paged read also at the
@@ -1679,6 +1688,278 @@ def phase_train_turns(amp=None):
     del init
     _release()
     return net, launches, runs
+
+
+# ---------------------------------------------------------------------------
+# The imperative MXNet surface (mx.nd, autograd, Gluon, gluon.Trainer): the
+# canonical loop record -> backward -> Trainer.step, eager (no CUDA graph)
+GLUON_WANT = {"flash_fwd": N_LAYERS, "flash_bwd_dkv": N_LAYERS,
+              "flash_bwd_dq": N_LAYERS, "adam": 1,
+              "layernorm": 2 * N_LAYERS + 1,
+              "layernorm_bwd": 2 * N_LAYERS + 1,
+              "layernorm_bwd_merge": 2 * N_LAYERS + 1,
+              "paged_attention": 0, "paged_attention_prefill": 0,
+              "xent_fwd": 1, "xent_bwd": 1}
+
+
+class _ScheduleBehind:
+    """``schedule`` one update behind: the Trainer counts an update before
+    it reads the rate (MXNet's and the JAX package's order), TrainStep
+    after, so this gives the Trainer the rates TrainStep applies, the
+    ones the AMP_* limits were measured at."""
+
+    def __init__(self, schedule):
+        self._schedule = schedule
+
+    @property
+    def base_lr(self):
+        return self._schedule.base_lr
+
+    @base_lr.setter
+    def base_lr(self, value):
+        self._schedule.base_lr = value
+
+    def __call__(self, num_update):
+        return self._schedule(num_update - 1)
+
+
+def _gluon_step(mx, net, trainer, loss_fn, x, y):
+    """One step of the loop; the loss's batch mean, taken in f32 as
+    TrainStep takes it, as a 0-d tensor."""
+    with mx.autograd.record():
+        loss = loss_fn(net(x), y)
+    loss.backward()
+    trainer.step(x.shape[0])
+    return loss._data.detach().float().mean()
+
+
+def _gluon_net(mx, layers, seed, dtype=None):
+    from mxnet_tpu_torch.models import get_gpt2
+
+    net = get_gpt2("gpt2_345m", dropout=0.0, num_layers=layers, seed=seed,
+                   ctx=mx.gpu())
+    net.initialize(ctx=mx.gpu())  # the JAX idiom: the weights are drawn
+    if dtype is not None:
+        net.cast(dtype)
+    return net
+
+
+def phase_gluon_parity():
+    """(a) 3 imperative steps (``autograd.record``, ``loss.backward()``,
+    ``Trainer.step``, Adam at TRAIN_LR, SoftmaxCrossEntropyLoss) of a
+    2-layer gpt2_345m-width net in f32 against ``TrainStep(engine_type=
+    "naive", amp=None)`` with the same loss and optimizer from the same
+    weights, on phase_train_parity's batch (B=4, T=1024): losses, weights
+    and Adam moments bit-identical. The Trainer backpropagates the
+    per-sample losses with a head gradient of ones and divides by the
+    batch in Adam's ``rescale_grad``, TrainStep backpropagates their mean:
+    with B=4 the two differ by an exact power of two at every step of the
+    backward, so every rounding is the same.
+    (b) The bf16 ``multi_precision`` route at 2 layers: ``net.cast
+    ("bfloat16")``, Adam with f32 masters at the warm-up schedule's rates
+    that TrainStep applies (``_ScheduleBehind``), 3 steps
+    on the kernels against the same on ``plain_versions()``, held at
+    AMP_LOSS_RTOL / AMP_DROP_RTOL / AMP_FAR_SHARE (the masters within the
+    sign-flip bound)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import TrainStep
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.optimizer import Adam
+
+    ids, labels = _train_batch(4, 1024)
+    x, y = mx.nd.array(ids), mx.nd.array(labels)
+    what = "2 layers at gpt2_345m width, B=4 T=1024"
+    # (a) f32, bit-identical to TrainStep naive
+    tnet = _gluon_net(mx, 2, 1)
+    ts = TrainStep(tnet, SoftmaxCrossEntropyLoss(),
+                   Adam(learning_rate=TRAIN_LR), amp=None,
+                   engine_type="naive")
+    ts_losses = [float(ts(ids, labels)) for _ in range(TRAIN_STEPS)]
+    inet = _gluon_net(mx, 2, 1)
+    trainer = mx.gluon.Trainer(inet.collect_params(), "adam",
+                               {"learning_rate": TRAIN_LR})
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    im_losses = [float(_gluon_step(mx, inet, trainer, loss_fn, x, y))
+                 for _ in range(TRAIN_STEPS)]
+    by_var = {id(p.var()): st for p, st in zip(trainer._params,
+                                                trainer._states)}
+    diff = []
+    for (name, a), (_, b) in zip(sorted(inet.named_parameters()),
+                                 sorted(tnet.named_parameters())):
+        mine, theirs = by_var[id(a)], ts.opt_state[name]
+        for what_, u, v in (("weight", a, b), ("mean", mine[0], theirs[0]),
+                            ("var", mine[1], theirs[1])):
+            if not torch.equal(u, v):
+                diff.append(f"{name} {what_} max |diff| "
+                            f"{(u - v).abs().max().item():.3e}")
+    log(f"[gluon f32] {what}, {TRAIN_STEPS} steps at lr {TRAIN_LR}: losses "
+        f"record/backward/Trainer.step {im_losses} / TrainStep naive "
+        f"{ts_losses}; weights and Adam moments that differ: "
+        f"{diff[:5] or 'none'}")
+    if im_losses != ts_losses or diff:
+        raise AssertionError(f"gluon f32: the imperative steps are not "
+                             f"bit-identical to TrainStep naive: losses "
+                             f"{im_losses} / {ts_losses}, {diff[:3]}")
+    del tnet, ts, inet, trainer, by_var
+    _release()
+    # (b) bf16 weights, f32 masters in the optimizer: kernels vs plain
+    runs = []
+    for plain in (False, True):
+        with plain_versions() if plain else contextlib.nullcontext():
+            net = _gluon_net(mx, 2, 1, "bfloat16")
+            trainer = mx.gluon.Trainer(
+                net.collect_params(), "adam",
+                {"learning_rate": AMP_LR,
+                 "lr_scheduler": _ScheduleBehind(amp_schedule()),
+                 "multi_precision": True})
+            rates, losses = [], []
+            for _ in range(TRAIN_STEPS):
+                losses.append(float(_gluon_step(mx, net, trainer,
+                                                loss_fn, x, y)))
+                rates.append(trainer.learning_rate)  # the rate applied
+            names = {id(p): n for n, p in
+                     net._collect_params_with_prefix().items()}
+            masters = {names[id(p)]: st["master"].clone()
+                       for p, st in zip(trainer._params, trainer._states)}
+            low = [p for p in net.parameters() if p.dtype != torch.bfloat16]
+            if low or any(m.dtype != torch.float32 for m in masters.values()):
+                raise AssertionError("gluon bf16: weights left bf16 or "
+                                     "masters left f32")
+            for p, st in zip(trainer._params, trainer._states):
+                if not torch.equal(p.var().detach(), st["master"].bfloat16()):
+                    raise AssertionError(f"gluon bf16: {p.name} is not its "
+                                         f"master rounded")
+        runs.append((losses, masters))
+        del net, trainer
+        _release()
+    (lk, mk), (lp, mp) = runs
+    gaps = [abs(a - b) / abs(b) for a, b in zip(lk, lp)]
+    drop_k, drop_p = lk[0] - lk[-1], lp[0] - lp[-1]
+    drop_gap = abs(drop_k - drop_p) / abs(drop_p)
+    err = torch.cat([(mk[n] - mp[n]).abs().reshape(-1) for n in mk])
+    worst = err.max().item()
+    far = (err > 1e-2 * AMP_LR).float().mean().item()
+    bound = 2.01 * sum(rates)
+    log(f"[gluon bf16] {what}, multi_precision Adam at lr {rates}: losses "
+        f"kernels {lk} / plain {lp}, relative gaps {gaps} (limit "
+        f"{AMP_LOSS_RTOL}); loss falls {drop_k:.6f} / {drop_p:.6f}, "
+        f"relative gap {drop_gap:.3e} (limit {AMP_DROP_RTOL}); max |master "
+        f"diff| {worst:.3e} (bound {bound:.3e}), share beyond 1e-2*lr "
+        f"{far:.2e} (limit {AMP_FAR_SHARE})")
+    for step, (a, b) in enumerate(zip(lk, lp)):
+        if not (np.isfinite(a) and abs(a - b) <= AMP_LOSS_RTOL * abs(b)):
+            raise AssertionError(f"gluon bf16 step {step}: loss {a} on the "
+                                 f"kernels, {b} on the plain versions")
+    if not (drop_k > 0 and drop_gap <= AMP_DROP_RTOL):
+        raise AssertionError(f"gluon bf16: the loss fell by {drop_k} on the "
+                             f"kernels, {drop_p} on the plain versions")
+    if worst > bound or far > AMP_FAR_SHARE:
+        raise AssertionError("gluon bf16: masters differ beyond the Adam "
+                             "sign-flip bound, or too many beyond 1e-2*lr")
+    return {"f32": {"losses": im_losses, "trainstep_losses": ts_losses,
+                    "bit_identical": True},
+            "bf16": {"losses_kernels": lk, "losses_plain": lp,
+                     "loss_rel_gaps": gaps, "loss_drop_rel_gap": drop_gap,
+                     "max_master_diff": worst, "master_bound": bound,
+                     "share_beyond_1e-2_lr": far}}
+
+
+def phase_gluon(warmup=2, steps=10, batch=4, seq=1024):
+    """(c) gpt2_345m at full width through the imperative loop, as a user
+    writes it: ``get_gpt2("gpt2_345m", dropout=0.0)``, ``initialize``,
+    ``cast("bfloat16")``, ``gluon.Trainer(..., "adam", {"learning_rate":
+    1e-4, "multi_precision": True})``, SoftmaxCrossEntropyLoss, then
+    ``record`` / ``backward`` / ``step`` on one fixed batch (B=4, T=1024),
+    ``warmup`` + ``steps`` steps, eager. The launch counts are read around
+    each step and held to GLUON_WANT (what a ``train_amp`` step launches:
+    24 flash forwards, dK/dV and dQ, 49 LayerNorm forwards, backwards and
+    merges on bf16 x and gamma, 1 xent forward and backward, 1 Adam over
+    the 292 unique tensors); every loss finite. Prints ms a step, tokens/s
+    and the peak memory. (d) ``save_parameters`` of the trained net, then
+    ``load_parameters`` into a fresh ``get_gpt2`` on the card (taking the
+    file's bf16): bitwise-equal logits on the batch. Returns the launches
+    of the run and the metrics."""
+    import tempfile
+
+    import mxnet_tpu_torch as mx
+
+    t0 = time.perf_counter()
+    net = _gluon_net(mx, N_LAYERS, 0, "bfloat16")
+    params = net.collect_params()
+    trainer = mx.gluon.Trainer(params, "adam", {"learning_rate": 1e-4,
+                                                "multi_precision": True})
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    ids, labels = _train_batch(batch, seq)
+    x, y = mx.nd.array(ids), mx.nd.array(labels)
+    log(f"[gluon] gpt2_345m bf16 with f32 masters, {len(params)} unique "
+        f"parameters ({len(list(net.parameters()))} torch parameters), "
+        f"built in {time.perf_counter() - t0:.1f}s")
+    if len(params) != 4 + 12 * N_LAYERS:  # 292: the tied head counts once
+        raise AssertionError(f"gluon: {len(params)} unique parameters")
+    total = dict.fromkeys(GLUON_WANT, 0)
+    losses = []
+    torch.cuda.synchronize()
+    _release()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    with _ln_dtypes() as ln_pairs:
+        for i in range(warmup + steps):
+            if i == warmup:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+            before = _launch_counts()
+            losses.append(_gluon_step(mx, net, trainer, loss_fn, x, y))
+            got = {k: v - before[k] for k, v in _launch_counts().items()}
+            if got != GLUON_WANT:
+                raise AssertionError(f"gluon step {i}: launches {got}, "
+                                     f"expected {GLUON_WANT}")
+            for k in total:
+                total[k] += got[k]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    bf = torch.bfloat16
+    if set(ln_pairs) != {("fwd", bf, bf), ("bwd", bf, bf)}:
+        raise AssertionError(f"gluon: LayerNorm ran on (x, gamma) dtypes "
+                             f"{dict(ln_pairs)}")
+    losses = [float(v) for v in losses]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"gluon losses {losses}: not finite")
+    res = {"ms_per_step": wall / steps * 1e3,
+           "samples_per_s": batch * steps / wall,
+           "tokens_per_s": batch * seq * steps / wall,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
+           "losses": losses, "steps": steps, "warmup": warmup}
+    log(f"[gluon] losses {['%.4f' % v for v in losses]}")
+    log(f"[gluon] {steps} timed steps (eager): {res['ms_per_step']:.2f} "
+        f"ms/step, {res['samples_per_s']:.1f} samples/s, "
+        f"{res['tokens_per_s']:.0f} tokens/s, peak memory "
+        f"{res['peak_bytes'] / 2**30:.2f} GiB (reserved "
+        f"{res['peak_reserved_bytes'] / 2**30:.2f}); launches per step "
+        f"{GLUON_WANT}")
+    # (d) the .params round trip
+    with torch.no_grad(), tempfile.TemporaryDirectory(
+            prefix="chip_smoke_gluon_") as d:
+        path = str(Path(d) / "gpt2_345m.params")
+        net.save_parameters(path)
+        del trainer, params
+        _release()
+        fresh = _gluon_net(mx, N_LAYERS, 7)
+        fresh.load_parameters(path, cast_dtype=True, dtype_source="saved")
+    with torch.no_grad():
+        want = net(ids)
+        got = fresh(ids)
+    same = torch.equal(got, want) and got.dtype == torch.bfloat16
+    log(f"[gluon] .params round trip of the trained net into a fresh "
+        f"get_gpt2: logits {tuple(got.shape)} {got.dtype} "
+        f"{'bitwise equal' if same else 'DIFFER'}")
+    if not same:
+        raise AssertionError("gluon: logits after the .params round trip "
+                             "differ")
+    res["params_round_trip_bitwise"] = True
+    del net, fresh, want, got
+    _release()
+    return total, res
 
 
 # ---------------------------------------------------------------------------
@@ -3466,6 +3747,9 @@ def main():
     del net
     _release()
     log("[train_amp] " + json.dumps(dict(runs=train_amp, parity=amp_parity)))
+    gluon_parity = phase_gluon_parity()
+    gluon_launches, gluon = phase_gluon()
+    log("[gluon] " + json.dumps(dict(run=gluon, parity=gluon_parity)))
     net, bert_launches, bert_amp = phase_bert_turns(card)
     timing.update(phase_bert_timing(net))
     bert_dropout = phase_bert_dropout(net, card)
@@ -3561,7 +3845,7 @@ def main():
                "governed": governed_launches, "drill": drill_launches,
                "stall": stall_launches, "overload": overload_launches,
                "train": train_launches, "train_amp": amp_launches,
-               "bert_amp": bert_launches}
+               "gluon": gluon_launches, "bert_amp": bert_launches}
     kernels = []
     for name, (src, rep, path, *extra) in meta.items():
         t = timing[name]

@@ -1,21 +1,36 @@
 """PyTorch/CUDA port of ``mxnet_tpu`` for one NVIDIA H100.
 
-Two slices so far: serving GPT-2 (``models``) through the generation
-engine and continuous batcher (``inference``), and training it through the
-single-device ``TrainStep`` (``parallel``) with ``Adam`` (``optimizer``).
-The kernels on those paths are hand-written CUDA (``ops``, sources in
-``csrc/``): paged attention, LayerNorm, flash attention (forward, dK/dV,
-dQ) and multi-tensor Adam. Imports torch, numpy and the standard library
-only. Entry points run on the card (``device="cuda"``) unless the caller
-passes ``device="cpu"``, which runs the kernels' plain PyTorch versions.
+The MXNet surface: ``mx.nd`` (NDArray over ``torch.Tensor``), ``autograd``,
+``random``, ``init``, Gluon ``Parameter``/``Block``/``HybridBlock``, layers,
+losses and ``Trainer``, and ``Context`` (``mx.gpu()`` is the card, and the
+default). Under it: GPT-2 and BERT (``models``), the generation engine and
+continuous batcher (``inference``), the single-device ``TrainStep``
+(``parallel``) with its optimizers (``optimizer``), and the hand-written
+CUDA kernels on those paths (``ops``, sources in ``csrc/``): paged
+attention, LayerNorm, flash attention (forward, dK/dV, dQ), multi-tensor
+Adam and softmax cross-entropy. Imports torch, numpy and the standard
+library only. Entry points run on the card unless the caller names the
+CPU (``device="cpu"``, ``ctx=mx.cpu()``), which runs the kernels' plain
+PyTorch versions.
 """
-from . import (base, config, inference, models, ops, optimizer, parallel,
-               serialization)
+from . import base, config
 from .base import MXNetError
+from .context import Context, cpu, current_context, gpu, num_gpus
+from . import ndarray
+from . import ndarray as nd
+from .ndarray import NDArray
+from . import autograd, random
+from . import initializer
+from . import initializer as init
+from . import (gluon, inference, lr_scheduler, models, ops, optimizer,
+               parallel, serialization)
 from .inference import ContinuousBatcher, GenerationEngine, SamplingConfig
 from .models import get_gpt2
 from .parallel import TrainStep
 
-__all__ = ["base", "config", "inference", "models", "ops", "optimizer",
-           "parallel", "serialization", "MXNetError", "ContinuousBatcher",
-           "GenerationEngine", "SamplingConfig", "TrainStep", "get_gpt2"]
+__all__ = ["base", "config", "MXNetError", "Context", "cpu", "gpu",
+           "current_context", "num_gpus", "ndarray", "nd", "NDArray",
+           "autograd", "random", "initializer", "init", "gluon", "inference",
+           "lr_scheduler", "models", "ops", "optimizer", "parallel",
+           "serialization", "ContinuousBatcher", "GenerationEngine",
+           "SamplingConfig", "TrainStep", "get_gpt2"]

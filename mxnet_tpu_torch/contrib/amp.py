@@ -9,12 +9,17 @@ backward on low-precision copies of them; only float16 needs dynamic loss
 scaling, since bfloat16 shares float32's exponent range. Under a global
 ``init`` dtype, :func:`matmul` (``ops.nn.fully_connected``, the tied LM
 head of ``models.gpt2``) and ``multi_head_attention`` (full-sequence and
-cached) compute their products in that dtype from f32 inputs. The host-side
-``LossScaler``, ``init_trainer`` and ``scale_loss`` belong to the
-imperative ``gluon.Trainer``, which is not ported yet.
+cached) compute their products in that dtype from f32 inputs.
+
+The imperative half (``LossScaler``, ``init_trainer``, ``scale_loss``,
+``unscale``, ``convert_model``) serves ``gluon.Trainer`` as the JAX
+package's does: under float16 the trainer's scaler checks the gradients
+once a step (one reduction over all of them, one host read) and skips an
+overflowed step.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 
@@ -22,7 +27,8 @@ import torch
 
 __all__ = ["init", "amp_dtype", "compute_dtype", "cast_inputs", "matmul",
            "Policy", "resolve_policy", "list_lp16_ops", "list_fp16_ops",
-           "list_fp32_ops", "list_widest_type_cast_ops"]
+           "list_fp32_ops", "list_widest_type_cast_ops", "LossScaler",
+           "init_trainer", "scale_loss", "unscale", "convert_model"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16}
 
@@ -164,3 +170,71 @@ def list_fp32_ops(target_dtype="bfloat16"):
 def list_widest_type_cast_ops(target_dtype="bfloat16"):
     """Ops that follow the widest input dtype."""
     return list(_WIDEST_OPS)
+
+
+class LossScaler:
+    """Dynamic loss scaling (active only when ``init`` chose float16, as
+    latched at creation)."""
+
+    def __init__(self, init_scale=2 ** 16, scale_factor=2.0,
+                 scale_window=2000):
+        self.enabled = amp_dtype() == "float16"
+        self.loss_scale = init_scale if self.enabled else 1.0
+        self._factor = scale_factor
+        self._window = scale_window
+        self._unskipped = 0
+
+    def has_overflow(self, params):
+        """Whether any gradient of ``params`` (Gluon Parameters) holds an
+        inf or NaN: one max-norm pass over all of them, one host read."""
+        grads = [p._var.grad for p in params
+                 if p._var is not None and p._var.grad is not None]
+        if not grads:
+            return False
+        norms = torch._foreach_norm(grads, float("inf"))
+        return not bool(torch.isfinite(torch.stack(norms)).all())
+
+    def update_scale(self, skip):
+        if skip:
+            self.loss_scale = max(1.0, self.loss_scale / self._factor)
+            self._unskipped = 0
+        else:
+            self._unskipped += 1
+            if self._unskipped >= self._window:
+                self.loss_scale *= self._factor
+                self._unskipped = 0
+
+
+def init_trainer(trainer):
+    """Give ``trainer`` a :class:`LossScaler`; under float16 its optimizer
+    keeps f32 masters (``multi_precision``)."""
+    trainer._amp_loss_scaler = LossScaler()
+    trainer._amp_original_scale = trainer._scale
+    if amp_dtype() == "float16":
+        trainer._optimizer.multi_precision = True
+
+
+@contextlib.contextmanager
+def scale_loss(loss, trainer):
+    """The loss times the trainer's loss scale; inside the scope the
+    trainer's gradient scale is divided by it."""
+    scaler = getattr(trainer, "_amp_loss_scaler", None)
+    if scaler is None or scaler.loss_scale == 1.0:
+        yield loss
+        return
+    trainer._scale = trainer._amp_original_scale / scaler.loss_scale
+    if isinstance(loss, (list, tuple)):
+        yield [l * scaler.loss_scale for l in loss]
+    else:
+        yield loss * scaler.loss_scale
+    trainer._scale = trainer._amp_original_scale
+
+
+def unscale(trainer):
+    """Gradients are unscaled through the trainer's scale."""
+
+
+def convert_model(net, target_dtype="bfloat16"):
+    """Cast a Gluon block's parameters for mixed-precision compute."""
+    net.cast(target_dtype)
+    return net

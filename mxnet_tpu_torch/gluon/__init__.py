@@ -1,5 +1,13 @@
-"""Gluon layers (``nn``) and loss blocks (``loss``) of the port as
-``torch.nn.Module``s."""
+"""Gluon: parameters, blocks, layers (``nn``), losses (``loss``) and the
+imperative ``Trainer``."""
+from . import parameter
+from .parameter import Constant, Parameter, ParameterDict
+from . import block
+from .block import Block, HybridBlock, SymbolBlock
 from . import loss, nn
+from . import trainer
+from .trainer import Trainer
 
-__all__ = ["loss", "nn"]
+__all__ = ["parameter", "Constant", "Parameter", "ParameterDict", "block",
+           "Block", "HybridBlock", "SymbolBlock", "loss", "nn", "trainer",
+           "Trainer"]

@@ -1,4 +1,4 @@
-"""Loss blocks as ``torch.nn.Module``s.
+"""Loss blocks (``HybridBlock``s, so also ``torch.nn.Module``s).
 
 Counterpart of ``mxnet_tpu/gluon/loss.py``: the same classes, arguments
 and reductions (each loss is weighted, then averaged over all but the
@@ -13,9 +13,9 @@ from __future__ import annotations
 import math
 
 import torch
-from torch import nn
 
 from ..ops import softmax_xent as _sx
+from .block import HybridBlock
 
 __all__ = ["Loss", "L2Loss", "L1Loss", "SigmoidBinaryCrossEntropyLoss",
            "SigmoidBCELoss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss",
@@ -52,11 +52,13 @@ def _pick(data, index, axis):
     return torch.gather(data, ax, idx).squeeze(ax)
 
 
-class Loss(nn.Module):
-    """Base of the loss blocks: a scalar ``weight`` and the batch axis."""
+class Loss(HybridBlock):
+    """Base of the loss blocks: a scalar ``weight`` and the batch axis.
+    Called on NDArrays, a loss is an imperative block call (recorded
+    under ``autograd.record``); its forward works on tensors."""
 
-    def __init__(self, weight, batch_axis):
-        super().__init__()
+    def __init__(self, weight, batch_axis, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         self._weight = weight
         self._batch_axis = batch_axis
 

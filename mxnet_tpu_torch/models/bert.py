@@ -1,4 +1,4 @@
-"""BERT as a ``torch.nn.Module``.
+"""BERT as ``HybridBlock``s (so ``torch.nn.Module``s).
 
 Counterpart of ``mxnet_tpu/models/bert.py``: word, token-type and position
 embeddings, post-LN encoder layers (erf-GELU feed-forward), a tanh pooler,
@@ -6,7 +6,8 @@ and the pretraining heads of GluonNLP's ``BERTForPretrain`` (masked LM over
 gathered positions, next-sentence classifier) with their loss. Parameter
 names equal the JAX package's structural names
 (``bert.word_embed.weight``, ``bert.encoder.layers.{i}.attention.qkv.weight``,
-..., ``nsp.bias``), in the same order.
+..., ``nsp.bias``), in the same order, and so are the Gluon names of
+``collect_params()`` (``bertmodel0_enc_layer0_attn_qkv_weight``, ...).
 
 The encoder's attention carries a ``(B, 1, 1, T)`` key-padding mask from
 ``valid_length``, so ``multi_head_attention`` takes its plain masked path,
@@ -15,11 +16,12 @@ as the JAX package's does (its flash kernel takes no mask).
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from .. import initializer as init
-from ..base import MXNetError, resolve_device
+from ..base import MXNetError
+from ..context import as_device
 from ..gluon import nn as gnn
+from ..gluon.block import HybridBlock
 from ..ops import core as _core
 from ..ops import nn as _ops
 from ..ops.attention import multi_head_attention
@@ -40,22 +42,23 @@ bert_configs = {
 }
 
 
-def _dense(units, in_units, **kw):
-    return gnn.Dense(units, flatten=False, in_units=in_units,
+def _dense(units, in_units, prefix, **kw):
+    return gnn.Dense(units, flatten=False, in_units=in_units, prefix=prefix,
                      weight_initializer=init.Normal(0.02), **kw)
 
 
-class BERTAttention(nn.Module):
+class BERTAttention(HybridBlock):
     def __init__(self, units, num_heads, dropout=0.1, dtype="float32",
-                 device="cuda"):
-        super().__init__()
+                 device=None, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         self._heads = num_heads
-        kw = dict(dtype=dtype, device=resolve_device(device))
-        self.qkv = _dense(3 * units, units, **kw)
-        self.proj = _dense(units, units, **kw)
-        self.dropout = gnn.Dropout(dropout)
+        kw = dict(dtype=dtype, device=as_device(device))
+        with self.name_scope():
+            self.qkv = _dense(3 * units, units, "qkv_", **kw)
+            self.proj = _dense(units, units, "proj_", **kw)
+            self.dropout = gnn.Dropout(dropout)
 
-    def forward(self, x, mask=None):
+    def hybrid_forward(self, F, x, mask=None):
         b, t, c = x.shape
         h = self._heads
         qkv = self.qkv(x).reshape(b, t, 3, h, c // h).permute(2, 0, 3, 1, 4)
@@ -64,44 +67,51 @@ class BERTAttention(nn.Module):
         return self.dropout(self.proj(out))
 
 
-class BERTEncoderLayer(nn.Module):
+class BERTEncoderLayer(HybridBlock):
     """One post-LN layer (original BERT): ``ln1(x + attention(x))``, then
     ``ln2(x + ffn2(gelu(ffn1(x))))``."""
 
-    def __init__(self, units, hidden_size, num_heads, dropout=0.1,
-                 dtype="float32", device="cuda"):
-        super().__init__()
-        kw = dict(dtype=dtype, device=resolve_device(device))
-        self.attention = BERTAttention(units, num_heads, dropout, **kw)
-        self.ln1 = gnn.LayerNorm(in_channels=units, **kw)
-        self.ffn1 = _dense(hidden_size, units, **kw)
-        self.ffn2 = _dense(units, hidden_size, **kw)
-        self.ln2 = gnn.LayerNorm(in_channels=units, **kw)
-        self.dropout = gnn.Dropout(dropout)
+    # one rematerialization unit under ``net.hybridize(remat=True)``
+    _remat_unit = True
 
-    def forward(self, x, mask=None):
+    def __init__(self, units, hidden_size, num_heads, dropout=0.1,
+                 dtype="float32", device=None, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        kw = dict(dtype=dtype, device=as_device(device))
+        with self.name_scope():
+            self.attention = BERTAttention(units, num_heads, dropout,
+                                           prefix="attn_", **kw)
+            self.ln1 = gnn.LayerNorm(in_channels=units, prefix="ln1_", **kw)
+            self.ffn1 = _dense(hidden_size, units, "ffn1_", **kw)
+            self.ffn2 = _dense(units, hidden_size, "ffn2_", **kw)
+            self.ln2 = gnn.LayerNorm(in_channels=units, prefix="ln2_", **kw)
+            self.dropout = gnn.Dropout(dropout)
+
+    def hybrid_forward(self, F, x, mask=None):
         x = self.ln1(x + self.attention(x, mask))
         y = self.ffn2(_ops.activation(self.ffn1(x), "gelu"))
         return self.ln2(x + self.dropout(y))
 
 
-class BERTEncoder(nn.Module):
+class BERTEncoder(HybridBlock):
     def __init__(self, num_layers, units, hidden_size, num_heads,
-                 dropout=0.1, dtype="float32", device="cuda"):
-        super().__init__()
-        self.layers = gnn.HybridSequential()
-        for _ in range(num_layers):
-            self.layers.add(BERTEncoderLayer(units, hidden_size, num_heads,
-                                             dropout, dtype=dtype,
-                                             device=device))
+                 dropout=0.1, dtype="float32", device=None, prefix=None,
+                 params=None):
+        super().__init__(prefix=prefix, params=params)
+        with self.name_scope():
+            self.layers = gnn.HybridSequential(prefix="")
+            for i in range(num_layers):
+                self.layers.add(BERTEncoderLayer(
+                    units, hidden_size, num_heads, dropout, dtype=dtype,
+                    device=device, prefix=f"layer{i}_"))
 
-    def forward(self, x, mask=None):
+    def hybrid_forward(self, F, x, mask=None):
         for layer in self.layers:
             x = layer(x, mask)
         return x
 
 
-class BERTModel(nn.Module):
+class BERTModel(HybridBlock):
     """Embeddings, encoder and pooler. Inputs follow GluonNLP:
     ``(token_ids, token_types, valid_length)``; returns the sequence
     (B, T, units) and the pooled first token (B, units). Weights are drawn
@@ -112,33 +122,40 @@ class BERTModel(nn.Module):
     def __init__(self, num_layers=12, units=768, hidden_size=3072,
                  num_heads=12, max_length=512, vocab_size=30522,
                  token_type_vocab=2, dropout=0.1, dtype="float32",
-                 device="cuda", seed=0):
-        super().__init__()
-        device = resolve_device(device)
+                 device=None, seed=0, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        device = as_device(device)
         self._units = units
         self._max_length = max_length
         kw = dict(dtype=dtype, device=device)
         normal = init.Normal(0.02)
-        self.word_embed = gnn.Embedding(vocab_size, units,
-                                        weight_initializer=normal, **kw)
-        self.token_type_embed = gnn.Embedding(token_type_vocab, units,
-                                              weight_initializer=normal, **kw)
-        self.position_embed = gnn.Embedding(max_length, units,
-                                            weight_initializer=normal, **kw)
-        self.embed_ln = gnn.LayerNorm(in_channels=units, **kw)
-        self.embed_dropout = gnn.Dropout(dropout)
-        self.encoder = BERTEncoder(num_layers, units, hidden_size, num_heads,
-                                   dropout, **kw)
-        self.pooler = gnn.Dense(units, flatten=False, in_units=units,
-                                activation="tanh", weight_initializer=normal,
-                                **kw)
-        gnn.initialize(self, torch.Generator().manual_seed(int(seed)))
+        with self.name_scope():
+            self.word_embed = gnn.Embedding(
+                vocab_size, units, prefix="word_embed_",
+                weight_initializer=normal, **kw)
+            self.token_type_embed = gnn.Embedding(
+                token_type_vocab, units, prefix="token_type_embed_",
+                weight_initializer=normal, **kw)
+            self.position_embed = gnn.Embedding(
+                max_length, units, prefix="position_embed_",
+                weight_initializer=normal, **kw)
+            self.embed_ln = gnn.LayerNorm(in_channels=units,
+                                          prefix="embed_ln_", **kw)
+            self.embed_dropout = gnn.Dropout(dropout)
+            self.encoder = BERTEncoder(num_layers, units, hidden_size,
+                                       num_heads, dropout, prefix="enc_",
+                                       **kw)
+            self.pooler = gnn.Dense(units, flatten=False, in_units=units,
+                                    activation="tanh", prefix="pooler_",
+                                    weight_initializer=normal, **kw)
+        self._draw(torch.Generator().manual_seed(int(seed)), device)
 
     @property
     def device(self) -> torch.device:
         return self.word_embed.weight.device
 
-    def forward(self, token_ids, token_types=None, valid_length=None):
+    def hybrid_forward(self, F, token_ids, token_types=None,
+                       valid_length=None):
         b, t = token_ids.shape
         if t > self._max_length:
             raise MXNetError(f"BERT: {t} tokens exceed max_length "
@@ -158,27 +175,30 @@ class BERTModel(nn.Module):
         return seq, pooled
 
 
-class BERTForPretrain(nn.Module):
+class BERTForPretrain(HybridBlock):
     """Masked-LM and next-sentence heads over ``bert`` (GluonNLP's
     ``BERTForPretrain``). The heads' weights are drawn from
     ``torch.Generator().manual_seed(seed + 1)``; ``bert`` keeps its own."""
 
     def __init__(self, bert: BERTModel, vocab_size=30522, dtype="float32",
-                 seed=0):
-        super().__init__()
+                 seed=0, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         units = bert._units
         kw = dict(dtype=dtype, device=bert.device)
-        self.bert = bert
-        self.mlm_transform = _dense(units, units, **kw)
-        self.mlm_ln = gnn.LayerNorm(in_channels=units, **kw)
-        self.mlm_decoder = _dense(vocab_size, units, **kw)
-        self.nsp = _dense(2, units, **kw)
+        with self.name_scope():
+            self.bert = bert
+            self.mlm_transform = _dense(units, units, "mlmt_", **kw)
+            self.mlm_ln = gnn.LayerNorm(in_channels=units, prefix="mlmln_",
+                                        **kw)
+            self.mlm_decoder = _dense(vocab_size, units, "mlmdec_", **kw)
+            self.nsp = _dense(2, units, "nsp_", **kw)
         gen = torch.Generator().manual_seed(int(seed) + 1)
         for head in (self.mlm_transform, self.mlm_ln, self.mlm_decoder,
                      self.nsp):
-            gnn.initialize(head, gen)
+            head._draw(gen, bert.device)
 
-    def forward(self, token_ids, token_types, valid_length, masked_positions):
+    def hybrid_forward(self, F, token_ids, token_types, valid_length,
+                       masked_positions):
         seq, pooled = self.bert(token_ids, token_types, valid_length)
         # gather the masked positions: (B, M) -> (B, M, C)
         b, m = masked_positions.shape
@@ -192,9 +212,11 @@ class BERTForPretrain(nn.Module):
 
 
 def get_bert(model_name="bert_base", pretrain_head=True, dropout=0.1,
-             device="cuda", dtype="float32", seed=0, **overrides):
+             device=None, dtype="float32", seed=0, **overrides):
     """A BERT of ``bert_configs[model_name]`` (with ``overrides``), with
-    the pretraining heads unless ``pretrain_head=False``."""
+    the pretraining heads unless ``pretrain_head=False``, on ``device`` (or
+    ``ctx=``; default the current context), weights drawn from ``seed``."""
+    device = overrides.pop("ctx", device)
     cfg = dict(bert_configs[model_name])
     cfg.update(overrides)
     bert = BERTModel(dropout=dropout, device=device, dtype=dtype, seed=seed,

@@ -1,20 +1,26 @@
-"""GPT-2 as a ``torch.nn.Module``.
+"""GPT-2 as a ``HybridBlock`` (so a ``torch.nn.Module``).
 
 Counterpart of ``mxnet_tpu/models/gpt2.py``: pre-LN decoder blocks, a
 weight-tied LM head, and the cached forward that the generation engine
 drives (dense ``(B, H, Tmax, Ch)`` buffers or paged pools with per-row page
-tables). Parameter names equal the JAX package's structural names
-(``word_embed.weight``, ``blocks.{i}.qkv.weight``, ``ln_f.gamma``, ...).
+tables). Structural parameter names equal the JAX package's
+(``word_embed.weight``, ``blocks.{i}.qkv.weight``, ``ln_f.gamma``, ...),
+and so do the Gluon names of ``collect_params()`` (``gpt2model0_layer0_
+qkv_weight``, ...). ``get_gpt2(name)`` builds on ``device`` (the current
+context by default) and draws the weights at once from ``seed``, so the
+engine and ``TrainStep`` need no ``initialize()``; a later
+``initialize()`` leaves them as they are, as for any initialized
+parameter (``force_reinit=True`` draws again from ``mx.random``).
 """
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from .. import initializer as init
-from ..base import resolve_device
+from ..context import as_device
 from ..contrib import amp as _amp
 from ..gluon import nn as gnn
+from ..gluon.block import HybridBlock
 from ..ops import nn as _ops
 from ..ops.attention import (alloc_kv_cache, alloc_paged_kv_cache,
                              multi_head_attention)
@@ -33,25 +39,35 @@ gpt2_configs = {
 }
 
 
-class GPT2Block(nn.Module):
-    def __init__(self, units, num_heads, dropout=0.1, dtype="float32",
-                 device="cuda"):
-        super().__init__()
-        self._heads = num_heads
-        kw = dict(dtype=dtype, device=resolve_device(device))
-        self.ln1 = gnn.LayerNorm(in_channels=units, **kw)
-        self.qkv = gnn.Dense(3 * units, flatten=False, in_units=units,
-                             weight_initializer=init.Normal(0.02), **kw)
-        self.proj = gnn.Dense(units, flatten=False, in_units=units,
-                              weight_initializer=init.Normal(0.02), **kw)
-        self.ln2 = gnn.LayerNorm(in_channels=units, **kw)
-        self.ffn1 = gnn.Dense(4 * units, flatten=False, in_units=units,
-                              weight_initializer=init.Normal(0.02), **kw)
-        self.ffn2 = gnn.Dense(units, flatten=False, in_units=4 * units,
-                              weight_initializer=init.Normal(0.02), **kw)
-        self.drop = gnn.Dropout(dropout)
+class GPT2Block(HybridBlock):
+    # one rematerialization unit under ``net.hybridize(remat=True)``
+    _remat_unit = True
 
-    def forward(self, x, cache=None, start_pos=None, page_table=None):
+    def __init__(self, units, num_heads, dropout=0.1, dtype="float32",
+                 device=None, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._heads = num_heads
+        kw = dict(dtype=dtype, device=as_device(device))
+        normal = init.Normal(0.02)
+        with self.name_scope():
+            self.ln1 = gnn.LayerNorm(in_channels=units, prefix="ln1_", **kw)
+            self.qkv = gnn.Dense(3 * units, flatten=False, in_units=units,
+                                 prefix="qkv_", weight_initializer=normal,
+                                 **kw)
+            self.proj = gnn.Dense(units, flatten=False, in_units=units,
+                                  prefix="proj_", weight_initializer=normal,
+                                  **kw)
+            self.ln2 = gnn.LayerNorm(in_channels=units, prefix="ln2_", **kw)
+            self.ffn1 = gnn.Dense(4 * units, flatten=False, in_units=units,
+                                  prefix="ffn1_", weight_initializer=normal,
+                                  **kw)
+            self.ffn2 = gnn.Dense(units, flatten=False, in_units=4 * units,
+                                  prefix="ffn2_", weight_initializer=normal,
+                                  **kw)
+            self.drop = gnn.Dropout(dropout)
+
+    def hybrid_forward(self, F, x, cache=None, start_pos=None,
+                       page_table=None):
         b, t, c = x.shape
         h = self._heads
         y = self.ln1(x)
@@ -71,32 +87,35 @@ class GPT2Block(nn.Module):
         return out if cache is None else (out, (k_buf, v_buf))
 
 
-class GPT2Model(nn.Module):
+class GPT2Model(HybridBlock):
     """GPT-2. Weights are drawn from ``torch.Generator().manual_seed(seed)``
     (the initializers of the JAX model: Normal(0.02) for the embeddings and
     projections, Normal(0.01) for positions, ones/zeros for LayerNorm)."""
 
     def __init__(self, num_layers=12, units=768, num_heads=12, max_length=1024,
-                 vocab_size=50257, dropout=0.1, dtype="float32", device="cuda",
-                 seed=0):
-        super().__init__()
-        device = resolve_device(device)
+                 vocab_size=50257, dropout=0.1, dtype="float32", device=None,
+                 seed=0, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        device = as_device(device)
         self._units = units
         self._num_layers = num_layers
         self._num_heads = num_heads
         self._max_length = max_length
         kw = dict(dtype=dtype, device=device)
-        self.word_embed = gnn.Embedding(vocab_size, units,
-                                        weight_initializer=init.Normal(0.02),
-                                        **kw)
-        self.position_embed = gnn.Embedding(
-            max_length, units, weight_initializer=init.Normal(0.01), **kw)
-        self.drop = gnn.Dropout(dropout)
-        self.blocks = gnn.HybridSequential()
-        for _ in range(num_layers):
-            self.blocks.add(GPT2Block(units, num_heads, dropout, **kw))
-        self.ln_f = gnn.LayerNorm(in_channels=units, **kw)
-        gnn.initialize(self, torch.Generator().manual_seed(int(seed)))
+        with self.name_scope():
+            self.word_embed = gnn.Embedding(
+                vocab_size, units, prefix="word_embed_",
+                weight_initializer=init.Normal(0.02), **kw)
+            self.position_embed = gnn.Embedding(
+                max_length, units, prefix="position_embed_",
+                weight_initializer=init.Normal(0.01), **kw)
+            self.drop = gnn.Dropout(dropout)
+            self.blocks = gnn.HybridSequential(prefix="")
+            for i in range(num_layers):
+                self.blocks.add(GPT2Block(units, num_heads, dropout,
+                                          prefix=f"layer{i}_", **kw))
+            self.ln_f = gnn.LayerNorm(in_channels=units, prefix="lnf_", **kw)
+        self._draw(torch.Generator().manual_seed(int(seed)), device)
 
     @property
     def device(self) -> torch.device:
@@ -137,7 +156,8 @@ class GPT2Model(nn.Module):
             .long() + ar[None, :]
         return pos.clamp(max=self._max_length - 1)
 
-    def forward(self, token_ids, cache=None, start_pos=None, page_table=None):
+    def hybrid_forward(self, F, token_ids, cache=None, start_pos=None,
+                       page_table=None):
         b, t = token_ids.shape
         pos = self._positions(t, start_pos)
         x = self.drop(self.word_embed(token_ids) + self.position_embed(pos))
@@ -157,8 +177,12 @@ class GPT2Model(nn.Module):
         return logits if cache is None else (logits, new_cache)
 
 
-def get_gpt2(model_name="gpt2_345m", dropout=0.1, device="cuda",
+def get_gpt2(model_name="gpt2_345m", dropout=0.1, device=None,
              dtype="float32", seed=0, **overrides):
+    """``GPT2Model`` of ``gpt2_configs[model_name]`` with ``overrides`` (and
+    ``prefix=``/``params=``), on ``device`` (or ``ctx=``; default the current
+    context), weights drawn from ``seed``."""
+    device = overrides.pop("ctx", device)
     cfg = dict(gpt2_configs[model_name])
     cfg.update(overrides)
     return GPT2Model(dropout=dropout, device=device, dtype=dtype, seed=seed,

@@ -157,3 +157,9 @@ def multi_head_attention(q, k, v, mask=None, causal=False, cache=None,
     else:
         out = _reference_mha(q, k, v, mask=mask, causal=causal)
     return out.to(orig_dtype)
+
+
+from ..registry import register  # noqa: E402
+
+register("multi_head_attention",
+         aliases=("_contrib_multi_head_attention",))(multi_head_attention)

@@ -118,3 +118,53 @@ def log_softmax(data, axis=-1, temperature=None):
     if temperature is not None and temperature != 1.0:
         data = data / temperature
     return _f32_policy(torch.log_softmax, data, axis)
+
+
+# -- the registered operators (the names of mxnet_tpu/ops/nn.py) -------------
+from ..registry import register  # noqa: E402
+
+
+@register("FullyConnected", aliases=("fully_connected",))
+def _fully_connected_op(data, weight, bias=None, num_hidden=None,
+                        no_bias=False, flatten=True):
+    return fully_connected(data, weight, None if no_bias else bias,
+                           flatten=flatten)
+
+
+register("Activation", aliases=("activation",))(activation)
+register("softmax")(softmax)
+register("log_softmax")(log_softmax)
+
+
+@register("LayerNorm", aliases=("layer_norm",))
+def _layer_norm_op(data, gamma, beta, axis=-1, eps=1e-5):
+    """LayerNorm over ``axis``: the last axis takes :func:`layer_norm` (the
+    kernel's dispatch); another axis is moved last and back."""
+    ax = int(axis) % data.dim()
+    if ax == data.dim() - 1:
+        return layer_norm(data, gamma, beta, eps)
+    moved = torch.movedim(data, ax, -1)
+    return torch.movedim(layer_norm(moved.contiguous(), gamma, beta, eps),
+                         -1, ax)
+
+
+@register("Dropout", aliases=("dropout",), stochastic=True)
+def dropout(data, p=0.5, mode="training", axes=(), training=False, key=None):
+    """Inverted dropout when ``training``: the mask is drawn from the
+    generator of ``data``'s device (``mxnet_tpu_torch.random``); ``axes``
+    share one draw along each named axis. ``key`` (a ``torch.Generator``)
+    overrides the generator."""
+    from .. import random as _random
+
+    if not training or p <= 0.0:
+        return data
+    shape = list(data.shape)
+    for a in axes:
+        shape[a] = 1
+    keep = 1.0 - p
+    gen = key if key is not None else _random.generator(data.device)
+    mask = torch.empty(shape, device=data.device).bernoulli_(keep,
+                                                             generator=gen)
+    return torch.where(mask.bool(), data / keep,
+                       torch.zeros((), dtype=data.dtype,
+                                   device=data.device)).to(data.dtype)

@@ -1,23 +1,30 @@
 """Optimizer registry: SGD, NAG, Adam and AdamW.
 
-Counterpart of the ``Optimizer`` subset of ``mxnet_tpu/optimizer.py`` that
-the single-device ``TrainStep`` uses: the hyperparameters, the
-``lr_scheduler``, the ``lr_mult``/``wd_mult`` dicts, ``create_state`` and
-the pure-state update ``update_raw``. Updates run in place on the weight
-and state tensors (see ``ops/optimizer.py``). :meth:`Optimizer.update_raw_multi`
-applies one update to a list of parameters; Adam's runs as one
-multi-tensor kernel launch on the card when the ``fused_adam`` knob is on.
-The JAX package has no kernel for SGD, NAG or AdamW, and neither has the
-port: their ``update_raw_multi`` loops the plain update.
+Counterpart of ``mxnet_tpu/optimizer.py`` for these four: the
+hyperparameters, the ``lr_scheduler``, the ``lr_mult``/``wd_mult`` dicts,
+``create_state`` and the pure-state update ``update_raw`` that
+``TrainStep`` drives, and the imperative protocol of ``gluon.Trainer``
+(``update``, ``update_multi``, per-index update counts) with
+``multi_precision``: a bf16/f16 weight is updated through an f32 master
+kept in its state as ``{"master": f32, "base": state}``, the JAX layout.
+Updates run in place on the weight and state tensors (see
+``ops/optimizer.py``). :meth:`Optimizer.update_raw_multi` applies one
+update to a list of parameters; Adam's runs as one multi-tensor kernel
+launch on the card when the ``fused_adam`` knob is on, and under
+``multi_precision`` that launch updates the masters and writes the new
+bf16/f16 weights into the parameters' own storage (the kernel's
+low-precision output). The JAX package has no kernel for SGD, NAG or
+AdamW, and neither has the port: their ``update_raw_multi`` loops the
+plain update.
 """
 from __future__ import annotations
 
 from typing import Dict
 
+import numpy as np
 import torch
 
 from . import config as _config
-from .base import MXNetError
 from .ops import optimizer as _oo
 
 __all__ = ["Optimizer", "SGD", "NAG", "Adam", "AdamW", "create", "register"]
@@ -48,18 +55,20 @@ def _state_tensors(state):
     return list(state) if isinstance(state, (tuple, list)) else [state]
 
 
+_LOW = (torch.bfloat16, torch.float16)
+
+
 class Optimizer:
-    """Hyperparameters and the pure-state protocol. With ``lr_scheduler``
-    the rate is ``lr_scheduler(num_update)`` and ``learning_rate`` becomes
-    its ``base_lr``. ``multi_precision`` belongs to the imperative Trainer,
-    which is not ported yet, and is refused."""
+    """Hyperparameters, the pure-state protocol and the imperative one.
+    With ``lr_scheduler`` the rate is ``lr_scheduler(num_update)`` and
+    ``learning_rate`` becomes its ``base_lr``. ``multi_precision`` gives a
+    bf16/f16 weight an f32 master in the imperative protocol (``TrainStep``
+    keeps f32 masters itself and ignores it)."""
 
     def __init__(self, learning_rate=0.01, wd=0.0, rescale_grad=1.0,
                  clip_gradient=None, param_dict=None, lr_scheduler=None,
                  multi_precision=False):
-        if multi_precision:
-            raise MXNetError("multi_precision is not ported yet (it serves "
-                             "the imperative gluon.Trainer)")
+        self.multi_precision = multi_precision
         self.lr = learning_rate
         self.wd = wd
         self.rescale_grad = rescale_grad
@@ -70,9 +79,13 @@ class Optimizer:
             lr_scheduler.base_lr = learning_rate
         #: host mirror of the number of steps taken (TrainStep advances it)
         self.num_update = 0
+        self._index_update_count: Dict[int, int] = {}
         self.lr_mult: Dict = {}
         self.wd_mult: Dict = {}
         self.param_dict = param_dict or {}
+        self.idx2name: Dict[int, str] = {}
+        # (device, values) -> the device tensor last sent for them
+        self._sent = {}
 
     def set_learning_rate(self, lr):
         self.lr = lr
@@ -94,6 +107,121 @@ class Optimizer:
     def create_state(self, index, weight):
         """The per-parameter state (tensors on the weight's device)."""
         raise NotImplementedError
+
+    # -- the imperative protocol (gluon.Trainer) ------------------------------
+    def _update_count(self, index):
+        self._index_update_count[index] = \
+            self._index_update_count.get(index, 0) + 1
+        self.num_update = max(self.num_update,
+                              self._index_update_count[index])
+
+    def _get_lr(self, index):
+        lr = self.learning_rate
+        name = self.idx2name.get(index, index)
+        if name in self.param_dict:
+            lr *= getattr(self.param_dict[name], "lr_mult", 1.0)
+        return lr * self.lr_mult.get(name, self.lr_mult.get(index, 1.0))
+
+    def _get_wd(self, index):
+        wd = self.wd
+        name = self.idx2name.get(index, index)
+        if name in self.param_dict:
+            wd *= getattr(self.param_dict[name], "wd_mult", 1.0)
+        return wd * self.wd_mult.get(name, self.wd_mult.get(index, 1.0))
+
+    def _send(self, values, dtype, device):
+        """``values`` as a device tensor of ``dtype``. To the card it goes
+        from pinned memory without waiting (a copy from pageable memory
+        would wait for the stream); the last few are kept and reused."""
+        key = (device, dtype, tuple(values))
+        t = self._sent.get(key)
+        if t is None:
+            host = torch.from_numpy(np.asarray(values, dtype=dtype))
+            if device.type == "cuda":
+                t = host.pin_memory().to(device, non_blocking=True)
+            else:
+                t = host.to(device)
+            if len(self._sent) >= 16:
+                self._sent.clear()
+            self._sent[key] = t
+        return t
+
+    def _needs_master(self, weight):
+        t = weight._data if hasattr(weight, "_data") else weight
+        return bool(self.multi_precision) and t.dtype in _LOW
+
+    def create_state_multi_precision(self, index, weight, master=None):
+        """``create_state``, or, when ``multi_precision`` is set and the
+        weight is bf16/f16, ``{"master": f32, "base": create_state(master)}``
+        with the master from ``master`` (the f32 values the weight was cast
+        from) or else from the weight."""
+        t = weight._data if hasattr(weight, "_data") else weight
+        t = t.detach()
+        if not self._needs_master(t):
+            return self.create_state(index, t)
+        if master is None:
+            master = t.float()
+        return {"master": master, "base": self.create_state(index, master)}
+
+    def update_tensors(self, indices, weights, grads, states):
+        """The imperative update of parameters ``indices`` (tensors, in
+        place): each index's count advances; the rates, multipliers and
+        Adam's t are the per-index ones, as in the JAX ``update_multi``.
+        A bf16/f16 weight with a multi-precision state is updated through
+        its master, its new value written into its own storage. Returns
+        the states (the same objects, updated)."""
+        for i in indices:
+            self._update_count(i)
+        groups = {}
+        for k, i in enumerate(indices):
+            groups.setdefault(self._index_update_count[i], []).append(k)
+        out = list(states)
+        with torch.no_grad():
+            for t, members in groups.items():
+                for master in (False, True):
+                    sel = [k for k in members
+                           if isinstance(states[k], dict) == master]
+                    if sel:
+                        self._update_group(
+                            [indices[k] for k in sel],
+                            [weights[k] for k in sel],
+                            [grads[k] for k in sel],
+                            [states[k] for k in sel], t, master)
+        return out
+
+    def _update_group(self, indices, ws, gs, sts, t, master):
+        dev = ws[0].device
+        lr = self._send([self._get_lr(i) for i in indices], np.float32, dev)
+        wd = self._send([self._get_wd(i) for i in indices], np.float32, dev)
+        step = self._send([t], np.int32, dev)[0]
+        if master:
+            self.update_raw_multi([s["master"] for s in sts], gs,
+                                  [s["base"] for s in sts], lr, wd, step,
+                                  out_lows=ws)
+        else:
+            self.update_raw_multi(ws, gs, sts, lr, wd, step)
+
+    def update(self, index, weight, grad, state):
+        """One parameter (NDArrays or tensors), in place; returns its
+        state."""
+        return self.update_multi([index], [weight], [grad], [state])[0]
+
+    def update_multi(self, indices, weights, grads, states):
+        """Parameters ``indices`` at once (NDArrays or tensors), in place;
+        returns their states."""
+        raw = [x._data if hasattr(x, "_data") else x for x in weights]
+        graw = [x._data if hasattr(x, "_data") else x for x in grads]
+        return self.update_tensors(list(indices), [w.detach() for w in raw],
+                                   graw, list(states))
+
+    def update_multi_precision(self, index, weight, grad, state):
+        """:meth:`update` through the f32 master when the weight is
+        bf16/f16 under ``multi_precision`` (a plain-layout state is adopted
+        as the base, the master taken from the weight)."""
+        w = weight._data if hasattr(weight, "_data") else weight
+        if self._needs_master(w) and not isinstance(state, dict):
+            state = {"master": w.detach().float(), "base": state}
+        return self.update(index, weight, grad, state)
 
     def update_raw(self, w, g, state, lr, wd, t):
         """One parameter, in place: ``(w, g, state, lr, wd, step)`` ->

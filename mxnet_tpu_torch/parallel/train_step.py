@@ -61,8 +61,10 @@ class TrainStep:
 
     Parameters
     ----------
-    net : torch.nn.Module whose parameters are named as the JAX package's
-        (``word_embed.weight``, ...); it stays on its device.
+    net : torch.nn.Module (a Gluon ``Block`` is one) whose parameters are
+        named as the JAX package's (``word_embed.weight``, ...); it stays on
+        its device. A Block's deferred shapes must be resolved (one
+        forward) before the step is built.
     loss_fn : callable(out, *labels) -> loss tensor (a gluon loss block or
         a function); its f32 mean is the training loss.
     optimizer : an ``mxnet_tpu_torch.optimizer.Optimizer``.
@@ -92,6 +94,12 @@ class TrainStep:
         self.loss_fn = loss_fn
         self.optimizer = optimizer
         self.n_model_inputs = n_model_inputs
+        collect = getattr(net, "collect_params", None)
+        if collect is not None:
+            pending = [p.name for p in collect().values() if p._var is None]
+            if pending:
+                raise MXNetError(f"TrainStep: parameters {pending[:3]} have "
+                                 "deferred shapes; run one forward first")
         self._plist = sorted(net.named_parameters())
         if not self._plist:
             raise MXNetError("TrainStep: the net has no parameters")
@@ -239,9 +247,10 @@ class TrainStep:
         a["skipped"] += (~finite).to(torch.int32)
 
     def __call__(self, *batch):
-        """Run one step. ``batch = (x, label, ...)`` as tensors on the net's
-        device or numpy arrays. Returns the loss as a 0-d f32 device
-        tensor."""
+        """Run one step. ``batch = (x, label, ...)`` as tensors (or
+        NDArrays) on the net's device, or numpy arrays. Returns the loss as
+        a 0-d f32 device tensor."""
+        batch = tuple(getattr(b, "_data", b) for b in batch)
         loss = self._program_step(batch)
         for _, name, p in self._train:  # the update wrote masters and copies
             if name in self._stamps:

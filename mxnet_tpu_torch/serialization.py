@@ -3,9 +3,11 @@
 Counterpart of ``mxnet_tpu/serialization.py`` for dense arrays: the dmlc
 NDArray list stream (magic 0x112, reserved u64, count, arrays with the
 per-array magic 0xF993FAC9, shape, context, type flag and raw C-order
-bytes, then names). Reading and writing are numpy only. Sparse blocks are
-refused. bfloat16 payloads (flag 12) are read widened to float32, which is
-exact, because numpy has no bfloat16.
+bytes, then names). Sparse blocks are refused. :func:`load_ndarrays`
+returns numpy arrays, so it reads bfloat16 payloads (flag 12) widened to
+float32, which is exact; :func:`load_tensors` returns CPU tensors and
+keeps bfloat16. :func:`save_ndarrays` takes numpy arrays or tensors, and
+writes a bfloat16 tensor as bfloat16.
 
 :func:`load_mxnet_params` moves a ``{structural_name: array}`` dict (from a
 ``.params`` file, or from the JAX package's
@@ -21,26 +23,37 @@ import torch
 
 from .base import FLAG_TO_DTYPE, MXNetError, dtype_flag
 
-__all__ = ["save_ndarrays", "load_ndarrays", "load_mxnet_params",
-           "mxnet_params"]
+__all__ = ["save_ndarrays", "load_ndarrays", "load_tensors",
+           "load_mxnet_params", "mxnet_params"]
 
 NDARRAY_MAGIC = 0x112  # dmlc NDArray list magic
 _SINGLE_MAGIC = 0xF993FAC9  # per-array magic in MXNet >= 1.0 (V2, dense)
 _BF16_FLAG = 12
 
 
-def _write_one(f, arr: np.ndarray) -> None:
+def _host(arr):
+    """``(C-order numpy payload, type flag)`` of a numpy array or tensor."""
+    if torch.is_tensor(arr):
+        t = arr.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy(), _BF16_FLAG
+        arr = t.numpy()
     arr = np.ascontiguousarray(arr)
+    return arr, dtype_flag(arr.dtype)
+
+
+def _write_one(f, arr) -> None:
+    arr, flag = _host(arr)
     f.write(struct.pack("<I", _SINGLE_MAGIC))
     f.write(struct.pack("<I", arr.ndim))
     for s in arr.shape:
         f.write(struct.pack("<q", s))
     f.write(struct.pack("<ii", 1, 0))  # context: cpu(0)
-    f.write(struct.pack("<i", dtype_flag(arr.dtype)))
+    f.write(struct.pack("<i", flag))
     f.write(arr.tobytes())
 
 
-def _read_one(f) -> np.ndarray:
+def _read_one(f, bf16_tensor=False):
     magic = struct.unpack("<I", f.read(4))[0]
     if magic != _SINGLE_MAGIC:
         raise MXNetError(f"unsupported NDArray block magic {magic:#x} "
@@ -54,18 +67,26 @@ def _read_one(f) -> np.ndarray:
     n = int(np.prod(shape)) if shape else 1
     if flag == _BF16_FLAG:
         raw = np.frombuffer(f.read(2 * n), dtype=np.uint16)
+        if bf16_tensor:
+            return torch.from_numpy(raw.view(np.int16).copy()).view(
+                torch.bfloat16).reshape(shape)
         return (raw.astype(np.uint32) << 16).view(np.float32).reshape(shape)
     dt = np.dtype(FLAG_TO_DTYPE[flag])
     return np.frombuffer(f.read(n * dt.itemsize), dtype=dt).reshape(shape).copy()
 
 
+def _array(v):
+    return v if torch.is_tensor(v) else np.asarray(v)
+
+
 def save_ndarrays(fname: str, data: Union[Dict[str, np.ndarray],
                                           List[np.ndarray]]) -> None:
-    """Write a dict (named) or list of numpy arrays as a ``.params`` file."""
+    """Write a dict (named) or list of numpy arrays or tensors as a
+    ``.params`` file."""
     if isinstance(data, dict):
-        names, arrays = list(data.keys()), [np.asarray(v) for v in data.values()]
+        names, arrays = list(data.keys()), [_array(v) for v in data.values()]
     else:
-        names, arrays = [], [np.asarray(v) for v in data]
+        names, arrays = [], [_array(v) for v in data]
     with open(fname, "wb") as f:
         f.write(struct.pack("<Q", NDARRAY_MAGIC))
         f.write(struct.pack("<Q", 0))  # reserved
@@ -79,7 +100,8 @@ def save_ndarrays(fname: str, data: Union[Dict[str, np.ndarray],
             f.write(b)
 
 
-def load_ndarrays(fname: str) -> Union[Dict[str, np.ndarray], List[np.ndarray]]:
+def load_ndarrays(fname: str, _bf16_tensor=False
+                  ) -> Union[Dict[str, np.ndarray], List[np.ndarray]]:
     """Read a ``.params`` file: a dict if it carries names, else a list."""
     with open(fname, "rb") as f:
         magic = struct.unpack("<Q", f.read(8))[0]
@@ -88,13 +110,25 @@ def load_ndarrays(fname: str) -> Union[Dict[str, np.ndarray], List[np.ndarray]]:
                              f"(magic {magic:#x})")
         f.read(8)
         count = struct.unpack("<Q", f.read(8))[0]
-        arrays = [_read_one(f) for _ in range(count)]
+        arrays = [_read_one(f, _bf16_tensor) for _ in range(count)]
         nname = struct.unpack("<Q", f.read(8))[0]
         names = [f.read(struct.unpack("<Q", f.read(8))[0]).decode()
                  for _ in range(nname)]
     if names:
         return dict(zip(names, arrays))
     return arrays
+
+
+def load_tensors(fname: str):
+    """:func:`load_ndarrays` as CPU tensors, bfloat16 kept as bfloat16."""
+    loaded = load_ndarrays(fname, _bf16_tensor=True)
+
+    def as_tensor(a):
+        return a if torch.is_tensor(a) else torch.from_numpy(np.array(a))
+
+    if isinstance(loaded, dict):
+        return {k: as_tensor(v) for k, v in loaded.items()}
+    return [as_tensor(v) for v in loaded]
 
 
 def load_mxnet_params(module: torch.nn.Module, arrays) -> None:

@@ -130,3 +130,54 @@ def test_chip_smoke_fails_without_a_card(tmp_path, alone):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+#: the modules of the imperative MXNet surface, imported by name
+SURFACE_MODULES = (
+    "mxnet_tpu_torch.context", "mxnet_tpu_torch.registry",
+    "mxnet_tpu_torch.random", "mxnet_tpu_torch.ndarray",
+    "mxnet_tpu_torch.autograd", "mxnet_tpu_torch.initializer",
+    "mxnet_tpu_torch.gluon.parameter", "mxnet_tpu_torch.gluon.block",
+    "mxnet_tpu_torch.gluon.trainer", "mxnet_tpu_torch.gluon.nn",
+    "mxnet_tpu_torch.contrib.amp")
+
+
+def test_surface_modules_import_no_jax():
+    """The imperative surface's modules, the namespace the package exports
+    (as ``mxnet_tpu/__init__.py`` does) and a CPU training step through
+    them pull in no JAX module."""
+    code = ("import sys, importlib, mxnet_tpu_torch as mx; "
+            f"[importlib.import_module(m) for m in {SURFACE_MODULES!r}]; "
+            "assert all(hasattr(mx, n) for n in ('nd', 'NDArray', "
+            "'autograd', 'random', 'init', 'gluon', 'cpu', 'gpu', "
+            "'Context', 'current_context')); "
+            "d = mx.gluon.nn.Dense(2, in_units=3, device='cpu'); "
+            "d.initialize(); t = mx.gluon.Trainer(d.collect_params(), 'adam'); "
+            "x = mx.nd.ones((4, 3), ctx=mx.cpu()); "
+            "exec('with mx.autograd.record():\\n    l = d(x).sum()'); "
+            "l.backward(); t.step(4); "
+            f"print(sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True, timeout=120)
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_default_context_is_the_card(monkeypatch):
+    """current_context() is gpu(0); a Parameter initialized with no context
+    allocates there, so without a card it raises, and mx.cpu() (argument
+    or scope) is taken only when named."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert mt.current_context() == mt.gpu(0) == mt.Context("gpu", 0)
+    p = mt.gluon.Parameter("w", shape=(2, 3))
+    with pytest.raises(MXNetError, match="CUDA is not available"):
+        p.initialize()
+    p.initialize(ctx=mt.cpu())
+    assert p.data().context == mt.cpu()
+    q = mt.gluon.Parameter("v", shape=(2,))
+    with mt.cpu():
+        q.initialize()
+    assert q.var().device.type == "cpu"
+    with pytest.raises(MXNetError, match="CUDA is not available"):
+        mt.nd.ones((2,))
+    with pytest.raises(MXNetError, match="CUDA is not available"):
+        mt.gluon.nn.Dense(2, in_units=2)

@@ -6,6 +6,7 @@ card.
     python3 tools/torch_train_profile.py --decode [--steps 20]
     python3 tools/torch_train_profile.py --spec [--steps 20]
     python3 tools/torch_train_profile.py --model bert_large [--layers 24]
+    python3 tools/torch_train_profile.py --gluon [--layers 24]
     python3 tools/torch_train_profile.py ... --engine-type naive graph graph naive
 
 Trains gpt2_345m (``mxnet_tpu_torch``, B=4, T=1024, seeded random weights
@@ -16,7 +17,13 @@ amp="bfloat16")`` on chip_smoke.py's warm-up schedule (the ``train_amp``
 phase). With ``--model bert_large`` it trains chip_smoke.py's ``bert_amp``
 step instead: ``get_bert("bert_large", max_length=128)``, bench.py's batch
 (B=64, T=128, 20 masked positions), ``TrainStep(net, bert_loss, Adam(1e-4),
-n_model_inputs=4, amp="bfloat16")``; it then also profiles one encoder
+n_model_inputs=4, amp="bfloat16")``. With ``--gluon`` it trains through
+the imperative surface instead, chip_smoke.py's ``gluon`` step:
+``net.cast("bfloat16")``, ``gluon.Trainer(..., "adam", {"learning_rate":
+1e-4, "multi_precision": True})``, then ``autograd.record()``,
+``loss.backward()`` and ``trainer.step(4)`` on the same batch, eager
+(``--engine-type`` does not apply). With ``--model bert_large`` it then
+also profiles one encoder
 layer's masked attention (``multi_head_attention`` with the (B, 1, 1, T)
 mask, forward and backward at bf16, one CUDA graph) and prints its device
 time by group times the layer count, the share of the step's groups
@@ -103,6 +110,9 @@ def main():
                     help="profile serving decode steps instead of training")
     ap.add_argument("--spec", action="store_true",
                     help="profile speculative rounds (gpt2_117m draft)")
+    ap.add_argument("--gluon", action="store_true",
+                    help="profile the imperative Gluon step (bf16 weights, "
+                         "multi_precision Adam)")
     ap.add_argument("--memory", action="store_true",
                     help="report memory per call instead of profiling")
     ap.add_argument("--engine-type", nargs="+", default=["graph"],
@@ -113,6 +123,10 @@ def main():
         sys.exit("torch_train_profile: CUDA is not available")
     if args.model == "bert_large" and (args.decode or args.spec):
         ap.error("--decode and --spec serve GPT-2 only")
+    if args.gluon and (args.decode or args.spec or args.amp or
+                       args.model != "gpt2_345m" or
+                       args.engine_type != ["graph"]):
+        ap.error("--gluon trains GPT-2 eagerly in bf16: no other mode")
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
     from mxnet_tpu_torch.models import get_bert, get_gpt2
 
@@ -277,6 +291,21 @@ def _step(args, net, engine_type):
         what = (f"gpt2_345m layers={args.layers} f32 {mode} B=8, paged "
                 f"(ps 16), 500 prompt tokens a row, engine_type "
                 f"{engine_type}")
+    elif args.gluon:
+        import chip_smoke as cs
+        import mxnet_tpu_torch as mx
+
+        net.cast("bfloat16")
+        trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                                   {"learning_rate": 1e-4,
+                                    "multi_precision": True})
+        loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        ids, labels = cs._train_batch(4, 1024)
+        x, y = mx.nd.array(ids), mx.nd.array(labels)
+        step = lambda: cs._gluon_step(mx, net, trainer, loss_fn, x, y)  # noqa: E731
+        what = (f"gpt2_345m layers={args.layers} B=4 T=1024 bfloat16 "
+                f"weights, multi_precision Adam, record/backward/"
+                f"Trainer.step (eager)")
     elif args.model == "bert_large":
         import chip_smoke as cs
 
