@@ -92,7 +92,19 @@ prints its last line):
      that loop (bf16 weights, f32 masters, 2+10 eager steps, each
      launching what a ``train_amp`` step launches), and a
      ``save_parameters``/``load_parameters`` round trip giving bitwise
-     equal logits;
+     equal logits; then the training loop (``train_loop``): (a) at 2
+     layers, ``TrainStep.run(steps=8, window=4)`` bit-identical to 8
+     calls, graph and naive, in f32 and bf16, and ``accum=2`` graph ==
+     naive; (b) gpt2_345m at full width in bf16 fed by a
+     ``DevicePrefetcher`` in windows of 8 (one CUDA graph a window, 8x a
+     ``train_amp`` step's launches, a profiled replay of the window graph),
+     timed; (c) ``accum=2`` at microbatch B=2; (d) ``save`` and a fresh
+     ``restore`` (about 4.3 GB) continuing bit-identically; (e) the first
+     full-width ``amp="float16"`` run, its loss scale and skips carried
+     through a checkpoint; (f) ``gluon.Trainer.run`` over a ``DataLoader``
+     on the ``gluon`` net, then one ``Trainer.step`` on the states it
+     left; (g) a preemption request during window 1: one valid checkpoint
+     at the window boundary and ``Preempted``;
   8. time each kernel, its plain version and a PyTorch library yardstick
      with CUDA events, on the device (CUDA graph replay) and per eager
      call, at the shapes the paths give them (the paged read also at the
@@ -1477,18 +1489,24 @@ def _release():
     torch.cuda.empty_cache()
 
 
-def _state(net, ts, host=False):
-    """Copies of every parameter and optimizer state tensor, in a fixed
-    order (what bit-identity between engine types is checked on); in host
-    memory with ``host``, for the full-width runs."""
-    copy = (lambda t: t.detach().cpu()) if host else \
+def _state(ts, host=False):
+    """Copies of every parameter, optimizer state tensor and master of the
+    TrainStep ``ts``, its step count and its loss-scale carry, in a fixed
+    order (what bit-identity between engine types, windows and resumed
+    runs is checked on); in host memory with ``host``, for the full-width
+    runs."""
+    copy = (lambda t: t.detach().to("cpu", copy=True)) if host else \
         (lambda t: t.detach().clone())
-    out = [copy(p) for _, p in sorted(net.named_parameters())]
+    out = [copy(p) for _, p in ts._plist]
     for name in sorted(ts.opt_state):
         st = ts.opt_state[name]
         out.extend(copy(t) for t in
                    (st if isinstance(st, (tuple, list)) else (st,))
                    if t is not None)
+    out.extend(copy(ts._master[n]) for n in sorted(ts._master))
+    out.append(copy(ts.step_count))
+    if ts.amp_state is not None:
+        out.extend(copy(ts.amp_state[k]) for k in sorted(ts.amp_state))
     return out
 
 
@@ -1644,7 +1662,7 @@ def _timed_steps(name, net, ts, batch, want, dt, warmup, steps, samples,
         f"tokens/s, peak memory {peak / 2**30:.2f} GiB (reserved "
         f"{res['peak_reserved_bytes'] / 2**30:.2f}); launches per step "
         f"{want}")
-    state = _state(net, ts, host=True)
+    state = _state(ts, host=True)
     if ts.engine_type == "graph":  # replays more: after the state was read
         (prog, _, _), = ts._programs.values()
         check_replay_launches(prog, f"{name} step graph")
@@ -1960,6 +1978,572 @@ def phase_gluon(warmup=2, steps=10, batch=4, seq=1024):
     del net, fresh, want, got
     _release()
     return total, res
+
+
+# ---------------------------------------------------------------------------
+# The training loop: TrainStep.run (window steps in one captured CUDA graph,
+# accum microbatches a step), fed by io.DevicePrefetcher; save/restore,
+# float16 across windows, Trainer.run over a DataLoader, preemption
+LOOP_WINDOW = 8
+# what one step launches under float16: LayerNorm, attention and the loss
+# take their compositions on f16 (the JAX gates send f16 there), Adam its
+# kernel with f16 gradients and copies
+F16_WANT = dict.fromkeys(GLUON_WANT, 0) | {"adam": 1}
+
+
+def _host_batches(n, batch, seq, seed, vocab=50257):
+    """``n`` host batches of modelbench's form (seeded random ids, labels
+    the ids rolled by one), as a DataLoader yields them."""
+    rs = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        ids = rs.randint(0, vocab, (batch, seq)).astype(np.int32)
+        out.append((ids, np.roll(ids, -1, 1)))
+    return out
+
+
+def _times(counts, k):
+    return {name: n * k for name, n in counts.items()}
+
+
+def _window_program(ts):
+    (prog, _, _), = (e for key, e in ts._programs.items()
+                     if key[0] == "window")
+    return prog
+
+
+def _parity_runs(net, init, amp, mode, batches, micro):
+    """8 calls, run(steps=8, window=4) and run(steps=4, window=2,
+    accum=2) of fresh TrainSteps from ``init``: losses and states."""
+    out = {}
+    for what in ("calls", "window", "accum"):
+        _restore(net, init)
+        ts = _train_step(net, amp, mode)
+        if what == "calls":
+            losses = torch.stack([ts(*b) for b in batches])
+        elif what == "window":
+            losses = ts.run(iter(batches), steps=8, window=4)
+            if ts.compiled_programs != 1 or ts._window_dispatches != 2:
+                raise AssertionError(f"train_loop parity: {mode} window run "
+                                     f"held {ts.compiled_programs} programs, "
+                                     f"{ts._window_dispatches} dispatches")
+        else:
+            losses = ts.run(iter(micro), steps=4, window=2, accum=2)
+        out[what] = (losses, _state(ts))
+        del ts
+        _release()
+    return out
+
+
+def phase_loop_parity():
+    """(a) 2 layers at gpt2_345m width, B=4, T=1024, in f32 (``lm_loss``,
+    Adam 1e-4) and under amp="bfloat16" (``train_amp``'s loss and
+    schedule): ``run(steps=8, window=4)`` bit-identical to 8 calls, each
+    under "graph" and "naive" (losses, weights, moments, masters, step
+    count); "graph" bit-identical to "naive" for both and for
+    ``run(steps=4, window=2, accum=2)`` at microbatch B=2. Then, at
+    dropout 0.1 under bf16 "graph", whether the window and the calls draw
+    the same masks (reported, not held: the port's recorded divergence
+    if they do not)."""
+    from mxnet_tpu_torch.models import get_gpt2
+
+    batches = _host_batches(8, 4, 1024, seed=3)
+    micro = _host_batches(8, 2, 1024, seed=4)
+    res = {}
+    for amp in (None, "bfloat16"):
+        net = get_gpt2("gpt2_345m", dropout=0.0, num_layers=2, device="cuda",
+                       seed=1)
+        init = [p.detach().clone() for _, p in sorted(net.named_parameters())]
+        runs = {mode: _parity_runs(net, init, amp, mode, batches, micro)
+                for mode in ("graph", "naive")}
+        name = f"train_loop parity {amp or 'f32'}"
+        for mode, r in runs.items():
+            (lc, sc), (lw, sw) = r["calls"], r["window"]
+            if not torch.equal(lc, lw) or not _same_state(sc, sw):
+                raise AssertionError(f"{name}: the {mode} window differs from "
+                                     f"8 calls: losses {lc.tolist()} / "
+                                     f"{lw.tolist()}")
+        for what in ("calls", "window", "accum"):
+            (lg, sg), (ln, sn) = runs["graph"][what], runs["naive"][what]
+            if not torch.equal(lg, ln) or not _same_state(sg, sn):
+                raise AssertionError(f"{name}: {what} graph differs from "
+                                     f"naive: {lg.tolist()} / {ln.tolist()}")
+        acc = runs["graph"]["accum"][0]
+        if not torch.isfinite(acc).all():
+            raise AssertionError(f"{name}: accum losses {acc.tolist()}")
+        res[amp or "f32"] = {
+            "losses": runs["graph"]["window"][0].tolist(),
+            "accum_losses": acc.tolist(), "bit_identical": True}
+        log(f"[{name}] 2 layers at gpt2_345m width, B=4 T=1024: run(steps=8,"
+            f" window=4) == 8 calls under graph and naive, graph == naive "
+            f"also for accum=2 (B=2 microbatches), bit for bit (losses, "
+            f"weights, moments, masters, step count); losses "
+            f"{['%.4f' % x for x in res[amp or 'f32']['losses']]}, accum "
+            f"{['%.4f' % x for x in acc.tolist()]}")
+        del runs
+        _release()
+    # dropout 0.1 on the bf16 net: the masks of a window against those of
+    # 4 calls
+    from mxnet_tpu_torch.gluon.nn import Dropout
+
+    for m in net.modules():
+        if isinstance(m, Dropout):
+            m._rate = 0.1
+    drawn = []
+    for window in (None, 4):
+        _restore(net, init)
+        ts = _train_step(net, "bfloat16", "graph")
+        torch.manual_seed(7)
+        drawn.append(torch.stack([ts(*b) for b in batches[:4]])
+                     if window is None
+                     else ts.run(iter(batches[:4]), steps=4, window=window))
+        del ts
+    same = torch.equal(*drawn)
+    res["dropout_0.1_window_equals_calls"] = same
+    log(f"[train_loop parity dropout 0.1] bf16 graph: the window's losses "
+        f"{'equal' if same else 'DIFFER from'} those of 4 calls "
+        f"({['%.4f' % x for x in drawn[0].tolist()]} / "
+        f"{['%.4f' % x for x in drawn[1].tolist()]}); not held")
+    del net, init, drawn
+    _release()
+    return res
+
+
+def _timed_run(ts, pf, steps):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    losses = ts.run(pf, steps=steps)
+    torch.cuda.synchronize()
+    return losses, time.perf_counter() - t
+
+
+def _check_counts(name, got, want):
+    if {k: got[k] for k in want} != want:
+        raise AssertionError(f"{name}: launches {got}, expected {want}")
+
+
+def phase_loop_window(card):
+    """(b) gpt2_345m at full width, ``TrainStep(amp="bfloat16")`` with
+    ``train_amp``'s loss and schedule, fed by a ``DevicePrefetcher`` of
+    host batches (B=4, T=1024) in windows of LOOP_WINDOW: a warm-up run of
+    two windows (the first eager, the second captured and replayed), then
+    two timed windows (replays); the launch counters must read
+    LOOP_WINDOW × a ``train_amp`` step's launches a window, one window
+    program is held, and one profiled replay of the window graph must run
+    LOOP_WINDOW × a step's kernels (``check_replay_launches``). (d) Then
+    ``save`` (after window 4), window 5, and a fresh TrainStep
+    ``restore``d from the checkpoint runs window 5 again (eagerly): its
+    losses and state bit-identical to the uninterrupted run's. Returns the
+    net, its initial weights, the launches of windows 1-4 (the
+    ``train_loop`` path) and the metrics."""
+    import shutil
+    import tempfile
+
+    from mxnet_tpu_torch.io.prefetch import DevicePrefetcher
+
+    w = LOOP_WINDOW
+    net, init = _train_net("bfloat16")
+    batches = _host_batches(5 * w, 4, 1024, seed=5)
+    ts = _train_step(net, "bfloat16", "graph")
+    pf = DevicePrefetcher(iter(batches), train_step=ts, window=w)
+    torch.cuda.synchronize()
+    _release()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    l1, eager_s = _timed_run(ts, pf, w)
+    l2, capture_s = _timed_run(ts, pf, w)
+    l34, wall = _timed_run(ts, pf, 2 * w)
+    launches = _launch_counts()
+    _check_counts("train_loop window", launches, _times(GLUON_WANT, 4 * w))
+    losses = torch.cat([l1, l2, l34]).tolist()
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train_loop window losses {losses}")
+    if ts.compiled_programs != 1 or ts._window_dispatches != 4:
+        raise AssertionError(f"train_loop window: {ts.compiled_programs} "
+                             f"programs, {ts._window_dispatches} dispatches")
+    steps = 2 * w
+    res = {"window": w, "ms_per_step": wall / steps * 1e3,
+           "tokens_per_s": 4 * 1024 * steps / wall,
+           "samples_per_s": 4 * steps / wall,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
+           "eager_window_s": eager_s,
+           "capture_and_replay_s": capture_s,
+           "replay_window_s": wall / 2,
+           "compiled_programs": ts.compiled_programs, "losses": losses}
+    log(f"[train_loop] gpt2_345m bf16, windows of {w} through a "
+        f"DevicePrefetcher: {res['ms_per_step']:.2f} ms/step, "
+        f"{res['tokens_per_s']:.0f} tokens/s over {steps} replayed steps; "
+        f"first window (eager) {eager_s:.2f} s, second (capture + replay) "
+        f"{capture_s:.2f} s, a replayed window {wall / 2:.3f} s; peak memory "
+        f"{res['peak_bytes'] / 2**30:.2f} GiB (reserved "
+        f"{res['peak_reserved_bytes'] / 2**30:.2f}); "
+        f"{ts.compiled_programs} program; launches a window "
+        f"{_times(GLUON_WANT, w)}")
+    log(f"[train_loop] losses {['%.4f' % x for x in losses]}")
+    # (d) save after window 4, window 5, then a fresh TrainStep restored
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        t = time.perf_counter()
+        path = ts.save(d)
+        save_s = time.perf_counter() - t
+        nbytes = sum(f.stat().st_size for f in Path(path).iterdir())
+        l5, _ = _timed_run(ts, pf, w)
+        want5 = _state(ts, host=True)
+        pf.close()
+        prog = _window_program(ts)
+        want = _times({k: v for k, v in GLUON_WANT.items() if v},
+                      w)
+        recorded = {COUNTERS[(m.split(".")[-1], k)][0]: n
+                    for (m, k), n in prog.launches.items()}
+        if recorded != want:
+            raise AssertionError(f"train_loop window graph records "
+                                 f"{recorded}, expected {want}")
+        check_replay_launches(prog, "train_loop window graph")
+        del ts, pf, prog
+        _release()
+        ts2 = _train_step(net, "bfloat16", "graph")
+        t = time.perf_counter()
+        if not ts2.restore(d):
+            raise AssertionError("train_loop: no checkpoint to restore")
+        restore_s = time.perf_counter() - t
+        pf2 = DevicePrefetcher(iter(batches[4 * w:]), train_step=ts2,
+                               window=w)
+        l5b, _ = _timed_run(ts2, pf2, w)
+        pf2.close()
+        same = torch.equal(l5, l5b) and \
+            _same_state(want5, _state(ts2, host=True))
+        if not same or ts2.optimizer.num_update != 5 * w:
+            raise AssertionError(f"train_loop: the restored run's window 5 "
+                                 f"differs: {l5.tolist()} / {l5b.tolist()}")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    res["checkpoint"] = {"bytes": nbytes, "save_s": save_s,
+                         "restore_and_verify_s": restore_s,
+                         "resumed_bit_identical": True}
+    log(f"[train_loop] checkpoint after window 4: {nbytes / 1e9:.3f} GB "
+        f"saved in {save_s:.2f} s, restored and verified in {restore_s:.2f} "
+        f"s; window 5 of the restored TrainStep bit-identical to the "
+        f"uninterrupted run (losses, weights, moments, step count)")
+    del ts2, pf2, want5
+    _release()
+    return net, init, launches, res
+
+
+def phase_loop_accum(net, init):
+    """(c) ``run(window=LOOP_WINDOW, accum=2)`` at microbatch B=2 through a
+    DevicePrefetcher, bf16: two warm-up windows and one timed; a step
+    launches twice the forward and backward kernels and Adam once."""
+    from mxnet_tpu_torch.io.prefetch import DevicePrefetcher
+
+    w = LOOP_WINDOW
+    _restore(net, init)
+    ts = _train_step(net, "bfloat16", "graph")
+    micro = _host_batches(3 * w * 2, 2, 1024, seed=6)
+    pf = DevicePrefetcher(iter(micro), train_step=ts, window=w, accum=2)
+    torch.cuda.synchronize()
+    _release()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    warm = torch.cat([ts.run(pf, steps=w), ts.run(pf, steps=w)])
+    timed, wall = _timed_run(ts, pf, w)
+    per_step = {k: 2 * v for k, v in GLUON_WANT.items()} | \
+        {"adam": GLUON_WANT["adam"]}
+    _check_counts("train_loop accum", _launch_counts(),
+                  _times(per_step, 3 * w))
+    losses = torch.cat([warm, timed]).tolist()
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train_loop accum losses {losses}")
+    check_replay_launches(_window_program(ts), "train_loop accum graph")
+    pf.close()
+    res = {"window": w, "accum": 2, "micro_batch": 2,
+           "ms_per_step": wall / w * 1e3,
+           "tokens_per_s": 4 * 1024 * w / wall,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
+           "losses": losses}
+    log(f"[train_loop accum] gpt2_345m bf16, accum=2 at B=2: "
+        f"{res['ms_per_step']:.2f} ms/step, {res['tokens_per_s']:.0f} "
+        f"tokens/s; peak memory {res['peak_bytes'] / 2**30:.2f} GiB "
+        f"(reserved {res['peak_reserved_bytes'] / 2**30:.2f}); launches a "
+        f"step {per_step}")
+    del ts, pf
+    _release()
+    return res
+
+
+def phase_loop_float16(net, init):
+    """(e) The first full-width ``amp="float16"`` run: ``train_amp``'s loss
+    and schedule under the float16 policy (dynamic loss scale on the card
+    from 2^16), 3 windows of LOOP_WINDOW (the third timed). Every applied
+    step's loss is finite, and the step count is the steps run less those
+    skipped. The checkpoint carry is :func:`phase_loop_float16_resume`'s."""
+    from mxnet_tpu_torch.io.prefetch import DevicePrefetcher
+
+    w = LOOP_WINDOW
+    _restore(net, init)
+    batches = _host_batches(3 * w, 4, 1024, seed=7)
+    ts = _train_step(net, "float16", "graph")
+    pf = DevicePrefetcher(iter(batches), train_step=ts, window=w)
+    torch.cuda.synchronize()
+    _release()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    l12, _ = _timed_run(ts, pf, 2 * w)
+    l3, wall = _timed_run(ts, pf, w)
+    pf.close()
+    _check_counts("train_loop float16", _launch_counts(),
+                  _times(F16_WANT, 3 * w))
+    skipped = ts.amp_skipped_steps
+    scale = ts.loss_scale
+    applied = int(ts.step_count)
+    if applied != 3 * w - skipped:
+        raise AssertionError(f"train_loop float16: step count {applied}, "
+                             f"{3 * w} steps less {skipped} skipped")
+    losses = torch.cat([l12, l3]).tolist()
+    # a skipped step's loss may overflow; every applied one is finite
+    finite = sum(np.isfinite(losses))
+    if finite < 3 * w - skipped:
+        raise AssertionError(f"train_loop float16: {finite} finite losses "
+                             f"for {3 * w - skipped} applied steps: {losses}")
+    res = {"ms_per_step": wall / w * 1e3,
+           "tokens_per_s": 4 * 1024 * w / wall,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
+           "loss_scale": scale, "amp_skipped_steps": skipped,
+           "step_count": applied, "losses": losses}
+    log(f"[train_loop float16] gpt2_345m, amp float16, 3 windows of {w}: "
+        f"{res['ms_per_step']:.2f} ms/step, {res['tokens_per_s']:.0f} "
+        f"tokens/s (third window); loss scale {scale}, skipped {skipped}, "
+        f"step count {applied}; peak memory "
+        f"{res['peak_bytes'] / 2**30:.2f} GiB (reserved "
+        f"{res['peak_reserved_bytes'] / 2**30:.2f}); losses "
+        f"{['%.3f' % x for x in losses]}")
+    del ts, pf
+    _release()
+    return res
+
+
+def phase_loop_float16_resume():
+    """(e) The float16 carry through a checkpoint, at 2 layers and
+    gpt2_345m width: the dynamic scale starts at 2^20, so that window 1
+    may hold overflowed steps; a checkpoint after window 1 carries the
+    scale, the good-step run and the skip count, and a fresh TrainStep
+    restored from it runs window 2 bit-identically (losses, weights,
+    moments, step count, carry)."""
+    import shutil
+    import tempfile
+
+    from mxnet_tpu_torch.contrib.amp import Policy
+    from mxnet_tpu_torch.io.prefetch import DevicePrefetcher
+    from mxnet_tpu_torch.models import get_gpt2
+
+    w = LOOP_WINDOW
+    net = get_gpt2("gpt2_345m", dropout=0.0, num_layers=2, device="cuda",
+                   seed=3)
+    pol = Policy("float16", loss_scale=2.0 ** 20)
+    batches = _host_batches(2 * w, 4, 1024, seed=7)
+    ts = _train_step(net, pol, "graph")
+    d = tempfile.mkdtemp(prefix="chip_smoke_f16_")
+    try:
+        pf = DevicePrefetcher(iter(batches), train_step=ts, window=w)
+        l1 = ts.run(pf, steps=w)
+        ts.save(d)
+        scale1, skipped1 = ts.loss_scale, ts.amp_skipped_steps
+        l2 = ts.run(pf, steps=w)
+        pf.close()
+        want2 = _state(ts)
+        ts2 = _train_step(net, pol, "graph")
+        if not ts2.restore(d):
+            raise AssertionError("train_loop float16: no checkpoint")
+        if (ts2.loss_scale, ts2.amp_skipped_steps) != (scale1, skipped1):
+            raise AssertionError("train_loop float16: the restore lost the "
+                                 "loss-scale carry")
+        pf2 = DevicePrefetcher(iter(batches[w:]), train_step=ts2, window=w)
+        l2b = ts2.run(pf2, steps=w)
+        pf2.close()
+        if not torch.equal(l2, l2b) or not _same_state(want2, _state(ts2)):
+            raise AssertionError(f"train_loop float16: window 2 after the "
+                                 f"restore differs: {l2.tolist()} / "
+                                 f"{l2b.tolist()}")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    res = {"after_window_1": {"loss_scale": scale1,
+                              "amp_skipped_steps": skipped1},
+           "after_window_2": {"loss_scale": ts.loss_scale,
+                              "amp_skipped_steps": ts.amp_skipped_steps},
+           "losses": torch.cat([l1, l2]).tolist(),
+           "resumed_bit_identical": True}
+    log(f"[train_loop float16 resume] 2 layers at gpt2_345m width, scale "
+        f"from 2^20: after window 1 scale {scale1}, skipped {skipped1}; "
+        f"window 2 after a restore from window 1's checkpoint bit-identical "
+        f"(scale {ts.loss_scale}, skipped {ts.amp_skipped_steps})")
+    del net, ts, ts2, pf, pf2, want2
+    _release()
+    return res
+
+
+def phase_loop_trainer():
+    """(f) ``gluon.Trainer.run`` on the ``gluon`` phase's net (gpt2_345m,
+    ``cast("bfloat16")``, Adam 1e-4 with ``multi_precision``), fed by
+    ``DataLoader.prefetch_to_device`` over an ``ArrayDataset`` of host
+    batches (B=4, T=1024): two warm-up windows and one timed; each step
+    launches what a ``train_amp`` step does. Then one imperative
+    ``record``/``backward``/``Trainer.step``: its optimizer states are the
+    step's tensors ``run`` left (master and moments), and it updates
+    them."""
+    import mxnet_tpu_torch as mx
+
+    w = LOOP_WINDOW
+    net = _gluon_net(mx, N_LAYERS, 0, "bfloat16")
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                               {"learning_rate": 1e-4,
+                                "multi_precision": True})
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    host = _host_batches(3 * w, 4, 1024, seed=8)
+    ids = np.concatenate([b[0] for b in host])
+    labels = np.concatenate([b[1] for b in host])
+    loader = mx.gluon.data.DataLoader(
+        mx.gluon.data.ArrayDataset(ids, labels), batch_size=4)
+    pf = loader.prefetch_to_device(window=w)
+    torch.cuda.synchronize()
+    _release()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    warm = torch.cat([trainer.run(net, loss_fn, pf, steps=w)
+                      for _ in range(2)])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    timed = trainer.run(net, loss_fn, pf, steps=w)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    pf.close()
+    _check_counts("train_loop Trainer.run", _launch_counts(),
+                  _times(GLUON_WANT, 3 * w))
+    losses = torch.cat([warm, timed]).tolist()
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train_loop Trainer.run losses {losses}")
+    ts = trainer._fused[1]
+    if ts.compiled_programs != 1:
+        raise AssertionError(f"Trainer.run: {ts.compiled_programs} programs")
+    res = {"ms_per_step": wall / w * 1e3, "tokens_per_s": 4 * 1024 * w / wall,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
+           "losses": losses}
+    # one imperative step after the run: it takes the states run left
+    by_var = {id(p): name for _, name, p in ts._train}
+    for p, st in zip(trainer._params, trainer._states):
+        name = by_var[id(p.var())]
+        if st["master"] is not ts._master[name] or \
+                st["base"] is not ts.opt_state[name]:
+            raise AssertionError(f"Trainer.run: {p.name}'s state is not the "
+                                 f"step's")
+    before = [st["base"][0].clone() for st in trainer._states[:4]]
+    x, y = mx.nd.array(host[0][0]), mx.nd.array(host[0][1])
+    _reset_launch_counts()
+    loss = float(_gluon_step(mx, net, trainer, loss_fn, x, y))
+    _check_counts("train_loop imperative step", _launch_counts(), GLUON_WANT)
+    moved = [not torch.equal(b, st["base"][0])
+             for b, st in zip(before, trainer._states)]
+    counts = set(trainer.optimizer._index_update_count.values())
+    if not (np.isfinite(loss) and all(moved) and counts == {3 * w + 1}):
+        raise AssertionError(f"train_loop: the step after Trainer.run: loss "
+                             f"{loss}, moments moved {moved}, update counts "
+                             f"{counts}")
+    res["step_after_run"] = {"loss": loss, "update_count": 3 * w + 1}
+    log(f"[train_loop Trainer.run] gpt2_345m bf16 with f32 masters over a "
+        f"DataLoader: {res['ms_per_step']:.2f} ms/step, "
+        f"{res['tokens_per_s']:.0f} tokens/s (a replayed window); peak "
+        f"memory {res['peak_bytes'] / 2**30:.2f} GiB (reserved "
+        f"{res['peak_reserved_bytes'] / 2**30:.2f}); then one Trainer.step "
+        f"on the states run left, loss {loss:.4f}")
+    del net, trainer, ts, pf, loader
+    _release()
+    return res
+
+
+def phase_loop_preemption():
+    """(g) ``install_preemption`` on a 2-layer gpt2_345m-width TrainStep
+    (bf16): the source requests a preemption while window 1 is fed; the
+    window completes, one checkpoint lands at its boundary (valid, step
+    LOOP_WINDOW), ``Preempted`` is raised, and the checkpoint restores."""
+    import shutil
+    import tempfile
+
+    from mxnet_tpu_torch.checkpoint import validate_checkpoint
+    from mxnet_tpu_torch.models import get_gpt2
+    from mxnet_tpu_torch.resilience.integrity import list_checkpoints
+    from mxnet_tpu_torch.resilience import Preempted, PreemptionGuard
+
+    w = LOOP_WINDOW
+    net = get_gpt2("gpt2_345m", dropout=0.0, num_layers=2, device="cuda",
+                   seed=2)
+    ts = _train_step(net, "bfloat16", "graph")
+    d = tempfile.mkdtemp(prefix="chip_smoke_preempt_")
+    guard = ts.install_preemption(d, guard=PreemptionGuard(signals=()))
+    batches = _host_batches(2 * w, 4, 1024, seed=9)
+
+    def source():
+        for i, b in enumerate(batches):
+            if i == 3:
+                guard.request()
+            yield b
+
+    try:
+        try:
+            ts.run(source(), steps=2 * w, window=w)
+        except Preempted as e:
+            code = e.code
+        else:
+            raise AssertionError("train_loop preemption: no Preempted")
+        ckpts = [s for s, p in list_checkpoints(d) if validate_checkpoint(p)]
+        if code != 0 or ckpts != [w] or ts._window_dispatches != 1:
+            raise AssertionError(f"train_loop preemption: exit code {code}, "
+                                 f"valid checkpoints {ckpts}, "
+                                 f"{ts._window_dispatches} windows")
+        fresh = _train_step(net, "bfloat16", "graph")
+        if not fresh.restore(d) or fresh.optimizer.num_update != w:
+            raise AssertionError("train_loop preemption: the checkpoint "
+                                 "does not restore")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    log(f"[train_loop preemption] a request during window 1: one valid "
+        f"checkpoint (step {w}) at the window boundary, Preempted (code 0) "
+        f"raised, the checkpoint restores")
+    del net, ts, fresh
+    _release()
+    return {"checkpoints": ckpts, "preempted": True}
+
+
+def phase_train_loop(card):
+    """(a)-(g) of the training loop; returns the launches of the main path
+    (``phase_loop_window``'s windows 1-4) and the metrics, with the seconds
+    of each part."""
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    parity = timed("parity", phase_loop_parity)
+    net, init, launches, window = timed("window_and_checkpoint",
+                                        phase_loop_window, card)
+    accum = timed("accum", phase_loop_accum, net, init)
+    f16 = timed("float16", phase_loop_float16, net, init)
+    del net, init
+    _release()
+    f16["resume"] = timed("float16_resume", phase_loop_float16_resume)
+    trainer = timed("trainer_run", phase_loop_trainer)
+    preempt = timed("preemption", phase_loop_preemption)
+    res = {"parity": parity, "window": window, "accum": accum,
+           "float16": f16, "trainer_run": trainer, "preemption": preempt,
+           "seconds": seconds}
+    log(f"[train_loop seconds] {sum(seconds.values()):.1f} s: " +
+        ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    log("[train_loop] " + json.dumps(res))
+    return launches, res
 
 
 # ---------------------------------------------------------------------------
@@ -3102,7 +3686,7 @@ def phase_graph_equals_naive(serve_net):
                            device="cuda", seed=1)
             ts = _train_step(net, amp, mode)
             losses = [ts(ids, labels) for _ in range(TRAIN_STEPS)]
-            out[mode] = ([float(x) for x in losses], _state(net, ts),
+            out[mode] = ([float(x) for x in losses], _state(ts),
                          ts.compiled_programs)
             del net, ts
             _release()
@@ -3750,6 +4334,7 @@ def main():
     gluon_parity = phase_gluon_parity()
     gluon_launches, gluon = phase_gluon()
     log("[gluon] " + json.dumps(dict(run=gluon, parity=gluon_parity)))
+    loop_launches, train_loop = phase_train_loop(card)
     net, bert_launches, bert_amp = phase_bert_turns(card)
     timing.update(phase_bert_timing(net))
     bert_dropout = phase_bert_dropout(net, card)
@@ -3845,7 +4430,8 @@ def main():
                "governed": governed_launches, "drill": drill_launches,
                "stall": stall_launches, "overload": overload_launches,
                "train": train_launches, "train_amp": amp_launches,
-               "gluon": gluon_launches, "bert_amp": bert_launches}
+               "gluon": gluon_launches, "train_loop": loop_launches,
+               "bert_amp": bert_launches}
     kernels = []
     for name, (src, rep, path, *extra) in meta.items():
         t = timing[name]

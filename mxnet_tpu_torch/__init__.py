@@ -8,7 +8,11 @@ continuous batcher (``inference``), the single-device ``TrainStep``
 (``parallel``) with its optimizers (``optimizer``), and the hand-written
 CUDA kernels on those paths (``ops``, sources in ``csrc/``): paged
 attention, LayerNorm, flash attention (forward, dK/dV, dQ), multi-tensor
-Adam and softmax cross-entropy. Imports torch, numpy and the standard
+Adam and softmax cross-entropy. The training loop: ``TrainStep.run`` and
+``gluon.Trainer.run`` (one CUDA graph a window of steps), fed by
+``io.DevicePrefetcher`` from ``io`` iterators or ``gluon.data.DataLoader``,
+with crash-safe ``checkpoint``s, preemption (``resilience``) and
+``mon.Monitor``. Imports torch, numpy and the standard
 library only. Entry points run on the card unless the caller names the
 CPU (``device="cpu"``, ``ctx=mx.cpu()``), which runs the kernels' plain
 PyTorch versions.
@@ -24,6 +28,12 @@ from . import initializer
 from . import initializer as init
 from . import (gluon, inference, lr_scheduler, models, ops, optimizer,
                parallel, serialization)
+from . import checkpoint, io, monitor
+from . import monitor as mon
+from .monitor import Monitor
+from . import observability
+from . import observability as obs
+from . import resilience
 from .inference import ContinuousBatcher, GenerationEngine, SamplingConfig
 from .models import get_gpt2
 from .parallel import TrainStep
@@ -32,5 +42,6 @@ __all__ = ["base", "config", "MXNetError", "Context", "cpu", "gpu",
            "current_context", "num_gpus", "ndarray", "nd", "NDArray",
            "autograd", "random", "initializer", "init", "gluon", "inference",
            "lr_scheduler", "models", "ops", "optimizer", "parallel",
-           "serialization", "ContinuousBatcher", "GenerationEngine",
+           "serialization", "checkpoint", "io", "monitor", "mon",
+           "Monitor", "observability", "obs", "resilience", "ContinuousBatcher", "GenerationEngine",
            "SamplingConfig", "TrainStep", "get_gpt2"]

@@ -76,6 +76,13 @@ _KNOBS: Dict[str, tuple] = {
     "retry_timeout": (float, 0.0, ("MXNET_TPU_RETRY_TIMEOUT",),
                       "per-site wall-clock budget across all attempts of "
                       "one call, seconds (0 = unlimited)"),
+    # -- checkpoints (checkpoint.py) -----------------------------------------
+    "ckpt_keep_last": (int, 0, ("MXNET_TPU_CKPT_KEEP_LAST",),
+                       "retention sweep after each save_train_state: keep "
+                       "the newest N committed checkpoints (0 = keep all)"),
+    "ckpt_sharded": (bool, False, ("MXNET_TPU_CKPT_SHARDED",),
+                     "force the world-size-agnostic npz-shards checkpoint "
+                     "format (not ported yet: True raises MXNetError)"),
     # -- serving resilience (inference/batcher.py, resilience/serving.py) ----
     "serve_default_deadline": (float, 0.0, ("MXNET_TPU_SERVE_DEADLINE",),
                                "default per-request deadline in seconds "

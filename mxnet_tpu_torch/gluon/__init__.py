@@ -4,10 +4,11 @@ from . import parameter
 from .parameter import Constant, Parameter, ParameterDict
 from . import block
 from .block import Block, HybridBlock, SymbolBlock
-from . import loss, nn
+from . import data, loss, nn
 from . import trainer
 from .trainer import Trainer
 
 __all__ = ["parameter", "Constant", "Parameter", "ParameterDict", "block",
-           "Block", "HybridBlock", "SymbolBlock", "loss", "nn", "trainer",
+           "Block", "HybridBlock", "SymbolBlock", "data", "loss", "nn",
+           "trainer",
            "Trainer"]

@@ -13,9 +13,14 @@ kernel writes into the parameters' own storage).
 
 One device, no kvstore: ``kvstore`` ``"device"``/``"local"``/None are
 accepted and ``allreduce_grads`` does nothing; a ``dist_*`` kvstore
-raises until the multi-device slice. ``Trainer.run``,
-``install_preemption``, ``attach_monitor`` and row-sparse gradients are
-not ported.
+raises until the multi-device slice. Row-sparse gradients are not ported.
+
+:meth:`Trainer.run` is the compiled route (the JAX ``Trainer.run``): it
+builds and caches a ``parallel.TrainStep`` over the same optimizer and
+runs ``TrainStep.run`` (one CUDA graph a window of steps), seeded from and
+written back to this trainer's states, so ``step()`` and ``run()``
+interleave. ``install_preemption`` and ``attach_monitor`` act at every
+``step()`` and at the end of every ``run()``.
 
 ``save_states`` writes a pickle of numpy states in the JAX package's
 layout (``{"states": [...], "num_update": n, "index_update_count": {...}}``,
@@ -47,6 +52,12 @@ def _tree_map(fn, tree):
     if tree is None:
         return None
     return fn(tree)
+
+
+def _leaves(state):
+    if state is None:
+        return []
+    return list(state) if isinstance(state, (tuple, list)) else [state]
 
 
 def _to_numpy(t):
@@ -85,6 +96,17 @@ class Trainer:
         self._states_created = [False] * len(self._params)
         self._scale = self._optimizer.rescale_grad
         self._kvstore = kvstore
+        # graceful preemption: set by install_preemption
+        self._preempt_guard = None
+        self._preempt_save = None
+        self._preempt_exit = True
+        self._preempt_saved = False
+        self._monitors = []  # run around every step()
+        # run()'s TrainStep, cached with its signature
+        self._fused = None
+        # float16 overflow skips of every TrainStep run() built: num_update
+        # counts attempted steps, so the applied count is num_update - this
+        self._amp_compiled_skips = 0
 
     @property
     def optimizer(self):
@@ -111,20 +133,161 @@ class Trainer:
     def allreduce_grads(self):
         """Nothing to reduce on one device."""
 
+    def attach_monitor(self, mon):
+        """Register a :class:`~mxnet_tpu_torch.monitor.Monitor` whose
+        tic/toc run around every ``step()`` (the wiring ``Monitor.install
+        (net, trainer=...)`` performs)."""
+        self._monitors.append(mon)
+        return mon
+
     def step(self, batch_size, ignore_stale_grad=False):
         """One update from the current gradients, each divided by
         ``batch_size``. Under float16 AMP (``contrib.amp.init_trainer``) a
         step whose gradients overflowed is skipped and the loss scale
         shrinks."""
+        for m in self._monitors:
+            m.tic()
         self._optimizer.rescale_grad = self._scale / batch_size
         self.allreduce_grads()
         scaler = getattr(self, "_amp_loss_scaler", None)
+        skip = False
         if scaler is not None and scaler.enabled:
             skip = scaler.has_overflow(self._params)
             scaler.update_scale(skip)
-            if skip:
-                return
-        self._update(ignore_stale_grad)
+        if not skip:
+            self._update(ignore_stale_grad)
+        for m in self._monitors:
+            m.toc_print()
+        self._check_preemption()
+
+    # -- graceful preemption --------------------------------------------------
+    def install_preemption(self, save_fn, guard=None, exit_on_preempt=True):
+        """SIGTERM/SIGINT -> run ``save_fn()`` (the caller's checkpoint
+        action, e.g. ``lambda: (net.save_parameters(p),
+        trainer.save_states(s))``) at the next completed ``step()`` or
+        ``run()``, then raise :class:`~mxnet_tpu_torch.resilience.Preempted`
+        (``SystemExit(0)``). Returns the installed guard."""
+        from ..resilience.preemption import PreemptionGuard
+
+        self._preempt_guard = (guard or PreemptionGuard()).install()
+        self._preempt_save = save_fn
+        self._preempt_exit = exit_on_preempt
+        self._preempt_saved = False  # re-arm the one-shot save on reinstall
+        return self._preempt_guard
+
+    def _check_preemption(self):
+        g = self._preempt_guard
+        if g is None or not g.requested:
+            return
+        from ..resilience.preemption import Preempted
+
+        # one-shot: with exit_on_preempt=False the caller's loop may run
+        # more steps before winding down
+        if self._preempt_save is not None and not self._preempt_saved:
+            self._preempt_save()
+            self._preempt_saved = True
+        if self._preempt_exit:
+            raise Preempted(g.signum)
+
+    # -- the compiled route ---------------------------------------------------
+    def run(self, net, loss_fn, data_iter, steps=None, window=None,
+            accum=None, mesh=None, rules=None, layout=None,
+            n_model_inputs=1, amp="auto"):
+        """Train ``steps`` steps in windows of ``window`` through a
+        ``parallel.TrainStep`` over this trainer's optimizer (built for
+        ``(net, loss_fn, n_model_inputs, amp)`` and cached): one captured
+        CUDA graph and at most one host sync per window (``TrainStep.run``,
+        whose arguments these are).
+
+        Before every call the step is seeded from the imperative side: each
+        parameter's optimizer state (a ``multi_precision`` state
+        ``{"master", "base"}`` gives the step its base as the moments and
+        its master as the step's f32 master), and Adam's t from the applied
+        update count. Afterwards, also when the run raises (a source error,
+        ``Preempted``), the states, the per-index update counts and the
+        float16 skip count are written back, the states being the step's
+        own tensors from then on: ``step()`` and ``run()`` interleave.
+
+        Returns the per-step losses as one device tensor.
+        ``mesh=``/``rules=``/``layout=`` are not ported yet and raise.
+        """
+        from ..contrib.amp import resolve_policy
+        from ..parallel.train_step import TrainStep
+
+        if mesh is not None or rules is not None or layout is not None:
+            raise MXNetError("Trainer.run(mesh=/rules=/layout=) is not "
+                             "ported yet: the port trains on one device")
+        policy = resolve_policy(amp)
+        sig = (net, loss_fn, n_model_inputs, policy)
+        ts = None
+        if self._fused is not None and all(
+                a is b or a == b for a, b in zip(self._fused[0], sig)):
+            ts = self._fused[1]
+        if ts is None:
+            self._ensure_states()
+            ts = TrainStep(net, loss_fn, self._optimizer,
+                           n_model_inputs=n_model_inputs, amp=policy)
+            self._fused = (sig, ts)
+        by_var = {id(p): name for _, name, p in ts._train}
+        names = [by_var.get(id(p._var)) for p in self._params]
+        self._seed(ts, names)
+        skipped = ts.amp_skipped_steps if ts.amp_state is not None else 0
+        counts = self._optimizer._index_update_count
+        applied = max(max(counts.values(), default=0),
+                      self._optimizer.num_update - self._amp_compiled_skips)
+        ts.step_count.fill_(applied)
+        before = self._optimizer.num_update
+        try:
+            losses = ts.run(data_iter, steps, window=window, accum=accum)
+        finally:
+            # the per-index counters advance by the steps APPLIED: a later
+            # step() reads Adam's t from them, and a float16 skip holds t
+            ran = self._optimizer.num_update - before
+            if ts.amp_state is not None:
+                new_skips = ts.amp_skipped_steps - skipped
+                self._amp_compiled_skips += new_skips
+                ran -= new_skips
+            for i in range(len(self._params)):
+                counts[i] = counts.get(i, 0) + ran
+            for i, name in enumerate(names):
+                if name is None:
+                    continue
+                st = ts.opt_state[name]
+                master = ts._master.get(name)
+                self._states[i] = st if master is None else \
+                    {"master": master, "base": st}
+                self._states_created[i] = True
+        self._check_preemption()
+        return losses
+
+    def _seed(self, ts, names):
+        """Write this trainer's states into the step's own tensors (a
+        state that already is the step's tensor stays as it is), which
+        become this trainer's states at once: the old ones are freed
+        before the run."""
+        with torch.no_grad():
+            for i, name in enumerate(names):
+                if name is None or not self._states_created[i] or \
+                        self._states[i] is None:
+                    continue
+                st = self._states[i]
+                if isinstance(st, dict) and "master" in st:
+                    master = ts._master.get(name)
+                    if master is not None:
+                        if master is not st["master"]:
+                            master.copy_(st["master"])
+                        # the master is current: the step must not cast it
+                        # again from the parameter the imperative update
+                        # wrote
+                        ts._stamps[name] = ts._stamp(self._params[i]._var)
+                    st = st["base"]
+                dst = ts.opt_state[name]
+                for d, s in zip(_leaves(dst), _leaves(st)):
+                    if d is not s:
+                        d.copy_(s)
+                master = ts._master.get(name)
+                self._states[i] = dst if master is None else \
+                    {"master": master, "base": dst}
 
     def update(self, batch_size, ignore_stale_grad=False):
         self.step(batch_size, ignore_stale_grad)

@@ -15,10 +15,15 @@ Two failure flavours:
     mid-operation. It deliberately does NOT derive from ``Exception`` so no
     retry/except block can swallow it.
 
-The port's sites (the serving slice; the JAX package's checkpoint, DCN and
-data sites come with the slices that port those paths):
+The port's sites (the JAX package's DCN and kvstore sites come with the
+slices that port those paths):
 
   ======================  ====================================================
+  ``ckpt.save``           inside ``save_train_state`` — after the array data
+                          is written, before the manifest/commit rename
+                          (a crash there leaves a torn ``ckpt-N.tmp``)
+  ``ckpt.load``           inside ``load_train_state`` — before reading arrays
+  ``data.batch``          one DataLoader batch fetch/batchify
   ``gen.prefill``         ``GenerationEngine.prefill`` — before any page
                           allocation or dispatch, so a retried admission
                           replays cleanly (``ContinuousBatcher`` wraps it

@@ -4,7 +4,8 @@
 The sites worth retrying are the fault sites of ``resilience.faults``: in
 the port, the serving dispatches (``gen.prefill``, ``gen.decode``,
 ``gen.verify``), which the batcher and the engine run under
-:func:`retry_call`.
+:func:`retry_call`, the checkpoint reads and writes (``ckpt.save``,
+``ckpt.load``) and the DataLoader's batch fetch (``data.batch``).
 
 **What is never retried.** The JAX ``retry_call`` retries any
 ``Exception`` whose class does not set ``retryable = False``. On the card

@@ -181,3 +181,41 @@ def test_default_context_is_the_card(monkeypatch):
         mt.nd.ones((2,))
     with pytest.raises(MXNetError, match="CUDA is not available"):
         mt.gluon.nn.Dense(2, in_units=2)
+
+
+#: the modules of the training-loop slice, imported by name
+LOOP_MODULES = (
+    "mxnet_tpu_torch.checkpoint", "mxnet_tpu_torch.monitor",
+    "mxnet_tpu_torch.io", "mxnet_tpu_torch.io.io",
+    "mxnet_tpu_torch.io.prefetch", "mxnet_tpu_torch.gluon.data",
+    "mxnet_tpu_torch.gluon.data.dataset", "mxnet_tpu_torch.gluon.data.sampler",
+    "mxnet_tpu_torch.gluon.data.dataloader",
+    "mxnet_tpu_torch.resilience.integrity",
+    "mxnet_tpu_torch.resilience.preemption",
+    "mxnet_tpu_torch.parallel.train_step")
+
+
+def test_loop_modules_import_no_jax(tmp_path):
+    """The training loop's modules, and a CPU run through them (a
+    DataLoader through ``TrainStep.run`` in windows, a checkpoint saved and
+    restored, ``Trainer.run``), pull in no JAX module."""
+    code = ("import sys, importlib, numpy as np, torch, mxnet_tpu_torch as mx; "
+            f"[importlib.import_module(m) for m in {LOOP_MODULES!r}]; "
+            "assert all(hasattr(mx, n) for n in ('io', 'mon', 'monitor', "
+            "'checkpoint', 'Monitor')) and hasattr(mx.gluon, 'data'); "
+            "net = torch.nn.Linear(3, 2); "
+            "ds = mx.gluon.data.ArrayDataset(np.ones((8, 3), np.float32), "
+            "np.zeros((8, 2), np.float32)); "
+            "dl = mx.gluon.data.DataLoader(ds, batch_size=2); "
+            "ts = mx.TrainStep(net, lambda o, y: ((o - y) ** 2).mean(), "
+            "mx.optimizer.Adam()); "
+            "assert ts.run(dl, steps=4, window=2).shape == (4,); "
+            f"ts.save({str(tmp_path)!r}); assert ts.restore({str(tmp_path)!r}); "
+            "d = mx.gluon.nn.Dense(2, in_units=3, device='cpu'); d.initialize(); "
+            "t = mx.gluon.Trainer(d.collect_params(), 'sgd'); "
+            "t.run(d, lambda o, y: ((o - y) ** 2).mean(), dl, steps=2, "
+            "window=2); "
+            f"print(sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True, timeout=120)
+    assert out.stdout.strip() == "[]", out.stdout

@@ -8,6 +8,7 @@ card.
     python3 tools/torch_train_profile.py --model bert_large [--layers 24]
     python3 tools/torch_train_profile.py --gluon [--layers 24]
     python3 tools/torch_train_profile.py ... --engine-type naive graph graph naive
+    python3 tools/torch_train_profile.py --amp bfloat16 --window 8 [--accum 2]
 
 Trains gpt2_345m (``mxnet_tpu_torch``, B=4, T=1024, seeded random weights
 and batch, as ``chip_smoke.py``) for two warm-up steps: in f32 with
@@ -46,6 +47,13 @@ profiles each in turn in the same process, on the same net (a new engine
 or TrainStep for each), so that the two can be compared on one card.
 
     python3 tools/torch_train_profile.py --memory [--amp bfloat16] ...
+
+With ``--window K`` it profiles the training loop instead: the same
+TrainStep driven by ``TrainStep.run`` over a ``DevicePrefetcher`` of the
+fixed batch, one window program of K steps a call (``--accum A``: A
+microbatches of B=4/A a step, the same tokens a step), and, first, the
+one-step program of the same TrainStep settings beside it; every number
+is per step (a window's over K).
 
 With ``--memory`` it profiles nothing: after each of the first ``--steps``
 calls it prints the bytes allocated and reserved, their peaks in that call,
@@ -115,6 +123,11 @@ def main():
                          "multi_precision Adam)")
     ap.add_argument("--memory", action="store_true",
                     help="report memory per call instead of profiling")
+    ap.add_argument("--window", type=int, default=None,
+                    help="profile TrainStep.run windows of this many steps "
+                         "(and the one-step program beside them)")
+    ap.add_argument("--accum", type=int, default=1, choices=(1, 2, 4),
+                    help="with --window: microbatches a step")
     ap.add_argument("--engine-type", nargs="+", default=["graph"],
                     choices=("naive", "graph"),
                     help="step graphs or eager steps; several: in turns")
@@ -127,6 +140,9 @@ def main():
                        args.model != "gpt2_345m" or
                        args.engine_type != ["graph"]):
         ap.error("--gluon trains GPT-2 eagerly in bf16: no other mode")
+    if args.window and (args.decode or args.spec or args.gluon or
+                        args.memory or args.model != "gpt2_345m"):
+        ap.error("--window profiles GPT-2 TrainStep windows only")
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
     from mxnet_tpu_torch.models import get_bert, get_gpt2
 
@@ -141,14 +157,27 @@ def main():
         net = get_gpt2("gpt2_345m", dropout=0.0, device="cuda", seed=0,
                        num_layers=args.layers)
     for engine_type in args.engine_type:
-        (_memory if args.memory else _profile)(args, net, engine_type, card)
+        if args.window:  # the one-step program first, then the window's
+            _profile(args, net, engine_type, card)
+            torch.cuda.empty_cache()
+            _profile(args, net, engine_type, card, window=args.window)
+        else:
+            (_memory if args.memory else _profile)(args, net, engine_type,
+                                                   card)
         torch.cuda.empty_cache()
     if args.model == "bert_large" and not args.memory:
         _attention_profile(args, card)
 
 
-def _profile(args, net, engine_type, card):
-    step, what = _step(args, net, engine_type)
+def _profile(args, net, engine_type, card, window=None):
+    """``args.steps`` calls of the step (or, with ``window``, of a window
+    program: ``window`` steps a call), untraced and then traced; reported
+    per step."""
+    if window:
+        step, what = _window_step(args, net, engine_type, window)
+    else:
+        step, what = _step(args, net, engine_type)
+    per = window or 1
     # under "graph" the first call warms up and the second captures
     for _ in range(2):
         step()
@@ -159,7 +188,7 @@ def _profile(args, net, engine_type, card):
     for _ in range(args.steps):
         step()
     torch.cuda.synchronize()
-    plain_wall = (time.perf_counter() - t) / args.steps
+    plain_wall = (time.perf_counter() - t) / (args.steps * per)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -167,8 +196,8 @@ def _profile(args, net, engine_type, card):
         for _ in range(args.steps):
             step()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t) / args.steps
-    _report(card, what, args.steps, prof, wall, plain_wall)
+        wall = (time.perf_counter() - t) / (args.steps * per)
+    _report(card, what, args.steps * per, prof, wall, plain_wall)
 
 
 GIB = float(2 ** 30)
@@ -362,8 +391,8 @@ def _attention_profile(args, card, b=64, h=16, t=128, d=64):
             f"layers", args.steps, prof, None, None, scale=args.layers)
 
 
-def _train_step(args, net, rs, engine_type):
-    """One TrainStep call on chip_smoke.py's fixed batch, as a closure."""
+def _make_train_step(args, net, engine_type):
+    """chip_smoke.py's ``train`` (f32) or ``train_amp`` TrainStep."""
     from mxnet_tpu_torch import TrainStep
     from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
     from mxnet_tpu_torch.lr_scheduler import CosineScheduler
@@ -371,14 +400,39 @@ def _train_step(args, net, rs, engine_type):
     from mxnet_tpu_torch.optimizer import Adam
 
     if args.amp is None:
-        ts = TrainStep(net, lm_loss, Adam(learning_rate=1e-4), amp=None,
-                       engine_type=engine_type)
-    else:  # chip_smoke.py's amp_schedule()
-        ts = TrainStep(net, SoftmaxCrossEntropyLoss(), Adam(
-            learning_rate=1e-4, lr_scheduler=CosineScheduler(
-                max_update=1000, base_lr=1e-4, warmup_steps=4,
-                warmup_begin_lr=1e-5)),
-            amp=args.amp, engine_type=engine_type)
+        return TrainStep(net, lm_loss, Adam(learning_rate=1e-4), amp=None,
+                         engine_type=engine_type)
+    # chip_smoke.py's amp_schedule()
+    return TrainStep(net, SoftmaxCrossEntropyLoss(), Adam(
+        learning_rate=1e-4, lr_scheduler=CosineScheduler(
+            max_update=1000, base_lr=1e-4, warmup_steps=4,
+            warmup_begin_lr=1e-5)),
+        amp=args.amp, engine_type=engine_type)
+
+
+def _window_step(args, net, engine_type, window):
+    """One ``TrainStep.run`` window of ``window`` steps over a prefetcher
+    of the fixed batch (``args.accum`` microbatches a step), as a
+    closure."""
+    import itertools
+
+    from mxnet_tpu_torch.io.prefetch import DevicePrefetcher
+
+    ts = _make_train_step(args, net, engine_type)
+    micro = 4 // args.accum
+    ids = np.random.RandomState(0).randint(0, 50257, (micro, 1024)).astype(
+        np.int32)
+    pf = DevicePrefetcher(itertools.repeat((ids, np.roll(ids, -1, 1))),
+                          train_step=ts, window=window, accum=args.accum)
+    what = (f"gpt2_345m layers={args.layers} {args.amp or 'f32'}, "
+            f"TrainStep.run windows of {window} steps, accum {args.accum} "
+            f"at B={micro} T=1024, engine_type {engine_type}; per step")
+    return (lambda: ts.run(pf, steps=window)), what
+
+
+def _train_step(args, net, rs, engine_type):
+    """One TrainStep call on chip_smoke.py's fixed batch, as a closure."""
+    ts = _make_train_step(args, net, engine_type)
     ids_np = rs.randint(0, 50257, (4, 1024))
     ids = torch.from_numpy(ids_np.astype(np.int32)).cuda()
     labels = torch.from_numpy(np.roll(ids_np, -1, 1).astype(np.int32)).cuda()
