@@ -104,11 +104,27 @@ prints its last line):
      through a checkpoint; (f) ``gluon.Trainer.run`` over a ``DataLoader``
      on the ``gluon`` net, then one ``Trainer.step`` on the states it
      left; (g) a preemption request during window 1: one valid checkpoint
-     at the window boundary and ``Preempted``;
+     at the window boundary and ``Preempted``; then the vision path: the
+     port's f32 convolution (forward and both gradients) against f64 with
+     cuDNN's TF32 allowed around the call, at a limit one TF32 pass
+     fails; resnet50_v1 at full width (224x224, 1000 classes, MSRAPrelu,
+     SGD 0.1, momentum 0.9, wd 1e-4, examples/train_imagenet_resnet.py's
+     step) through TrainStep in f32 at B=64 and after
+     ``net.cast("bfloat16")`` at B=128, each naive, graph, graph, naive:
+     losses, weights, BatchNorm's moving statistics and momenta
+     bit-identical, every statistic moved, an inference call reading
+     them, the xent kernels once a step (a profiled replay too), ms a
+     step, images/s, MFU by the conv and dense shapes, peak memory; and
+     LeNet through ``autograd.record`` / ``gluon.Trainer("adam")``: 3
+     steps bit-identical to TrainStep naive, then 20 steps with a falling
+     loss, one Adam launch and the xent pair each;
   8. time each kernel, its plain version and a PyTorch library yardstick
      with CUDA events, on the device (CUDA graph replay) and per eager
      call, at the shapes the paths give them (the paged read also at the
-     verify's and the draft's shapes), and the launch floor
+     verify's and the draft's shapes; xent at the vision heads' (64,
+     1000) f32, (128, 1000) bf16 and (64, 10) f32 and Adam over LeNet's
+     10 tensors; BatchNorm's composition beside ``F.batch_norm`` at
+     (B, 64, 112, 112)), and the launch floor
      (``EMPTY_CU``, a kernel that does nothing on the grid and block of
      the route LayerNorm's forward takes, built here);
   9. print the kernel table as one JSON line, then the result line.
@@ -960,9 +976,11 @@ def phase_adam_amp(errs):
 
 
 # (N, C) of the xent checks: the LM head of the train_amp phase (B·T =
-# 4096, vocab 50257), one row, ragged small shapes, and a row wider than
-# the TPU kernel's 65536 cap
-XENT_CASES = [(4096, 50257), (1, 50257), (9, 50), (300, 128), (7, 70000)]
+# 4096, vocab 50257), one row, ragged small shapes, a row wider than the
+# TPU kernel's 65536 cap, and the vision heads: ResNet-50's at B=64 and
+# B=128 (1000 classes), LeNet's (64, 10)
+XENT_CASES = [(4096, 50257), (1, 50257), (9, 50), (300, 128), (7, 70000),
+              (64, 1000), (128, 1000), (64, 10)]
 
 
 def _xent_inputs(gen, n, c, dtype, dev, special=False):
@@ -1022,6 +1040,14 @@ def phase_xent_kernels(errs):
             atol = (XENT_BWD_ATOL / c) * g[rows, None]
             errs["xent_bwd"] = max(errs["xent_bwd"], check_close(
                 "xent_bwd", dtype, dx[rows], rdx[rows], f"dx {what}", atol))
+            # each case's own errors, for the rows of other paths' shapes
+            errs[f"xent_fwd {dn} ({n}, {c})"] = max(
+                check_close("xent_fwd", dtype, loss[rows], rloss[rows],
+                            f"loss {what}"),
+                check_close("xent_fwd", dtype, lse[rows], rlse[rows],
+                            f"lse {what}"))
+            errs[f"xent_bwd {dn} ({n}, {c})"] = check_close(
+                "xent_bwd", dtype, dx[rows], rdx[rows], f"dx {what}", atol)
             del x, dx, rdx
 
 
@@ -2544,6 +2570,495 @@ def phase_train_loop(card):
         ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     log("[train_loop] " + json.dumps(res))
     return launches, res
+
+
+# ---------------------------------------------------------------------------
+# The vision path: resnet50_v1 at full width (224x224, 1000 classes) through
+# TrainStep as examples/train_imagenet_resnet.py:67-77 trains it, and LeNet
+# through record / backward / gluon.Trainer("adam")
+RESNET_TURNS = (("float32", 64), ("bfloat16", 128))
+RESNET_LR = dict(learning_rate=0.1, momentum=0.9, wd=1e-4)
+# what a ResNet step launches of the port's kernels: the xent pair only
+# (convolution, pooling and BatchNorm are cuDNN and plain compositions, as
+# the JAX package leaves them to XLA)
+VISION_WANT = {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0,
+               "adam": 0, "layernorm": 0, "layernorm_bwd": 0,
+               "layernorm_bwd_merge": 0, "paged_attention": 0,
+               "paged_attention_prefill": 0, "xent_fwd": 1, "xent_bwd": 1}
+# an f32 convolution against f64 on the card, as a share of the largest
+# |f64| value: one TF32 pass (operands rounded to 10 mantissa bits) errs by
+# ~2.6e-4 to 3.4e-4 here; the forward and the input gradient (sums of 576
+# or 256 products) by ~1e-6 in f32, the weight gradient (sums of 50176 or
+# 12544, cuDNN's deterministic FFT algorithm at the 3x3 shape) by 3.6e-5
+# (measured on an H100)
+CONV_F64_RTOL = {"forward": 2e-5, "input gradient": 2e-5,
+                 "weight gradient": 1e-4}
+LENET_B, LENET_STEPS, LENET_LR = 64, 20, 2e-3
+# a LeNet step: the xent pair and one Adam launch over its 10 tensors
+LENET_WANT = dict(VISION_WANT, adam=1)
+
+
+def _tf32(t):
+    """``t`` (f64) rounded to TF32 as the tensor cores read an f32 operand
+    (mantissa cut to 10 bits, to nearest)."""
+    f = t.float().contiguous().view(torch.int32)
+    f = (f + 0x1000) & ~0x1FFF
+    return f.view(torch.float32).double()
+
+
+def _conv_f64(conv, x, w, g):
+    """``conv(x, w)`` and its input and weight gradients for the cotangent
+    ``g``, all in f64."""
+    x, w = x.clone().requires_grad_(), w.clone().requires_grad_()
+    out = conv(x, w)
+    dx, dw = torch.autograd.grad(out, (x, w), g)
+    return out.detach(), dx, dw
+
+
+def phase_conv_precision():
+    """The port's f32 convolution (forward, input and weight gradients) at
+    two ResNet-50 shapes against the same in f64 on the card, with
+    ``torch.backends.cudnn.allow_tf32`` True (PyTorch's default) around the
+    call: each error within CONV_F64_RTOL of the largest |f64| value, a
+    limit that one TF32 pass (the operands rounded to TF32, then f64) must
+    fail. cuDNN's own TF32 error at the same call is printed beside it.
+    Every case is measured and printed before any failure is raised."""
+    from mxnet_tpu_torch.ops import nn as tnn
+
+    F = torch.nn.functional
+    gen = torch.Generator().manual_seed(21)
+    res, failures = {}, []
+    for xs, ws, kw in (((16, 64, 56, 56), (64, 64, 3, 3), dict(pad=(1, 1))),
+                       ((16, 256, 28, 28), (512, 256, 1, 1),
+                        dict(stride=(2, 2)))):
+        x = torch.randn(xs, generator=gen).cuda()
+        w = (torch.randn(ws, generator=gen) * 0.05).cuda()
+        stride, pad = kw.get("stride", (1, 1)), kw.get("pad", (0, 0))
+        saved = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+            out = tnn.convolution(xg, wg, stride=stride, pad=pad)
+            g = torch.randn(out.shape, generator=gen).cuda()
+            dx, dw = torch.autograd.grad(out, (xg, wg), g)
+            cudnn_tf32 = F.conv2d(x, w, stride=stride, padding=pad)
+        finally:
+            torch.backends.cudnn.allow_tf32 = saved
+        conv = lambda a, b: F.conv2d(a, b, stride=stride,  # noqa: E731
+                                     padding=pad)
+        xd, wd_, gd = (t.double() for t in (x, w, g))
+        ref, rdx, rdw = _conv_f64(conv, xd, wd_, gd)
+        # one TF32 pass: the operands of each product rounded to TF32
+        tf32, rtx, rtw = _conv_f64(conv, _tf32(xd), _tf32(wd_), _tf32(gd))
+        shape = f"x {xs} w {ws} {kw}"
+        for what, got, want, tf in (("forward", out, ref, tf32),
+                                    ("input gradient", dx, rdx, rtx),
+                                    ("weight gradient", dw, rdw, rtw)):
+            scale = want.abs().max().item()
+            err = (got.double() - want).abs().max().item() / scale
+            tf_err = (tf - want).abs().max().item() / scale
+            res[f"{shape} {what}"] = {"err": err, "tf32_pass_err": tf_err}
+            if what == "forward":
+                res[f"{shape} {what}"]["cudnn_tf32_err"] = (
+                    cudnn_tf32.double() - want).abs().max().item() / scale
+            limit = CONV_F64_RTOL[what]
+            if err > limit or tf_err <= limit:
+                failures.append(f"{shape} {what}: error {err:.3e} of the "
+                                f"largest |f64| value (limit {limit}); one "
+                                f"TF32 pass {tf_err:.3e} must exceed it")
+        del x, w, xg, wg, out, g, dx, dw, xd, wd_, gd, ref, rdx, rdw, tf32
+    log(f"[conv f32] against f64 with cudnn.allow_tf32 on, errors over the "
+        f"largest |f64| value (limits {CONV_F64_RTOL}; a TF32 pass fails "
+        f"them): " + json.dumps({k: {a: f"{b:.2e}" for a, b in v.items()}
+                                 for k, v in res.items()}))
+    if failures:
+        raise AssertionError("conv f32: " + "; ".join(failures))
+    return res
+
+
+def _vision_flops(net, x):
+    """Multiply-adds of one image's forward, counted from the convolution
+    and dense shapes by forward hooks during one inference call on ``x``:
+    ``(total, first conv's)``. A training step does the forward, the
+    weight gradients (as many) and the input gradients (as many, less the
+    first convolution's, whose input needs none): 2 operations a
+    multiply-add."""
+    from mxnet_tpu_torch.gluon.nn import Dense
+    from mxnet_tpu_torch.gluon.nn.conv_layers import _Conv
+
+    macs = []
+
+    def hook(mod, inp, out):
+        w = mod._parameters["weight"]
+        per_out = w[0].numel() if isinstance(mod, _Conv) else w.shape[1]
+        macs.append(out[0].numel() * per_out)
+
+    mods = [m for m in net.modules() if isinstance(m, (_Conv, Dense))]
+    handles = [m.register_forward_hook(hook) for m in mods]
+    try:
+        import mxnet_tpu_torch as mx
+
+        net(mx.nd.array(x[:1]))
+    finally:
+        for h in handles:
+            h.remove()
+    return sum(macs), macs[0]
+
+
+def _resnet_net(dtype, batch):
+    """resnet50_v1 (classes 1000) on the card, MSRAPrelu weights from seed
+    0, its shapes resolved by one inference call, cast to ``dtype``; the
+    example's synthetic batch (``rs.rand`` images, ``randint`` labels,
+    seed 0); a copy of the initial parameters, running statistics
+    included; and the training flops of a step."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.vision import get_model
+
+    t0 = time.perf_counter()
+    mx.random.seed(0)
+    net = get_model("resnet50_v1", classes=1000)
+    net.initialize(mx.init.MSRAPrelu())
+    rs = np.random.RandomState(0)
+    x = torch.from_numpy(rs.rand(batch, 3, 224, 224).astype(np.float32))
+    y = torch.from_numpy(rs.randint(0, 1000, batch).astype(np.int32))
+    x, y = x.cuda(), y.cuda()
+    macs, macs0 = _vision_flops(net, x)
+    if dtype == "bfloat16":
+        net.cast("bfloat16")
+        x = x.to(torch.bfloat16)
+        for k, p in net.collect_params().items():
+            want = torch.float32 if "batchnorm" in k else torch.bfloat16
+            if p.var().dtype != want:
+                raise AssertionError(f"resnet cast: {k} is {p.var().dtype}")
+    init = [p.detach().clone() for _, p in sorted(net.named_parameters())]
+    flops = 2 * (3 * macs - macs0) * batch
+    log(f"[resnet] resnet50_v1 {dtype} B={batch}: {len(init)} parameters "
+        f"({sum(p.numel() for p in init)} elements), built in "
+        f"{time.perf_counter() - t0:.1f}s; a forward {macs / 1e9:.4f} G "
+        f"multiply-adds an image, a training step {flops / 1e12:.4f} "
+        f"TFLOP (2 a multiply-add; tools/modelbench.py counts 3 x 4.09e9 "
+        f"an image, a multiply-add as one: {3 * 4.09e9 * batch / 1e12:.4f})")
+    return net, init, (x, y), flops
+
+
+def _resnet_step(net, engine_type):
+    from mxnet_tpu_torch import TrainStep
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.optimizer import SGD
+
+    return TrainStep(net, SoftmaxCrossEntropyLoss(), SGD(**RESNET_LR),
+                     engine_type=engine_type)
+
+
+def phase_resnet_run(net, init, batch, flops, dtype, engine_type, warmup=2,
+                     steps=10):
+    """``warmup`` + ``steps`` TrainStep calls of resnet50_v1 on the fixed
+    batch from the weights ``init``, the launch counts read around each
+    call and held to VISION_WANT (the xent kernels once each); every loss
+    finite; one program. Returns the launches, the metrics (ms a step,
+    images/s, MFU over the peak for ``dtype``, peak memory) and the final
+    state (weights, moving statistics, momenta, masters; in host
+    memory)."""
+    name = f"resnet {dtype} {engine_type}"
+    _restore(net, init)
+    ts = _resnet_step(net, engine_type)
+    if any("running" in n for n in ts._low) or \
+            any(p.requires_grad for n, p in ts._plist if "running" in n):
+        raise AssertionError(f"{name}: a moving statistic is trained or "
+                             f"has a low-precision copy")
+    total = dict.fromkeys(VISION_WANT, 0)
+    losses = []
+    torch.cuda.synchronize()
+    _release()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    for i in range(warmup + steps):
+        if i == warmup:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+        before = _launch_counts()
+        losses.append(ts(*batch))
+        got = {k: v - before[k] for k, v in _launch_counts().items()}
+        if got != VISION_WANT:
+            raise AssertionError(f"{name} step {i}: launches {got}, "
+                                 f"expected {VISION_WANT}")
+        for k in total:
+            total[k] += got[k]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    losses = [float(v) for v in losses]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{name} losses {losses}: not finite")
+    if ts.compiled_programs != 1:
+        raise AssertionError(f"{name}: {ts.compiled_programs} programs")
+    b = batch[0].shape[0]
+    peak_flops = BF16_TC_FLOPS_PER_S if dtype == "bfloat16" else \
+        F32_FLOPS_PER_S
+    ms = wall / steps * 1e3
+    res = {"engine_type": engine_type, "dtype": dtype, "batch": b,
+           "ms_per_step": ms, "images_per_s": b * steps / wall,
+           "mfu": flops / (ms / 1e3) / peak_flops,
+           "mfu_peak_tflops": peak_flops / 1e12, "flops_per_step": flops,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
+           "losses": losses, "steps": steps, "warmup": warmup}
+    log(f"[{name}] losses {['%.4f' % v for v in losses]}")
+    log(f"[{name}] {steps} timed steps: {ms:.2f} ms/step, "
+        f"{res['images_per_s']:.1f} images/s, MFU {res['mfu']:.4f} of "
+        f"{peak_flops / 1e12:.0f} TFLOP/s, peak memory "
+        f"{res['peak_bytes'] / 2**30:.2f} GiB (reserved "
+        f"{res['peak_reserved_bytes'] / 2**30:.2f}); launches per step "
+        f"{ {k: v for k, v in VISION_WANT.items() if v} }")
+    state = _state(ts, host=True)
+    if engine_type == "graph":
+        (prog, _, _), = ts._programs.values()
+        check_replay_launches(prog, f"{name} step graph")
+    del ts
+    _release()
+    return total, res, state
+
+
+def _check_eval_reads_statistics(net, x, what):
+    """An inference call (NDArrays outside ``record``) normalizes with the
+    moving statistics: its output changes when they are set to their
+    initial values, and it leaves them as they were."""
+    import mxnet_tpu_torch as mx
+
+    stats = {k: p.var() for k, p in net.collect_params().items()
+             if p.is_state}
+    held = {k: v.clone() for k, v in stats.items()}
+    with torch.no_grad():
+        out = net(mx.nd.array(x))._data.float()
+        for k, v in stats.items():
+            v.fill_(0.0 if k.endswith("running_mean") else 1.0)
+        fresh = net(mx.nd.array(x))._data.float()
+        for k, v in stats.items():
+            v.copy_(held[k])
+        again = net(mx.nd.array(x))._data.float()
+    if torch.equal(out, fresh) or not torch.equal(out, again) or \
+            not torch.isfinite(out).all():
+        raise AssertionError(f"{what}: the inference call does not read "
+                             f"the moving statistics")
+    if any(not torch.equal(v, held[k]) for k, v in stats.items()):
+        raise AssertionError(f"{what}: an inference call moved the "
+                             f"statistics")
+    log(f"[{what}] an inference call of {tuple(x.shape)} reads the moving "
+        f"statistics (max |out - out with initial statistics| "
+        f"{(out - fresh).abs().max().item():.3e}) and leaves them")
+
+
+def phase_resnet():
+    """resnet50_v1 at full width through TrainStep, two turns: f32 at
+    B=64 (the example's default) and ``net.cast("bfloat16")`` at B=128
+    (tools/modelbench.py:60,70-76: bf16 weights trained through
+    TrainStep's f32 masters, BatchNorm's parameters f32), each naive,
+    graph, graph, naive from the same start. Each turn: losses, weights,
+    moving statistics and momenta bit-identical across its four runs
+    (``_turns``); every moving statistic moved; an inference call reads
+    them; the xent kernels launched once each a step, confirmed on a
+    profiled replay. Returns the launches of each turn's first graph run
+    and the metrics."""
+    launches, runs = {}, {}
+    for dtype, batch in RESNET_TURNS:
+        net, init, data, flops = _resnet_net(dtype, batch)
+        names = [n for n, _ in sorted(net.named_parameters())]
+        key = "resnet" if dtype == "float32" else "resnet_bf16"
+        launches[key], runs[key] = _turns(
+            f"resnet {dtype}", lambda mode: phase_resnet_run(
+                net, init, data, flops, dtype, mode))
+        moved = [n for n, p, w in zip(names, (p for _, p in sorted(
+            net.named_parameters())), init) if "running" in n and
+                 not torch.equal(p, w)]
+        n_stats = sum("running" in n for n in names)
+        if len(moved) != n_stats:
+            raise AssertionError(f"resnet {dtype}: {len(moved)} of "
+                                 f"{n_stats} moving statistics moved")
+        log(f"[resnet {dtype}] all {n_stats} moving statistics moved "
+            f"(f32: {all(p.dtype == torch.float32 for n, p in net.named_parameters() if 'running' in n)})")
+        _check_eval_reads_statistics(net, data[0][:8], f"resnet {dtype}")
+        del net, init, data
+        _release()
+    return launches, runs
+
+
+def _lenet_data(n_batches=4):
+    """Seeded (LENET_B, 1, 28, 28) batches of a learnable task: each image
+    is its class's fixed pattern plus noise."""
+    rs = np.random.RandomState(0)
+    patterns = rs.rand(10, 1, 28, 28).astype(np.float32)
+    out = []
+    for _ in range(n_batches):
+        y = rs.randint(0, 10, LENET_B).astype(np.int32)
+        x = patterns[y] + 0.5 * rs.rand(LENET_B, 1, 28, 28).astype(
+            np.float32)
+        out.append((torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()))
+    return out
+
+
+def _lenet_net(mx, init=None):
+    from mxnet_tpu_torch.gluon.model_zoo.vision import get_model
+
+    mx.random.seed(0)
+    net = get_model("lenet")
+    net.initialize(mx.init.Xavier())
+    net.hybridize()
+    net(mx.nd.array(torch.zeros(1, 1, 28, 28).cuda()))
+    if init is not None:
+        _restore(net, init)
+    return net
+
+
+def phase_lenet():
+    """LeNet (``model_zoo/vision/lenet.py``), hybridized, through
+    ``autograd.record()`` + ``loss.backward()`` +
+    ``gluon.Trainer(net.collect_params(), "adam")``.step on seeded (64, 1,
+    28, 28) batches: (a) 3 steps bit-identical (losses, weights, Adam
+    moments) to ``TrainStep(engine_type="naive")`` with the same loss and
+    optimizer from the same weights (B=64: the Trainer's 1/B and the mean's
+    differ by a power of two); (b) LENET_STEPS steps, each launching the
+    Adam kernel once over the 10 tensors and the xent pair at (64, 10),
+    the loss falling. Returns the launches of (b) and the metrics."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import TrainStep
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.optimizer import Adam
+
+    data = _lenet_data()
+    net0 = _lenet_net(mx)
+    init = [p.detach().clone() for _, p in sorted(net0.named_parameters())]
+    if len(init) != 10:
+        raise AssertionError(f"lenet: {len(init)} parameters")
+    tnet = _lenet_net(mx, init)
+    ts = TrainStep(tnet, SoftmaxCrossEntropyLoss(),
+                   Adam(learning_rate=LENET_LR), engine_type="naive")
+    ts_losses = [float(ts(*data[i % len(data)])) for i in range(3)]
+    inet = _lenet_net(mx, init)
+    trainer = mx.gluon.Trainer(inet.collect_params(), "adam",
+                               {"learning_rate": LENET_LR})
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    nd = [(mx.nd.array(x), mx.nd.array(y)) for x, y in data]
+    im_losses = [float(_gluon_step(mx, inet, trainer, loss_fn,
+                                   *nd[i % len(nd)])) for i in range(3)]
+    by_var = {id(p.var()): st for p, st in zip(trainer._params,
+                                                trainer._states)}
+    diff = [name for (name, a), (_, b) in zip(sorted(inet.named_parameters()),
+                                              sorted(tnet.named_parameters()))
+            if not torch.equal(a, b) or not all(
+                torch.equal(u, v) for u, v in zip(by_var[id(a)],
+                                                  ts.opt_state[name]))]
+    log(f"[lenet f32] 3 steps at lr {LENET_LR}: losses record/backward/"
+        f"Trainer.step {im_losses} / TrainStep naive {ts_losses}; weights "
+        f"or Adam moments that differ: {diff or 'none'}")
+    if im_losses != ts_losses or diff:
+        raise AssertionError("lenet: the imperative steps are not "
+                             "bit-identical to TrainStep naive")
+    del tnet, ts, inet, trainer, by_var
+    # (b) the timed loop
+    net = _lenet_net(mx, init)
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                               {"learning_rate": LENET_LR})
+    want = LENET_WANT
+    total = dict.fromkeys(want, 0)
+    losses = []
+    torch.cuda.synchronize()
+    _reset_launch_counts()
+    t = time.perf_counter()
+    for i in range(LENET_STEPS):
+        before = _launch_counts()
+        losses.append(_gluon_step(mx, net, trainer, loss_fn,
+                                  *nd[i % len(nd)]))
+        got = {k: v - before[k] for k, v in _launch_counts().items()}
+        if got != want:
+            raise AssertionError(f"lenet step {i}: launches {got}, "
+                                 f"expected {want}")
+        for k in total:
+            total[k] += got[k]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    losses = [float(v) for v in losses]
+    first, last = np.mean(losses[:4]), np.mean(losses[-4:])
+    if not all(np.isfinite(losses)) or not last < 0.7 * first:
+        raise AssertionError(f"lenet losses {losses}: not falling")
+    res = {"ms_per_step": wall / LENET_STEPS * 1e3,
+           "images_per_s": LENET_B * LENET_STEPS / wall, "losses": losses,
+           "steps": LENET_STEPS, "parity_losses": im_losses}
+    log(f"[lenet] {LENET_STEPS} steps (eager, including the first): "
+        f"{res['ms_per_step']:.2f} ms/step, {res['images_per_s']:.0f} "
+        f"images/s; losses {['%.4f' % v for v in losses]}; launches per "
+        f"step { {k: v for k, v in want.items() if v} }")
+    del net, trainer
+    _release()
+    return total, res
+
+
+def phase_vision_timing():
+    """The xent kernels at the vision paths' shapes, (64, 1000) f32 and
+    (128, 1000) bf16 (ResNet-50's head) and (64, 10) f32 (LeNet's), and the
+    Adam kernel over LeNet's 10 tensors, each beside its plain version and
+    the library call (``_xent_rows``, ``_adam_row``); then BatchNorm at
+    ResNet-50's largest shape, (B, 64, 112, 112) (the first convolution's
+    output; stage 1's (B, 256, 56, 56) is as large), in training, forward
+    and backward: the port's composition (``ops.nn.batch_norm``, its
+    statistics as the JAX op computes them) beside ``F.batch_norm``
+    (cuDNN), f32 at B=64 and bf16 at B=128, device time of a CUDA graph
+    replay, and the bytes the two move at the least (x read twice, out
+    written, then g and x read, dx written)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import nn as tnn
+
+    F = torch.nn.functional
+    gen = torch.Generator().manual_seed(23)
+    rows = {}
+    for name, (n, c, dtype) in (("resnet", (64, 1000, torch.float32)),
+                                ("resnet_bf16", (128, 1000, torch.bfloat16)),
+                                ("lenet", (64, 10, torch.float32))):
+        fwd, bwd = _xent_rows(gen, n, c, dtype)
+        rows[f"xent_fwd_{name}"], rows[f"xent_bwd_{name}"] = fwd, bwd
+    rows["adam_lenet"] = _adam_row(_lenet_net(mx), gen)
+    bn = {}
+    for dtype, b in ((torch.float32, 64), (torch.bfloat16, 128)):
+        shape = (b, 64, 112, 112)
+        x = (torch.randn(shape, generator=gen) * 2 + 0.5).to(dtype).cuda()
+        g = torch.randn(shape, generator=gen).to(dtype).cuda()
+        xr = x.clone().requires_grad_()
+        gr = (torch.rand(64, generator=gen) + 0.5).cuda().requires_grad_()
+        br = (torch.randn(64, generator=gen) * 0.1).cuda().requires_grad_()
+        zeros, ones = torch.zeros(64).cuda(), torch.ones(64).cuda()
+
+        def composition():
+            out, _, _ = tnn.batch_norm(xr, gr, br, zeros, ones,
+                                       training=True)
+            torch.autograd.grad(out, (xr, gr, br), g)
+
+        def library():
+            out = F.batch_norm(xr, None, None, gr, br, training=True)
+            torch.autograd.grad(out, (xr, gr, br), g)
+
+        size = x.element_size()
+        nbytes = 6 * x.numel() * size
+        row = {"shape": f"{shape} {str(dtype)[6:]}",
+               "composition_ms": graph_time_ms(composition, calls=2,
+                                               replays=3, repeats=3),
+               "f_batch_norm_ms": graph_time_ms(library, calls=2, replays=3,
+                                                repeats=3),
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out, _, _ = tnn.batch_norm(xr, gr, br, zeros, ones, training=True)
+        row["composition_saved_bytes"] = torch.cuda.max_memory_allocated() \
+            - base
+        del out
+        log(f"[time] BatchNorm fwd+bwd {row['shape']}: composition "
+            f"{row['composition_ms']:.3f} ms, F.batch_norm "
+            f"{row['f_batch_norm_ms']:.3f} ms, bound {row['bound_ms']:.3f} "
+            f"ms (bytes); the composition's forward holds "
+            f"{row['composition_saved_bytes'] / 2**30:.2f} GiB")
+        bn[str(dtype)[6:]] = row
+        del x, xr, g
+        _release()
+    rows["batch_norm"] = bn
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -4196,61 +4711,66 @@ def _adam_row(net, gen):
     return row
 
 
-def phase_xent_timing():
-    """The xent kernels at the train_amp path's LM-head shape, (4096, 50257)
-    in bf16 (the path's dtype; those are the table's rows) and in f32,
-    beside their plain versions and F.cross_entropy. Bound as in
-    phase_timing: the logits read once (and dx written once), and 16 bytes
-    a row each way (labels and loss or cotangent, 4 bytes each; the row max
-    and sum, 8); ~4 operations a logit each way."""
+def _xent_rows(gen, n, c, dtype):
+    """The xent kernels' rows at (``n``, ``c``) in ``dtype``, each beside
+    its plain version and F.cross_entropy. Bound: the logits read once (and
+    dx written once), and 16 bytes a row each way (labels and loss or
+    cotangent, 4 bytes each; the row max and sum, 8); ~4 operations a
+    logit each way."""
     from mxnet_tpu_torch.ops import softmax_xent as sx
 
     F = torch.nn.functional
-    dev = torch.device("cuda")
+    x, lbl, g = _xent_inputs(gen, n, c, dtype, torch.device("cuda"))
+    _, stats = sx._xent_fwd(x, lbl)
+    lbl64 = lbl.long()
+    size = torch.finfo(dtype).bits // 8
+    shape = f"({n}, {c}) {str(dtype)[6:]}"
+    fwd = _timed(lambda: sx._xent_fwd(x, lbl),
+                 lambda: sx.softmax_cross_entropy_plain(x, lbl),
+                 lambda: F.cross_entropy(x, lbl64, reduction="none"),
+                 nbytes=n * c * size + 16 * n, flops=4 * n * c,
+                 shape=f"xent_fwd {shape}", dtype=dtype)
+    fwd["library"] = "F.cross_entropy(reduction='none')"
+    # the library yardstick of the backward: F.cross_entropy forward +
+    # backward minus its forward on logits that require grad, on the
+    # device (CUDA graph replay) and eager
+    xg = x.clone().requires_grad_()
+
+    def lib_fwd_bwd():
+        torch.autograd.grad(F.cross_entropy(xg, lbl64, reduction="none"),
+                            xg, g)
+
+    def lib_fwd():
+        F.cross_entropy(xg, lbl64, reduction="none")
+
+    fb_ms, f_ms = (graph_time_ms(fn, calls=2, replays=3, repeats=3)
+                   for fn in (lib_fwd_bwd, lib_fwd))
+    lib_bwd = fb_ms - f_ms
+    lib_bwd_eager = cuda_time_ms(lib_fwd_bwd, iters=10) - \
+        cuda_time_ms(lib_fwd, iters=10)
+    log(f"[time] F.cross_entropy backward at {shape}: "
+        f"{lib_bwd * 1e3:.2f} us (fwd+bwd {fb_ms * 1e3:.2f} - fwd "
+        f"{f_ms * 1e3:.2f}, device); eager {lib_bwd_eager * 1e3:.2f} us")
+    bwd = _timed(lambda: sx._xent_bwd(x, lbl, stats, g),
+                 lambda: sx.softmax_cross_entropy_bwd_plain(x, lbl, g),
+                 None, nbytes=2 * n * c * size + 16 * n, flops=4 * n * c,
+                 shape=f"xent_bwd {shape}", dtype=dtype)
+    bwd.update(library_ms=lib_bwd, library_eager_ms=lib_bwd_eager,
+               library="F.cross_entropy backward: fwd+bwd minus fwd")
+    del x, xg, stats
+    return fwd, bwd
+
+
+def phase_xent_timing():
+    """The xent kernels at the train_amp path's LM-head shape, (4096, 50257)
+    in bf16 (the path's dtype; those are the table's rows) and in f32
+    (``_xent_rows``)."""
     gen = torch.Generator().manual_seed(9)
     rows = {}
-    n, c = 4096, 50257
     for dtype in (torch.bfloat16, torch.float32):
-        x, lbl, g = _xent_inputs(gen, n, c, dtype, dev)
-        _, stats = sx._xent_fwd(x, lbl)
-        lbl64 = lbl.long()
-        size = torch.finfo(dtype).bits // 8
-        shape = f"({n}, {c}) {str(dtype)[6:]}"
-        fwd = _timed(lambda: sx._xent_fwd(x, lbl),
-                     lambda: sx.softmax_cross_entropy_plain(x, lbl),
-                     lambda: F.cross_entropy(x, lbl64, reduction="none"),
-                     nbytes=n * c * size + 16 * n, flops=4 * n * c,
-                     shape=f"xent_fwd {shape}", dtype=dtype)
-        fwd["library"] = "F.cross_entropy(reduction='none')"
-        # the library yardstick of the backward: F.cross_entropy forward +
-        # backward minus its forward on logits that require grad, on the
-        # device (CUDA graph replay) and eager
-        xg = x.clone().requires_grad_()
-
-        def lib_fwd_bwd():
-            torch.autograd.grad(F.cross_entropy(xg, lbl64, reduction="none"),
-                                xg, g)
-
-        def lib_fwd():
-            F.cross_entropy(xg, lbl64, reduction="none")
-
-        fb_ms, f_ms = (graph_time_ms(fn, calls=2, replays=3, repeats=3)
-                       for fn in (lib_fwd_bwd, lib_fwd))
-        lib_bwd = fb_ms - f_ms
-        lib_bwd_eager = cuda_time_ms(lib_fwd_bwd, iters=10) - \
-            cuda_time_ms(lib_fwd, iters=10)
-        log(f"[time] F.cross_entropy backward at {shape}: "
-            f"{lib_bwd * 1e3:.2f} us (fwd+bwd {fb_ms * 1e3:.2f} - fwd "
-            f"{f_ms * 1e3:.2f}, device); eager {lib_bwd_eager * 1e3:.2f} us")
-        bwd = _timed(lambda: sx._xent_bwd(x, lbl, stats, g),
-                     lambda: sx.softmax_cross_entropy_bwd_plain(x, lbl, g),
-                     None, nbytes=2 * n * c * size + 16 * n, flops=4 * n * c,
-                     shape=f"xent_bwd {shape}", dtype=dtype)
-        bwd.update(library_ms=lib_bwd, library_eager_ms=lib_bwd_eager,
-                   library="F.cross_entropy backward: fwd+bwd minus fwd")
+        fwd, bwd = _xent_rows(gen, 4096, 50257, dtype)
         if dtype == torch.bfloat16:
             rows["xent_fwd"], rows["xent_bwd"] = fwd, bwd
-        del x, xg, stats
     return rows
 
 
@@ -4335,6 +4855,14 @@ def main():
     gluon_launches, gluon = phase_gluon()
     log("[gluon] " + json.dumps(dict(run=gluon, parity=gluon_parity)))
     loop_launches, train_loop = phase_train_loop(card)
+    t = time.perf_counter()
+    conv_precision = phase_conv_precision()
+    vision_launches, resnet = phase_resnet()
+    log("[resnet] " + json.dumps(dict(runs=resnet,
+                                      conv_precision=conv_precision)))
+    lenet_launches, lenet = phase_lenet()
+    log("[lenet] " + json.dumps(lenet))
+    log(f"[vision seconds] {time.perf_counter() - t:.1f} s")
     net, bert_launches, bert_amp = phase_bert_turns(card)
     timing.update(phase_bert_timing(net))
     bert_dropout = phase_bert_dropout(net, card)
@@ -4344,8 +4872,11 @@ def main():
                                         dropout=bert_dropout)))
     log("[engine types] " + json.dumps(
         {"turns": MODE_TURNS, "serve": serve, "train": train,
-         "train_amp": train_amp, "bert_amp": bert_amp}))
+         "train_amp": train_amp, "bert_amp": bert_amp,
+         "resnet": resnet["resnet"], "resnet_bf16": resnet["resnet_bf16"]}))
     timing.update(phase_xent_timing())
+    timing.update(phase_vision_timing())
+    log("[batch_norm] " + json.dumps(timing["batch_norm"]))
     # (source, replaced TPU kernel, the path whose run gives `launches`[,
     # its counter when the name without "_bf16" is not; the BERT rows'
     # max_abs_err is that of the check at their shape])
@@ -4423,15 +4954,47 @@ def main():
         "adam_bert": ("mxnet_tpu_torch/csrc/adam.cu",
                       "mxnet_tpu/ops/pallas_optimizer.py:63", "bert_amp",
                       "adam", None),
+        # the vision paths' shapes: ResNet-50's head (f32 B=64, bf16
+        # B=128), LeNet's (64, 10) and its Adam over 10 tensors (their
+        # max_abs_err: the checks at their shapes)
+        "xent_fwd_resnet": ("mxnet_tpu_torch/csrc/softmax_xent.cu",
+                            "mxnet_tpu/ops/pallas_softmax_xent.py:54",
+                            "resnet", "xent_fwd",
+                            "xent_fwd float32 (64, 1000)"),
+        "xent_bwd_resnet": ("mxnet_tpu_torch/csrc/softmax_xent.cu",
+                            "mxnet_tpu/ops/pallas_softmax_xent.py:54",
+                            "resnet", "xent_bwd",
+                            "xent_bwd float32 (64, 1000)"),
+        "xent_fwd_resnet_bf16": ("mxnet_tpu_torch/csrc/softmax_xent.cu",
+                                 "mxnet_tpu/ops/pallas_softmax_xent.py:54",
+                                 "resnet_bf16", "xent_fwd",
+                                 "xent_fwd bfloat16 (128, 1000)"),
+        "xent_bwd_resnet_bf16": ("mxnet_tpu_torch/csrc/softmax_xent.cu",
+                                 "mxnet_tpu/ops/pallas_softmax_xent.py:54",
+                                 "resnet_bf16", "xent_bwd",
+                                 "xent_bwd bfloat16 (128, 1000)"),
+        "xent_fwd_lenet": ("mxnet_tpu_torch/csrc/softmax_xent.cu",
+                           "mxnet_tpu/ops/pallas_softmax_xent.py:54",
+                           "lenet", "xent_fwd", "xent_fwd float32 (64, 10)"),
+        "xent_bwd_lenet": ("mxnet_tpu_torch/csrc/softmax_xent.cu",
+                           "mxnet_tpu/ops/pallas_softmax_xent.py:54",
+                           "lenet", "xent_bwd", "xent_bwd float32 (64, 10)"),
+        "adam_lenet": ("mxnet_tpu_torch/csrc/adam.cu",
+                       "mxnet_tpu/ops/pallas_optimizer.py:63", "lenet",
+                       "adam", None),
     }
     errs["adam_bert"] = timing["adam_bert"]["max_abs_err_at_shape"]
+    errs["adam_lenet"] = timing["adam_lenet"]["max_abs_err_at_shape"]
     by_path = {"serve": serve_launches, "spec": spec_launches,
                "prefix": prefix_launches, "fork": fork_launches,
                "governed": governed_launches, "drill": drill_launches,
                "stall": stall_launches, "overload": overload_launches,
                "train": train_launches, "train_amp": amp_launches,
                "gluon": gluon_launches, "train_loop": loop_launches,
-               "bert_amp": bert_launches}
+               "bert_amp": bert_launches,
+               "resnet": vision_launches["resnet"],
+               "resnet_bf16": vision_launches["resnet_bf16"],
+               "lenet": lenet_launches}
     kernels = []
     for name, (src, rep, path, *extra) in meta.items():
         t = timing[name]

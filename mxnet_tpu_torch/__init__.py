@@ -28,7 +28,7 @@ from . import initializer
 from . import initializer as init
 from . import (gluon, inference, lr_scheduler, models, ops, optimizer,
                parallel, serialization)
-from . import checkpoint, io, monitor
+from . import checkpoint, io, metric, monitor
 from . import monitor as mon
 from .monitor import Monitor
 from . import observability
@@ -42,6 +42,6 @@ __all__ = ["base", "config", "MXNetError", "Context", "cpu", "gpu",
            "current_context", "num_gpus", "ndarray", "nd", "NDArray",
            "autograd", "random", "initializer", "init", "gluon", "inference",
            "lr_scheduler", "models", "ops", "optimizer", "parallel",
-           "serialization", "checkpoint", "io", "monitor", "mon",
+           "serialization", "checkpoint", "io", "metric", "monitor", "mon",
            "Monitor", "observability", "obs", "resilience", "ContinuousBatcher", "GenerationEngine",
            "SamplingConfig", "TrainStep", "get_gpt2"]

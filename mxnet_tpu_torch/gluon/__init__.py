@@ -1,14 +1,15 @@
-"""Gluon: parameters, blocks, layers (``nn``), losses (``loss``) and the
-imperative ``Trainer``."""
+"""Gluon: parameters, blocks, layers (``nn``, ``contrib.nn``), losses
+(``loss``), the vision ``model_zoo`` and the imperative ``Trainer``."""
 from . import parameter
 from .parameter import Constant, Parameter, ParameterDict
 from . import block
 from .block import Block, HybridBlock, SymbolBlock
 from . import data, loss, nn
+from . import contrib, model_zoo
 from . import trainer
 from .trainer import Trainer
 
 __all__ = ["parameter", "Constant", "Parameter", "ParameterDict", "block",
            "Block", "HybridBlock", "SymbolBlock", "data", "loss", "nn",
-           "trainer",
+           "contrib", "model_zoo", "trainer",
            "Trainer"]

@@ -36,7 +36,8 @@ from ..base import MXNetError
 from ..ndarray import NDArray
 from .parameter import DeferredInitializationError, Parameter, ParameterDict
 
-__all__ = ["Block", "HybridBlock", "SymbolBlock", "imperative"]
+__all__ = ["Block", "HybridBlock", "SymbolBlock", "imperative",
+           "record_state_update"]
 
 
 class _BlockScope:
@@ -96,6 +97,20 @@ _CALL = _CallState()
 def imperative() -> bool:
     """Whether an imperative (NDArray) block call is running."""
     return _CALL.imperative
+
+
+def record_state_update(param, value):
+    """Write a layer's new state (BatchNorm's moving statistics) into
+    ``param``'s variable, in place and outside autograd. The counterpart of
+    the JAX state channel (``gluon/block.py:122``), which hands the update
+    to its caller on a tape that the JAX ``TrainStep`` never reads. Here the
+    write lands in the tensor the block declared, also when the forward
+    read a substitute for it (``TrainStep``'s low-precision copies under
+    ``torch.func.functional_call``): an imperative call, a call on tensors
+    and a ``TrainStep`` step (eager or a captured graph's replay, where the
+    write is a node of the graph) all update the same f32 statistic."""
+    with torch.no_grad():
+        param.var().copy_(value)
 
 
 def _unwrap(obj):

@@ -17,10 +17,13 @@ import math
 import torch
 
 from ... import autograd as _ag
-from ..block import Block, HybridBlock, imperative
+from ..block import Block, HybridBlock, imperative, record_state_update
 
-__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "LayerNorm",
-           "Embedding", "Activation"]
+__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "BatchNorm",
+           "LayerNorm", "InstanceNorm", "Embedding", "Flatten", "Lambda",
+           "HybridLambda", "Activation", "LeakyReLU", "PReLU", "ELU", "SELU",
+           "Swish", "GELU"]
+
 
 
 class _SequenceMixin:
@@ -119,6 +122,79 @@ class Dropout(HybridBlock):
                            torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+class BatchNorm(HybridBlock):
+    """Batch normalization over every axis but ``axis``; ``in_channels=0``
+    is inferred at the first forward. In training (``autograd.is_training()``
+    under an imperative call, as in the JAX package; the module's training
+    flag under a call on tensors, which ``TrainStep`` sets) it
+    normalizes with the batch's statistics and moves the moving ones to
+    ``momentum * running + (1 - momentum) * batch``, the batch variance
+    the biased one, as the JAX layer computes them; that write goes
+    through :func:`~..block.record_state_update` into the f32 statistic,
+    so ``TrainStep`` updates them as the imperative loop does (the JAX
+    ``TrainStep`` leaves them as they were). Otherwise (or with
+    ``use_global_stats``) it normalizes with the moving statistics.
+    ``cast`` leaves gamma, beta and the statistics in f32."""
+
+    def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
+                 scale=True, use_global_stats=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 running_mean_initializer="zeros",
+                 running_variance_initializer="ones", in_channels=0,
+                 prefix=None, params=None, device=None):
+        super().__init__(prefix=prefix, params=params)
+        self._axis = axis
+        self._momentum = float(momentum)
+        self._eps = float(epsilon)
+        self._use_global_stats = use_global_stats
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", shape=(in_channels,), init=gamma_initializer,
+                allow_deferred_init=True, differentiable=scale)
+            self.beta = self.params.get(
+                "beta", shape=(in_channels,), init=beta_initializer,
+                allow_deferred_init=True, differentiable=center)
+            self.running_mean = self.params.get(
+                "running_mean", shape=(in_channels,),
+                init=running_mean_initializer, allow_deferred_init=True,
+                differentiable=False)
+            self.running_var = self.params.get(
+                "running_var", shape=(in_channels,),
+                init=running_variance_initializer, allow_deferred_init=True,
+                differentiable=False)
+        for p in (self._reg_params["running_mean"],
+                  self._reg_params["running_var"]):
+            p.is_state = True
+        if in_channels > 0:
+            self._alloc_params(device)
+
+    def infer_shape(self, x, *args):
+        c = x.shape[self._axis]
+        for p in self._reg_params.values():
+            p.shape = (c,)
+
+    def cast(self, dtype):
+        for p in self._reg_params.values():
+            p.cast("float32")
+        return self
+
+    def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
+        training = (_ag.is_training() if imperative() else self.training) \
+            and not self._use_global_stats
+        out, mean, var = F.BatchNorm(
+            x, gamma, beta, running_mean, running_var, eps=self._eps,
+            momentum=self._momentum, axis=self._axis, training=training,
+            use_global_stats=self._use_global_stats)
+        if training:
+            m = self._momentum
+            for name, batch in (("running_mean", mean), ("running_var", var)):
+                p = self._reg_params[name]
+                with torch.no_grad():
+                    new = m * p.var() + (1 - m) * batch
+                record_state_update(p, new)
+        return out
+
+
 class LayerNorm(HybridBlock):
     """LayerNorm over ``axis`` with ``gamma``/``beta``; ``in_channels=0``
     is inferred at the first forward. Over the last axis it takes the
@@ -148,6 +224,35 @@ class LayerNorm(HybridBlock):
 
     def hybrid_forward(self, F, x, gamma, beta):
         return F.LayerNorm(x, gamma, beta, axis=self._axis, eps=self._eps)
+
+
+class InstanceNorm(HybridBlock):
+    """Normalize each (sample, channel) over its spatial axes, with
+    per-channel ``gamma``/``beta``; ``in_channels=0`` is inferred at the
+    first forward. ``axis``, ``center`` and ``scale`` are taken and
+    ignored, as by the JAX layer."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, prefix=None, params=None, device=None):
+        super().__init__(prefix=prefix, params=params)
+        self._eps = float(epsilon)
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", shape=(in_channels,), init=gamma_initializer,
+                allow_deferred_init=True)
+            self.beta = self.params.get(
+                "beta", shape=(in_channels,), init=beta_initializer,
+                allow_deferred_init=True)
+        if in_channels > 0:
+            self._alloc_params(device)
+
+    def infer_shape(self, x, *args):
+        for p in self._reg_params.values():
+            p.shape = (x.shape[1],)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.InstanceNorm(x, gamma, beta, eps=self._eps)
 
 
 class Embedding(HybridBlock):
@@ -185,3 +290,107 @@ class Activation(HybridBlock):
 
     def hybrid_forward(self, F, x):
         return F.Activation(x, act_type=self._act)
+
+
+class Flatten(HybridBlock):
+    """(N, ...) -> (N, prod(...))."""
+
+    def hybrid_forward(self, F, x):
+        return F.flatten(x)
+
+
+class Lambda(Block):
+    """Wraps a function of the inputs, or the name of an ``nd`` op."""
+
+    def __init__(self, function, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._fn = function
+
+    def forward(self, *args):
+        from ... import ndarray as nd
+
+        fn = getattr(nd, self._fn) if isinstance(self._fn, str) else self._fn
+        return fn(*args)
+
+
+class HybridLambda(HybridBlock):
+    """Wraps ``function(F, *inputs)``, or the name of an ``F`` op."""
+
+    def __init__(self, function, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._fn = function
+
+    def hybrid_forward(self, F, *args):
+        if isinstance(self._fn, str):
+            return getattr(F, self._fn)(*args)
+        return self._fn(F, *args)
+
+
+class LeakyReLU(HybridBlock):
+    """``x`` where ``x >= 0``, else ``alpha * x``."""
+
+    def __init__(self, alpha=0.01, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._alpha = alpha
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="leaky", slope=self._alpha)
+
+
+class PReLU(HybridBlock):
+    """LeakyReLU with a learned per-channel slope ``alpha``."""
+
+    def __init__(self, alpha_initializer=None, in_channels=1, prefix=None,
+                 params=None, device=None):
+        super().__init__(prefix=prefix, params=params)
+        from ... import initializer
+
+        with self.name_scope():
+            self.alpha = self.params.get(
+                "alpha", shape=(in_channels,),
+                init=alpha_initializer or initializer.Constant(0.25))
+        self._alloc_params(device)
+
+    def hybrid_forward(self, F, x, alpha):
+        return F.LeakyReLU(x, gamma=alpha, act_type="prelu")
+
+
+class ELU(HybridBlock):
+    """``x`` where ``x >= 0``, else ``alpha * (exp(x) - 1)``."""
+
+    def __init__(self, alpha=1.0, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._alpha = alpha
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="elu", slope=self._alpha)
+
+
+class SELU(HybridBlock):
+    """Scaled ELU with the self-normalizing constants."""
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="selu")
+
+
+class Swish(HybridBlock):
+    """``x * sigmoid(beta * x)``."""
+
+    def __init__(self, beta=1.0, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._beta = beta
+
+    def hybrid_forward(self, F, x):
+        return x * F.sigmoid(self._beta * x)
+
+
+class GELU(HybridBlock):
+    """GELU, the erf form or (``approximation="tanh"``) the tanh one."""
+
+    def __init__(self, approximation="erf", prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._approx = approximation
+
+    def hybrid_forward(self, F, x):
+        return F.Activation(x, act_type="gelu" if self._approx == "erf"
+                            else "tanh_gelu")

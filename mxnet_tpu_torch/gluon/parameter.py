@@ -61,6 +61,10 @@ class Parameter:
         self._owners = []
         # an f32 copy kept by cast() for a multi-precision master
         self._f32_source = None
+        #: a layer's state (BatchNorm's moving statistics): never trained,
+        #: written by the layer's forward (``block.record_state_update``),
+        #: and read in its own dtype under ``TrainStep``'s AMP
+        self.is_state = False
 
     # -- the variable and its owners ------------------------------------------
     @property

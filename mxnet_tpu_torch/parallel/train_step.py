@@ -47,7 +47,13 @@ gradient leaves. A copy's gradient is exactly the JAX cotangent of the
 cast before its upcast, so it goes to the optimizer as it is, and Adam's
 kernel writes the next step's copy in the same pass as the update (its
 low-precision output), which equals ``new_w.to(dtype)`` bit for bit: no
-separate cast pass. Frozen parameters are cast once. A trainable bfloat16
+separate cast pass. Frozen parameters are cast once. A layer's state
+(``Parameter.is_state``: BatchNorm's moving statistics) gets no copy: the
+forward reads it in f32, and the layer writes its update in place into
+that f32 tensor (``gluon.block.record_state_update``) at every forward:
+once a step, eager or in a replay, each step of a window, each
+microbatch of an accumulated step. The JAX step updates no state: its
+``_loss_of`` drops the state tape. A trainable bfloat16
 or float16 parameter (a ``net.cast("bfloat16")`` net) is trained through
 an f32 master the step keeps, whose update writes the parameter in the
 same pass (the ``multi_precision`` route of ``gluon.Trainer``). A master
@@ -164,8 +170,9 @@ class TrainStep:
         self.amp_state = None
         pol = self.amp_policy
         if pol is not None:
+            states = self._state_vars(net)
             for name, p in self._plist:
-                if p.dtype == torch.float32:
+                if p.dtype == torch.float32 and id(p) not in states:
                     low = p.detach().to(pol.torch_compute_dtype)
                     self._low[name] = low.requires_grad_(p.requires_grad)
                     self._stamps[name] = self._stamp(p)
@@ -193,6 +200,14 @@ class TrainStep:
         self._preempt_dir = None
         self._preempt_exit = True
         self._preempt_saved = False
+
+    @staticmethod
+    def _state_vars(net):
+        """The ids of the variables of a Block's state parameters."""
+        collect = getattr(net, "collect_params", None)
+        if collect is None:
+            return set()
+        return {id(p._var) for p in collect().values() if p.is_state}
 
     @staticmethod
     def _stamp(p):

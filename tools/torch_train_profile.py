@@ -6,6 +6,7 @@ card.
     python3 tools/torch_train_profile.py --decode [--steps 20]
     python3 tools/torch_train_profile.py --spec [--steps 20]
     python3 tools/torch_train_profile.py --model bert_large [--layers 24]
+    python3 tools/torch_train_profile.py --model resnet50_v1 [--amp bfloat16]
     python3 tools/torch_train_profile.py --gluon [--layers 24]
     python3 tools/torch_train_profile.py ... --engine-type naive graph graph naive
     python3 tools/torch_train_profile.py --amp bfloat16 --window 8 [--accum 2]
@@ -18,7 +19,20 @@ amp="bfloat16")`` on chip_smoke.py's warm-up schedule (the ``train_amp``
 phase). With ``--model bert_large`` it trains chip_smoke.py's ``bert_amp``
 step instead: ``get_bert("bert_large", max_length=128)``, bench.py's batch
 (B=64, T=128, 20 masked positions), ``TrainStep(net, bert_loss, Adam(1e-4),
-n_model_inputs=4, amp="bfloat16")``. With ``--gluon`` it trains through
+n_model_inputs=4, amp="bfloat16")``. With ``--model resnet50_v1`` it trains
+chip_smoke.py's ``resnet`` step: resnet50_v1 (224x224, 1000 classes,
+MSRAPrelu, seed 0), ``TrainStep(net, SoftmaxCrossEntropyLoss(),
+SGD(learning_rate=0.1, momentum=0.9, wd=1e-4))`` on the example's synthetic
+batch, in f32 at B=64, or with ``--amp bfloat16`` after
+``net.cast("bfloat16")`` at B=128 (``--batch`` sets another); after the
+step's profile it times the step's parts apart, each as one CUDA graph at
+the step's shapes: every convolution's forward and gradients, every
+BatchNorm composition's forward, backward and moving-statistic update,
+the SGD update of all parameters, the loss forward and backward, and
+reads the rest (ReLU, the residual adds, pooling, the dense layer, casts)
+off the step's device time; then it times the convolutions and the step
+graph again with cuDNN's deterministic algorithms off (``ops/nn.py``
+``DETERMINISTIC``), the cost of the port's graph == naive rule. With ``--gluon`` it trains through
 the imperative surface instead, chip_smoke.py's ``gluon`` step:
 ``net.cast("bfloat16")``, ``gluon.Trainer(..., "adam", {"learning_rate":
 1e-4, "multi_precision": True})``, then ``autograd.record()``,
@@ -78,6 +92,13 @@ import numpy as np
 import torch
 
 GROUPS = (  # (group, substrings of the kernel name), first match wins
+    # cuDNN's convolution kernels (forward, input and weight gradients) and
+    # the layout transposes around them
+    ("convolution", ("convolve", "conv2d", "Conv", "fprop", "dgrad", "wgrad",
+                     "implicit_gemm", "winograd", "cudnn")),
+    ("layout transpose", ("nchwToNhwc", "nhwcToNchw", "nchw2nhwc",
+                          "nhwc2nchw")),
+    ("pooling", ("max_pool", "avg_pool", "MaxPool", "AvgPool")),
     ("flash forward", ("flash_fwd_",)),  # the f32 and the bf16 kernel
     ("paged attention", ("paged_attention_kernel", "paged_prefill_tc_kernel")),
     ("flash dK/dV", ("flash_bwd_dkv_",)),  # the f32 and the bf16 kernel
@@ -110,10 +131,15 @@ def main():
     ap.add_argument("--layers", type=int, default=24)
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--amp", choices=("bfloat16",), default=None)
-    ap.add_argument("--model", choices=("gpt2_345m", "bert_large"),
+    ap.add_argument("--model", choices=("gpt2_345m", "bert_large",
+                                        "resnet50_v1"),
                     default="gpt2_345m",
                     help="bert_large: chip_smoke.py's bert_amp step "
-                         "(always amp bfloat16)")
+                         "(always amp bfloat16); resnet50_v1: its resnet "
+                         "step (--amp bfloat16: the bf16-cast turn)")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="resnet50_v1: images a step (default 64 in f32, "
+                         "128 in bf16, chip_smoke.py's)")
     ap.add_argument("--decode", action="store_true",
                     help="profile serving decode steps instead of training")
     ap.add_argument("--spec", action="store_true",
@@ -134,8 +160,10 @@ def main():
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("torch_train_profile: CUDA is not available")
-    if args.model == "bert_large" and (args.decode or args.spec):
+    if args.model != "gpt2_345m" and (args.decode or args.spec):
         ap.error("--decode and --spec serve GPT-2 only")
+    if args.model == "resnet50_v1" and args.memory:
+        ap.error("--memory profiles GPT-2 and BERT only")
     if args.gluon and (args.decode or args.spec or args.amp or
                        args.model != "gpt2_345m" or
                        args.engine_type != ["graph"]):
@@ -153,6 +181,18 @@ def main():
     if args.model == "bert_large":
         net = get_bert("bert_large", max_length=128, dropout=0.0,
                        device="cuda", seed=0, num_layers=args.layers)
+    elif args.model == "resnet50_v1":
+        import chip_smoke as cs
+
+        torch.backends.cudnn.allow_tf32 = False
+        dtype = args.amp or "float32"
+        batch = args.batch or dict(cs.RESNET_TURNS)[dtype]
+        built = cs._resnet_net(dtype, batch)  # (net, init, batch, flops)
+        for engine_type in args.engine_type:
+            _profile(args, built, engine_type, card)
+            torch.cuda.empty_cache()
+        _resnet_parts(args, built, card)
+        return
     else:
         net = get_gpt2("gpt2_345m", dropout=0.0, device="cuda", seed=0,
                        num_layers=args.layers)
@@ -335,6 +375,16 @@ def _step(args, net, engine_type):
         what = (f"gpt2_345m layers={args.layers} B=4 T=1024 bfloat16 "
                 f"weights, multi_precision Adam, record/backward/"
                 f"Trainer.step (eager)")
+    elif args.model == "resnet50_v1":
+        import chip_smoke as cs
+
+        net, init, batch, flops = net  # chip_smoke._resnet_net's
+        cs._restore(net, init)
+        ts = cs._resnet_step(net, engine_type)
+        step = lambda: ts(*batch)  # noqa: E731
+        what = (f"resnet50_v1 {args.amp or 'float32'} B={batch[0].shape[0]} "
+                f"224x224, SGD, engine_type {engine_type} "
+                f"({flops / 1e12:.4f} TFLOP a step)")
     elif args.model == "bert_large":
         import chip_smoke as cs
 
@@ -389,6 +439,144 @@ def _attention_profile(args, card, b=64, h=16, t=128, d=64):
     _report(card, f"masked attention of one layer, B={b} H={h} T={t} D={d} "
             f"bf16, forward + backward (one CUDA graph); x{args.layers} "
             f"layers", args.steps, prof, None, None, scale=args.layers)
+
+
+def _resnet_parts(args, built, card):
+    """The parts of a resnet50_v1 step timed apart at its shapes, each one
+    CUDA graph replayed between CUDA events (chip_smoke.graph_time_ms):
+    every convolution's forward with its input and weight gradients (the
+    first one's weight gradient only), every BatchNorm composition's
+    forward and backward with the moving-statistic update, the SGD update
+    of every parameter (TrainStep's own call of it), the loss's forward
+    and backward; and the step's device time, graph replay, beside
+    them."""
+    import chip_smoke as cs
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.nn import BatchNorm
+    from mxnet_tpu_torch.gluon.nn.conv_layers import _Conv
+    from mxnet_tpu_torch.ops import nn as tnn
+
+    net, init, (x, y), _ = built
+    cs._restore(net, init)
+    seen = []
+
+    def hook(mod, inp, out):
+        seen.append((mod, inp[0].shape, inp[0].dtype))
+
+    handles = [m.register_forward_hook(hook) for m in net.modules()
+               if isinstance(m, (_Conv, BatchNorm))]
+    import mxnet_tpu_torch as mx
+
+    with torch.no_grad():
+        logits = net(mx.nd.array(x))._data
+    for h in handles:
+        h.remove()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def rand(shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    convs, bns = [], []
+    for i, (mod, shape, dtype) in enumerate(seen):
+        xin = rand(shape, dtype)
+        if isinstance(mod, _Conv):
+            w = mod._parameters["weight"].detach().clone().requires_grad_()
+            kw = dict(stride=mod._strides, pad=mod._padding,
+                      dilate=mod._dilation, num_group=mod._groups)
+            leaves = (w,) if not convs else (xin.requires_grad_(), w)
+            out_shape = tnn.convolution(xin.detach(), w.detach(), **kw).shape
+            convs.append((xin, w, kw, leaves, rand(out_shape, dtype)))
+        else:
+            c = shape[1]
+            gamma = torch.ones(c, device="cuda", requires_grad=True)
+            beta = torch.zeros(c, device="cuda", requires_grad=True)
+            stats = torch.zeros(c, device="cuda"), torch.ones(c,
+                                                              device="cuda")
+            bns.append((xin.requires_grad_(), gamma, beta, stats,
+                        rand(shape, dtype)))
+
+    def conv_part():
+        for xin, w, kw, leaves, g in convs:
+            torch.autograd.grad(tnn.convolution(xin, w, **kw), leaves, g)
+
+    def bn_part():
+        for xin, gamma, beta, (rm, rv), g in bns:
+            out, mean, var = tnn.batch_norm(xin, gamma, beta, rm, rv,
+                                            training=True)
+            torch.autograd.grad(out, (xin, gamma, beta), g)
+            with torch.no_grad():
+                rm.copy_(0.9 * rm + (1 - 0.9) * mean)
+                rv.copy_(0.9 * rv + (1 - 0.9) * var)
+
+    ts = cs._resnet_step(net, "naive")
+    train = ts._train
+    weights = [ts._master.get(n, p.detach()) for _, n, p in train]
+    lows = [p.detach() if n in ts._master else None for _, n, p in train]
+    grads = [torch.randn_like(p) * 1e-3 for _, _, p in train]
+    states = [ts.opt_state[n].clone() for _, n, _ in train]
+    lr = torch.full((len(train),), 1e-6, device="cuda")
+    wd = torch.full((len(train),), 1e-4, device="cuda")
+    t2 = torch.ones((), dtype=torch.int32, device="cuda")
+
+    def sgd_part():
+        ts.optimizer.update_raw_multi(weights, grads, states, lr, wd, t2,
+                                      out_lows=lows)
+
+    head = logits.detach().clone().requires_grad_()
+    loss_fn = SoftmaxCrossEntropyLoss()
+
+    def loss_part():
+        torch.autograd.grad(loss_fn(head, y).float().mean(), head)
+
+    step_ts = cs._resnet_step(net, "graph")
+    for _ in range(2):
+        step_ts(x, y)
+    (prog, _, _), = step_ts._programs.values()
+    parts = {
+        f"convolutions ({len(convs)}), forward + gradients":
+            cs.graph_time_ms(conv_part, calls=1, replays=3, repeats=3),
+        f"BatchNorm compositions ({len(bns)}), forward + backward + "
+        f"statistics": cs.graph_time_ms(bn_part, calls=1, replays=3,
+                                        repeats=3),
+        f"SGD update ({len(train)} parameters)":
+            cs.graph_time_ms(sgd_part, calls=1, replays=3, repeats=3),
+        "SoftmaxCrossEntropyLoss forward + backward":
+            cs.graph_time_ms(loss_part, calls=1, replays=3, repeats=3)}
+    # a replay is one launch: timed by CUDA events around eager replays
+    step_ms = cs.cuda_time_ms(prog.graph.replay, warmup=1, iters=3,
+                              repeats=3)
+    # what cuDNN's deterministic algorithms cost: the convolutions and the
+    # step captured anew with them off, then the first step graph again
+    tnn.DETERMINISTIC = False
+    try:
+        free_conv_ms = cs.graph_time_ms(conv_part, calls=1, replays=3,
+                                        repeats=3)
+        cs._restore(net, init)
+        free_ts = cs._resnet_step(net, "graph")
+        for _ in range(2):
+            free_ts(x, y)
+        (free_prog, _, _), = free_ts._programs.values()
+        free_ms = cs.cuda_time_ms(free_prog.graph.replay, warmup=1, iters=3,
+                                  repeats=3)
+    finally:
+        tnn.DETERMINISTIC = True
+    again_ms = cs.cuda_time_ms(prog.graph.replay, warmup=1, iters=3,
+                               repeats=3)
+    cs._restore(net, init)
+    print(card)
+    print(f"resnet50_v1 {args.amp or 'float32'} B={x.shape[0]}: the step's "
+          f"parts timed apart (device ms, CUDA graph replay)")
+    for name, ms in parts.items():
+        print(f"  {ms:9.3f}  {100 * ms / step_ms:5.1f}%  {name}")
+    rest = step_ms - sum(parts.values())
+    print(f"  {rest:9.3f}  {100 * rest / step_ms:5.1f}%  the rest (ReLU, "
+          f"residual adds, pooling, the dense layer, casts), by difference")
+    print(f"  {step_ms:9.3f}  100.0%  the step graph's replay")
+    conv_ms = next(ms for name, ms in parts.items()
+                   if name.startswith("convolutions"))
+    print(f"cudnn.deterministic on / off / on (device ms, CUDA graph "
+          f"replay): step {step_ms:.3f} / {free_ms:.3f} / {again_ms:.3f}, "
+          f"convolutions {conv_ms:.3f} / {free_conv_ms:.3f}")
 
 
 def _make_train_step(args, net, engine_type):
