@@ -117,14 +117,28 @@ prints its last line):
      step, images/s, MFU by the conv and dense shapes, peak memory; and
      LeNet through ``autograd.record`` / ``gluon.Trainer("adam")``: 3
      steps bit-identical to TrainStep naive, then 20 steps with a falling
-     loss, one Adam launch and the xent pair each;
+     loss, one Adam launch and the xent pair each; then the WMT
+     Transformer (``models/transformer.py``) on the example's synthetic
+     reverse corpus (B=64, buckets 8, 16, 24, 32): transformer_base's
+     logits, label-smoothed loss and one Adam step on the kernels against
+     the plain versions (f32, one ``.params`` file, ragged src_valid),
+     transformer_tiny at head dim 32 (no flash launch, the dispatch rule);
+     transformer_base through ``TrainStep(amp="bfloat16")`` naive, graph,
+     graph, naive (bit-identical, four programs, 6 flash and 30 LayerNorm
+     launches each way and one Adam a step, MFU by ``transformer_flops``),
+     the masked plain attention's device time, transformer_big as a
+     graph; the greedy cached decode (6 paged reads and 18 LayerNorms a
+     step) held against a teacher-forced forward; the example's own eager
+     loop (a falling loss, the host share); and the MNIST example's route
+     (rising accuracy, the data-wait share);
   8. time each kernel, its plain version and a PyTorch library yardstick
      with CUDA events, on the device (CUDA graph replay) and per eager
      call, at the shapes the paths give them (the paged read also at the
      verify's and the draft's shapes; xent at the vision heads' (64,
      1000) f32, (128, 1000) bf16 and (64, 10) f32 and Adam over LeNet's
      10 tensors; BatchNorm's composition beside ``F.batch_norm`` at
-     (B, 64, 112, 112)), and the launch floor
+     (B, 64, 112, 112); the Transformer's flash, LayerNorm, Adam and
+     decode-read shapes), and the launch floor
      (``EMPTY_CU``, a kernel that does nothing on the grid and block of
      the route LayerNorm's forward takes, built here);
   9. print the kernel table as one JSON line, then the result line.
@@ -562,11 +576,14 @@ PAGED_CASES = [(8, 16, 1, None, "(row 0 all trash)"),
                (8, 12, 1, [31, 127, 128, 129, 300, 511, 600, 1022],
                 "(draft decode, 12 heads)"),
                (1, 16, 100, [384], "(suffix prefill after a 384-token "
-                                   "prefix)")]
+                                   "prefix)"),
+               (64, 8, 1, list(range(0, 1024, 16)),
+                "(Transformer decode, 64 rows, 8 heads)")]
 #: the kernel-table rows (f32) whose max_abs_err is that of the f32 checks
 #: at their shape (B, H, tq)
 PAGED_ROWS = {(8, 16, 5): "paged_attention_verify",
-              (8, 12, 1): "paged_attention_draft"}
+              (8, 12, 1): "paged_attention_draft",
+              (64, 8, 1): "paged_attention_transformer"}
 
 
 # (q, pool) dtypes of the paged read: f32 and bf16 models, an f32 model's
@@ -644,10 +661,19 @@ def _flash_inputs(gen, b, h, tq, tk, d, dtype, dev, scale=1.0):
 
 
 # (B, H, Tq, Tk, causal): the training shape both ways, cross lengths with
-# rows that see no key (Tq > Tk), and a ragged length
+# rows that see no key (Tq > Tk), and a ragged length; then the WMT
+# Transformer's short ones (B·H up to 1024, T below one 64-key tile): its
+# decoder self-attention at buckets 8 and 32 (transformer_base, 8 heads)
+# and 24 (transformer_big, 16 heads), and the unmasked cross-attention
+# shape, 12 queries over 32 keys
 FLASH_CASES = [(4, 16, 1024, 1024, True), (4, 16, 1024, 1024, False),
                (1, 16, 128, 384, True), (1, 16, 384, 128, True),
-               (2, 8, 320, 320, True)]
+               (2, 8, 320, 320, True),
+               (64, 8, 8, 8, True), (64, 8, 32, 32, True),
+               (64, 16, 24, 24, True), (64, 8, 12, 32, False)]
+#: the cases whose errors (at d = 64) are also kept apart, under
+#: ``<kernel><sfx>@B,H,Tq,Tk,causal``: the Transformer's kernel-table rows
+FLASH_ROW_CASES = {(64, 8, 32, 32, True)}
 
 
 def flash_flip_atol(q, k, v, do, lse, di, causal):
@@ -743,9 +769,12 @@ def phase_flash_kernels(errs, dtypes=(torch.float32, torch.bfloat16),
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(3)
 
+    case = None  # the FLASH_ROW_CASES key of the case at hand, or None
+
     def held(key, *args, **kw):
-        errs[key] = max(errs.get(key, 0.0),
-                        check_close(*args, failures=failures, **kw))
+        err = check_close(*args, failures=failures, **kw)
+        for k in (key,) + ((f"{key}@{case}",) if case else ()):
+            errs[k] = max(errs.get(k, 0.0), err)
 
     for dtype in dtypes:
         dn = str(dtype)[6:]
@@ -753,6 +782,8 @@ def phase_flash_kernels(errs, dtypes=(torch.float32, torch.bfloat16),
         for d in (64, 128):
             for b, h, tq, tk, causal in FLASH_CASES:
                 what = f"{dn} d={d} B={b} H={h} Tq={tq} Tk={tk} causal={causal}"
+                case = f"{b},{h},{tq},{tk},{int(causal)}" if d == 64 and \
+                    (b, h, tq, tk, causal) in FLASH_ROW_CASES else None
                 q, k, v = _flash_inputs(gen, b, h, tq, tk, d, dtype, dev)
                 out, lse = fa._flash_fwd(q, k, v, causal, return_lse=True)
                 ref, ref_lse = fa.flash_fwd_plain(q, k, v, causal)
@@ -1064,7 +1095,8 @@ _BLOCK = {torch.float32: ("block", "block"),
           torch.bfloat16: ("block", "block")}
 LN_CASES = ((8, 1024, 0, _WARP), (512, 1024, 0, _WARP),
             (4096, 1024, 0, _WARP), (8192, 1024, 0, _WARP),
-            (1280, 1024, 0, _WARP), (64, 1000, 0, _WARP),
+            (1280, 1024, 0, _WARP), (2048, 512, 0, _WARP),
+            (2048, 1024, 0, _WARP), (64, 1000, 0, _WARP),
             (64, 1023, 0, _BLOCK),
             (64, 2048, 0, {torch.float32: ("block", "block"),
                            torch.bfloat16: ("warp", "block")}),
@@ -1107,7 +1139,8 @@ def phase_layernorm_kernels(errs):
     """LayerNorm's forward and backward kernels against their plain
     versions (``layer_norm_plain``, ``layer_norm_bwd``) at LN_CASES: the
     paths' shapes in every dtype pair (BERT's (8192 | 1280, 1024) also
-    recorded apart, as ``layernorm<sfx>_<rows>``), the others in f32 and
+    recorded apart, as ``layernorm<sfx>_<rows>``, and the Transformer's
+    (2048, 512 | 1024) as ``layernorm<sfx>_2048x<d>``), the others in f32 and
     bf16. Each case must take its routes. The backward at (4096, 1024) f32 is also measured
     against an f64 version of the plain arithmetic, beside the f32 plain
     version (logged: the f32 sums of dgamma and dbeta over 4096 rows in
@@ -1138,7 +1171,8 @@ def phase_layernorm_kernels(errs):
                    (torch.bfloat16, torch.bfloat16): "_bf16"}.get(
                 (xdt, pdt), f"_{str(xdt)[6:]}_{str(pdt)[6:]}")
             keys = [sfx] + ([f"{sfx}_{rows}"] if rows in (8192, 1280)
-                            else [])
+                            else []) + \
+                ([f"{sfx}_{rows}x{d}"] if rows == 2048 else [])
             got = ln.layer_norm(x, g, b)
             want = ln.layer_norm_plain(x, g, b)
             grads = ln._backward(x, g, cot, 1e-5)
@@ -3227,6 +3261,734 @@ def phase_bert_dropout(net, card):
             "run": res}
 
 
+# ---------------------------------------------------------------------------
+# The WMT Transformer (models/transformer.py, BASELINE.md's config #4) on the
+# example's synthetic reverse corpus (examples/torch_train_transformer_wmt.py:
+# 4096 sentences of 4 to 28 tokens, buckets 8, 16, 24 and 32, B=64)
+TF_B, TF_BUCKETS, TF_VOCAB, TF_SEED = 64, (8, 16, 24, 32), 36500, 0
+TF_LAYERS = 6
+TF_ADAM = dict(beta1=0.9, beta2=0.98, epsilon=1e-9)
+# InvSqrtWarmup over 16 steps to a peak of 0.1 * 512^-0.5 * 16^-0.5 =
+# 1.1e-3 (the example's schedule; GluonNLP's 4000-step warm-up would not
+# move the loss within a phase)
+TF_WARMUP, TF_LR_SCALE = 16, 0.1
+# a transformer_base / _big step: the decoder's causal self-attention on
+# the flash kernels (6 layers), the masked encoder and cross-attention on
+# the plain path, 30 LayerNorms (2 a encoder layer, 3 a decoder layer) each
+# way, one Adam launch
+TF_WANT = {"flash_fwd": TF_LAYERS, "flash_bwd_dkv": TF_LAYERS,
+           "flash_bwd_dq": TF_LAYERS, "adam": 1, "layernorm": 5 * TF_LAYERS,
+           "layernorm_bwd": 5 * TF_LAYERS,
+           "layernorm_bwd_merge": 5 * TF_LAYERS, "paged_attention": 0,
+           "paged_attention_prefill": 0, "xent_fwd": 0, "xent_bwd": 0}
+# a cached decode step: the paged read of each decoder layer's
+# self-attention over its dense cache, the decoder's 18 LayerNorms
+TF_DECODE_WANT = dict(dict.fromkeys(TF_WANT, 0), paged_attention=TF_LAYERS,
+                      layernorm=3 * TF_LAYERS)
+TF_LOOP_EPOCHS, TF_LOOP_VOCAB = 2, 100
+
+
+def _example(name, folder="examples"):
+    """An example module of the port (``examples/<name>.py``)."""
+    root = str(Path(__file__).resolve().parent / folder)
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    return __import__(name)
+
+
+def _tool(name):
+    """A script of ``tools/`` as a module."""
+    return _example(name, folder="tools")
+
+
+def _tf_batches(vocab=TF_VOCAB, seed=TF_SEED):
+    """The example's corpus in its buckets at B=64, by bucket width: each
+    batch (src_ids, tgt_in, src_valid, tgt_out) as int32 tensors on the
+    card, and its count of target tokens (not padding)."""
+    ex = _example("torch_train_transformer_wmt")
+    src, tgt = ex.synthetic_corpus(4096, vocab, seed=seed)
+    out = collections.defaultdict(list)
+    for s_ids, t_in, t_out, valid in ex.bucket_batches(src, tgt, TF_BUCKETS,
+                                                       TF_B, seed):
+        out[s_ids.shape[1]].append(
+            (tuple(torch.from_numpy(a).cuda()
+                   for a in (s_ids, t_in, valid, t_out)),
+             int((t_out != ex.PAD).sum())))
+    return out
+
+
+def tf_loss(out, labels):
+    """The example's loss, the logits cast to f32 first (as bert_loss)."""
+    from mxnet_tpu_torch.models.transformer import label_smoothing_loss
+
+    return label_smoothing_loss(out.float(), labels, epsilon=0.1,
+                                ignore_index=0)
+
+
+def transformer_flops(b, ts, tt, num_layers, units, hidden, vocab):
+    """Training FLOPs of a step at 2 a multiply-add, 3x the forward's
+    matrix products: per layer the encoder's qkv and output projections and
+    feed-forward on each source token with its scores and weighted sum
+    (2 ts u), the decoder's self-attention the same on each target token,
+    its cross-attention (query and output projections and 2 ts u a target
+    token, key and value projections a source token) and feed-forward; the
+    output projection on each target token."""
+    u, h = units, hidden
+    enc = ts * (4 * u * u + 2 * u * h + 2 * ts * u)
+    dec = tt * (4 * u * u + 2 * u * h + 2 * tt * u) + \
+        tt * (2 * u * u + 2 * ts * u) + ts * 2 * u * u
+    fwd = 2 * b * (num_layers * (enc + dec) + tt * u * vocab)
+    return 3 * fwd
+
+
+def _tf_net(model, seed=TF_SEED, dropout=0.0, vocab=TF_VOCAB):
+    from mxnet_tpu_torch.models import get_transformer
+
+    t0 = time.perf_counter()
+    net = get_transformer(model, dropout=dropout, device="cuda", seed=seed,
+                          vocab_size=vocab)
+    params = list(net.parameters())
+    log(f"[{model}] dropout {dropout}, vocab {vocab}: {len(params)} "
+        f"parameters, {sum(p.numel() for p in params)} elements, built in "
+        f"{time.perf_counter() - t0:.1f}s")
+    return net
+
+
+def _tf_forward_run(net, batch, backward):
+    """Logits and loss of ``net`` on ``batch`` (and with ``backward`` the
+    gradients by name), with the launches of the call."""
+    _reset_launch_counts()
+    with torch.set_grad_enabled(backward):
+        logits = net(*batch[:3])
+        loss = tf_loss(logits, batch[3])
+        grads = {}
+        if backward:
+            named = list(net.named_parameters())
+            gs = torch.autograd.grad(loss, [p for _, p in named])
+            grads = {n: g for (n, _), g in zip(named, gs)}
+    torch.cuda.synchronize()
+    return logits.detach(), loss.item(), grads, _launch_counts()
+
+
+def phase_transformer_parity():
+    """transformer_base at full width, f32, dropout 0, from one seeded
+    ``.params`` file, on the first bucket-32 batch (ragged src_valid): the
+    logits (LOGIT_TOL), the label-smoothed loss (TRAIN_LOSS_TOL) and the
+    weights after one TrainStep Adam step (the sign-flip bound, at most 1%
+    beyond 1e-2 * lr) with every kernel knob on against the plain versions.
+    Then transformer_tiny (head dim 32: its causal self-attention takes the
+    plain path by the dispatch rule, no flash launch) forward and backward
+    on the card, logits and loss against the plain versions, and one
+    amp="bfloat16" TrainStep step."""
+    import tempfile
+
+    from mxnet_tpu_torch import TrainStep
+    from mxnet_tpu_torch.optimizer import Adam
+
+    (batch, _), = _tf_batches()[32][:1]
+    valid = batch[2].tolist()
+    valid = f"{min(valid)}..{max(valid)}"
+    runs = []
+    with tempfile.TemporaryDirectory() as d:
+        fname = str(Path(d) / "transformer_base.params")
+        _tf_net("transformer_base").save_parameters(fname)
+        _release()
+        for plain in (False, True):
+            with plain_versions() if plain else contextlib.nullcontext():
+                net = _tf_net("transformer_base", seed=TF_SEED + 1)
+                net.load_parameters(fname)
+                logits, loss, _, launches = _tf_forward_run(net, batch, False)
+                ts = TrainStep(net, tf_loss, Adam(learning_rate=TRAIN_LR,
+                                                  **TF_ADAM),
+                               n_model_inputs=3, amp=None,
+                               engine_type="naive")
+                step_loss = float(ts(*batch))
+                params = {n: p.detach().clone()
+                          for n, p in net.named_parameters()}
+            runs.append((logits, loss, step_loss, params, launches))
+            del net, ts
+            _release()
+    (lk, sk, tk, pk, nk), (lp, sp, tp, pp, np_) = runs
+    want_k = dict(dict.fromkeys(TF_WANT, 0), flash_fwd=TF_LAYERS,
+                  layernorm=5 * TF_LAYERS)
+    if nk != want_k or any(np_.values()):
+        raise AssertionError(f"transformer parity: forward launches {nk} on "
+                             f"the kernels (expected {want_k}), {np_} on the "
+                             f"plain versions")
+    logit_err = (lk - lp).abs().max().item()
+    err = torch.cat([(pk[n] - pp[n]).abs().reshape(-1) for n in pk])
+    worst, far = err.max().item(), (err > 1e-2 * TRAIN_LR).float().mean().item()
+    res = {"max_abs_logit_err": logit_err, "loss_kernels": sk,
+           "loss_plain": sp, "step_loss_kernels": tk, "step_loss_plain": tp,
+           "max_weight_diff": worst, "weight_bound": 2.01 * TRAIN_LR,
+           "share_beyond_1e-2_lr": far, "valid_length": valid}
+    log(f"[transformer parity] transformer_base f32, B={TF_B} bucket 32, "
+        f"src_valid {valid}: max |logit kernels - plain| {logit_err:.3e} "
+        f"(limit {LOGIT_TOL[None]}); loss {sk} / {sp}; after one Adam step "
+        f"(lr {TRAIN_LR}) max |weight diff| {worst:.3e} (bound "
+        f"{2.01 * TRAIN_LR:.3e}), share beyond 1e-2*lr {far:.2e} (limit "
+        f"1e-2); forward launches {nk}")
+    rtol = TRAIN_LOSS_TOL[0]
+    if not (torch.isfinite(lk).all() and logit_err <= LOGIT_TOL[None]
+            and abs(sk - sp) <= rtol * abs(sp)
+            and abs(tk - tp) <= rtol * abs(tp)
+            and worst <= 2.01 * TRAIN_LR and far <= 1e-2):
+        raise AssertionError(f"transformer parity: {res}")
+    del runs, lk, lp, pk, pp, err
+    _release()
+    res["tiny"] = _transformer_tiny()
+    return res
+
+
+def _transformer_tiny():
+    from mxnet_tpu_torch import TrainStep
+    from mxnet_tpu_torch.optimizer import Adam
+
+    vocab = 32000  # transformer_tiny's
+    (batch, _), = _tf_batches(vocab)[32][:1]
+    runs = []
+    for plain in (False, True):
+        with plain_versions() if plain else contextlib.nullcontext():
+            net = _tf_net("transformer_tiny", vocab=vocab)
+            runs.append(_tf_forward_run(net, batch, True))
+    (lk, sk, gk, nk), (lp, sp, gp, _) = runs
+    logit_err = (lk - lp).abs().max().item()
+    grad_err = max(((gk[n] - gp[n]).norm() / gp[n].norm()).item()
+                   for n in gk)
+    want = dict(dict.fromkeys(TF_WANT, 0), layernorm=10, layernorm_bwd=10,
+                layernorm_bwd_merge=10)
+    log(f"[transformer_tiny] head dim 32 on the card, f32 forward and "
+        f"backward: launches {nk} (no flash: the plain path by the "
+        f"dispatch rule); max |logit kernels - plain| {logit_err:.3e}, loss "
+        f"{sk} / {sp}, largest relative gradient difference {grad_err:.3e}")
+    if nk != want or logit_err > LOGIT_TOL[None] or \
+            abs(sk - sp) > TRAIN_LOSS_TOL[0] * abs(sp) or grad_err > 1e-4:
+        raise AssertionError("transformer_tiny: the kernels' run differs "
+                             "from the plain versions' or took flash")
+    ts = TrainStep(net, tf_loss, Adam(learning_rate=1e-3, **TF_ADAM),
+                   n_model_inputs=3, amp="bfloat16", engine_type="graph")
+    amp_losses = [float(ts(*batch)) for _ in range(3)]
+    if not all(np.isfinite(amp_losses)):
+        raise AssertionError(f"transformer_tiny bf16 losses {amp_losses}")
+    log(f"[transformer_tiny] 3 TrainStep(amp='bfloat16') graph steps: "
+        f"losses {amp_losses}")
+    del net, ts
+    _release()
+    return {"max_abs_logit_err": logit_err, "loss_kernels": sk,
+            "loss_plain": sp, "grad_rel_err": grad_err, "launches": nk,
+            "bf16_losses": amp_losses}
+
+
+def _tf_step(net, engine_type):
+    """The TrainStep of the ``transformer`` turns: amp="bfloat16", Adam
+    (beta2 0.98, epsilon 1e-9) on the example's InvSqrtWarmup."""
+    from mxnet_tpu_torch import TrainStep
+    from mxnet_tpu_torch.optimizer import Adam
+
+    ex = _example("torch_train_transformer_wmt")
+    sched = ex.InvSqrtWarmup(net._units, TF_WARMUP, scale=TF_LR_SCALE)
+    return TrainStep(net, tf_loss, Adam(learning_rate=sched(1),
+                                        lr_scheduler=sched, **TF_ADAM),
+                     n_model_inputs=3, amp="bfloat16",
+                     engine_type=engine_type)
+
+
+def _device_groups(fn, n, what, step_ms):
+    """Device time of one of ``n`` calls of ``fn`` under the profiler, by
+    the kernel groups of tools/torch_train_profile.py (``group_of``, the
+    table the ResNet, BERT and GPT-2 breakdowns use), and the idle share
+    against ``step_ms``, the untraced wall time of one call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    group_of = _tool("torch_train_profile").group_of
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    groups = collections.Counter()
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = float(getattr(evt, "self_device_time_total",
+                           getattr(evt, "self_cuda_time_total", 0.0)))
+        groups[group_of(evt.key)] += us / n / 1e3
+    device = sum(groups.values())
+    res = {"device_ms": device, "step_ms": step_ms,
+           "idle_share": 1 - device / step_ms if device else None,
+           "by_group_ms": dict(groups.most_common())}
+    log(f"[{what}] {n} calls under the profiler: device "
+        f"{device:.3f} ms of a {step_ms:.3f} ms call (idle share "
+        f"{res['idle_share']}); by group "
+        f"{ {g: round(v, 3) for g, v in groups.most_common()} }"
+        if device else f"[{what}] the profiler recorded no device time: "
+        f"not measured")
+    return res
+
+
+def phase_transformer(net, init, engine_type, card, batches, model,
+                      steps=10, name="transformer", breakdown=False):
+    """``model`` at full width through ``_tf_step`` from the weights
+    ``init``: two batches of each bucket in turn (each bucket's step
+    program made and, under "graph", captured), then ``steps`` timed steps
+    of bucket-32 batches. Every step launches TF_WANT (LayerNorm on bf16 x
+    and the bf16 copies of gamma and beta), four programs in all, every
+    loss finite (the targets are uniform over 36,497 ids, so 18 steps do
+    not move the loss off ln(vocab); phase_transformer_loop shows it
+    fall over an epoch). Reports ms a bucket-32
+    step, target tokens/s, MFU (transformer_flops over 989 TFLOP/s) and
+    peak memory; after a "graph" run a profiled replay of each program
+    (check_replay_launches) and, with ``breakdown``, the bucket-32 graph's
+    device time by kernel group."""
+    from mxnet_tpu_torch.models.transformer import transformer_configs
+
+    cfg = transformer_configs[model]
+    _restore(net, init)
+    ts = _tf_step(net, engine_type)
+    warm = [batches[b][i] for i in range(2) for b in TF_BUCKETS]
+    pool = batches[32][2:]
+    timed = [pool[i % len(pool)] for i in range(steps)]
+    tokens = sum(n for _, n in timed)
+    total = dict.fromkeys(TF_WANT, 0)
+    losses = []
+    torch.cuda.synchronize()
+    _release()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    what = f"{name} {engine_type}"
+    with _ln_dtypes() as ln_pairs:
+        for i, (batch, _) in enumerate(warm + timed):
+            if i == len(warm):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+            before = _launch_counts()
+            losses.append(ts(*batch))
+            got = {k: v - before[k] for k, v in _launch_counts().items()}
+            if got != TF_WANT:
+                raise AssertionError(f"{what} step {i}: launches {got}, "
+                                     f"expected {TF_WANT}")
+            for k in total:
+                total[k] += got[k]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    bf = torch.bfloat16
+    if set(ln_pairs) != {("fwd", bf, bf), ("bwd", bf, bf)}:
+        raise AssertionError(f"{what}: LayerNorm ran on (x, gamma) dtypes "
+                             f"{dict(ln_pairs)}")
+    losses = [float(x) for x in losses]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{what} losses {losses}: not finite")
+    if ts.compiled_programs != len(TF_BUCKETS):
+        raise AssertionError(f"{what}: {ts.compiled_programs} programs, "
+                             f"one a bucket expected")
+    flops = transformer_flops(TF_B, 32, 32, cfg["num_layers"], cfg["units"],
+                              cfg["hidden_size"], TF_VOCAB)
+    ms = wall / steps * 1e3
+    res = {"engine_type": engine_type, "model": model, "ms_per_step": ms,
+           "target_tokens_per_s": tokens / wall,
+           "flops_per_step": flops, "mfu": flops / (ms * 1e-3)
+           / BF16_TC_FLOPS_PER_S, "peak_bytes": torch.cuda.max_memory_allocated(),
+           "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
+           "programs": ts.compiled_programs, "losses": losses,
+           "steps": steps, "warmup": len(warm), "card": card}
+    log(f"[{what}] {model} B={TF_B} bucket 32, {steps} timed steps: "
+        f"{ms:.2f} ms/step, {res['target_tokens_per_s']:.0f} target "
+        f"tokens/s, MFU {res['mfu']:.4f} ({flops:.4e} flops a step over "
+        f"989 TFLOP/s), peak {res['peak_bytes'] / 2**30:.2f} GiB allocated "
+        f"/ {res['peak_reserved_bytes'] / 2**30:.2f} reserved, "
+        f"{ts.compiled_programs} programs; losses "
+        f"{['%.4f' % x for x in losses]} on {card}")
+    state = _state(ts, host=True)
+    if engine_type == "graph":
+        for key, (prog, _, _) in ts._programs.items():
+            width = key[1][0][0][1]
+            check_replay_launches(prog, f"{what} bucket {width} step graph")
+            if breakdown and width == 32:
+                res["breakdown"] = _device_groups(
+                    prog.graph.replay, 5, f"{what} bucket 32", ms)
+    del ts
+    _release()
+    return total, res, state
+
+
+def _masked_attention_ms(h, d=64, t=32):
+    """Device ms of one layer's masked attention at a bucket-32 step's bf16
+    shapes, forward and backward through ``multi_head_attention``: the
+    encoder's self-attention on q, k and v from one (B, T, 3, H, D)
+    projection and the decoder's cross-attention (queries from one
+    projection, keys and values from another), each with the ragged
+    (B, 1, 1, T) key-padding mask (CUDA graph replay)."""
+    from mxnet_tpu_torch.ops.attention import multi_head_attention
+
+    gen = torch.Generator().manual_seed(4)
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    qkv = torch.randn(TF_B, t, 3, h, d, generator=gen).to(dev, bf) \
+        .requires_grad_()
+    kv = torch.randn(TF_B, t, 2, h, d, generator=gen).to(dev, bf) \
+        .requires_grad_()
+    valid = torch.randint(t // 2, t + 1, (TF_B,), generator=gen).to(dev)
+    mask = torch.arange(t, device=dev).reshape(1, 1, 1, t) < \
+        valid.reshape(-1, 1, 1, 1)
+    cot = torch.randn(TF_B, h, t, d, generator=gen).to(dev, bf)
+
+    def encoder():
+        q, k, v = qkv.permute(2, 0, 3, 1, 4)
+        out = multi_head_attention(q, k, v, mask=mask)
+        torch.autograd.grad(out, qkv, cot)
+
+    def cross():
+        q = qkv[:, :, 0].transpose(1, 2)
+        k, v = kv.permute(2, 0, 3, 1, 4)
+        out = multi_head_attention(q, k, v, mask=mask)
+        torch.autograd.grad(out, (qkv, kv), cot)
+
+    return graph_time_ms(encoder, calls=2), graph_time_ms(cross, calls=2)
+
+
+def phase_transformer_turns(card):
+    """``phase_transformer`` at transformer_base under MODE_TURNS from one
+    start (``_turns``): losses, weights, masters and Adam moments
+    bit-identical across naive, graph, graph, naive; then the masked
+    attention's device time (encoder and cross, 6 layers each) against
+    the step; then transformer_big as a graph from the same batches.
+    Returns the launches of base's first graph run and of big's, and the
+    metrics."""
+    batches = _tf_batches()
+    counts = {b: len(v) for b, v in batches.items()}
+    log(f"[transformer] batches of {TF_B} by bucket: {counts}")
+    net = _tf_net("transformer_base")
+    init = [p.detach().clone() for _, p in sorted(net.named_parameters())]
+    first = {}
+
+    def run(mode):
+        out = phase_transformer(net, init, mode, card, batches,
+                                "transformer_base",
+                                breakdown=mode == "graph" and not first)
+        if mode == "graph" and not first:
+            first.update(out[1])
+        return out
+
+    launches, runs = _turns("transformer", run)
+    del init, net
+    _release()
+    enc_ms, cross_ms = _masked_attention_ms(8)
+    step_ms = first["ms_per_step"]
+    masked = {"encoder_ms_per_layer": enc_ms, "cross_ms_per_layer": cross_ms,
+              "per_step_ms": TF_LAYERS * (enc_ms + cross_ms),
+              "step_ms": step_ms}
+    masked["share_of_step"] = masked["per_step_ms"] / step_ms
+    log(f"[transformer masked attention] bf16 B={TF_B} H=8 T=32 D=64 with "
+        f"the ragged key-padding mask, forward + backward, device: encoder "
+        f"{enc_ms * 1e3:.1f} us, cross {cross_ms * 1e3:.1f} us a layer; x6 "
+        f"layers each {masked['per_step_ms']:.3f} ms = "
+        f"{100 * masked['share_of_step']:.1f}% of a {step_ms:.2f} ms graph "
+        f"step on {card}")
+    big = _tf_net("transformer_big")
+    init = [p.detach().clone() for _, p in sorted(big.named_parameters())]
+    big_launches, big_res, state = phase_transformer(
+        big, init, "graph", card, batches, "transformer_big",
+        name="transformer_big", breakdown=True)
+    del big, init, state, batches
+    _release()
+    return launches, runs, masked, big_launches, big_res
+
+
+def phase_transformer_decode(card, steps=32, cache_len=64):
+    """Greedy cached decode with transformer_base (f32, seed TF_SEED,
+    dropout 0): encode a bucket-32 batch of 64 sources (ragged src_valid),
+    then ``steps`` ``decode_step`` calls of one token each over
+    ``init_decode_cache`` (dense (B, 8, 64, 64) buffers a layer, read by
+    the paged kernel), each launching TF_DECODE_WANT. The per-step logits
+    must agree with one teacher-forced forward on the decoded tokens
+    within LOGIT_TOL (the flash kernels and the paged read sum in other
+    orders). Reports ms a decode step and tokens/s (steps 1 on), and the
+    device time of four more steps under the profiler by kernel group,
+    with the idle share against the untraced step."""
+    (batch, _), = _tf_batches()[32][:1]
+    net = _tf_net("transformer_base")
+    net.eval()
+    src, valid = batch[0], batch[2]
+    total = dict.fromkeys(TF_DECODE_WANT, 0)
+    with torch.no_grad():
+        mem, mask = net.encode(None, src, valid)
+        cache = net.init_decode_cache(TF_B, cache_len)
+        tok = torch.ones((TF_B, 1), dtype=torch.int32, device="cuda")
+        toks, logits = [], []
+        _reset_launch_counts()
+        torch.cuda.synchronize()
+        for t in range(steps):
+            if t == 1:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            before = _launch_counts()
+            pos = torch.full((TF_B,), t, dtype=torch.int32, device="cuda")
+            lg, cache = net.decode_step(tok, mem, mask, cache=cache,
+                                        start_pos=pos)
+            got = {k: v - before[k] for k, v in _launch_counts().items()}
+            if got != TF_DECODE_WANT:
+                raise AssertionError(f"transformer decode step {t}: "
+                                     f"launches {got}, expected "
+                                     f"{TF_DECODE_WANT}")
+            for k in total:
+                total[k] += got[k]
+            tok = lg[:, -1].argmax(-1, keepdim=True).int()
+            toks.append(tok)
+            logits.append(lg[:, -1])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tgt = torch.cat([torch.ones_like(toks[0])] + toks[:-1], dim=1)
+        full = net(src, tgt, valid)
+    logits = torch.stack(logits, dim=1)
+    err = (logits - full).abs().max().item()
+    ms = wall / (steps - 1) * 1e3
+    res = {"ms_per_decode_step": ms,
+           "tokens_per_s": TF_B * (steps - 1) / wall,
+           "max_abs_logit_err": err, "steps": steps, "batch": TF_B,
+           "cache_len": cache_len, "card": card}
+    log(f"[transformer decode] transformer_base f32 greedy, B={TF_B}, "
+        f"{steps} steps of one token over a {cache_len}-slot cache: "
+        f"{ms:.3f} ms/step, {res['tokens_per_s']:.0f} tokens/s; max |decode "
+        f"logits - teacher-forced forward| {err:.3e} (limit "
+        f"{LOGIT_TOL[None]}); launches a step "
+        f"{ {k: v for k, v in TF_DECODE_WANT.items() if v} } on {card}")
+    if not torch.isfinite(logits).all() or err > LOGIT_TOL[None]:
+        raise AssertionError(f"transformer decode: logits differ from the "
+                             f"full forward by {err}")
+    state = {"tok": tok, "cache": cache, "t": steps}
+
+    def one_step():
+        pos = torch.full((TF_B,), state["t"], dtype=torch.int32,
+                         device="cuda")
+        lg, state["cache"] = net.decode_step(state["tok"], mem, mask,
+                                             cache=state["cache"],
+                                             start_pos=pos)
+        state["tok"] = lg[:, -1].argmax(-1, keepdim=True).int()
+        state["t"] += 1
+
+    with torch.no_grad():
+        res["profile"] = _device_groups(one_step, 4, "transformer decode "
+                                        "step", ms)
+    del net, mem, cache, full, logits, state
+    _release()
+    return total, res
+
+
+def phase_transformer_loop(card, profile_at=(40, 45)):
+    """The example's own loop (examples/torch_train_transformer_wmt.py
+    ``train``): transformer_base f32 at dropout 0.1 and its published
+    width (36,500 ids, the example's ``build_net`` at ``--vocab-size
+    36500``, passed as ``net=``), eager record / backward /
+    Trainer("adam").step(1) over TF_LOOP_EPOCHS epochs of the corpus
+    (about 62 steps each in the four buckets), at ``--vocab-size 100
+    --warmup-steps 16 --lr-scale 0.1``, logging every 8 steps. Only the
+    corpus is cut to 100 ids: drawn from all 36,500, each id occurs about
+    twice an epoch and the loss stays near ln(vocab) for longer than a
+    phase; over 100 the reverse task is learnable within it. Every step
+    launches TF_WANT; the logged loss falls. Reports ms a step from step 8
+    on (host clock, synced at both ends) and the host share over steps
+    ``profile_at`` (1 - device time / wall time, the profiler on; and
+    against the untraced steps' wall time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ex = _example("torch_train_transformer_wmt")
+    args = ex.build_parser().parse_args(
+        ["--device", "gpu", "--epochs", str(TF_LOOP_EPOCHS), "--vocab-size",
+         str(TF_LOOP_VOCAB), "--warmup-steps", str(TF_WARMUP), "--lr-scale",
+         str(TF_LR_SCALE), "--log-interval", "8", "--seed", str(TF_SEED)])
+    full = ex.build_parser().parse_args(
+        ["--device", "gpu", "--vocab-size", str(TF_VOCAB), "--seed",
+         str(TF_SEED)])
+    net = ex.build_net(full, ex.mx.gpu())
+    if net.out_proj.weight.shape[0] != TF_VOCAB:
+        raise AssertionError(f"transformer loop: the net's output layer has "
+                             f"{net.out_proj.weight.shape[0]} ids, not "
+                             f"{TF_VOCAB}")
+    marks, counts = {}, {}
+    total = dict.fromkeys(TF_WANT, 0)
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    _reset_launch_counts()
+
+    def on_step(step, loss, tokens):
+        now = _launch_counts()
+        if counts:
+            got = {k: v - counts[k] for k, v in now.items()}
+            if got != TF_WANT:
+                raise AssertionError(f"transformer loop step {step}: "
+                                     f"launches {got}, expected "
+                                     f"{TF_WANT}")
+            for k in total:
+                total[k] += got[k]
+        counts.update(now)
+        if step in (8,) + tuple(profile_at):
+            torch.cuda.synchronize()
+            marks[step] = time.perf_counter()
+        if step == profile_at[0]:
+            prof.__enter__()
+        elif step == profile_at[1]:
+            prof.__exit__(None, None, None)
+        marks["last"] = (step, time.perf_counter())
+
+    real_accuracy = ex.token_accuracy
+
+    def accuracy(*a):
+        # the epoch's evaluation forwards launch too: count from after them
+        out = real_accuracy(*a)
+        counts.update(_launch_counts())
+        return out
+
+    ex.token_accuracy = accuracy
+    t0 = time.perf_counter()
+    try:
+        history = ex.train(args, net=net, on_step=on_step)
+    finally:
+        ex.token_accuracy = real_accuracy
+    torch.cuda.synchronize()
+    last_step, _ = marks["last"]
+    wall = time.perf_counter() - t0
+    device_ms = sum(
+        float(getattr(e, "self_device_time_total",
+                      getattr(e, "self_cuda_time_total", 0.0)))
+        for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    n_prof = profile_at[1] - profile_at[0]
+    prof_wall = (marks[profile_at[1]] - marks[profile_at[0]]) * 1e3
+    step_ms = (marks[profile_at[0]] - marks[8]) * 1e3 / (profile_at[0] - 8)
+    res = {"steps": last_step, "losses_logged": history,
+           "ms_per_step": step_ms,
+           "profiled_ms_per_step": prof_wall / n_prof,
+           "device_ms_per_step": device_ms / n_prof,
+           "host_share": 1 - device_ms / prof_wall if device_ms else None,
+           "host_share_untraced":
+               1 - device_ms / n_prof / step_ms if device_ms else None,
+           "vocab": net.src_embed.weight.shape[0],
+           "corpus_vocab": TF_LOOP_VOCAB,
+           "wall_s_with_eval": wall, "warmup_steps": TF_WARMUP,
+           "lr_scale": TF_LR_SCALE, "card": card}
+    log(f"[transformer loop] examples/torch_train_transformer_wmt.py train(), "
+        f"transformer_base f32 dropout 0.1, vocab {res['vocab']}, "
+        f"corpus of {TF_LOOP_VOCAB} ids, {last_step} steps "
+        f"(--warmup-steps {TF_WARMUP} --lr-scale {TF_LR_SCALE}): "
+        f"{res['ms_per_step']:.2f} ms/step (steps 8-{profile_at[0]}); steps "
+        f"{profile_at[0]}-{profile_at[1]} under the profiler "
+        f"{res['profiled_ms_per_step']:.2f} ms/step, device "
+        f"{res['device_ms_per_step']:.2f}, host share {res['host_share']} "
+        f"(against the untraced steps {res['host_share_untraced']}); "
+        f"logged losses {['%.4f' % x for x in history]} on {card}")
+    # each logged loss is one batch's, of one of four buckets: compare the
+    # means of the first and the last quarter of them
+    q = max(len(history) // 4, 1)
+    res["first_quarter_mean"] = float(np.mean(history[:q]))
+    res["last_quarter_mean"] = float(np.mean(history[-q:]))
+    log(f"[transformer loop] mean logged loss, first quarter "
+        f"{res['first_quarter_mean']:.4f}, last quarter "
+        f"{res['last_quarter_mean']:.4f}")
+    if len(history) < 8 or not all(np.isfinite(history)) or \
+            not res["last_quarter_mean"] < res["first_quarter_mean"]:
+        raise AssertionError(f"transformer loop: losses {history} do not "
+                             f"fall")
+    del net
+    _release()
+    return total, res
+
+
+def phase_mnist(card, epochs=4):
+    """examples/torch_train_mnist.py's route (``train``): the synthetic
+    MNIST (8192 training images) -> DataLoader (B=128, shuffled) -> the
+    zoo's LeNet -> Trainer("adam") -> metric.Accuracy, ``epochs`` epochs
+    of 64 steps, each step launching the xent pair and one Adam. The
+    training accuracy rises from the first epoch to the last. Reports ms a
+    step and the share of the loop's host time spent waiting on the
+    DataLoader."""
+    tm = _example("torch_train_mnist")
+    args = tm.build_parser().parse_args(["--device", "gpu", "--epochs",
+                                         str(epochs)])
+    counts = {}
+    total = dict.fromkeys(LENET_WANT, 0)
+    _reset_launch_counts()
+
+    def on_step(step, loss):
+        now = _launch_counts()
+        got = {k: v - counts.get(k, 0) for k, v in now.items()}
+        if got != LENET_WANT:
+            raise AssertionError(f"mnist step {step}: launches {got}, "
+                                 f"expected {LENET_WANT}")
+        for k in total:
+            total[k] += got[k]
+        counts.update(now)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    history = tm.train(args, on_step=on_step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = history[-1]["steps"]
+    wait = sum(h["wait_s"] for h in history)
+    busy = sum(h["step_s"] for h in history)
+    res = {"steps": steps, "epochs": history,
+           "ms_per_step": busy / steps * 1e3,
+           "data_wait_share": wait / (wait + busy),
+           "wall_s_with_eval": wall, "card": card}
+    log(f"[mnist] examples/torch_train_mnist.py train(), {steps} steps of "
+        f"B=128: {res['ms_per_step']:.2f} ms/step (host clock, eager), "
+        f"data-wait share {res['data_wait_share']:.3f}; accuracy by epoch "
+        f"{[round(h['train_acc'], 4) for h in history]} (validation "
+        f"{[round(h['val_acc'], 4) for h in history]}) on {card}")
+    if not history[-1]["train_acc"] > history[0]["train_acc"] or \
+            not np.isfinite(history[-1]["loss"]):
+        raise AssertionError(f"mnist: accuracy {history} does not rise")
+    _release()
+    return total, res
+
+
+def phase_transformer_timing(card):
+    """The kernels at the Transformer's shapes: flash forward, dK/dV and
+    dQ at (64, 8, 32, 32, D 64) causal in bf16 (the ``transformer`` step)
+    and f32 (the example's loop); LayerNorm forward and backward in bf16
+    at (2048, 512) (transformer_base, B=64 x T=32 rows) and (2048, 1024)
+    (transformer_big); Adam over transformer_base's 196 tensors; and the
+    paged read of a decode step (64 rows, 8 heads, Ch 64, 32 live keys a
+    row of a 64-slot dense cache, identity table)."""
+    from mxnet_tpu_torch.ops import paged_attention as pa
+
+    gen = torch.Generator().manual_seed(14)
+    dev = torch.device("cuda")
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        sfx = "_bf16" if dtype == torch.bfloat16 else ""
+        fwd, dkv, dq = _flash_rows(gen, TF_B, 8, 32, 64, dtype)
+        rows["flash_fwd_transformer" + sfx] = fwd
+        rows["flash_bwd_dkv_transformer" + sfx] = dkv
+        rows["flash_bwd_dq_transformer" + sfx] = dq
+    for d in (512, 1024):
+        fwd, bwd, _ = _ln_rows(gen, TF_B * 32, torch.bfloat16, d=d)
+        rows[f"layernorm_transformer_{d}"] = fwd
+        rows[f"layernorm_bwd_transformer_{d}"] = bwd
+    net = _tf_net("transformer_base")
+    rows["adam_transformer"] = _adam_row(net, gen)
+    del net
+    _release()
+    b, h, tmax, ch, L = TF_B, 8, 64, 64, 32
+    k_buf = torch.randn(b, h, tmax, ch, generator=gen).to(dev)
+    v_buf = torch.randn(b, h, tmax, ch, generator=gen).to(dev)
+    table = torch.arange(b, dtype=torch.int32, device=dev)[:, None]
+    position = torch.full((b,), L - 1, dtype=torch.int32, device=dev)
+    q = torch.randn(b, h, 1, ch, generator=gen).to(dev)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    kh, vh = k_buf[:, :, :L], v_buf[:, :, :L]
+    rows["paged_attention_transformer"] = _timed(
+        lambda: pa.paged_attention_read(q, k_buf, v_buf, table, position),
+        lambda: pa.paged_attention_read_plain(q, k_buf, v_buf, table,
+                                              position),
+        lambda: sdpa(q, kh, vh),
+        nbytes=4 * (2 * b * h * L * ch + 2 * b * h * ch) + 4 * 2 * b,
+        flops=4 * b * h * L * ch,
+        shape=f"paged_attention Transformer decode B={b} H={h} Tq=1 Ch={ch} "
+              f"L={L} of a {tmax}-slot dense cache f32",
+        plain_graph=False, dtype="3xtf32")
+    rows["paged_attention_transformer"]["library"] = "SDPA on the history"
+    return rows
+
+
 # Serving runs: one dispatch counter and one launch formula for every
 # serving phase
 SERVE_LAUNCHES = ("layernorm", "layernorm_bwd", "layernorm_bwd_merge",
@@ -4509,8 +5271,8 @@ def phase_layernorm_timing():
     return rows
 
 
-def _ln_rows(gen, n_rows, dtype, backward=True):
-    """The forward kernel's row at (n_rows, 1024) in ``dtype`` (x, gamma
+def _ln_rows(gen, n_rows, dtype, backward=True, d=1024):
+    """The forward kernel's row at (n_rows, d) in ``dtype`` (x, gamma
     and beta), with the launch floor on its route's grid, and, with
     ``backward``, the backward's row, its library yardstick
     F.layer_norm's forward + backward minus its forward (device, CUDA
@@ -4523,14 +5285,14 @@ def _ln_rows(gen, n_rows, dtype, backward=True):
 
     F = torch.nn.functional
     dev = torch.device("cuda")
-    x, g, bb, cot = _ln_case(gen, n_rows, 1024, 0, dtype, dtype, dev)
+    x, g, bb, cot = _ln_case(gen, n_rows, d, 0, dtype, dtype, dev)
     size = x.element_size()
-    shape = f"({n_rows}, 1024) {str(dtype)[6:]}"
+    shape = f"({n_rows}, {d}) {str(dtype)[6:]}"
     route = ln_route(x, g, bb)
     r = _timed(lambda: ln.layer_norm(x, g, bb),
                lambda: ln.layer_norm_plain(x, g, bb),
-               lambda: F.layer_norm(x, (1024,), g, bb, 1e-5),
-               nbytes=size * (2 * x.numel() + 2 * 1024),
+               lambda: F.layer_norm(x, (d,), g, bb, 1e-5),
+               nbytes=size * (2 * x.numel() + 2 * d),
                flops=8 * x.numel(), shape=f"layernorm {shape} {route}")
     r["library"] = "F.layer_norm"
     floor = {"route": route, "layernorm_ms": r["ms"],
@@ -4547,11 +5309,11 @@ def _ln_rows(gen, n_rows, dtype, backward=True):
     xg, gg, bg = (t.clone().requires_grad_() for t in (x, g, bb))
 
     def lib_fwd_bwd():
-        torch.autograd.grad(F.layer_norm(xg, (1024,), gg, bg, 1e-5),
+        torch.autograd.grad(F.layer_norm(xg, (d,), gg, bg, 1e-5),
                             (xg, gg, bg), cot)
 
     def lib_fwd():
-        F.layer_norm(xg, (1024,), gg, bg, 1e-5)
+        F.layer_norm(xg, (d,), gg, bg, 1e-5)
 
     fb_ms, f_ms = graph_time_ms(lib_fwd_bwd), graph_time_ms(lib_fwd)
     lib_bwd = fb_ms - f_ms
@@ -4561,7 +5323,7 @@ def _ln_rows(gen, n_rows, dtype, backward=True):
         f"{f_ms * 1e3:.2f}, device); eager {lib_bwd_eager * 1e3:.2f} us")
     bwd = _timed(lambda: ln._backward(x, g, cot, 1e-5),
                  lambda: ln.layer_norm_bwd(x, g, cot, 1e-5), None,
-                 nbytes=size * 3 * x.numel() + 3 * 1024 * size,
+                 nbytes=size * 3 * x.numel() + 3 * d * size,
                  flops=16 * x.numel(), shape=f"layernorm_bwd {shape} {route}")
     bwd.update(library_ms=lib_bwd, library_eager_ms=lib_bwd_eager,
                library="F.layer_norm backward: fwd+bwd minus fwd")
@@ -4581,75 +5343,81 @@ def _flash_bounds(b, h, t, d, itemsize):
             "dq": (5 * tile + 2 * rows, 3 * 2 * d * pairs)}
 
 
+def _flash_rows(gen, b, h, t, d, dtype):
+    """The flash kernels' rows at (B, H, T, D), causal, in ``dtype``, each
+    beside its plain version and SDPA (the backward's: SDPA forward +
+    backward minus its forward). Returns (forward, dK/dV, dQ)."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    dn = str(dtype)[6:]
+    q, k, v = _flash_inputs(gen, b, h, t, t, d, dtype, dev)
+    do = torch.randn(b, h, t, d, generator=gen).to(dev, dtype)
+    out, lse = fa._flash_fwd(q, k, v, True, return_lse=True)
+    di = fa._row_dot(do, out).contiguous()
+    bounds = _flash_bounds(b, h, t, d, q.element_size())
+    shape = f"B={b} H={h} T={t} D={d} causal {dn}"
+    # f32 block products are bound at the 3xTF32 rate (PEAKS)
+    peak = "3xtf32" if dtype == torch.float32 else dtype
+    fwd = _timed(lambda: fa._flash_fwd(q, k, v, True, return_lse=True),
+                 lambda: fa.flash_fwd_plain(q, k, v, True),
+                 lambda: sdpa(q, k, v, is_causal=True),
+                 *bounds["fwd"], shape=f"flash_fwd {shape}", dtype=peak)
+    fwd["library"] = "SDPA is_causal forward"
+    # the library yardstick of the backward: SDPA forward + backward minus
+    # SDPA forward on inputs that require grad, on the device (CUDA graph
+    # replay; eager, SDPA's host time per call, ~0.3 ms in bf16, would be
+    # measured instead) and eager
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+
+    def lib_fwd_bwd():
+        torch.autograd.grad(sdpa(qg, kg, vg, is_causal=True),
+                            (qg, kg, vg), do)
+
+    def lib_fwd():
+        sdpa(qg, kg, vg, is_causal=True)
+
+    fb_ms, f_ms = graph_time_ms(lib_fwd_bwd), graph_time_ms(lib_fwd)
+    fb_eager = cuda_time_ms(lib_fwd_bwd, iters=10)
+    lib_bwd = fb_ms - f_ms
+    lib_bwd_eager = fb_eager - cuda_time_ms(lib_fwd, iters=10)
+    log(f"[time] SDPA causal backward at {shape}: {lib_bwd * 1e3:.2f} us "
+        f"(fwd+bwd {fb_ms * 1e3:.2f} - fwd {f_ms * 1e3:.2f}, device); "
+        f"eager {lib_bwd_eager * 1e3:.2f} us")
+    del qg, kg, vg
+    bwd = {}
+    for name, kern, plain in (
+            ("dkv", fa._bwd_dkv, fa._flash_bwd_dkv_plain),
+            ("dq", fa._bwd_dq, fa._flash_bwd_dq_plain)):
+        bwd[name] = _timed(
+            lambda: kern(q, k, v, do, lse, di, True),
+            lambda: plain(q, k, v, do, lse, di, True),
+            None, *bounds[name], shape=f"flash_bwd_{name} {shape}",
+            dtype=peak)
+        bwd[name].update(library_ms=lib_bwd,
+                         library_eager_ms=lib_bwd_eager,
+                         library="SDPA backward (dq, dk, dv together): "
+                                 "fwd+bwd minus fwd")
+    return fwd, bwd["dkv"], bwd["dq"]
+
+
 def phase_train_timing(net):
     """The training kernels at the shapes gpt2_345m training gives them:
     flash (B=4, H=16, T=1024, D=64, causal) in f32 (the ``train`` path; also
     T=2048) and in bf16 (``train_amp``), and Adam over the model's 292
     parameters (``_adam_row``). Bounds as in phase_timing. Returns the rows
     by kernel name, the bf16 flash rows under ``<name>_bf16``."""
-    from mxnet_tpu_torch.ops import flash_attention as fa
-
-    dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(6)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = {}
     for t, dtype in ((1024, torch.float32), (2048, torch.float32),
                      (1024, torch.bfloat16)):
-        b, h, d = 4, 16, 64
-        dn = str(dtype)[6:]
-        q, k, v = _flash_inputs(gen, b, h, t, t, d, dtype, dev)
-        do = torch.randn(b, h, t, d, generator=gen).to(dev, dtype)
-        out, lse = fa._flash_fwd(q, k, v, True, return_lse=True)
-        di = fa._row_dot(do, out).contiguous()
-        bounds = _flash_bounds(b, h, t, d, q.element_size())
-        shape = f"B={b} H={h} T={t} D={d} causal {dn}"
-        # f32 block products are bound at the 3xTF32 rate (PEAKS)
-        peak = "3xtf32" if dtype == torch.float32 else dtype
-        fwd = _timed(lambda: fa._flash_fwd(q, k, v, True, return_lse=True),
-                     lambda: fa.flash_fwd_plain(q, k, v, True),
-                     lambda: sdpa(q, k, v, is_causal=True),
-                     *bounds["fwd"], shape=f"flash_fwd {shape}", dtype=peak)
-        # the library yardstick of the backward: SDPA forward + backward
-        # minus SDPA forward on inputs that require grad, on the device (CUDA
-        # graph replay; eager, SDPA's host time per call, ~0.3 ms in bf16,
-        # would be measured instead) and eager
-        qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
-
-        def lib_fwd_bwd():
-            torch.autograd.grad(sdpa(qg, kg, vg, is_causal=True),
-                                (qg, kg, vg), do)
-
-        def lib_fwd():
-            sdpa(qg, kg, vg, is_causal=True)
-
-        fb_ms, f_ms = graph_time_ms(lib_fwd_bwd), graph_time_ms(lib_fwd)
-        fb_eager = cuda_time_ms(lib_fwd_bwd, iters=10)
-        lib_bwd = fb_ms - f_ms
-        lib_bwd_eager = fb_eager - cuda_time_ms(lib_fwd, iters=10)
-        log(f"[time] SDPA causal backward at {shape}: {lib_bwd * 1e3:.2f} us "
-            f"(fwd+bwd {fb_ms * 1e3:.2f} - fwd {f_ms * 1e3:.2f}, device); "
-            f"eager {lib_bwd_eager * 1e3:.2f} us")
-        del qg, kg, vg
-        bwd = {}
-        for name, kern, plain in (
-                ("dkv", fa._bwd_dkv, fa._flash_bwd_dkv_plain),
-                ("dq", fa._bwd_dq, fa._flash_bwd_dq_plain)):
-            bwd[name] = _timed(
-                lambda: kern(q, k, v, do, lse, di, True),
-                lambda: plain(q, k, v, do, lse, di, True),
-                None, *bounds[name], shape=f"flash_bwd_{name} {shape}",
-                dtype=peak)
-            bwd[name].update(library_ms=lib_bwd,
-                             library_eager_ms=lib_bwd_eager,
-                             library="SDPA backward (dq, dk, dv together): "
-                                     "fwd+bwd minus fwd")
+        fwd, dkv, dq = _flash_rows(gen, 4, 16, t, 64, dtype)
         if t == 1024:
             sfx = "" if dtype == torch.float32 else "_bf16"
-            fwd["library"] = "SDPA is_causal forward"
             rows["flash_fwd" + sfx] = fwd
-            rows["flash_bwd_dkv" + sfx] = bwd["dkv"]
-            rows["flash_bwd_dq" + sfx] = bwd["dq"]
-        del q, k, v, do, out, lse, di
+            rows["flash_bwd_dkv" + sfx] = dkv
+            rows["flash_bwd_dq" + sfx] = dq
 
     rows["adam"] = _adam_row(net, gen)
     return rows
@@ -4870,11 +5638,25 @@ def main():
     _release()
     log("[bert_amp] " + json.dumps(dict(runs=bert_amp, parity=bert_parity,
                                         dropout=bert_dropout)))
+    t = time.perf_counter()
+    tf_parity = phase_transformer_parity()
+    tf_launches, tf_runs, tf_masked, big_launches, tf_big = \
+        phase_transformer_turns(card)
+    decode_launches, tf_decode = phase_transformer_decode(card)
+    tf_loop_launches, tf_loop = phase_transformer_loop(card)
+    log("[transformer] " + json.dumps(dict(
+        runs=tf_runs, parity=tf_parity, masked_attention=tf_masked,
+        big=tf_big, decode=tf_decode, loop=tf_loop)))
+    mnist_launches, mnist = phase_mnist(card)
+    log("[mnist] " + json.dumps(mnist))
+    log(f"[transformer and mnist seconds] {time.perf_counter() - t:.1f} s")
     log("[engine types] " + json.dumps(
         {"turns": MODE_TURNS, "serve": serve, "train": train,
          "train_amp": train_amp, "bert_amp": bert_amp,
-         "resnet": resnet["resnet"], "resnet_bf16": resnet["resnet_bf16"]}))
+         "resnet": resnet["resnet"], "resnet_bf16": resnet["resnet_bf16"],
+         "transformer": tf_runs}))
     timing.update(phase_xent_timing())
+    timing.update(phase_transformer_timing(card))
     timing.update(phase_vision_timing())
     log("[batch_norm] " + json.dumps(timing["batch_norm"]))
     # (source, replaced TPU kernel, the path whose run gives `launches`[,
@@ -4982,9 +5764,65 @@ def main():
         "adam_lenet": ("mxnet_tpu_torch/csrc/adam.cu",
                        "mxnet_tpu/ops/pallas_optimizer.py:63", "lenet",
                        "adam", None),
+        # the WMT Transformer's shapes: the decoder's causal self-attention
+        # at bucket 32 (B=64, H=8, T=32, D=64) in bf16 on the transformer
+        # step and in f32 on the example's loop; LayerNorm at
+        # transformer_base's (2048, 512) and transformer_big's (2048, 1024)
+        # rows; Adam over transformer_base's tensors; the decode step's
+        # paged read (their max_abs_err: the checks at their shapes)
+        "flash_fwd_transformer_bf16": (
+            "mxnet_tpu_torch/csrc/flash_attention.cu",
+            "mxnet_tpu/ops/flash_attention.py:100", "transformer",
+            "flash_fwd", "flash_fwd_bf16@64,8,32,32,1"),
+        "flash_bwd_dkv_transformer_bf16": (
+            "mxnet_tpu_torch/csrc/flash_attention.cu",
+            "mxnet_tpu/ops/flash_attention.py:256", "transformer",
+            "flash_bwd_dkv", "flash_bwd_dkv_bf16@64,8,32,32,1"),
+        "flash_bwd_dq_transformer_bf16": (
+            "mxnet_tpu_torch/csrc/flash_attention.cu",
+            "mxnet_tpu/ops/flash_attention.py:285", "transformer",
+            "flash_bwd_dq", "flash_bwd_dq_bf16@64,8,32,32,1"),
+        "flash_fwd_transformer": (
+            "mxnet_tpu_torch/csrc/flash_attention.cu",
+            "mxnet_tpu/ops/flash_attention.py:100", "transformer_loop",
+            "flash_fwd", "flash_fwd@64,8,32,32,1"),
+        "flash_bwd_dkv_transformer": (
+            "mxnet_tpu_torch/csrc/flash_attention.cu",
+            "mxnet_tpu/ops/flash_attention.py:256", "transformer_loop",
+            "flash_bwd_dkv", "flash_bwd_dkv@64,8,32,32,1"),
+        "flash_bwd_dq_transformer": (
+            "mxnet_tpu_torch/csrc/flash_attention.cu",
+            "mxnet_tpu/ops/flash_attention.py:285", "transformer_loop",
+            "flash_bwd_dq", "flash_bwd_dq@64,8,32,32,1"),
+        "layernorm_transformer_512": (
+            "mxnet_tpu_torch/csrc/layernorm.cu",
+            "mxnet_tpu/ops/pallas_layernorm.py:53", "transformer",
+            "layernorm", "layernorm_bf16_2048x512"),
+        "layernorm_bwd_transformer_512": (
+            "mxnet_tpu_torch/csrc/layernorm.cu",
+            "mxnet_tpu/ops/pallas_layernorm.py:97", "transformer",
+            "layernorm_bwd", "layernorm_bwd_bf16_2048x512"),
+        "layernorm_transformer_1024": (
+            "mxnet_tpu_torch/csrc/layernorm.cu",
+            "mxnet_tpu/ops/pallas_layernorm.py:53", "transformer_big",
+            "layernorm", "layernorm_bf16_2048x1024"),
+        "layernorm_bwd_transformer_1024": (
+            "mxnet_tpu_torch/csrc/layernorm.cu",
+            "mxnet_tpu/ops/pallas_layernorm.py:97", "transformer_big",
+            "layernorm_bwd", "layernorm_bwd_bf16_2048x1024"),
+        "adam_transformer": ("mxnet_tpu_torch/csrc/adam.cu",
+                             "mxnet_tpu/ops/pallas_optimizer.py:63",
+                             "transformer", "adam", None),
+        "paged_attention_transformer": (
+            "mxnet_tpu_torch/csrc/paged_attention.cu",
+            "mxnet_tpu/ops/pallas_paged_attention.py:79",
+            "transformer_decode", "paged_attention",
+            "paged_attention_transformer"),
     }
     errs["adam_bert"] = timing["adam_bert"]["max_abs_err_at_shape"]
     errs["adam_lenet"] = timing["adam_lenet"]["max_abs_err_at_shape"]
+    errs["adam_transformer"] = \
+        timing["adam_transformer"]["max_abs_err_at_shape"]
     by_path = {"serve": serve_launches, "spec": spec_launches,
                "prefix": prefix_launches, "fork": fork_launches,
                "governed": governed_launches, "drill": drill_launches,
@@ -4994,7 +5832,10 @@ def main():
                "bert_amp": bert_launches,
                "resnet": vision_launches["resnet"],
                "resnet_bf16": vision_launches["resnet_bf16"],
-               "lenet": lenet_launches}
+               "lenet": lenet_launches, "transformer": tf_launches,
+               "transformer_big": big_launches,
+               "transformer_decode": decode_launches,
+               "transformer_loop": tf_loop_launches, "mnist": mnist_launches}
     kernels = []
     for name, (src, rep, path, *extra) in meta.items():
         t = timing[name]

@@ -12,7 +12,9 @@ Adam and softmax cross-entropy. The training loop: ``TrainStep.run`` and
 ``gluon.Trainer.run`` (one CUDA graph a window of steps), fed by
 ``io.DevicePrefetcher`` from ``io`` iterators or ``gluon.data.DataLoader``,
 with crash-safe ``checkpoint``s, preemption (``resilience``) and
-``mon.Monitor``. Imports torch, numpy and the standard
+``mon.Monitor``. The image data path: ``image``, ``io.recordio``,
+``io.ImageRecordIter`` and ``gluon.data.vision``, over the shared C++
+decoder (``native``). Imports torch, numpy and the standard
 library only. Entry points run on the card unless the caller names the
 CPU (``device="cpu"``, ``ctx=mx.cpu()``), which runs the kernels' plain
 PyTorch versions.
@@ -28,7 +30,7 @@ from . import initializer
 from . import initializer as init
 from . import (gluon, inference, lr_scheduler, models, ops, optimizer,
                parallel, serialization)
-from . import checkpoint, io, metric, monitor
+from . import checkpoint, image, io, metric, monitor
 from . import monitor as mon
 from .monitor import Monitor
 from . import observability
@@ -42,6 +44,6 @@ __all__ = ["base", "config", "MXNetError", "Context", "cpu", "gpu",
            "current_context", "num_gpus", "ndarray", "nd", "NDArray",
            "autograd", "random", "initializer", "init", "gluon", "inference",
            "lr_scheduler", "models", "ops", "optimizer", "parallel",
-           "serialization", "checkpoint", "io", "metric", "monitor", "mon",
+           "serialization", "checkpoint", "image", "io", "metric", "monitor", "mon",
            "Monitor", "observability", "obs", "resilience", "ContinuousBatcher", "GenerationEngine",
            "SamplingConfig", "TrainStep", "get_gpt2"]

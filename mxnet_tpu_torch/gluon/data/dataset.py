@@ -1,8 +1,7 @@
-"""Datasets: a copy of ``mxnet_tpu/gluon/data/dataset.py`` (without
-``RecordFileDataset``, which waits for RecordIO)."""
+"""Datasets: a copy of ``mxnet_tpu/gluon/data/dataset.py``."""
 from __future__ import annotations
 
-__all__ = ["Dataset", "ArrayDataset", "SimpleDataset"]
+__all__ = ["Dataset", "ArrayDataset", "SimpleDataset", "RecordFileDataset"]
 
 
 class Dataset:
@@ -70,3 +69,22 @@ class SimpleDataset(Dataset):
 
     def __getitem__(self, idx):
         return self._data[idx]
+
+
+class RecordFileDataset(Dataset):
+    """The raw records of a RecordIO file (and its ``.idx``)."""
+
+    def __init__(self, filename):
+        from ...io.recordio import IndexedRecordIO
+
+        if filename.endswith(".idx"):
+            idx, rec = filename, filename[:-4]
+        else:
+            idx, rec = filename + ".idx", filename
+        self._record = IndexedRecordIO(idx, rec, "r")
+
+    def __getitem__(self, idx):
+        return self._record.read_idx(self._record.keys[idx])
+
+    def __len__(self):
+        return len(self._record.keys)

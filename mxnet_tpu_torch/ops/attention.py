@@ -19,7 +19,8 @@ from ..contrib import amp as _amp
 from . import flash_attention as fa
 from . import paged_attention as pa
 
-__all__ = ["alloc_kv_cache", "alloc_paged_kv_cache", "multi_head_attention"]
+__all__ = ["alloc_kv_cache", "alloc_paged_kv_cache", "multi_head_attention",
+           "attention_route"]
 
 
 def alloc_kv_cache(batch_size, num_heads, max_length, channels, num_layers,
@@ -112,6 +113,25 @@ def _reference_mha(q, k, v, mask=None, causal=False):
     return torch.einsum("bhqk,bhkc->bhqc", att, v)
 
 
+def attention_route(q, k, v, mask=None, use_flash="auto") -> str:
+    """``"flash"`` or ``"plain"``: the path a full-sequence
+    :func:`multi_head_attention` call takes for these (already AMP-cast)
+    inputs. ``"auto"`` sends a call to the flash kernels when there is no
+    mask, the ``flash_attention`` knob is on, q is f32 or bf16 and its head
+    dim is one the kernels are built for (``KERNEL_HEAD_DIMS``). float16 or
+    a head dim of 32 takes the plain path by rule, as the JAX gate sends
+    ``d % 64 != 0`` to its einsum path. Nothing else is asked here: inputs
+    the kernels cannot launch on (mixed dtypes, too many B·H) go to flash
+    and raise there, as does an explicit ``use_flash=True`` on a CUDA
+    tensor the kernels do not take."""
+    if use_flash == "auto":
+        # no sequence-length crossover here: see ops/flash_attention.py
+        use_flash = mask is None and _config.get("flash_attention") \
+            and q.dtype in (torch.float32, torch.bfloat16) \
+            and q.shape[-1] in fa.KERNEL_HEAD_DIMS
+    return "flash" if use_flash else "plain"
+
+
 def multi_head_attention(q, k, v, mask=None, causal=False, cache=None,
                          position=None, page_table=None, use_flash="auto"):
     """Scaled-dot-product attention over (B, H, T, Ch) tensors.
@@ -120,11 +140,9 @@ def multi_head_attention(q, k, v, mask=None, causal=False, cache=None,
     carry only the new positions, and the call returns ``(out, k_buf,
     v_buf)``. With ``page_table=`` the cache entries are page pools.
     A full-sequence call takes the flash kernels when ``use_flash`` says
-    so; ``"auto"`` means: no mask, the ``flash_attention`` knob on and f32
-    or bf16 inputs (float16 takes the einsum path, as the JAX gate sends
-    it there). On a CUDA tensor the flash path raises for what the kernels
-    do not take (:func:`flash_attention.flash_supported`) instead of
-    falling back. Under a global ``amp.init`` dtype every call casts f32 q,
+    so (:func:`attention_route`: ``"auto"`` takes the kernels for unmasked
+    inputs they are built for). An explicit ``use_flash=True`` on a CUDA
+    tensor the kernels do not take raises. Under a global ``amp.init`` dtype every call casts f32 q,
     k and v to it before it branches, as the JAX package does: a cached
     call then reads with low-precision q and writes the new K/V into the
     cache in the cache's dtype (a bf16 value widened into an f32 pool is
@@ -148,11 +166,7 @@ def multi_head_attention(q, k, v, mask=None, causal=False, cache=None,
         else:
             out, k_buf, v_buf = _cached_mha(q, k, v, k_buf, v_buf, position)
         return out.to(orig_dtype), k_buf, v_buf
-    if use_flash == "auto":
-        # no sequence-length crossover here: see ops/flash_attention.py
-        use_flash = mask is None and _config.get("flash_attention") \
-            and q.dtype in (torch.float32, torch.bfloat16)
-    if use_flash:
+    if attention_route(q, k, v, mask, use_flash) == "flash":
         out = fa.flash_attention(q, k, v, mask=mask, causal=causal)
     else:
         out = _reference_mha(q, k, v, mask=mask, causal=causal)

@@ -18,7 +18,10 @@ The JAX package engages flash only past a sequence crossover of 2048
 (``_FLASH_MIN_SEQ``) and only for head dims that are a multiple of 64.
 Both were TPU facts: the crossover was measured on a v5e, and the d % 64
 rule comes from padding the head dim to 128 lanes. Neither applies to
-the card, so :func:`flash_supported` admits every length; ``chip_smoke.py``
+the card, so :func:`flash_supported` admits every length and the head
+dims the kernels are built for (``KERNEL_HEAD_DIMS``); the dispatch of
+``ops.attention.multi_head_attention`` sends any other head dim to the
+plain path. ``chip_smoke.py``
 times the kernel against ``scaled_dot_product_attention`` at T = 1024 and
 2048, from which a crossover, if there is one on the card, can be
 re-derived.

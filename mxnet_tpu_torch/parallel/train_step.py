@@ -147,6 +147,7 @@ class TrainStep:
         if not self._plist:
             raise MXNetError("TrainStep: the net has no parameters")
         self.device = self._plist[0][1].device
+        self._swap_names = self._swap_locations(net, self._plist)
         self._capture = self.engine_type == "graph" and \
             self.device.type == "cuda"
         self._stream = _cg.capture_stream(self, self.device) \
@@ -200,6 +201,25 @@ class TrainStep:
         self._preempt_dir = None
         self._preempt_exit = True
         self._preempt_saved = False
+
+    @staticmethod
+    def _swap_locations(net, plist):
+        """Parameter name -> the names under which the AMP forward swaps in
+        its copy: one for each (module, attribute) that holds the tensor.
+        A submodule registered under two names (a tied embedding:
+        ``tgt_embed is src_embed``) is one location, swapped once: with
+        ``tie_weights=True``, ``functional_call`` swaps it under both names
+        and its restore then leaves the copy in the module."""
+        owner = {id(p): name for name, p in plist}
+        out = {name: [] for name, _ in plist}
+        seen = set()
+        for full, p in net.named_parameters(remove_duplicate=False):
+            path, _, attr = full.rpartition(".")
+            key = (id(net.get_submodule(path)), attr)
+            if key not in seen and id(p) in owner:
+                seen.add(key)
+                out[owner[id(p)]].append(full)
+        return out
 
     @staticmethod
     def _state_vars(net):
@@ -304,7 +324,10 @@ class TrainStep:
             inputs = tuple(b.to(cd) if b.dtype == torch.float32 else b
                            for b in batch[:n])
             params = {name: self._low.get(name, p) for name, p in self._plist}
-            out = torch.func.functional_call(self.net, params, inputs)
+            swap = {alias: params[name] for name in params
+                    for alias in self._swap_names[name]}
+            out = torch.func.functional_call(self.net, swap, inputs,
+                                             tie_weights=False)
             leaves = [params[name] for _, name, _ in self._train]
         loss = self.loss_fn(out, *batch[n:]).float().mean()
         if self.amp_state is not None:

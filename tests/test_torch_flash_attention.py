@@ -248,13 +248,14 @@ def test_cpu_path_counts_no_launch():
 
 @pytest.mark.parametrize("masked", [False, True])
 def test_multi_head_attention_dispatch(masked, monkeypatch):
-    """No mask and the flash_attention knob on: the flash path; a mask: the
-    plain einsum path. Both agree with _reference_mha (f32, 1e-5)."""
+    """No mask, the flash_attention knob on and a head dim the kernels are
+    built for (64): the flash path; a mask: the plain einsum path. Both
+    agree with _reference_mha (f32, 1e-5)."""
     calls = []
     real = tfa.flash_attention
     monkeypatch.setattr(tfa, "flash_attention",
                         lambda *a, **kw: calls.append(1) or real(*a, **kw))
-    q, k, v = (torch.from_numpy(a) for a in _qkv(48, 48, 16, seed=4))
+    q, k, v = (torch.from_numpy(a) for a in _qkv(48, 48, 64, seed=4))
     mask = torch.from_numpy(np.random.RandomState(5).rand(48, 48) > 0.3) \
         if masked else None
     if masked:

@@ -457,6 +457,20 @@ def watchdog_silent(s):
 
 
 def batcher_detects_stall(s):
+    # one intra-op thread while the watchdog is armed: on a loaded CPU
+    # (other test workers) PyTorch's pool of 8 threads waits at its
+    # barriers for descheduled threads, and the tiny prefill then takes
+    # 0.6-0.7 s instead of 1 ms, past the 0.5 s budget: a second, unplanted
+    # stall event. With one thread it stays within 10 ms under the same load
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return _batcher_detects_stall(s)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _batcher_detects_stall(s):
     eng = s.engine(batch_size=1)
     # a first prefill outside the guard: the JAX side's first call of a
     # program compiles it, which the budget would read as a stall. The

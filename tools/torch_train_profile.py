@@ -119,6 +119,12 @@ GROUPS = (  # (group, substrings of the kernel name), first match wins
 )
 
 
+def group_of(kernel_name):
+    """The group of GROUPS a device kernel's name falls in."""
+    return next((g for g, keys in GROUPS
+                 if any(k in kernel_name for k in keys)), "other elementwise")
+
+
 def _device_us(evt):
     for attr in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(evt, attr):
@@ -653,9 +659,7 @@ def _report(card, what, steps, prof, wall, plain_wall, scale=1):
         return
     groups = collections.Counter()
     for name, us in kernels.items():
-        group = next((g for g, keys in GROUPS
-                      if any(k in name for k in keys)), "other elementwise")
-        groups[group] += us
+        groups[group_of(name)] += us
     print("device ms per step by group:")
     for g, us in groups.most_common():
         print(f"  {us / 1e3:9.3f}  {100 * us / 1e3 / busy:5.1f}%  {g}")
