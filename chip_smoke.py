@@ -83,7 +83,26 @@ prints its last line):
      amp="bfloat16")) the same way, with its MFU by bench.py's
      ``bert_flops``, and dropout inside its step graph: at lr 0 two
      replays give equal losses at dropout 0 and different ones at 0.1
-     (a fresh mask each replay), then one timed graph run at 0.1;
+     (a fresh mask each replay), then one timed graph run at 0.1; then
+     the rest of the NN ops (``[nn_ops]``: each new op of ops/nn.py and
+     ops/attention.py on the card against the same op on CPU tensors,
+     the interleaved self-attention at BERT-large width also against
+     ``multi_head_attention``, CTC at (400, 32, 29) timed beside
+     ``F.ctc_loss``, the knob-off flash backward (the chunked attention's
+     VJP) at T=8192 against the flash backward kernels with its peak
+     memory beside ``flash_bwd_plain``'s, the embedding gradient's two
+     routes bit for bit over 20 calls and timed,
+     ``nd.softmax_cross_entropy_fused`` launching the xent kernel once,
+     the samplers' moments), the
+     optimizers (``[optimizers]``: SGD, NAG, Adam, AdamW, AdaGrad, RMSProp
+     plain and centered, FTRL, SignSGD and LAMB on a 2-layer net, graph ==
+     naive, ``run(window=2)`` == calls, the bf16 cast route == the Gluon
+     Trainer with ``multi_precision``, bit for bit) and
+     examples/torch_pretrain_bert.py's route (``[pretrain_bert]``:
+     bert_large, B=64, T=128, M=20, bf16 by ``amp.convert_model``, LAMB:
+     graph == naive, 2+10 timed graph steps with bert_amp's LayerNorm
+     launches and no Adam, MFU, the LAMB update beside the Adam kernel,
+     then the example itself at bert_base as a subprocess);
      between ``train_amp`` and BERT, the imperative MXNet surface
      (``gluon``): 3 steps of ``autograd.record`` / ``loss.backward()`` /
      ``gluon.Trainer.step`` on a 2-layer net in f32, bit-identical to
@@ -152,6 +171,8 @@ import contextlib
 import ctypes
 import gc
 import json
+import math
+import os
 import statistics
 import subprocess
 import sys
@@ -1667,12 +1688,13 @@ def phase_train(net, init, engine_type, warmup=2, steps=10, batch=4,
 
 
 def _timed_steps(name, net, ts, batch, want, dt, warmup, steps, samples,
-                 seq):
+                 seq, ln_pairs=None):
     """``warmup`` + ``steps`` calls of the TrainStep ``ts`` on one fixed
     ``batch``, the launch counts read around each call and held to
-    ``want``; LayerNorm's wrappers must see (x, gamma) of dtype ``dt`` only;
-    every loss finite and the last below the first; one step program. The
-    timed steps (host clock, ending in a synchronize) give ms a step,
+    ``want``; LayerNorm's wrappers must see (x, gamma) of dtype ``dt`` only
+    (in these calls, or in ``ln_pairs``, what ``_ln_dtypes`` counted where
+    the caller built ``ts``'s step graph); every loss finite and the last
+    below the first; one step program. The timed steps (host clock, ending in a synchronize) give ms a step,
     samples/s and tokens/s (``samples`` sequences of ``seq`` tokens a step),
     with the peak memory of the run. After a "graph" run one replay is
     profiled (``check_replay_launches``). Returns the launches of the run,
@@ -1683,7 +1705,7 @@ def _timed_steps(name, net, ts, batch, want, dt, warmup, steps, samples,
     _release()  # the peaks below start from what this run holds
     torch.cuda.reset_peak_memory_stats()
     _reset_launch_counts()
-    with _ln_dtypes() as ln_pairs:
+    with _ln_dtypes() as seen:
         for i in range(warmup + steps):
             if i == warmup:
                 torch.cuda.synchronize()
@@ -1698,6 +1720,7 @@ def _timed_steps(name, net, ts, batch, want, dt, warmup, steps, samples,
                 total[k] += got[k]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
+    ln_pairs = seen if ln_pairs is None else ln_pairs
     if set(ln_pairs) != {("fwd", dt, dt), ("bwd", dt, dt)}:
         raise AssertionError(f"{name}: LayerNorm ran on (x, gamma) dtypes "
                              f"{dict(ln_pairs)}")
@@ -3259,6 +3282,844 @@ def phase_bert_dropout(net, card):
     _release()
     return {"losses_lr0_dropout0": at0, "losses_lr0_dropout0.1": at1,
             "run": res}
+
+
+# ---------------------------------------------------------------------------
+# The rest of the NN ops and the optimizers (ROADMAP queue 1, items 3 and 4):
+# each new op on the card against the same op on CPU tensors, the chunked
+# attention's VJP at T=8192, the fused xent op, the samplers' moments; the
+# optimizers through TrainStep and the Gluon Trainer; BERT-large pretrained
+# through LAMB by examples/torch_pretrain_bert.py's route.
+
+# (rtol, atol) of a card result against the CPU's: f32 elementwise work, f32
+# products and sums (cuBLAS and the CPU sum in other orders), CTC's log-space
+# recursion over 400 frames, bf16
+NN_TOL = {"f32": (1e-5, 1e-6), "f32_sum": (1e-4, 1e-4), "ctc": (1e-4, 1e-3),
+          "bf16": (2e-2, 2e-2)}
+# the chunked VJP in bf16 against the flash backward kernels: both round
+# their gradients to bf16 and sum in other orders; a gradient may differ by
+# this share of the largest |gradient| (the bf16 kernels' 3e-2 against the
+# exact plain version)
+CHUNKED_BF16_REL = 3e-2
+# the samplers' moment checks: a sample moment may stand this many of its
+# standard errors (sd / sqrt(draws)) from the distribution's
+SAMPLER_SIGMAS = 6.0
+SAMPLER_DRAWS = 1 << 20
+# the knob-off flash backward's shape (B, H, T, D): a long context, where
+# flash_bwd_plain's (B, H, T, T) f32 blocks take 4.3 GB each
+CHUNKED_SHAPE = (1, 16, 8192, 64)
+
+
+def _close(what, got, want, tol):
+    """Max abs error of ``got`` against ``want``; raises beyond ``tol`` =
+    (rtol, atol) per element."""
+    rtol, atol = tol
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: shape {tuple(got.shape)}, expected "
+                             f"{tuple(want.shape)}")
+    err = (got - want).abs()
+    bad = ~(err <= atol + rtol * want.abs())
+    log(f"  {what}: max_abs_err={err.max().item() if err.numel() else 0:.3e}"
+        f" (rtol {rtol}, atol {atol})")
+    if bad.any():
+        raise AssertionError(f"{what}: {int(bad.sum())} elements outside "
+                             f"tolerance")
+    return err.max().item() if err.numel() else 0.0
+
+
+def _card_and_cpu(what, fn, inputs, tol, grad=True, seed=0):
+    """``fn`` on the card and on CPU copies of ``inputs`` (CPU tensors):
+    its outputs, and with ``grad`` the gradients of its floating inputs
+    under one seeded cotangent, held card against CPU at ``tol``. Returns
+    the largest error."""
+    results = {}
+    for dev in ("cuda", "cpu"):
+        ts = [t.to(dev).requires_grad_(grad and t.is_floating_point())
+              for t in inputs]
+        out = fn(*ts)
+        outs = list(out) if isinstance(out, (tuple, list)) else [out]
+        grads = []
+        if grad:
+            gen = torch.Generator().manual_seed(seed)
+            floats = [o for o in outs if o.is_floating_point()
+                      and o.requires_grad]
+            cots = [torch.randn(o.shape, generator=gen).to(dev, o.dtype)
+                    for o in floats]
+            leaves = [t for t in ts if t.requires_grad]
+            grads = torch.autograd.grad(floats, leaves, cots,
+                                        allow_unused=True)
+        results[dev] = ([o.detach() for o in outs],
+                        [g for g in grads if g is not None])
+    err = 0.0
+    for i, (a, b) in enumerate(zip(*(results[d][0] for d in ("cuda",
+                                                               "cpu")))):
+        err = max(err, _close(f"{what} out {i}", a, b, tol))
+    for i, (a, b) in enumerate(zip(*(results[d][1] for d in ("cuda",
+                                                               "cpu")))):
+        err = max(err, _close(f"{what} grad {i}", a, b, tol))
+    return err
+
+
+def _ctc_case(t_len=400, b=32, c=29, max_label=100, seed=0):
+    """(T, B, C) activations, 1-based labels of 1 to ``max_label`` classes
+    (0-padded), data lengths from 250 to T: every alignment feasible."""
+    rs = np.random.RandomState(seed)
+    data = torch.from_numpy((2 * rs.randn(t_len, b, c)).astype(np.float32))
+    lab_len = rs.randint(1, max_label + 1, (b,))
+    lab_len[0] = max_label
+    label = np.zeros((b, max_label), np.int32)
+    for i, n in enumerate(lab_len):
+        label[i, :n] = rs.randint(1, c, (n,))
+    data_len = rs.randint(250, t_len + 1, (b,))
+    data_len[0] = t_len
+    return (data, torch.from_numpy(label),
+            torch.from_numpy(data_len.astype(np.int32)),
+            torch.from_numpy(lab_len.astype(np.int32)))
+
+
+def _nn_ctc():
+    """CTC at (T=400, B=32, C=29, L<=100), forward and backward, card
+    against CPU, then timed beside ``F.ctc_loss`` (a yardstick: its values
+    on these feasible alignments must agree; its CUDA backward is
+    nondeterministic and it gives inf, not ~1e30, where no alignment
+    exists, so the port never calls it)."""
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops import nn as tnn
+
+    data, label, dl, ll = _ctc_case()
+
+    def port(d, lab, dlen, llen):
+        return tnn.ctc_loss(d, lab, dlen, llen, True, True, "first")
+
+    err = _card_and_cpu("CTCLoss (400, 32, 29) L<=100", port,
+                        [data, label, dl, ll], NN_TOL["ctc"])
+    d = data.cuda().requires_grad_()
+    lab, dlen, llen = label.cuda(), dl.cuda(), ll.cuda()
+    ours = port(d, lab, dlen, llen)
+    theirs = F.ctc_loss(torch.log_softmax(d.float(), -1), lab.long(),
+                        dlen.long(), llen.long(), blank=0, reduction="none")
+    yard = _close("CTCLoss against F.ctc_loss", ours, theirs, (1e-4, 1e-3))
+
+    def fwd_bwd(fn):
+        def run():
+            d.grad = None
+            fn().sum().backward()
+        return run
+
+    ms = cuda_time_ms(fwd_bwd(lambda: port(d, lab, dlen, llen)), warmup=1,
+                      iters=3, repeats=3)
+    fwd_ms = cuda_time_ms(lambda: port(d.detach(), lab, dlen, llen),
+                          warmup=1, iters=3, repeats=3)
+    lib_ms = cuda_time_ms(fwd_bwd(lambda: F.ctc_loss(
+        torch.log_softmax(d, -1), lab.long(), dlen.long(), llen.long(),
+        blank=0, reduction="none")), warmup=2, iters=10, repeats=3)
+    log(f"[nn_ops] CTCLoss (400, 32, 29): forward + backward {ms:.2f} ms, "
+        f"forward {fwd_ms:.2f} ms (eager, 400 frames a loop), F.ctc_loss "
+        f"forward + backward {lib_ms:.3f} ms (yardstick)")
+    return dict(max_abs_err=err, f_ctc_loss_max_abs_diff=yard,
+                fwd_bwd_ms=ms, fwd_ms=fwd_ms, f_ctc_loss_fwd_bwd_ms=lib_ms)
+
+
+def _nn_interleaved():
+    """The interleaved self-attention ops at BERT-large width (qkv (128, 64,
+    3072), 16 heads): scores, softmax, valatt, forward and backward, on the
+    card against the port's ``multi_head_attention`` plain route on the
+    same q, k, v (f32), and against the CPU (f32, then under
+    ``amp.init("bfloat16")``); the cross-attention pair and
+    ``_contrib_div_sqrt_dim`` against the CPU."""
+    from mxnet_tpu_torch.contrib import amp
+    from mxnet_tpu_torch.ops import attention as att
+
+    t, b, h, ch = 128, 64, 16, 64
+    gen = torch.Generator().manual_seed(31)
+    qkv = torch.randn(t, b, h * 3 * ch, generator=gen)
+
+    def cell(x):
+        s = att.interleaved_matmul_selfatt_qk(x, heads=h)
+        return att.interleaved_matmul_selfatt_valatt(
+            x, torch.softmax(s.float(), -1).to(s.dtype), heads=h)
+
+    def mha(x):
+        q, k, v = x.reshape(t, b, h, 3, ch).permute(3, 1, 2, 0, 4)
+        out = att.multi_head_attention(q, k, v, use_flash=False)
+        return out.permute(2, 0, 1, 3).reshape(t, b, h * ch)
+
+    res = {}
+    x = qkv.cuda().requires_grad_()
+    y = x.detach().clone().requires_grad_()
+    cot = torch.randn(t, b, h * ch, generator=gen).cuda()
+    got, want = cell(x), mha(y)
+    gx, gy = torch.autograd.grad(got, x, cot)[0], \
+        torch.autograd.grad(want, y, cot)[0]
+    res["against_mha"] = max(
+        _close("selfatt qk/valatt against multi_head_attention", got, want,
+               NN_TOL["f32_sum"]),
+        _close("selfatt qk/valatt grad against multi_head_attention", gx, gy,
+               NN_TOL["f32_sum"]))
+    res["f32"] = _card_and_cpu("selfatt qk/valatt (128, 64, 3072) f32", cell,
+                               [qkv], NN_TOL["f32_sum"])
+    amp.init("bfloat16")
+    try:
+        res["bf16_amp"] = _card_and_cpu(
+            "selfatt_qk (128, 64, 3072) under amp bf16",
+            lambda a: att.interleaved_matmul_selfatt_qk(a, heads=h), [qkv],
+            NN_TOL["bf16"])
+    finally:
+        amp._reset()
+    q = torch.randn(t, b, h * ch, generator=gen)
+    kv = torch.randn(96, b, h * 2 * ch, generator=gen)
+    res["encdec"] = _card_and_cpu(
+        "encdec qk/valatt (128 | 96, 64, 16 heads)",
+        lambda a, c: att.interleaved_matmul_encdec_valatt(
+            c, torch.softmax(att.interleaved_matmul_encdec_qk(a, c, heads=h),
+                             -1), heads=h), [q, kv], NN_TOL["f32_sum"])
+    res["div_sqrt_dim"] = _card_and_cpu("div_sqrt_dim", att.div_sqrt_dim,
+                                        [q], NN_TOL["f32"])
+    return res
+
+
+def _nn_elementwise():
+    """The heads, norms and resizes of ops/nn.py at realistic shapes, card
+    against CPU, values and gradients."""
+    from mxnet_tpu_torch.ops import core
+    from mxnet_tpu_torch.ops import nn as tnn
+
+    gen = torch.Generator().manual_seed(32)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen) * scale
+
+    fmap = rnd(32, 256, 28, 28)
+    logits = rnd(4096, 1000, scale=3.0)
+    labels = torch.randint(0, 1000, (4096,), generator=gen).float()
+    labels[::7] = -1.0
+    target = torch.rand(4096, 1000, generator=gen)
+    img = rnd(16, 256, 64, 64)
+    cases = [
+        ("L2Normalization instance", lambda a: tnn.l2_normalization(a),
+         [fmap], "f32_sum"),
+        ("L2Normalization channel",
+         lambda a: tnn.l2_normalization(a, mode="channel"), [fmap],
+         "f32_sum"),
+        ("L2Normalization spatial",
+         lambda a: tnn.l2_normalization(a, mode="spatial"), [fmap],
+         "f32_sum"),
+        ("RMSNorm (8192, 1024) f32", tnn.rms_norm,
+         [rnd(8192, 1024), rnd(1024)], "f32_sum"),
+        ("RMSNorm (8192, 1024) bf16",
+         lambda a, g: tnn.rms_norm(a.bfloat16(), g.bfloat16()),
+         [rnd(8192, 1024), rnd(1024)], "bf16"),
+        ("UpSampling x2", lambda a: tnn.upsampling(a, scale=2), [fmap],
+         "f32"),
+        ("BilinearResize2D up (64, 64) -> (128, 128)",
+         lambda a: tnn.bilinear_resize(a, height=128, width=128), [img],
+         "f32_sum"),
+        ("BilinearResize2D down (64, 64) -> (32, 23)",
+         lambda a: tnn.bilinear_resize(a, height=32, width=23), [img],
+         "f32_sum"),
+        ("SoftmaxOutput (4096, 1000) ignore, valid, smoothed",
+         lambda a, l: tnn.softmax_output(a, l, use_ignore=True,
+                                         normalization="valid",
+                                         smooth_alpha=0.1),
+         [logits, labels], "f32_sum"),
+        ("LinearRegressionOutput", tnn.linear_regression_output,
+         [logits, target], "f32"),
+        ("LogisticRegressionOutput", tnn.logistic_regression_output,
+         [logits, target], "f32"),
+        ("MAERegressionOutput", tnn.mae_regression_output,
+         [logits, target], "f32"),
+        ("smooth_l1", lambda a: tnn.smooth_l1(a, 2.0), [logits], "f32"),
+        ("softmax_cross_entropy",
+         lambda a, l: tnn.softmax_cross_entropy(a, l.clamp(min=0)),
+         [logits, labels], "f32_sum"),
+        ("boolean_mask (4096, 1000)",
+         lambda a, m: core.boolean_mask(a, m), [logits, (labels >= 0).float()],
+         "f32"),
+    ]
+    return {what: _card_and_cpu(what, fn, inputs, NN_TOL[tol])
+            for what, fn, inputs, tol in cases}
+
+
+def _nn_embedding():
+    """The lookup's gradient (ops/nn.py ``embedding``) where
+    ``F.embedding``'s CUDA backward changed its sum from call to call: f32
+    gradients on the ids of the example's first batch at B=64, T=128
+    (examples/torch_pretrain_bert.py ``make_batch``), for the token types
+    (2 rows: the one-hot product) and the words (30522 rows:
+    ``F.embedding``'s own backward). The port's 20 calls must be equal bit
+    for bit; ``F.embedding``'s 20 calls are reported (for the token types
+    they differed inside the BERT step), both routes timed."""
+    import torch.nn.functional as F
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import nn as tnn
+
+    ex = _example("torch_pretrain_bert")
+    words, types = (a._data for a in ex.make_batch(
+        BERT_B, BERT_T, BERT_M, BERT_VOCAB, np.random.RandomState(0),
+        mx.gpu())[:2])
+    gen = torch.Generator().manual_seed(38)
+    res = {}
+    for name, rows, idx in (("token_types", 2, types),
+                            ("words", BERT_VOCAB, words)):
+        w = torch.zeros(rows, BERT_UNITS, device="cuda", requires_grad=True)
+        g = torch.randn(BERT_B, BERT_T, BERT_UNITS, generator=gen).cuda()
+
+        def port():
+            return torch.autograd.grad(tnn.embedding(idx, w), w, g)[0]
+
+        def native():
+            return torch.autograd.grad(F.embedding(idx.long(), w), w, g)[0]
+
+        runs = {fn.__name__: [fn() for _ in range(20)]
+                for fn in (port, native)}
+        same = {k: all(torch.equal(v[0], x) for x in v[1:])
+                for k, v in runs.items()}
+        if not same["port"]:
+            raise AssertionError(f"embedding gradient ({name}): 20 calls "
+                                 f"differ")
+        res[name] = dict(
+            route="one-hot" if rows <= tnn.ONE_HOT_ROWS else "F.embedding",
+            us=graph_time_ms(port, calls=2, replays=5, repeats=3) * 1e3,
+            native_us=graph_time_ms(native, calls=2, replays=5,
+                                    repeats=3) * 1e3,
+            native_20_calls_equal=same["native"])
+        log(f"[nn_ops] embedding gradient, {name} ({rows} rows, the "
+            f"example's ({BERT_B}, {BERT_T}) ids, f32): {res[name]}")
+    return res
+
+
+def _peak_above(fn):
+    """(result, peak allocated bytes above what was allocated before)."""
+    torch.cuda.synchronize()
+    _release()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def _nn_chunked():
+    """The knob-off flash backward at B=1, H=16, T=8192, d 64, bf16,
+    causal: ``chunked_attention_vjp`` against the flash dK/dV and dQ kernels
+    (CHUNKED_BF16_REL), its peak memory beside ``flash_bwd_plain``'s (or
+    that one's out-of-memory error), and ``FlashAttention.backward`` with
+    ``flash_pallas_bwd`` off launching no backward kernel."""
+    from mxnet_tpu_torch import config
+    from mxnet_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator().manual_seed(33)
+    q, k, v, do = (torch.randn(CHUNKED_SHAPE, generator=gen).mul(0.5)
+                   .to("cuda", torch.bfloat16) for _ in range(4))
+    o, lse = fa._flash_fwd(q, k, v, True, return_lse=True)
+    kern = fa._flash_bwd(q, k, v, o, lse, do, True)
+    chunked, peak = _peak_above(lambda: fa.chunked_attention_vjp(q, k, v, do,
+                                                                 True))
+    errs = []
+    for name, a, b in zip(("dq", "dk", "dv"), chunked, kern):
+        rel = ((a.float() - b.float()).abs().max()
+               / b.float().abs().max()).item()
+        log(f"  chunked VJP {name} against the flash kernels: max abs err / "
+            f"max |kernel| = {rel:.3e} (limit {CHUNKED_BF16_REL})")
+        if not rel <= CHUNKED_BF16_REL:
+            raise AssertionError(f"chunked VJP {name}: {rel:.3e} of the "
+                                 f"kernels' largest gradient")
+        errs.append(rel)
+    try:
+        _, plain_peak = _peak_above(lambda: fa.flash_bwd_plain(q, k, v, o,
+                                                               lse, do, True))
+        plain = f"{plain_peak / 2**30:.2f} GiB"
+    except torch.cuda.OutOfMemoryError as e:
+        plain_peak, plain = None, f"out of memory ({str(e)[:80]})"
+    _release()
+    ms = cuda_time_ms(lambda: fa.chunked_attention_vjp(q, k, v, do, True),
+                      warmup=1, iters=3, repeats=3)
+    kern_ms = cuda_time_ms(lambda: fa._flash_bwd(q, k, v, o, lse, do, True),
+                           warmup=2, iters=5, repeats=3)
+    # the route: FlashAttention's backward with the knob off
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    config.set("flash_pallas_bwd", False)
+    try:
+        before = _launch_counts()
+        out = fa.flash_attention(*leaves, causal=True)
+        grads = torch.autograd.grad(out, leaves, do)
+        got = {kk: vv - before[kk] for kk, vv in _launch_counts().items()}
+    finally:
+        config.set("flash_pallas_bwd", True)
+    if got["flash_fwd"] != 1 or got["flash_bwd_dkv"] or got["flash_bwd_dq"]:
+        raise AssertionError(f"knob-off flash backward launched {got}")
+    if not all(torch.equal(a, b) for a, b in zip(grads, chunked)):
+        raise AssertionError("knob-off FlashAttention.backward is not the "
+                             "chunked VJP")
+    log(f"[nn_ops] chunked VJP {CHUNKED_SHAPE} bf16 causal: {ms:.2f} ms, "
+        f"peak {peak / 2**30:.3f} GiB above its inputs; flash_bwd_plain "
+        f"peak {plain}; dK/dV + dQ kernels {kern_ms:.3f} ms; the knob-off "
+        f"backward launched no backward kernel")
+    return dict(rel_err=errs, ms=ms, peak_bytes=peak,
+                plain_peak_bytes=plain_peak, plain_peak=plain,
+                kernels_ms=kern_ms)
+
+
+def _profiled_count(fn, kernel):
+    """Launches of kernels named ``kernel`` in one call of ``fn`` under the
+    profiler (a warm-up call the profiler discards first, as
+    check_replay_launches does; the largest of REPLAY_ATTEMPTS traces, since
+    a trace can lose a record but never adds one)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    best = 0
+    for _ in range(REPLAY_ATTEMPTS):
+        torch.cuda.synchronize()
+        once = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=once) as prof:
+            for _ in range(2):
+                time.sleep(REPLAY_QUIET_S)
+                fn()
+                torch.cuda.synchronize()
+                time.sleep(REPLAY_QUIET_S)
+                prof.step()
+        best = max(best, sum(e.count for e in prof.key_averages()
+                             if e.device_type ==
+                             torch.autograd.DeviceType.CUDA
+                             and kernel in e.key))
+        if best:
+            break
+    return best
+
+
+def _nn_xent():
+    """``nd.softmax_cross_entropy_fused`` on (4096, 50257) bf16 logits: one
+    xent forward launch (its counter and the profiler), bit-equal to
+    ``SoftmaxCrossEntropyLoss``; under ``autograd.record`` one forward and
+    one backward launch. Returns the launches of the nd call (the nn_ops
+    path's) and the checks."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+
+    gen = torch.Generator().manual_seed(34)
+    x = (torch.randn(4096, 50257, generator=gen) * 3).to("cuda",
+                                                         torch.bfloat16)
+    lbl = torch.randint(0, 50257, (4096,), generator=gen).cuda()
+    px, pl = mx.nd.NDArray(x), mx.nd.NDArray(lbl)
+    _reset_launch_counts()
+    out = mx.nd.softmax_cross_entropy_fused(px, pl)
+    launches = _launch_counts()
+    want = dict.fromkeys(launches, 0)
+    want["xent_fwd"] = 1
+    if launches != want:
+        raise AssertionError(f"nd.softmax_cross_entropy_fused launched "
+                             f"{launches}")
+    traced = _profiled_count(lambda: mx.nd.softmax_cross_entropy_fused(px,
+                                                                       pl),
+                             "xent_fwd_kernel")
+    if traced != 1:
+        raise AssertionError(f"the profiler saw {traced} xent_fwd_kernel "
+                             f"launches in one nd call")
+    ref = SoftmaxCrossEntropyLoss()(x, lbl)
+    if not torch.equal(out._data, ref):
+        raise AssertionError("nd.softmax_cross_entropy_fused differs from "
+                             "SoftmaxCrossEntropyLoss")
+    px.attach_grad()
+    before = _launch_counts()
+    with mx.autograd.record():
+        loss = mx.nd.softmax_cross_entropy_fused(px, pl)
+    loss.backward()
+    rec = {k: v - before[k] for k, v in _launch_counts().items() if v -
+           before[k]}
+    if rec != {"xent_fwd": 1, "xent_bwd": 1}:
+        raise AssertionError(f"recorded nd xent launched {rec}")
+    log(f"[nn_ops] nd.softmax_cross_entropy_fused (4096, 50257) bf16: "
+        f"launches {dict((k, v) for k, v in launches.items() if v)}, the "
+        f"profiler saw {traced} xent_fwd_kernel; bit-equal to "
+        f"SoftmaxCrossEntropyLoss; under record {rec}")
+    return launches, dict(traced=traced, recorded=rec)
+
+
+def _moments_ok(what, draws, dist):
+    """The mean of the draws and of their squares within SAMPLER_SIGMAS
+    standard errors of ``dist``'s (a scipy frozen distribution)."""
+    x = draws.double()
+    n = x.numel()
+    m1, m2 = dist.mean(), dist.moment(2)
+    sd1 = math.sqrt(dist.var() / n)
+    sd2 = math.sqrt(max(dist.moment(4) - m2 * m2, 0.0) / n)
+    got1, got2 = x.mean().item(), (x * x).mean().item()
+    ok = abs(got1 - m1) <= SAMPLER_SIGMAS * sd1 and \
+        abs(got2 - m2) <= SAMPLER_SIGMAS * sd2
+    log(f"  {what}: mean {got1:.5f} (want {m1:.5f} +- "
+        f"{SAMPLER_SIGMAS * sd1:.5f}), E[x^2] {got2:.5f} (want {m2:.5f} +- "
+        f"{SAMPLER_SIGMAS * sd2:.5f})")
+    if not ok:
+        raise AssertionError(f"{what}: moments outside {SAMPLER_SIGMAS} "
+                             f"standard errors")
+    return dict(mean=got1, second=got2)
+
+
+def _nn_samplers():
+    """The samplers on the card (SAMPLER_DRAWS draws each): their first two
+    moments against scipy's, a seed reproducing the draws, every draw on
+    the card."""
+    import mxnet_tpu_torch as mx
+    from scipy import stats
+
+    from mxnet_tpu_torch.ops import random_ops as ro
+
+    n = SAMPLER_DRAWS
+    gpu = mx.gpu()
+    lam2 = torch.full((2,), 2.0, device="cuda")
+    cases = [
+        ("_random_uniform", lambda: ro.random_uniform(-1.0, 3.0, (n,),
+                                                      ctx=gpu),
+         stats.uniform(-1.0, 4.0)),
+        ("_random_normal", lambda: ro.random_normal(1.0, 2.0, (n,),
+                                                    ctx=gpu),
+         stats.norm(1.0, 2.0)),
+        ("_random_gamma", lambda: ro.random_gamma(2.5, 0.5, (n,), ctx=gpu),
+         stats.gamma(2.5, scale=0.5)),
+        ("_random_exponential", lambda: ro.random_exponential(
+            2.0, (n,), ctx=gpu), stats.expon(scale=0.5)),
+        ("_random_poisson", lambda: ro.random_poisson(3.0, (n,), ctx=gpu),
+         stats.poisson(3.0)),
+        ("_random_randint", lambda: ro.random_randint(2, 9, (n,), ctx=gpu),
+         stats.randint(2, 9)),
+        ("_random_negative_binomial", lambda: ro.random_negative_binomial(
+            3, 0.4, (n,), ctx=gpu), stats.nbinom(3, 0.4)),
+        ("_random_generalized_negative_binomial",
+         lambda: ro.random_generalized_negative_binomial(2.0, 0.5, (n,),
+                                                         ctx=gpu),
+         stats.nbinom(2.0, 0.5)),
+        ("_sample_gamma", lambda: ro.sample_gamma(lam2, lam2 * 0.25,
+                                                  (n // 2,)),
+         stats.gamma(2.0, scale=0.5)),
+        ("_sample_poisson", lambda: ro.sample_poisson(lam2, (n // 2,)),
+         stats.poisson(2.0)),
+        ("_sample_normal", lambda: ro.sample_normal(lam2, lam2, (n // 2,)),
+         stats.norm(2.0, 2.0)),
+        ("_sample_multinomial", lambda: ro.sample_multinomial(
+            torch.tensor([0.1, 0.2, 0.3, 0.4], device="cuda"), (n,)),
+         stats.rv_discrete(values=([0, 1, 2, 3], [0.1, 0.2, 0.3, 0.4]))),
+        ("temperature_sampling", lambda: ro.temperature_sampling(
+            torch.log(torch.tensor([[0.1, 0.2, 0.3, 0.4]], device="cuda"))
+            .expand(n, 4)),
+         stats.rv_discrete(values=([0, 1, 2, 3], [0.1, 0.2, 0.3, 0.4]))),
+    ]
+    res = {}
+    for name, draw, dist in cases:
+        mx.random.seed(40)
+        a = draw()
+        mx.random.seed(40)
+        b = draw()
+        if a.device.type != "cuda" or not torch.equal(a, b):
+            raise AssertionError(f"{name}: not on the card, or a seed did "
+                                 f"not reproduce its draws")
+        res[name] = _moments_ok(f"{name} on the card", a, dist)
+    x = torch.arange(4096, device="cuda")
+    s = ro.shuffle(x)
+    if not torch.equal(s.sort().values, x) or torch.equal(s, x):
+        raise AssertionError("shuffle on the card is not a permutation")
+    z = ro.sample_unique_zipfian(50000, (n,), ctx=gpu)
+    if not (z.min() >= 0 and z.max() < 50000):
+        raise AssertionError("_sample_unique_zipfian out of range")
+    return res
+
+
+def phase_nn_ops():
+    """``[nn_ops]``: the ops of ROADMAP queue 1 item 3 on the card, each
+    against the same op on CPU tensors (and the interleaved attention
+    against ``multi_head_attention``, CTC beside ``F.ctc_loss``, the chunked
+    VJP against the flash kernels), ``nd.softmax_cross_entropy_fused``'s one
+    xent launch, the samplers. Returns the nd xent call's launches and the
+    results."""
+    t0 = time.perf_counter()
+    res = {"interleaved": _nn_interleaved(), "ops": _nn_elementwise(),
+           "ctc": _nn_ctc(), "chunked": _nn_chunked(),
+           "embedding": _nn_embedding()}
+    launches, res["xent"] = _nn_xent()
+    res["samplers"] = _nn_samplers()
+    _release()
+    res["seconds"] = time.perf_counter() - t0
+    log("[nn_ops] " + json.dumps(res, default=str))
+    return launches, res
+
+
+# the optimizers of the [optimizers] phase: (name, hyperparameters)
+OPT_CASES = [("sgd", dict(learning_rate=0.01, momentum=0.9)),
+             ("nag", dict(learning_rate=0.01, momentum=0.9)),
+             ("adam", dict(learning_rate=1e-3)),
+             ("adamw", dict(learning_rate=1e-3, wd=0.01)),
+             ("adagrad", dict(learning_rate=1e-3)),
+             ("rmsprop", dict(learning_rate=1e-4)),
+             ("rmsprop", dict(learning_rate=1e-4, centered=True)),
+             ("ftrl", dict(learning_rate=0.1)),
+             ("signsgd", dict(learning_rate=1e-3)),
+             ("lamb", dict(learning_rate=1e-3, wd=0.01))]
+OPT_IN, OPT_HIDDEN, OPT_B = 1024, 4096, 256
+
+
+def _opt_net(init, dtype=None):
+    """The 2-layer net (Dense(4096, relu) over 1024 inputs, Dense(1024)) on
+    the card with the weights ``init`` (bf16-exact), cast to ``dtype``."""
+    import mxnet_tpu_torch as mx
+
+    net = mx.gluon.nn.HybridSequential(prefix="optnet_")
+    with net.name_scope():
+        net.add(mx.gluon.nn.Dense(OPT_HIDDEN, activation="relu",
+                                  in_units=OPT_IN),
+                mx.gluon.nn.Dense(OPT_IN, in_units=OPT_HIDDEN))
+    net.initialize(ctx=mx.gpu())
+    _restore(net, init)
+    if dtype is not None:
+        net.cast(dtype)
+    return net
+
+
+def _opt_loss(out, y):
+    """The f32 mean squared error, on tensors (TrainStep) or NDArrays (the
+    Gluon loop) alike."""
+    if isinstance(out, torch.Tensor):
+        return ((out.float() - y.float()) ** 2).mean()
+    return ((out.astype("float32") - y.astype("float32")) ** 2).mean()
+
+
+def _opt_data(n=4):
+    gen = torch.Generator().manual_seed(35)
+    return [tuple(torch.randn(OPT_B, OPT_IN, generator=gen).bfloat16()
+                  .float().cuda() for _ in range(2)) for _ in range(n)]
+
+
+def _opt_case(name, kw, init, data):
+    """One optimizer: TrainStep graph against naive (3 steps), a window of
+    2 against calls (4 steps), and the bf16 cast route (TrainStep, f32
+    masters) against the Gluon Trainer with ``multi_precision``, each bit
+    for bit."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import TrainStep
+    from mxnet_tpu_torch.optimizer import create
+
+    def step(engine_type, dtype=None):
+        net = _opt_net(init, dtype)
+        return net, TrainStep(net, _opt_loss, create(name, **kw), amp=None,
+                              engine_type=engine_type)
+
+    runs = {}
+    for mode in ("naive", "graph"):
+        _, ts = step(mode)
+        losses = [float(ts(*b)) for b in data[:3]]
+        runs[mode] = (losses, _state(ts))
+        del ts
+    if runs["naive"][0] != runs["graph"][0] or \
+            not _same_state(runs["naive"][1], runs["graph"][1]):
+        raise AssertionError(f"{name} {kw}: graph != naive")
+    _, calls = step("graph")
+    seq = torch.stack([calls(*b) for b in data])
+    _, win = step("graph")
+    windowed = win.run(iter(data), steps=4, window=2)
+    if not torch.equal(seq, windowed) or \
+            not _same_state(_state(calls), _state(win)):
+        raise AssertionError(f"{name} {kw}: run(window=2) != calls")
+    del calls, win
+    bf = [tuple(t.bfloat16() for t in b) for b in data[:3]]
+    _, ts = step("graph", "bfloat16")
+    ts_losses = [float(ts(*b)) for b in bf]
+    masters = [ts._master[n] for n in sorted(ts._master)]
+    weights = [p.detach() for _, p in ts._plist]
+    net = _opt_net(init, "bfloat16")
+    trainer = mx.gluon.Trainer(net.collect_params(), name,
+                               dict(kw, multi_precision=True))
+    tr_losses = []
+    for x, y in bf:
+        with mx.autograd.record():
+            loss = _opt_loss(net(mx.nd.NDArray(x)), mx.nd.NDArray(y))
+        loss.backward()
+        trainer.step(1)
+        tr_losses.append(float(loss.asnumpy()))
+    tr_masters = {p.name: st["master"]
+                  for p, st in zip(trainer._params, trainer._states)}
+    tr_weights = {p.name: p.data()._data
+                  for p in net.collect_params().values()}
+    names = sorted(tr_masters)
+    if ts_losses != tr_losses or len(names) != len(masters) or not all(
+            torch.equal(a, tr_masters[n]) for a, n in zip(masters, names)) \
+            or not all(torch.equal(a, tr_weights[n])
+                       for a, n in zip(weights, names)):
+        raise AssertionError(f"{name} {kw}: the cast route's masters or "
+                             f"weights differ from the multi_precision "
+                             f"Trainer's")
+    log(f"[optimizers] {name} {kw}: graph == naive, run(window=2) == calls, "
+        f"cast route == multi_precision Trainer, bit for bit; losses "
+        f"{[round(x, 5) for x in runs['graph'][0]]}")
+    return runs["graph"][0]
+
+
+def phase_optimizers():
+    """``[optimizers]``: each of OPT_CASES on the 2-layer net (B=256) through
+    ``_opt_case``."""
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(36)
+    # by sorted parameter name: 0.bias, 0.weight, 1.bias, 1.weight
+    init = [(torch.randn(p, generator=gen) * s).bfloat16().float().cuda()
+            for p, s in (((OPT_HIDDEN,), 0.1), ((OPT_HIDDEN, OPT_IN), 0.03),
+                         ((OPT_IN,), 0.1), ((OPT_IN, OPT_HIDDEN), 0.015))]
+    data = _opt_data()
+    res = {f"{name}{'_centered' if kw.get('centered') else ''}":
+           _opt_case(name, kw, init, data) for name, kw in OPT_CASES}
+    _release()
+    log(f"[optimizers seconds] {time.perf_counter() - t0:.1f} s")
+    return res
+
+
+# examples/torch_pretrain_bert.py's route at bench.py's BERT shape: no Adam
+# launch, bert_amp's LayerNorms (bf16 x and gamma: the cast net's)
+PRETRAIN_WANT = dict(BERT_WANT, adam=0)
+
+
+def _pretrain_net():
+    """bert_large with the pretraining heads (max_length 128, dropout 0,
+    seed 0) in f32: the example's ``train(net=)`` casts it."""
+    from mxnet_tpu_torch.models import get_bert
+
+    return get_bert("bert_large", max_length=BERT_T, dropout=0.0,
+                    device="cuda", seed=0)
+
+
+def _pretrain_args(ex, steps):
+    """The example's flags at bert_large, B=64, T=128, M=20, ``steps``
+    steps after the first (its defaults: LAMB 1e-4, bfloat16, the card)."""
+    return ex.build_parser().parse_args(
+        ["--model", "bert_large", "--batch-size", str(BERT_B),
+         "--seq-length", str(BERT_T), "--num-masked", str(BERT_M),
+         "--steps", str(steps)])
+
+
+def _lamb_row(net, gen):
+    """The LAMB update over ``net``'s tensors as the cast route runs it
+    (f32 masters, bf16 gradients, the bf16 weights written), one CUDA graph
+    of ``update_raw_multi``, beside the Adam kernel over the same tensors
+    and dtypes. Bounds: the function's, each input read once and each
+    output written once (w, bf16 g, m, v in; w, m, v and the bf16 copy out:
+    28 bytes an element, as Adam's; ~22 and ~12 flops an element), and
+    LAMB's two phases as the JAX ops write them (phase 1 reads w, g, m, v
+    and writes m, v and the update; the norms read w and the update; phase
+    2 reads w and the update and writes w and the copy: 48 bytes an
+    element)."""
+    from mxnet_tpu_torch.ops import optimizer as oo
+    from mxnet_tpu_torch.optimizer import LAMB
+
+    dev = torch.device("cuda")
+    lows = [p.detach() for p in net.parameters()]
+    ws = [p.float() for p in lows]
+    gs = [(torch.randn(w.shape, generator=gen) * 1e-3).to(dev, torch.bfloat16)
+          for w in ws]
+    states = [(torch.zeros_like(w), torch.zeros_like(w)) for w in ws]
+    n = sum(w.numel() for w in ws)
+    lr = torch.full((len(ws),), 1e-4, device=dev)
+    wd = torch.full((len(ws),), 0.01, device=dev)
+    t = torch.ones((), dtype=torch.int32, device=dev)
+    opt = LAMB(learning_rate=1e-4)
+    lamb_ms = graph_time_ms(lambda: opt.update_raw_multi(
+        ws, gs, states, lr, wd, t, out_lows=lows), calls=1, replays=3,
+        repeats=3)
+    adam_ms = graph_time_ms(lambda: oo.adam_update_fused(
+        ws, gs, [s[0] for s in states], [s[1] for s in states], lr, wd,
+        out_lows=lows), calls=2, replays=3, repeats=3)
+    bound, by, _ = _bound_ms(40 * n, 22 * n)
+    phases, _, _ = _bound_ms(48 * n, 22 * n)
+    adam_bound, _, _ = _bound_ms(28 * n, 12 * n)
+    row = dict(tensors=len(ws), elements=n, lamb_ms=lamb_ms,
+               lamb_bound_ms=bound, bound_by=by,
+               lamb_two_phase_bound_ms=phases, adam_ms=adam_ms,
+               adam_bound_ms=adam_bound)
+    log(f"[pretrain_bert] LAMB update over {len(ws)} tensors, {n} elements "
+        f"(f32 masters, bf16 grads and weights): {lamb_ms:.3f} ms device, "
+        f"bound {bound:.3f} ms ({by}; the two phases' {phases:.3f}); the "
+        f"Adam kernel over the same {adam_ms:.3f} ms, bound "
+        f"{adam_bound:.3f} ms")
+    del ws, gs, states, lows
+    return row
+
+
+def phase_pretrain_bert(card):
+    """``[pretrain_bert]``: examples/torch_pretrain_bert.py's route (bf16
+    weights by ``amp.convert_model``, f32 masters, LAMB 1e-4,
+    ``TrainStep(n_model_inputs=4)``) at bert_large, B=64, T=128, M=20:
+    the example's ``train(net=, engine_type=)`` for 3 steps on its first 3
+    batches, graph == naive bit for bit (losses, weights, masters, LAMB
+    moments, step count); then the graph run's TrainStep for 2 warm-up and
+    10 timed steps on the example's first batch (``_timed_steps``: 50
+    LayerNorm forwards, backwards and
+    merges a step on bf16 x and gamma, no Adam launch, a falling loss, one
+    program, a profiled replay), ms/step, seq/s, MFU by ``bert_flops``,
+    peak memory; the LAMB update's device time beside the Adam kernel's;
+    then the example itself as a subprocess (``--model bert_base --steps
+    5``). Returns the timed run's launches and the metrics."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.contrib import amp
+
+    t0 = time.perf_counter()
+    ex = _example("torch_pretrain_bert")
+    try:
+        runs = {}
+        for mode in ("naive", "graph"):
+            with _ln_dtypes() as ln_pairs:
+                out = ex.train(_pretrain_args(ex, 2), net=_pretrain_net(),
+                               engine_type=mode)
+            runs[mode] = ([float(x) for x in out["losses"]],
+                          _state(out["step"], host=True))
+            if mode == "naive":
+                del out
+                amp._reset()
+                _release()
+        if runs["naive"][0] != runs["graph"][0] or \
+                not _same_state(runs["naive"][1], runs["graph"][1]):
+            raise AssertionError("pretrain_bert: graph != naive")
+        log(f"[pretrain_bert] the example's train() at bert_large, 3 steps "
+            f"graph == naive bit for bit (losses {runs['graph'][0]}, "
+            f"weights, masters, LAMB moments)")
+        del runs
+        # the graph run's TrainStep (its graph captured in train(), with
+        # the LayerNorm dtypes seen there), on the example's first batch
+        net, ts = out["net"], out["step"]
+        del out
+        batch = ex.make_batch(BERT_B, BERT_T, BERT_M, BERT_VOCAB,
+                              np.random.RandomState(0), mx.gpu())
+        launches, res, state = _timed_steps(
+            "pretrain_bert graph", net, ts, batch, PRETRAIN_WANT,
+            torch.bfloat16, 2, 10, BERT_B, BERT_T, ln_pairs=ln_pairs)
+        del ts, state
+        flops = bert_flops(BERT_B, BERT_T, BERT_M, BERT_LAYERS, BERT_UNITS,
+                           BERT_HIDDEN, BERT_VOCAB)
+        res.update(seq_per_s=res["samples_per_s"], flops_per_step=flops,
+                   mfu=flops / (res["ms_per_step"] * 1e-3)
+                   / BF16_TC_FLOPS_PER_S, card=card)
+        log(f"[pretrain_bert graph] {res['ms_per_step']:.2f} ms/step, "
+            f"{res['seq_per_s']:.1f} seq/s, peak "
+            f"{res['peak_bytes'] / 2**30:.2f} GiB allocated / "
+            f"{res['peak_reserved_bytes'] / 2**30:.2f} reserved, MFU "
+            f"{res['mfu']:.4f} on {card}")
+        res["lamb"] = _lamb_row(net, torch.Generator().manual_seed(37))
+        del net
+        _release()
+    finally:
+        amp._reset()
+    root = Path(__file__).resolve().parent
+    cmd = [sys.executable, str(root / "examples" / "torch_pretrain_bert.py"),
+           "--model", "bert_base", "--steps", "5"]
+    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                          timeout=600,
+                          env=dict(os.environ, PYTHONPATH=str(root)))
+    line = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+    if proc.returncode != 0 or not line.startswith("bert_base: ") or \
+            "seq/s, final loss" not in line:
+        raise AssertionError(f"examples/torch_pretrain_bert.py exited "
+                             f"{proc.returncode}: {line!r} "
+                             f"{proc.stderr[-2000:]}")
+    res["example_bert_base"] = line
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[pretrain_bert] the example: {line}")
+    log(f"[pretrain_bert seconds] {res['seconds']:.1f} s")
+    return launches, res
 
 
 # ---------------------------------------------------------------------------
@@ -5638,6 +6499,11 @@ def main():
     _release()
     log("[bert_amp] " + json.dumps(dict(runs=bert_amp, parity=bert_parity,
                                         dropout=bert_dropout)))
+    nn_launches, nn_ops = phase_nn_ops()
+    optimizers = phase_optimizers()
+    log("[optimizers] " + json.dumps(optimizers))
+    pretrain_launches, pretrain = phase_pretrain_bert(card)
+    log("[pretrain_bert] " + json.dumps(pretrain))
     t = time.perf_counter()
     tf_parity = phase_transformer_parity()
     tf_launches, tf_runs, tf_masked, big_launches, tf_big = \
@@ -5835,7 +6701,8 @@ def main():
                "lenet": lenet_launches, "transformer": tf_launches,
                "transformer_big": big_launches,
                "transformer_decode": decode_launches,
-               "transformer_loop": tf_loop_launches, "mnist": mnist_launches}
+               "transformer_loop": tf_loop_launches, "mnist": mnist_launches,
+               "nn_ops": nn_launches, "pretrain_bert": pretrain_launches}
     kernels = []
     for name, (src, rep, path, *extra) in meta.items():
         t = timing[name]

@@ -1,15 +1,16 @@
 """Gluon: parameters, blocks, layers (``nn``, ``contrib.nn``), losses
-(``loss``), the vision ``model_zoo`` and the imperative ``Trainer``."""
+(``loss``), the vision ``model_zoo``, the imperative ``Trainer`` and
+``utils``."""
 from . import parameter
 from .parameter import Constant, Parameter, ParameterDict
 from . import block
 from .block import Block, HybridBlock, SymbolBlock
 from . import data, loss, nn
 from . import contrib, model_zoo
-from . import trainer
+from . import trainer, utils
 from .trainer import Trainer
 
 __all__ = ["parameter", "Constant", "Parameter", "ParameterDict", "block",
            "Block", "HybridBlock", "SymbolBlock", "data", "loss", "nn",
-           "contrib", "model_zoo", "trainer",
+           "contrib", "model_zoo", "trainer", "utils",
            "Trainer"]

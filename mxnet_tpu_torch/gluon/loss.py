@@ -6,7 +6,8 @@ batch axis). ``SoftmaxCrossEntropyLoss`` takes the fused kernels
 (``ops/softmax_xent.py``) for sparse labels on logits whose class axis is
 last, under the dispatch rule of ``xent_kernel_supported``; dense labels,
 ``from_logits``, float16 and 1-D input take the ``log_softmax -> pick``
-composition, as in the JAX package. ``CTCLoss`` is not ported yet.
+composition, as in the JAX package. ``CTCLoss`` runs the ``CTCLoss`` op
+(``ops/nn.py``), unreduced: one loss a sequence.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import math
 
 import torch
 
+from ..ops import nn as _nn
 from ..ops import softmax_xent as _sx
 from .block import HybridBlock
 
@@ -21,7 +23,7 @@ __all__ = ["Loss", "L2Loss", "L1Loss", "SigmoidBinaryCrossEntropyLoss",
            "SigmoidBCELoss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss",
            "KLDivLoss", "HuberLoss", "HingeLoss", "CosineEmbeddingLoss",
            "SquaredHingeLoss", "LogisticLoss", "TripletLoss",
-           "PoissonNLLLoss"]
+           "PoissonNLLLoss", "CTCLoss"]
 
 
 def _apply_weighting(loss, weight=None, sample_weight=None):
@@ -257,3 +259,33 @@ class PoissonNLLLoss(Loss):
                         + 0.5 * torch.log(2 * math.pi * (label + epsilon)))
             loss = loss + stirling * (label > 1)
         return _batch_mean(_apply_weighting(loss, self._weight, sample_weight))
+
+
+class CTCLoss(Loss):
+    """Connectionist temporal classification over activations laid out
+    ``layout`` ("NTC" or "TNC") and labels laid out ``label_layout`` ("NT"
+    or "TN"), with optional per-sequence lengths; one loss a sequence,
+    weighted."""
+
+    def __init__(self, layout="NTC", label_layout="NT", weight=None,
+                 prefix=None, params=None):
+        if layout not in ("NTC", "TNC"):
+            raise ValueError(f"unsupported layout {layout!r}")
+        if label_layout not in ("NT", "TN"):
+            raise ValueError(f"unsupported label_layout {label_layout!r}")
+        super().__init__(weight, int(label_layout.find("N")), prefix=prefix,
+                         params=params)
+        self._layout = layout
+        self._label_layout = label_layout
+
+    def forward(self, pred, label, pred_lengths=None, label_lengths=None,
+                sample_weight=None):
+        if self._layout == "NTC":
+            pred = pred.transpose(0, 1)
+        if self._label_layout == "TN":
+            label = label.transpose(0, 1)
+        loss = _nn.ctc_loss(pred, label, data_lengths=pred_lengths,
+                            label_lengths=label_lengths,
+                            use_data_lengths=pred_lengths is not None,
+                            use_label_lengths=label_lengths is not None)
+        return _apply_weighting(loss, self._weight, sample_weight)

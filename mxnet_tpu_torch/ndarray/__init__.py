@@ -20,6 +20,7 @@ float32 (exact), since numpy has no bfloat16.
 """
 from __future__ import annotations
 
+import inspect
 import sys
 import threading
 import types
@@ -40,8 +41,6 @@ __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
 
 _pyslice = slice  # an op named "slice" is generated below
 
-#: the creation operators: ``ctx=`` names their device
-_CREATION = {"_full", "full", "_arange", "_eye", "eye"}
 
 _TLS = threading.local()
 
@@ -78,7 +77,8 @@ class NDArray:
         if isinstance(data, NDArray):
             data = data._data
         if not torch.is_tensor(data):
-            data = _from_host(data, dtype)
+            data = _from_host(data, dtype, copy=ctx is None or
+                              as_device(ctx).type == "cpu")
         elif dtype is not None:
             data = data.to(dtype_torch(dtype))
         if ctx is not None:
@@ -351,6 +351,12 @@ def _raw(x):
     return x._data if isinstance(x, NDArray) else x
 
 
+def _raw_all(x):
+    if isinstance(x, (tuple, list)):
+        return type(x)(_raw(v) for v in x)
+    return _raw(x)
+
+
 def _is_arr(o):
     return isinstance(o, (NDArray, _np.ndarray)) or torch.is_tensor(o)
 
@@ -371,10 +377,13 @@ def _raw_index(key):
     return key
 
 
-def _from_host(source, dtype=None):
-    """A CPU tensor of host data with MXNet's dtype rules: float64 becomes
+def _from_host(source, dtype=None, copy=False):
+    """A CPU tensor of host data, with MXNet's dtype rules: float64 becomes
     float32, int64 int32 (checked to fit, as the JAX package's
-    ``as_index_array``)."""
+    ``as_index_array``). With ``copy`` it never shares memory with
+    ``source``, as MXNet's ``nd.array`` copies (an in-place write must not
+    reach the caller's numpy array); without, it may, for a caller that
+    copies it anyway (to the card, or into pinned memory)."""
     a = _np.asarray(source)
     if dtype is not None:
         name = dtype_name(dtype)
@@ -390,6 +399,8 @@ def _from_host(source, dtype=None):
         if a.size and (a.max() > info.max or a.min() < info.min):
             raise MXNetError("nd.array int64: values exceed the int32 range")
         a = a.astype(_np.int32)
+    if copy and _np.may_share_memory(a, source):
+        a = a.copy()
     return torch.from_numpy(_np.ascontiguousarray(a))
 
 
@@ -439,9 +450,18 @@ def _invoke_name(name, args, kwargs):
     return invoke(_registry.get(name), args, kwargs)
 
 
+def _takes_ctx(fn):
+    try:
+        return "ctx" in inspect.signature(fn).parameters
+    except (TypeError, ValueError):  # a builtin without a signature
+        return False
+
+
 def _make_op_func(name):
     opdef = _registry.get(name)
-    creation = name in _CREATION
+    # the creation operators and the samplers that take no tensor: ``ctx=``
+    # names their device
+    creation = _takes_ctx(opdef.fn)
 
     def fn(*args, **kwargs):
         ctx = kwargs.pop("ctx", None)
@@ -449,11 +469,19 @@ def _make_op_func(name):
         if creation:
             kwargs["ctx"] = ctx
         res = invoke(opdef, args, kwargs)
-        if out is not None:
-            with torch.no_grad():
-                out._data.copy_(_raw(res))
+        if out is None:
+            return res
+        write_back = getattr(opdef.fn, "write_back", None)
+        if write_back is not None:
+            # an update op: the new weights into out, the new states into
+            # the state arguments (``ops/optimizer_ops.py``)
+            write_back([_raw(a) for a in args], _raw_all(res),
+                       [_raw(o) for o in out] if isinstance(out, (list, tuple))
+                       else _raw(out))
             return out
-        return res
+        with torch.no_grad():
+            out._data.copy_(_raw(res))
+        return out
 
     fn.__name__ = name
     fn.__qualname__ = name
@@ -493,7 +521,9 @@ def array(source_array, ctx=None, dtype=None):
         t = source_array if dtype is None else \
             source_array.to(dtype_torch(dtype))
         return NDArray(t if ctx is None else t.to(as_device(ctx)))
-    return NDArray(_from_host(source_array, dtype).to(as_device(ctx)))
+    device = as_device(ctx)
+    return NDArray(_from_host(source_array, dtype,
+                              copy=device.type == "cpu").to(device))
 
 
 def zeros(shape, ctx=None, dtype="float32"):
@@ -565,26 +595,14 @@ def load(fname):
 # ---------------------------------------------------------------------------
 # mx.nd.random
 # ---------------------------------------------------------------------------
-def _sampler(draw):
-    def fn(*args, shape=(), dtype="float32", ctx=None, out=None, **kw):
-        t = draw(*args, shape=_shape(shape), dtype=dtype_torch(dtype),
-                 device=as_device(ctx), **kw)
-        if out is not None:
-            with torch.no_grad():
-                out._data.copy_(t)
-            return out
-        return NDArray(t)
-
-    return fn
-
-
 random = types.ModuleType(__name__ + ".random")
-random.uniform = _sampler(lambda low=0.0, high=1.0, **kw:
-                          _rng.uniform(low, high, **kw))
-random.normal = _sampler(lambda loc=0.0, scale=1.0, **kw:
-                         _rng.normal(loc, scale, **kw))
-random.randint = _sampler(lambda low, high, **kw: _rng.randint(
-    low, high, kw["shape"], dtype=torch.int32 if kw["dtype"] ==
-    torch.float32 else kw["dtype"], device=kw["device"]))
+random.uniform = _make_op_func("_random_uniform")
+random.normal = _make_op_func("_random_normal")
+random.randint = _make_op_func("_random_randint")
+random.gamma = _make_op_func("_random_gamma")
+random.exponential = _make_op_func("_random_exponential")
+random.poisson = _make_op_func("_random_poisson")
+random.multinomial = _make_op_func("_sample_multinomial")
+random.shuffle = _make_op_func("shuffle")
 random.seed = _rng.seed
 sys.modules[random.__name__] = random

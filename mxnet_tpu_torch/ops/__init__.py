@@ -2,7 +2,9 @@
 kernels (``layernorm``, ``paged_attention``, ``flash_attention``,
 ``optimizer``, ``softmax_xent``) built by ``cuda_common``."""
 from . import (attention, core, cuda_common, flash_attention, layernorm, nn,
-               optimizer, paged_attention, sampling, softmax_xent)
+               optimizer, optimizer_ops, paged_attention, random_ops,
+               sampling, softmax_xent)
 
 __all__ = ["attention", "core", "cuda_common", "flash_attention", "layernorm",
-           "nn", "optimizer", "paged_attention", "sampling", "softmax_xent"]
+           "nn", "optimizer", "optimizer_ops", "paged_attention",
+           "random_ops", "sampling", "softmax_xent"]

@@ -3,7 +3,12 @@
 Counterpart of ``mxnet_tpu/ops/attention.py``: the cache allocators, the
 dense and paged cached paths and the ``multi_head_attention`` dispatch
 (flash kernels for unmasked full-sequence attention, the plain einsum path
-for masked attention).
+for masked attention), and the interleaved-projection ops of GluonNLP's
+BERT attention cell (``_contrib_div_sqrt_dim``,
+``_contrib_interleaved_matmul_{selfatt,encdec}_{qk,valatt}``) with MXNet's
+layouts: projections (T, B, H·3·Ch) or (T, B, H·2·Ch) interleaved per
+head, scores (B·H, Tq, Tk), outputs (T, B, H·Ch). Their products are
+``torch.matmul``, as the JAX package leaves them to XLA.
 Tensors are (B, H, T, Ch) as in the JAX package. Caches are updated in
 place (the analog of the JAX engine's donated carry) and returned.
 """
@@ -20,7 +25,9 @@ from . import flash_attention as fa
 from . import paged_attention as pa
 
 __all__ = ["alloc_kv_cache", "alloc_paged_kv_cache", "multi_head_attention",
-           "attention_route"]
+           "attention_route", "div_sqrt_dim", "interleaved_matmul_selfatt_qk",
+           "interleaved_matmul_selfatt_valatt", "interleaved_matmul_encdec_qk",
+           "interleaved_matmul_encdec_valatt"]
 
 
 def alloc_kv_cache(batch_size, num_heads, max_length, channels, num_layers,
@@ -177,3 +184,90 @@ from ..registry import register  # noqa: E402
 
 register("multi_head_attention",
          aliases=("_contrib_multi_head_attention",))(multi_head_attention)
+
+
+# -- the interleaved-projection ops (the JAX ops/attention.py:25-93) ----
+def _inv_sqrt(ch, dtype):
+    """``1 / sqrt(ch)`` computed in f32 and rounded to ``dtype``, as the JAX
+    ops scale."""
+    return torch.tensor(1.0 / math.sqrt(ch), dtype=torch.float32).to(dtype)
+
+
+def _promoted_matmul(a, b):
+    """``a @ b`` in the promoted dtype of the two, as ``jnp.einsum``."""
+    ct = torch.promote_types(a.dtype, b.dtype)
+    return torch.matmul(a.to(ct), b.to(ct))
+
+
+def div_sqrt_dim(data):
+    """``data / sqrt(data.shape[-1])``."""
+    return data / torch.tensor(math.sqrt(data.shape[-1]),
+                               dtype=torch.float32).to(data.dtype)
+
+
+def _split_interleaved_qkv(qkv, heads):
+    """(T, B, H·3·Ch) interleaved per head -> q, k, v, each (B, H, T, Ch)."""
+    t, b, hc3 = qkv.shape
+    x = qkv.reshape(t, b, heads, 3, hc3 // (heads * 3)).permute(3, 1, 2, 0, 4)
+    return x[0], x[1], x[2]
+
+
+def interleaved_matmul_selfatt_qk(qkv, heads=1):
+    """Scores ``(q / sqrt(Ch)) k^T``, (B·H, T, T), in the caller's dtype;
+    the product in the AMP compute dtype when ``amp.init`` set one (the JAX
+    op's ``cast_inputs``)."""
+    orig = qkv.dtype
+    qkv, = _amp.cast_inputs(qkv)
+    q, k, _ = _split_interleaved_qkv(qkv, int(heads))
+    scores = torch.matmul(q * _inv_sqrt(q.shape[-1], q.dtype),
+                          k.transpose(-1, -2))
+    b, h, t, _ = scores.shape
+    return scores.reshape(b * h, t, t).to(orig)
+
+
+def interleaved_matmul_selfatt_valatt(qkv, att, heads=1):
+    """``att @ v`` as (T, B, H·Ch), with att (B·H, T, T)."""
+    _, _, v = _split_interleaved_qkv(qkv, int(heads))
+    b, h, t, ch = v.shape
+    out = _promoted_matmul(att.reshape(b, h, t, t), v)
+    return out.permute(2, 0, 1, 3).reshape(t, b, h * ch)
+
+
+def _kv_heads(kv_proj, heads):
+    """(Tk, B, H·2·Ch) interleaved per head -> k, v, each (B, H, Tk, Ch)."""
+    tk, b, hc2 = kv_proj.shape
+    x = kv_proj.reshape(tk, b, heads, 2, hc2 // (2 * heads))
+    return x.permute(3, 1, 2, 0, 4).unbind(0)
+
+
+def interleaved_matmul_encdec_qk(q_proj, kv_proj, heads=1):
+    """Cross-attention scores ``(q / sqrt(Ch)) k^T``, (B·H, Tq, Tk), from
+    q (Tq, B, H·Ch) and the interleaved (Tk, B, H·2·Ch) projection."""
+    heads = int(heads)
+    tq, b, hc = q_proj.shape
+    ch = hc // heads
+    q = q_proj.reshape(tq, b, heads, ch).permute(1, 2, 0, 3)
+    k, _ = _kv_heads(kv_proj, heads)
+    scores = _promoted_matmul(q * _inv_sqrt(ch, q.dtype), k.transpose(-1, -2))
+    return scores.reshape(b * heads, tq, k.shape[2])
+
+
+def interleaved_matmul_encdec_valatt(kv_proj, att, heads=1):
+    """``att @ v`` as (Tq, B, H·Ch), with att (B·H, Tq, Tk)."""
+    heads = int(heads)
+    _, v = _kv_heads(kv_proj, heads)
+    b, _, tk, ch = v.shape
+    tq = att.shape[1]
+    out = _promoted_matmul(att.reshape(b, heads, tq, tk), v)
+    return out.permute(2, 0, 1, 3).reshape(tq, b, heads * ch)
+
+
+register("_contrib_div_sqrt_dim")(div_sqrt_dim)
+register("_contrib_interleaved_matmul_selfatt_qk")(
+    interleaved_matmul_selfatt_qk)
+register("_contrib_interleaved_matmul_selfatt_valatt")(
+    interleaved_matmul_selfatt_valatt)
+register("_contrib_interleaved_matmul_encdec_qk")(
+    interleaved_matmul_encdec_qk)
+register("_contrib_interleaved_matmul_encdec_valatt")(
+    interleaved_matmul_encdec_valatt)

@@ -103,7 +103,7 @@ def pick(data, index, axis=-1, keepdims=False, mode="clip"):
 import functools  # noqa: E402
 import math  # noqa: E402
 
-from ..registry import register  # noqa: E402
+from ..registry import alias, register  # noqa: E402
 
 
 def _axis_tuple(axis):
@@ -598,8 +598,14 @@ def where(condition, x, y):
 
 @register("boolean_mask")
 def boolean_mask(data, index, axis=0):
+    """The slices of ``data`` along ``axis`` where ``index`` is nonzero. Its
+    shape depends on the data, so it reads the mask's count on the host: it
+    cannot run inside a captured step (``StepGraph`` raises on the sync)."""
     rows = torch.nonzero(index.reshape(-1).bool()).reshape(-1)
     return torch.index_select(data, int(axis), rows.to(data.device))
+
+
+alias("boolean_mask", "_contrib_boolean_mask")
 
 
 @register("SequenceMask", aliases=("sequence_mask",))

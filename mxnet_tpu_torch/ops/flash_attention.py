@@ -37,7 +37,8 @@ from ..base import MXNetError
 from . import cuda_common as _cc
 
 __all__ = ["flash_attention", "flash_supported", "FlashAttention",
-           "flash_fwd_plain", "flash_bwd_plain", "KERNEL_HEAD_DIMS"]
+           "flash_fwd_plain", "flash_bwd_plain", "chunked_attention",
+           "chunked_attention_vjp", "KERNEL_HEAD_DIMS"]
 
 #: head dims the kernels are instantiated for
 KERNEL_HEAD_DIMS = (64, 128)
@@ -270,11 +271,72 @@ def _flash_bwd(q, k, v, o, lse, do, causal):
     return _bwd_dq(q, k, v, do, lse, di, causal), dk, dv
 
 
+def _chunk_body(qf, ks, vs, m, l, acc, start, causal, offset):
+    """One key chunk of :func:`chunked_attention`'s online softmax: the
+    carry (m, l, acc) updated by keys ``start .. start + chunk``."""
+    s = torch.matmul(qf, ks.float().transpose(-1, -2))
+    if causal:
+        tq, chunk = s.shape[-2], s.shape[-1]
+        rows = torch.arange(tq, device=s.device)[:, None]
+        cols = start + torch.arange(chunk, device=s.device)[None, :]
+        s = s.masked_fill(~(rows + offset >= cols), float("-inf"))
+    m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+    m_safe = torch.where(torch.isfinite(m_new), m_new, torch.zeros_like(m_new))
+    p = torch.where(torch.isfinite(s), torch.exp(s - m_safe),
+                    torch.zeros_like(s))
+    corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe),
+                       torch.zeros_like(m))
+    l_new = l * corr + p.sum(dim=-1, keepdim=True)
+    acc_new = acc * corr + torch.matmul(p, vs.float())
+    return m_new, l_new, acc_new
+
+
+def chunked_attention(q, k, v, causal, chunk=1024):
+    """Memory-efficient attention (Rabe & Staats), the counterpart of
+    ``_chunked_attention``: an online softmax over key chunks of the
+    largest size ``<= chunk`` that divides Tk, in f32, the causal mask
+    aligned bottom-right (offset ``Tk - Tq``). Each chunk's body runs under
+    ``torch.utils.checkpoint`` when a gradient is recorded, as the JAX body
+    under ``jax.checkpoint``: its backward keeps the (B, H, Tq, D) carries
+    and recomputes one (B, H, Tq, chunk) score block at a time, never the
+    (B, H, Tq, Tk) matrix. The result is in q's dtype."""
+    from torch.utils.checkpoint import checkpoint
+
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    chunk = min(int(chunk), tk)
+    chunk = next(c for c in range(chunk, 0, -1) if tk % c == 0)
+    qf = q.float() * (1.0 / d ** 0.5)
+    m = torch.full((b, h, tq, 1), float("-inf"), device=q.device)
+    l = torch.zeros((b, h, tq, 1), device=q.device)
+    acc = torch.zeros((b, h, tq, d), device=q.device)
+    remat = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    for start in range(0, tk, chunk):
+        args = (qf, k[:, :, start:start + chunk], v[:, :, start:start + chunk],
+                m, l, acc, start, causal, tk - tq)
+        m, l, acc = checkpoint(_chunk_body, *args, use_reentrant=False) \
+            if remat else _chunk_body(*args)
+    l = torch.where(l == 0.0, torch.ones_like(l), l)
+    return (acc / l).to(q.dtype)
+
+
+def chunked_attention_vjp(q, k, v, do, causal):
+    """``(dq, dk, dv)``: the VJP of :func:`chunked_attention` at cotangent
+    ``do``, each in its input's dtype (the JAX escape hatch's backward)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = chunked_attention(*leaves, causal)
+        return torch.autograd.grad(out, leaves, do.to(out.dtype))
+
+
 class FlashAttention(torch.autograd.Function):
     """Flash attention with the FlashAttention-2 backward. The forward saves
     (q, k, v, o, lse), as ``_flash_vjp_fwd``; the backward takes the kernels
-    when the ``flash_pallas_bwd`` knob is on (the default) and the plain
-    version when it is off, the counterpart of the JAX escape hatch."""
+    when the ``flash_pallas_bwd`` knob is on (the default) and, when it is
+    off, the JAX escape hatch: the VJP of :func:`chunked_attention`, whose
+    memory grows as Tq·chunk (``flash_bwd_plain``, the kernels' plain
+    version, builds the (B, H, Tq, Tk) scores)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
@@ -289,7 +351,7 @@ class FlashAttention(torch.autograd.Function):
         if _config.get("flash_pallas_bwd"):
             dq, dk, dv = _flash_bwd(q, k, v, o, lse, do, ctx.causal)
         else:
-            dq, dk, dv = flash_bwd_plain(q, k, v, o, lse, do, ctx.causal)
+            dq, dk, dv = chunked_attention_vjp(q, k, v, do, ctx.causal)
         return dq, dk, dv, None
 
 

@@ -4,10 +4,14 @@ Counterpart of ``mxnet_tpu/ops/nn.py`` (``fully_connected``, the
 ``layer_norm`` dispatch, ``tanh_gelu``, ``activation``, ``softmax``,
 ``log_softmax``, and the vision ops: ``convolution``, ``deconvolution``,
 ``pooling``, ``adaptive_avg_pooling``, ``leaky_relu``, ``batch_norm``,
-``instance_norm``) and ``mxnet_tpu/ops/core.py`` (``embedding``). Matrix
-products stay ``torch.matmul`` and convolutions cuDNN's, as the JAX package
-leaves both to XLA; pooling and the normalizations are plain compositions,
-as there.
+``instance_norm``; the heads and losses ``softmax_cross_entropy``,
+``SoftmaxOutput``, the three regression outputs, ``smooth_l1`` and
+``CTCLoss``; ``L2Normalization``, ``RMSNorm``, ``UpSampling`` and
+``BilinearResize2D``) and ``mxnet_tpu/ops/core.py`` (``embedding``).
+Matrix products stay ``torch.matmul`` and convolutions cuDNN's, as the JAX
+package leaves both to XLA; pooling, the normalizations, the heads and CTC
+are plain compositions, as there (none of them is a Pallas kernel in the
+JAX package).
 """
 from __future__ import annotations
 
@@ -23,7 +27,11 @@ from . import layernorm as _ln
 __all__ = ["fully_connected", "layer_norm", "tanh_gelu", "embedding",
            "activation", "softmax", "log_softmax", "convolution",
            "deconvolution", "pooling", "adaptive_avg_pooling", "leaky_relu",
-           "batch_norm", "instance_norm"]
+           "batch_norm", "instance_norm", "softmax_cross_entropy",
+           "softmax_output", "linear_regression_output",
+           "logistic_regression_output", "mae_regression_output",
+           "smooth_l1", "ctc_loss", "l2_normalization", "rms_norm",
+           "upsampling", "bilinear_resize"]
 
 
 def fully_connected(data, weight, bias=None, flatten=True):
@@ -68,8 +76,40 @@ def embedding(data, weight):
     idx = data.long()
     idx = torch.where(idx < 0, idx + v, idx)
     inside = (idx >= 0) & (idx < v)
-    rows = F.embedding(idx.clamp(0, v - 1), weight)
+    idx = idx.clamp(0, v - 1)
+    rows = _Lookup.apply(idx, weight) if v <= ONE_HOT_ROWS else \
+        F.embedding(idx, weight)
     return torch.where(inside[..., None], rows, float("nan"))
+
+
+#: tables of at most this many rows (BERT's two token types) take the
+#: one-hot product for their gradient; larger ones ``F.embedding``'s own
+#: backward, which gave the same bits from call to call at BERT's 30,522
+#: words on the card (chip_smoke.py ``[nn_ops]``, PERF.md §6)
+ONE_HOT_ROWS = 64
+
+
+class _Lookup(torch.autograd.Function):
+    """``F.embedding`` whose gradient is the product ``one_hot(ids)^T @ g``
+    in f32 (TF32 only where the caller turned it on for every matmul),
+    summed in a fixed order. ``F.embedding``'s own CUDA backward
+    summed the two long runs of one index of BERT's token types (two types
+    over 8,192 positions, f32) in an order that changed from call to call,
+    so two runs of one step differed in their low bits."""
+
+    @staticmethod
+    def forward(ctx, idx, weight):
+        ctx.save_for_backward(idx)
+        ctx.shape = tuple(weight.shape)
+        return F.embedding(idx, weight)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        rows, width = ctx.shape
+        flat = g.reshape(-1, width).float()
+        acc = _onehot(idx.reshape(-1), rows, torch.float32).t() @ flat
+        return None, acc.to(g.dtype)
 
 
 # the act_type table of the JAX ``Activation`` op; "gelu" is the erf form
@@ -426,3 +466,255 @@ register("_contrib_AdaptiveAvgPooling2D")(adaptive_avg_pooling)
 register("LeakyReLU")(leaky_relu)
 register("BatchNorm", aliases=("batch_norm",), nout=3)(batch_norm)
 register("InstanceNorm")(instance_norm)
+
+
+# -- heads and losses (the JAX ops/nn.py:246-425, :614-685) ------------
+def softmax_cross_entropy(data, label):
+    """The summed cross entropy of the rows of ``data`` against the class
+    ids ``label``."""
+    logp = torch.log_softmax(data, dim=-1)
+    return -torch.gather(logp, -1, label.long()[:, None]).sum()
+
+
+def _onehot(idx, k, dtype):
+    """One-hot rows of ``idx`` over ``k`` classes; an id outside ``[0, k)``
+    gives a zero row, as ``jax.nn.one_hot``."""
+    return (idx[..., None] == torch.arange(k, device=idx.device)).to(dtype)
+
+
+class _SoftmaxOutputFn(torch.autograd.Function):
+    """Softmax whose gradient is MXNet's fused ``(softmax - smoothed
+    one-hot(label)) · grad_scale``: it ignores the incoming gradient unless
+    ``out_grad``, as the JAX custom VJP (``_softmax_output_fn``)."""
+
+    @staticmethod
+    def forward(ctx, data, label, opts):
+        p = torch.softmax(data, dim=-1)
+        ctx.save_for_backward(p, label)
+        ctx.opts = opts
+        return p
+
+    @staticmethod
+    def backward(ctx, g):
+        p, label = ctx.saved_tensors
+        (grad_scale, ignore_label, use_ignore, normalization, out_grad,
+         smooth_alpha) = ctx.opts
+        idx = label.long()
+        k = p.shape[-1]
+        onehot = _onehot(idx, k, p.dtype)
+        if smooth_alpha:
+            onehot = onehot * (1.0 - smooth_alpha) \
+                + (1.0 - onehot) * (smooth_alpha / max(k - 1, 1))
+        ds = (p - onehot) * grad_scale
+        if out_grad:
+            ds = ds * g.to(p.dtype)
+        keep = idx != int(ignore_label)
+        if use_ignore:
+            ds = ds * keep.to(p.dtype)[..., None]
+        if normalization == "batch":
+            ds = ds / p.shape[0]
+        elif normalization == "valid" and use_ignore:
+            ds = ds / torch.clamp(keep.float().sum(), min=1.0)
+        elif normalization == "valid":
+            ds = ds / p.shape[0]
+        return ds.to(p.dtype), None, None
+
+
+def softmax_output(data, label=None, grad_scale=1.0, ignore_label=-1,
+                   use_ignore=False, multi_output=False, preserve_shape=False,
+                   normalization="null", out_grad=False, smooth_alpha=0.0):
+    """Softmax over the last axis. With a label its gradient is the fused
+    ``p - smoothed_one_hot(label)`` (:class:`_SoftmaxOutputFn`); without
+    one, the plain differentiable softmax. ``multi_output`` raises, as in
+    the JAX package."""
+    if label is None:
+        return torch.softmax(data, dim=-1)
+    if multi_output:
+        raise NotImplementedError(
+            "SoftmaxOutput(multi_output=True) (the (n, c, d...) layout) is "
+            "not supported; reshape to (n*d, c) instead")
+    opts = (float(grad_scale), int(ignore_label), bool(use_ignore),
+            str(normalization), bool(out_grad), float(smooth_alpha))
+    return _SoftmaxOutputFn.apply(data, label, opts)
+
+
+class _RegressionFn(torch.autograd.Function):
+    """``link(data)`` with MXNet's fused gradient ``dlink(out, label) ·
+    grad_scale / num_output``, independent of the incoming gradient."""
+
+    @staticmethod
+    def forward(ctx, data, label, link, dlink, grad_scale):
+        out = link(data)
+        ctx.save_for_backward(out, label)
+        ctx.dlink, ctx.grad_scale = dlink, grad_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, label = ctx.saved_tensors
+        num_out = max(out.numel() // out.shape[0], 1) if out.dim() else 1
+        ds = ctx.dlink(out, label.reshape(out.shape)) * \
+            (ctx.grad_scale / num_out)
+        dlabel = torch.zeros_like(label) if ctx.needs_input_grad[1] else None
+        return ds.to(out.dtype), dlabel, None, None, None
+
+
+def _regression_head(link, dlink, doc):
+    def head(data, label=None, grad_scale=1.0):
+        if label is None:
+            return link(data)
+        return _RegressionFn.apply(data, label, link, dlink, float(grad_scale))
+
+    head.__doc__ = doc
+    return head
+
+
+linear_regression_output = _regression_head(
+    lambda x: x, lambda out, lbl: out - lbl,
+    "Identity link; backward (out - label) * grad_scale / num_output.")
+logistic_regression_output = _regression_head(
+    torch.sigmoid, lambda out, lbl: out - lbl,
+    "Sigmoid link; backward (p - label) * grad_scale / num_output, the "
+    "exact gradient of the implied cross entropy.")
+mae_regression_output = _regression_head(
+    lambda x: x, lambda out, lbl: torch.sign(out - lbl),
+    "Identity link; backward sign(out - label) * grad_scale / num_output.")
+
+
+def smooth_l1(data, scalar=1.0):
+    """Huber-style smooth L1 with its transition at 1 / scalar^2."""
+    sigma2 = float(scalar) ** 2
+    a = data.abs()
+    return torch.where(a < 1.0 / sigma2, 0.5 * sigma2 * data * data,
+                       a - 0.5 / sigma2)
+
+
+_NEG = -1e30  # the JAX recursion's stand-in for log(0)
+
+
+def ctc_loss(data, label, data_lengths=None, label_lengths=None,
+             use_data_lengths=False, use_label_lengths=False,
+             blank_label="first"):
+    """Connectionist temporal classification loss, (B,) f32.
+
+    ``data`` (T, B, C) activations (log-softmax taken inside), ``label``
+    (B, L) class ids, padded with 0 (``blank_label="first"``: blank is 0
+    and labels are 1-based) or -1 (``"last"``: blank is C - 1) when
+    ``label_lengths`` is not used. The JAX op's alpha recursion in the log
+    semiring, one step a frame over (B, 2L + 1) states, with log(0) as
+    -1e30: an alignment that cannot exist (a label longer than its data)
+    costs about 1e30, and a frame at or past a row's ``data_lengths``
+    leaves its lattice as it was. Differentiated by autograd; no step reads
+    a value on the host, so the loss can run inside a captured step."""
+    t_len, b, c = data.shape
+    n_lab = label.shape[1]
+    dev = data.device
+    logp = torch.log_softmax(data.float(), dim=-1)
+    label = label.long()
+    blank = 0 if blank_label == "first" else c - 1
+    if label_lengths is not None and use_label_lengths:
+        lab_len = label_lengths.long()
+    else:
+        pad = 0 if blank_label == "first" else -1
+        lab_len = (label != pad).long().sum(dim=1)
+    if data_lengths is not None and use_data_lengths:
+        seq_len = data_lengths.long()
+    else:
+        seq_len = torch.full((b,), t_len, dtype=torch.long, device=dev)
+    n_s = 2 * n_lab + 1
+    pos = torch.arange(n_s, device=dev)
+    # ext[b, s]: blank on even s, label[(s - 1) // 2] on odd s
+    if n_lab:
+        at = ((pos - 1) // 2).clamp(0, n_lab - 1).expand(b, n_s)
+        lab_at = torch.gather(label, 1, at)
+    else:
+        lab_at = torch.zeros((b, n_s), dtype=torch.long, device=dev)
+    ext = torch.where(pos[None, :] % 2 == 1, lab_at,
+                      torch.full_like(lab_at, blank)).clamp(0, c - 1)
+    ext_m2 = torch.cat([torch.full((b, 2), -1, dtype=torch.long, device=dev),
+                        ext[:, :-2]], dim=1)
+    can_skip = (ext != blank) & (ext != ext_m2)
+    valid_s = pos[None, :] < (2 * lab_len[:, None] + 1)
+    emit = torch.gather(logp, 2, ext[None].expand(t_len, b, n_s))
+    live = torch.arange(t_len, device=dev)[:, None] < seq_len[None, :]
+    neg = torch.full((), _NEG, device=dev)
+    alpha = torch.where((pos[None, :] < 2) & valid_s, emit[0], neg)
+    for t in range(1, t_len):
+        a1 = F.pad(alpha[:, :-1], (1, 0), value=_NEG)
+        a2 = torch.where(can_skip, F.pad(alpha[:, :-2], (2, 0), value=_NEG),
+                         neg)
+        merged = torch.logaddexp(torch.logaddexp(alpha, a1), a2)
+        new = torch.where(valid_s, merged + emit[t], neg)
+        alpha = torch.where(live[t][:, None], new, alpha)
+    send = 2 * lab_len
+    last_blank = torch.gather(alpha, 1, send[:, None])[:, 0]
+    last_label = torch.gather(alpha, 1, (send - 1).clamp(min=0)[:, None])[:, 0]
+    ll = torch.logaddexp(last_blank, torch.where(lab_len > 0, last_label, neg))
+    return -ll
+
+
+# -- normalization and resizing (the JAX ops/nn.py:435-457, :596-611) --
+def l2_normalization(data, eps=1e-10, mode="instance"):
+    """``data / sqrt(sum(data^2) + eps)`` over each instance (all axes but
+    the first), each channel (axis 1) or each spatial position (axes 2 on)."""
+    if mode == "instance":
+        red = tuple(range(1, data.dim()))
+    elif mode == "channel":
+        red = (1,)
+    else:
+        red = tuple(range(2, data.dim()))
+    return data / torch.sqrt(data.square().sum(dim=red, keepdim=True) + eps)
+
+
+def rms_norm(data, gamma, axis=-1, eps=1e-6):
+    """``x · rsqrt(mean(x^2) + eps) · gamma`` over ``axis`` in f32, the
+    result in data's dtype."""
+    xf = data.float()
+    ms = xf.square().mean(dim=int(axis), keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * gamma.float()).to(data.dtype)
+
+
+def upsampling(data, scale=2, sample_type="nearest", num_args=1):
+    """Nearest-neighbour upsampling of the last two axes by ``scale``.
+    ``sample_type="bilinear"`` (MXNet's learned deconvolution) raises: the
+    JAX op computes nearest whatever it is given."""
+    if sample_type != "nearest":
+        raise NotImplementedError(
+            f"UpSampling(sample_type={sample_type!r}) is not ported; the JAX "
+            "op computes nearest whatever it is given")
+    s = int(scale)
+    return data.repeat_interleave(s, dim=-2).repeat_interleave(s, dim=-1)
+
+
+def bilinear_resize(data, height=None, width=None, scale_height=None,
+                    scale_width=None):
+    """(N, C, H, W) resized to (height, width) (or H and W times the scales)
+    as ``jax.image.resize(method="linear")``: half-pixel centres and, on a
+    downscale, a triangle filter widened by the scale (antialiased). Low
+    precision is resized in f32 and cast back."""
+    n, c, h, w = data.shape
+    oh = int(height) if height else int(h * scale_height)
+    ow = int(width) if width else int(w * scale_width)
+    x = data.float() if data.dtype in (torch.float16, torch.bfloat16) \
+        else data
+    out = F.interpolate(x, size=(oh, ow), mode="bilinear",
+                        align_corners=False, antialias=True)
+    return out.to(data.dtype)
+
+
+register("softmax_cross_entropy")(softmax_cross_entropy)
+register("SoftmaxOutput", aliases=("softmax_output",))(softmax_output)
+register("LinearRegressionOutput", aliases=("linear_regression_output",))(
+    linear_regression_output)
+register("LogisticRegressionOutput", aliases=("logistic_regression_output",))(
+    logistic_regression_output)
+register("MAERegressionOutput", aliases=("mae_regression_output",))(
+    mae_regression_output)
+register("smooth_l1")(smooth_l1)
+register("CTCLoss", aliases=("ctc_loss", "_contrib_CTCLoss",
+                             "_contrib_ctc_loss"))(ctc_loss)
+register("L2Normalization")(l2_normalization)
+register("RMSNorm", aliases=("_contrib_rms_norm",))(rms_norm)
+register("UpSampling")(upsampling)
+register("BilinearResize2D", aliases=("_contrib_BilinearResize2D",))(
+    bilinear_resize)

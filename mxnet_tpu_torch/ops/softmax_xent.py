@@ -168,3 +168,15 @@ def softmax_cross_entropy_fused(pred, label):
     else:
         loss = _xent_fwd(x2, lbl)[0]
     return loss.reshape(lead)
+
+
+from ..registry import register  # noqa: E402
+
+
+@register("softmax_cross_entropy_fused")
+def _softmax_cross_entropy_fused_op(pred, label, interpret=None):
+    """``nd.softmax_cross_entropy_fused``: :func:`softmax_cross_entropy_fused`
+    (the kernels on the card, the plain version on the CPU). ``interpret``,
+    the JAX op's Pallas interpreter switch, has no meaning here and is
+    ignored."""
+    return softmax_cross_entropy_fused(pred, label)

@@ -1,6 +1,7 @@
-"""Optimizer registry: SGD, NAG, Adam and AdamW.
+"""Optimizer registry: SGD, NAG, Adam, AdamW, AdaGrad, RMSProp, FTRL,
+SignSGD and LAMB, and the KVStore-style ``Updater``.
 
-Counterpart of ``mxnet_tpu/optimizer.py`` for these four: the
+Counterpart of ``mxnet_tpu/optimizer.py``: the
 hyperparameters, the ``lr_scheduler``, the ``lr_mult``/``wd_mult`` dicts,
 ``create_state`` and the pure-state update ``update_raw`` that
 ``TrainStep`` drives, and the imperative protocol of ``gluon.Trainer``
@@ -13,9 +14,11 @@ update to a list of parameters; Adam's runs as one multi-tensor kernel
 launch on the card when the ``fused_adam`` knob is on, and under
 ``multi_precision`` that launch updates the masters and writes the new
 bf16/f16 weights into the parameters' own storage (the kernel's
-low-precision output). The JAX package has no kernel for SGD, NAG or
-AdamW, and neither has the port: their ``update_raw_multi`` loops the
-plain update.
+low-precision output). The JAX package has no kernel for the others,
+and neither has the port: their ``update_raw_multi`` loops the plain
+update (``ops/optimizer.py``, ``ops/optimizer_ops.py``), each in place on
+the f32 weight and states, so each runs inside ``TrainStep``'s graphs.
+LAMB's per-tensor norms stay on the device.
 """
 from __future__ import annotations
 
@@ -26,8 +29,11 @@ import torch
 
 from . import config as _config
 from .ops import optimizer as _oo
+from .ops import optimizer_ops as _ops
 
-__all__ = ["Optimizer", "SGD", "NAG", "Adam", "AdamW", "create", "register"]
+__all__ = ["Optimizer", "SGD", "NAG", "Adam", "AdamW", "AdaGrad", "RMSProp",
+           "FTRL", "SignSGD", "LAMB", "Updater", "get_updater", "create",
+           "register"]
 
 _OPT_REGISTRY: Dict[str, type] = {}
 
@@ -356,3 +362,159 @@ class AdamW(Adam):
         return w, (mean, var)
 
     update_raw_multi = Optimizer.update_raw_multi
+
+
+def _zeros(weight, n=1):
+    z = [torch.zeros_like(weight, dtype=torch.float32) for _ in range(n)]
+    return z[0] if n == 1 else tuple(z)
+
+
+@register
+class AdaGrad(Optimizer):
+    """AdaGrad: each weight's step divided by the root of its summed
+    squared gradients."""
+
+    def __init__(self, eps=1e-7, **kwargs):
+        super().__init__(**kwargs)
+        self.float_stable_eps = eps
+
+    def create_state(self, index, weight):
+        return _zeros(weight)
+
+    def update_raw(self, w, g, state, lr, wd, t):
+        _ops.adagrad_update(w, g, state, lr, self.float_stable_eps, wd,
+                            self.rescale_grad, self.clip_gradient)
+        return w, state
+
+
+@register
+class RMSProp(Optimizer):
+    """RMSProp; with ``centered`` Graves' variant (``rmspropalex_update``:
+    the first moment subtracted, and a momentum ``gamma2`` on the step),
+    as MXNet's. The JAX optimizer ignores ``centered``."""
+
+    def __init__(self, learning_rate=0.001, gamma1=0.9, gamma2=0.9,
+                 epsilon=1e-8, centered=False, clip_weights=None, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.gamma1, self.gamma2, self.epsilon = gamma1, gamma2, epsilon
+        self.centered = centered
+        self.clip_weights = clip_weights if clip_weights is not None else -1.0
+
+    def create_state(self, index, weight):
+        return _zeros(weight, 3) if self.centered else _zeros(weight)
+
+    def update_raw(self, w, g, state, lr, wd, t):
+        if self.centered:
+            n, gm, delta = state
+            _ops.rmspropalex_update(w, g, n, gm, delta, lr, self.gamma1,
+                                    self.gamma2, self.epsilon, wd,
+                                    self.rescale_grad, self.clip_gradient,
+                                    self.clip_weights)
+        else:
+            _ops.rmsprop_update(w, g, state, lr, self.gamma1, self.epsilon,
+                                wd, self.rescale_grad, self.clip_gradient,
+                                self.clip_weights)
+        return w, state
+
+
+@register
+class FTRL(Optimizer):
+    """FTRL-proximal with L1 strength ``lamda1``."""
+
+    def __init__(self, lamda1=0.01, learning_rate=0.1, beta=1.0, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.lamda1, self.beta = lamda1, beta
+
+    def create_state(self, index, weight):
+        return _zeros(weight, 2)
+
+    def update_raw(self, w, g, state, lr, wd, t):
+        z, n = state
+        _ops.ftrl_update(w, g, z, n, lr, self.lamda1, self.beta, wd,
+                         self.rescale_grad, self.clip_gradient)
+        return w, state
+
+
+@register
+class SignSGD(Optimizer):
+    """SGD on the sign of the gradient."""
+
+    def create_state(self, index, weight):
+        return None
+
+    def update_raw(self, w, g, state, lr, wd, t):
+        _ops.signsgd_update(w, g, lr, wd, self.rescale_grad,
+                            self.clip_gradient)
+        return w, None
+
+
+@register
+class LAMB(Optimizer):
+    """Layer-wise adaptive moments (the BERT pretraining optimizer): Adam's
+    bias-corrected step plus ``wd·w``, scaled per tensor by the trust ratio
+    ``‖w‖ / ‖step‖`` (``lamb_update_phase1``, the norms, ``phase2``). The
+    norms are 0-d device tensors, so a step reads nothing on the host."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-6, lower_bound=None, upper_bound=None,
+                 bias_correction=True, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+        self.lower_bound = lower_bound if lower_bound is not None else -1.0
+        self.upper_bound = upper_bound if upper_bound is not None else -1.0
+        self.bias_correction = bias_correction
+
+    def create_state(self, index, weight):
+        return _zeros(weight, 2)
+
+    def update_raw(self, w, g, state, lr, wd, t):
+        mean, var = state
+        tf = torch.as_tensor(t, device=w.device).to(torch.float32)
+        upd = _ops.lamb_update_phase1(w, g, mean, var, self.beta1, self.beta2,
+                                      self.epsilon, tf, self.bias_correction,
+                                      wd, self.rescale_grad,
+                                      self.clip_gradient)
+        r1, r2 = _ops.lamb_norms(w, upd)
+        _ops.lamb_update_phase2(w, upd, r1, r2, lr, self.lower_bound,
+                                self.upper_bound)
+        return w, state
+
+
+class Updater:
+    """The KVStore-side updater (MXNet's ``get_updater``): ``updater(index,
+    grad, weight)`` makes the index's state on first use (with an f32
+    master for a bf16/f16 weight under ``multi_precision``) and updates
+    ``weight`` in place."""
+
+    def __init__(self, optimizer: Optimizer):
+        self.optimizer = optimizer
+        self.states: Dict = {}
+
+    def __call__(self, index, grad, weight):
+        if index not in self.states:
+            self.states[index] = self.optimizer.create_state_multi_precision(
+                index, weight)
+        self.states[index] = self.optimizer.update_multi_precision(
+            index, weight, grad, self.states[index])
+
+    def get_states(self, dump_optimizer=False):
+        """The states (and with ``dump_optimizer`` the optimizer) pickled."""
+        import pickle
+
+        return pickle.dumps((self.states, self.optimizer) if dump_optimizer
+                            else self.states)
+
+    def set_states(self, states):
+        """Restore what :meth:`get_states` gave (bytes this program wrote:
+        unpickling runs code)."""
+        import pickle
+
+        obj = pickle.loads(states)
+        if isinstance(obj, tuple):
+            self.states, self.optimizer = obj
+        else:
+            self.states = obj
+
+
+def get_updater(optimizer):
+    return Updater(optimizer)

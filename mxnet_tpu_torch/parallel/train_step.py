@@ -96,7 +96,9 @@ __all__ = ["TrainStep"]
 _LOW = (torch.bfloat16, torch.float16)
 # the optimizer's scalar hyperparameters a captured update reads
 _HYPER = ("rescale_grad", "clip_gradient", "beta1", "beta2", "epsilon",
-          "momentum")
+          "momentum", "float_stable_eps", "gamma1", "gamma2", "centered",
+          "clip_weights", "lamda1", "beta", "lower_bound", "upper_bound",
+          "bias_correction")
 
 
 class TrainStep:

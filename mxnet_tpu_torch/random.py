@@ -5,10 +5,13 @@ Counterpart of ``mxnet_tpu/random.py``. The JAX package splits a
 threefry key at each draw; here each device has its own Philox (CUDA) or
 Mersenne-Twister (CPU) generator, made on first use from seed 0 and reset
 by :func:`seed`. The two streams never agree, so parity with the JAX
-package runs through carried weights and at dropout 0. Initializers draw
+package runs through carried weights and at dropout 0, and the samplers
+are held to the JAX package's by their distributions. Initializers draw
 on the CPU generator (so a seed gives the same weights on any device);
-``Dropout`` and the ``nd.random`` samplers draw on the generator of their
-tensor's device.
+``Dropout``, the samplers of ``ops/random_ops.py`` and ``nd.random`` draw
+on the generator of their tensor's device. :func:`uniform`,
+:func:`normal` and :func:`randint` draw on the current context (the card)
+unless given a device.
 """
 from __future__ import annotations
 
@@ -59,16 +62,19 @@ def seed(seed_state: int, ctx=None):
         gen.manual_seed(seed_state)
 
 
-def uniform(low=0.0, high=1.0, shape=(), dtype=torch.float32, device="cpu"):
-    out = torch.empty(shape, dtype=dtype, device=device)
-    return out.uniform_(low, high, generator=generator(out.device))
+def uniform(low=0.0, high=1.0, shape=(), dtype=torch.float32, device=None):
+    from .ops.random_ops import random_uniform
+
+    return random_uniform(low, high, shape, dtype, ctx=device)
 
 
-def normal(loc=0.0, scale=1.0, shape=(), dtype=torch.float32, device="cpu"):
-    out = torch.empty(shape, dtype=dtype, device=device)
-    return out.normal_(loc, scale, generator=generator(out.device))
+def normal(loc=0.0, scale=1.0, shape=(), dtype=torch.float32, device=None):
+    from .ops.random_ops import random_normal
+
+    return random_normal(loc, scale, shape, dtype, ctx=device)
 
 
-def randint(low, high, shape=(), dtype=torch.int32, device="cpu"):
-    return torch.randint(int(low), int(high), tuple(shape), dtype=dtype,
-                         device=device, generator=generator(device))
+def randint(low, high, shape=(), dtype=torch.int32, device=None):
+    from .ops.random_ops import random_randint
+
+    return random_randint(low, high, shape, dtype, ctx=device)

@@ -207,3 +207,39 @@ def test_dense_tanh_and_activation_block_match_jax():
     tser.load_mxnet_params(plain, params)
     np.testing.assert_allclose(_np(torch.tanh(plain(torch.from_numpy(x)))),
                                _np(got), rtol=0, atol=0)
+
+
+def _backward_names(fn):
+    """The class names of the autograd graph below ``fn``."""
+    seen, todo = set(), [fn]
+    while todo:
+        f = todo.pop()
+        if f is not None and type(f).__name__ not in seen:
+            seen.add(type(f).__name__)
+            todo.extend(g for g, _ in f.next_functions)
+    return seen
+
+
+@pytest.mark.parametrize("rows", [2, 100])
+def test_embedding_gradient_is_summed_deterministically(rows):
+    """The lookup's gradient sums each row's duplicates (long runs of one
+    id over 512 positions, and ids outside the table, whose gradient is
+    dropped) as ``jnp.take``'s VJP does: by the one-hot product for a
+    table of at most ``ONE_HOT_ROWS`` rows (BERT's two token types, where
+    ``F.embedding``'s CUDA backward added two long runs in an order that
+    changed from call to call), else by ``F.embedding``'s own backward."""
+    rs = np.random.RandomState(3)
+    ids = rs.randint(0, 2, (8, 64)) * rs.randint(1, rows, (8, 64))
+    ids[0, :3] = (-1, rows, -rows - 2)
+    weight = _x((rows, 16), 4, 1.0)
+    cot = _x((8, 64, 16), 5, 1.0)
+    _, vjp = jax.vjp(lambda w: jnp.take(w, jnp.asarray(ids), axis=0), weight)
+    want = np.asarray(vjp(jnp.asarray(cot))[0])
+    w = torch.from_numpy(weight).requires_grad_()
+    out = tops.embedding(torch.from_numpy(ids), w)
+    names = _backward_names(out.grad_fn)
+    out.backward(torch.from_numpy(cot))
+    np.testing.assert_allclose(w.grad.numpy(), want, rtol=1e-5, atol=1e-4)
+    one_hot = rows <= tops.ONE_HOT_ROWS
+    assert ("_LookupBackward" in names) == one_hot
+    assert ("EmbeddingBackward0" in names) == (not one_hot)

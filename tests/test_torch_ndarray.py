@@ -354,3 +354,58 @@ def test_creation_defaults_to_the_card(monkeypatch):
     with tmx.cpu():
         assert tmx.current_context() == tmx.cpu()
         assert tnd.array([1.0]).context == tmx.cpu()
+
+
+def test_array_copies_host_data():
+    """``nd.array`` of a numpy array holds a copy, as MXNet's: an in-place
+    write into the NDArray leaves the caller's array as it was."""
+    a = np.arange(6, dtype=np.float32).reshape(2, 3)
+    with tmx.cpu():
+        x = tnd.array(a)
+        x[:] = 7.0
+    assert a[0, 0] == 0.0 and x.asnumpy()[0, 0] == 7.0
+
+
+# the JAX modules of the NN ops and optimizers whose registered names the
+# port carries (and the extra parameter the port's samplers that take no
+# tensor accept, as the creation ops' ctx=)
+PORTED_MODULES = ("mxnet_tpu.ops.nn", "mxnet_tpu.ops.attention",
+                  "mxnet_tpu.ops.random_ops", "mxnet_tpu.ops.optimizer_ops",
+                  "mxnet_tpu.ops.pallas_softmax_xent")
+
+
+def _ported_names():
+    """The primary names the JAX modules above register (RNN, queued with
+    the recurrent nets, left out) and the aliases of boolean_mask."""
+    ops = {op.name for op in jreg._REGISTRY.values()
+           if op.fn.__module__ in PORTED_MODULES}
+    return sorted(ops - {"RNN"})
+
+
+@pytest.mark.parametrize("name", _ported_names())
+def test_ported_op_has_the_jax_names_parameters_and_nout(name):
+    import inspect
+
+    j, t = jreg.get(name), treg.get(name)
+    assert set(t.aliases) == set(j.aliases)
+    for alias in (name, *j.aliases):
+        assert treg.get(alias) is t
+    assert t.nout == j.nout and t.stochastic == j.stochastic
+    jsig = inspect.signature(j.fn).parameters
+    tsig = dict(inspect.signature(t.fn).parameters)
+    if "ctx" in tsig and "ctx" not in jsig:
+        assert t.stochastic and tsig.pop("ctx").default is None
+    # the same names (multi_head_attention, of an earlier slice, orders its
+    # keyword parameters differently), the required ones in the same order
+    assert sorted(tsig) == sorted(jsig)
+    required = [p for p, v in jsig.items()
+                if v.default is inspect.Parameter.empty]
+    assert [p for p in tsig if p in required] == required
+    for p in jsig:
+        assert tsig[p].default == jsig[p].default, (name, p)
+        assert tsig[p].kind == jsig[p].kind, (name, p)
+
+
+def test_boolean_mask_contrib_alias():
+    assert jreg.get("_contrib_boolean_mask") is jreg.get("boolean_mask")
+    assert treg.get("_contrib_boolean_mask") is treg.get("boolean_mask")
