@@ -149,7 +149,24 @@ prints its last line):
      graph; the greedy cached decode (6 paged reads and 18 LayerNorms a
      step) held against a teacher-forced forward; the example's own eager
      loop (a falling loss, the host share); and the MNIST example's route
-     (rising accuracy, the data-wait share);
+     (rising accuracy, the data-wait share); then the remaining tensor,
+     linalg and control-flow ops (``[extra_ops]``: every op of
+     ops/extra.py and ops/linalg.py on the card against the same op on CPU
+     tensors, values and gradients, at a model's shapes (GroupNorm at (32,
+     256, 56, 56), the spatial transformer at (32, 64, 64, 64), im2col at a
+     ResNet 3x3 layer, the linalg family batched at (64, 256, 256), gelqf
+     and syevd up to row signs, potrf NaN on a matrix that is not positive
+     definite), gemm and gemm2 under amp.init("bfloat16"), and which ops
+     and control-flow operators a captured step can hold); and the
+     word-level LSTM language model at Zaremba et al.'s medium width
+     (``[word_lm]``: 2 LSTM layers of 650, tied embedding, vocabulary
+     10,000, B=20, bptt 35: examples/torch_train_word_lm.py's Gluon loop
+     for 50 steps (a falling loss, ms a step, the host share); TrainStep
+     graph == naive bit for bit over 3 steps, then 2+10 timed graph steps
+     with the xent pair and one Adam a step (ms a step, tokens/s, MFU,
+     peak memory, a profiled replay, the device time by kernel group);
+     cuDNN's LSTM and GRU beside the port's route, outputs, gradients and
+     times; the example at its defaults as a subprocess);
   8. time each kernel, its plain version and a PyTorch library yardstick
      with CUDA events, on the device (CUDA graph replay) and per eager
      call, at the shapes the paths give them (the paged read also at the
@@ -157,7 +174,8 @@ prints its last line):
      1000) f32, (128, 1000) bf16 and (64, 10) f32 and Adam over LeNet's
      10 tensors; BatchNorm's composition beside ``F.batch_norm`` at
      (B, 64, 112, 112); the Transformer's flash, LayerNorm, Adam and
-     decode-read shapes), and the launch floor
+     decode-read shapes; the xent pair at the word LM's (700, 10000) f32
+     and Adam over its 3 tensors), and the launch floor
      (``EMPTY_CU``, a kernel that does nothing on the grid and block of
      the route LayerNorm's forward takes, built here);
   9. print the kernel table as one JSON line, then the result line.
@@ -176,6 +194,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1032,7 +1051,7 @@ def phase_adam_amp(errs):
 # TPU kernel's 65536 cap, and the vision heads: ResNet-50's at B=64 and
 # B=128 (1000 classes), LeNet's (64, 10)
 XENT_CASES = [(4096, 50257), (1, 50257), (9, 50), (300, 128), (7, 70000),
-              (64, 1000), (128, 1000), (64, 10)]
+              (64, 1000), (128, 1000), (64, 10), (700, 10000)]
 
 
 def _xent_inputs(gen, n, c, dtype, dev, special=False):
@@ -3335,7 +3354,10 @@ def _card_and_cpu(what, fn, inputs, tol, grad=True, seed=0):
     the largest error."""
     results = {}
     for dev in ("cuda", "cpu"):
-        ts = [t.to(dev).requires_grad_(grad and t.is_floating_point())
+        # detached: a CPU input's ``.to("cpu")`` is the input itself, which
+        # must not keep a requires_grad flag for the next case that reads it
+        ts = [t.detach().to(dev).requires_grad_(grad and
+                                                t.is_floating_point())
               for t in inputs]
         out = fn(*ts)
         outs = list(out) if isinstance(out, (tuple, list)) else [out]
@@ -6419,6 +6441,731 @@ def phase_bert_timing(net):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# The remaining tensor, linalg and control-flow ops and the recurrent nets
+# (ROADMAP queue 1, items 5 and 6): each new op on the card against the same
+# op on CPU tensors, and which of them a captured step can hold; the
+# word-level LSTM language model (examples/torch_train_word_lm.py) at
+# Zaremba et al.'s medium width (2 LSTM layers of 650, embedding 650 tied
+# to the decoder, vocabulary 10,000, B=20, 35 steps), its Gluon loop and its
+# TrainStep, beside cuDNN's LSTM.
+
+# (rtol, atol) of a card result against the CPU's: transcendental
+# activations (CUDA's and the CPU's erf, exp and log1p differ by a few ulps
+# of inputs up to ~12: 4e-6), LAPACK against cuSOLVER (factorizations and
+# solves of well-conditioned matrices, their gradients), an eigenvector
+# (it moves by up to ~n · ulp · |A| / gap = 256 · 6e-8 · 10 / 0.035 ~ 4e-3
+# between two correct solvers; 2.5e-4 measured on the card), eigenvalues
+# and the reconstruction from them (cuSOLVER's batched eigh leaves residuals
+# near 1e-4 · |A|: 9.8e-4 and 1.2e-3 at |A| = 10 measured), the sampling
+# grid's gradient (64 channels' products summed and scaled by (W - 1) / 2 =
+# 31.5: entries ~300, so 2e-3 is ~1e-5 of them), the recurrence over 35
+# steps against cuDNN's (the weight gradients sum 700 rows in other orders;
+# 5.3e-5 measured for the GRU's) and a quantized
+# value (a product rounded half to even may land one step apart)
+EXTRA_TOL = dict(NN_TOL, f32_fn=(1e-5, 4e-6), lapack=(1e-4, 1e-4),
+                 eigvec=(1e-4, 1e-3), eig=(1e-4, 2e-3), rnn=(1e-4, 1e-4),
+                 quantized=(0.0, 1.0), sampler=(1e-4, 2e-3))
+WLM_VOCAB, WLM_WIDTH, WLM_LAYERS, WLM_B, WLM_T = 10000, 650, 2, 20, 35
+WLM_LR, WLM_CLIP, WLM_DROPOUT = 1e-3, 0.25, 0.2
+# each step of the word LM: the xent pair on the (700, 10000) logits and one
+# multi-tensor Adam; no flash, LayerNorm or paged launch
+WLM_WANT = {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0,
+            "adam": 1, "layernorm": 0, "layernorm_bwd": 0,
+            "layernorm_bwd_merge": 0, "paged_attention": 0,
+            "paged_attention_prefill": 0, "xent_fwd": 1, "xent_bwd": 1}
+
+
+def _extra_cases(gen):
+    """(what, fn, CPU inputs, tolerance key, differentiate) for every op of
+    ops/extra.py and ops/linalg.py at a shape a model gives it."""
+    from mxnet_tpu_torch import registry as reg
+
+    def op(name, **kw):
+        return lambda *a: reg.get(name).fn(*a, **kw)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen) * scale
+
+    def uni(lo, hi, *shape):
+        return torch.rand(*shape, generator=gen) * (hi - lo) + lo
+
+    def spd(b, n):
+        a = rnd(b, n, n)
+        return a @ a.transpose(-1, -2) / n + torch.eye(n)
+
+    acts = rnd(4096, 1024, scale=3.0)
+    seq = rnd(WLM_T, WLM_B, WLM_WIDTH)
+    lens = torch.randint(1, WLM_T + 1, (WLM_B,), generator=gen).float()
+    img = rnd(32, 64, 64, 64)
+    loc = torch.tensor([1.0, 0.1, 0.0, -0.1, 0.9, 0.05]) + uni(-.1, .1, 32, 6)
+    conv = rnd(16, 64, 56, 56)
+    idx = torch.randint(-1, 1001, (4096,), generator=gen)
+    a = spd(64, 256)
+    chol = torch.linalg.cholesky(a)
+    small = spd(64, 16) * 0.9
+    cases = [(n, op(n), [acts], "f32", True) for n in ("hard_sigmoid",
+                                                         "relu6")]
+    cases += [(n, op(n), [acts], "f32_fn", True) for n in (
+        "softmin", "selu", "gelu", "softrelu", "log_sigmoid")]
+    cases += [
+        ("logsumexp", op("logsumexp", axis=-1), [acts], "f32_sum", True),
+        ("SequenceLast", op("SequenceLast", use_sequence_length=True),
+         [seq, lens], "f32", True),
+        ("SequenceReverse", op("SequenceReverse", use_sequence_length=True),
+         [seq, lens], "f32", True),
+        ("GroupNorm (32, 256, 56, 56) G 32",
+         op("GroupNorm", num_groups=32), [rnd(32, 256, 56, 56), rnd(32),
+                                          rnd(32)], "f32_sum", True),
+        ("GroupNorm (C,) gamma", op("GroupNorm", num_groups=32),
+         [rnd(8, 256, 28, 28), rnd(256), rnd(256)], "f32_sum", True),
+        ("LRN (32, 96, 55, 55)", op("LRN"), [rnd(32, 96, 55, 55)],
+         "f32_sum", True),
+        ("GridGenerator affine", op("GridGenerator",
+                                    target_shape=(64, 64)), [loc],
+         "f32_sum", True),
+        ("GridGenerator warp", op("GridGenerator", transform_type="warp"),
+         [rnd(32, 2, 64, 64)], "f32", True),
+        ("BilinearSampler (32, 64, 64, 64)", op("BilinearSampler"),
+         [img, uni(-1.1, 1.1, 32, 2, 64, 64)], "sampler", True),
+        ("SpatialTransformer (32, 64, 64, 64)",
+         op("SpatialTransformer", target_shape=(64, 64)), [img, loc],
+         "sampler", True),
+        ("batch_take", op("batch_take"), [rnd(4096, 1000),
+                                          idx.clamp(0, 999)], "f32", False),
+        ("khatri_rao", op("khatri_rao"), [rnd(64, 256), rnd(64, 256)],
+         "f32_sum", True),
+        ("unravel_index", op("unravel_index", shape=(64, 128, 128)),
+         [torch.randint(0, 1 << 20, (1 << 20,), generator=gen)], "f32",
+         False),
+        ("ravel_multi_index", op("ravel_multi_index", shape=(64, 128, 128)),
+         [torch.stack([torch.randint(0, s, (1 << 20,), generator=gen)
+                       for s in (64, 128, 128)])], "f32", False),
+        ("split_v2", op("split_v2", indices_or_sections=(100, 2000)),
+         [acts], "f32", True),
+        ("moments", op("moments", axes=(0, 2, 3)), [rnd(32, 256, 56, 56)],
+         "f32_sum", True),
+        # one image pair: the CPU side of four took 16 s of the phase
+        ("Correlation FlowNetC (1, 256, 48, 64) d 20",
+         op("Correlation", max_displacement=20, stride2=2, pad_size=20),
+         [rnd(1, 256, 48, 64), rnd(1, 256, 48, 64)], "f32_sum", True),
+        ("all_finite", op("all_finite"), [rnd(1 << 24)], "f32", False),
+        ("multi_all_finite", op("multi_all_finite"),
+         [rnd(1 << 22), rnd(1 << 22)], "f32", False),
+        ("_sharding_constraint", op("_sharding_constraint"), [acts], "f32",
+         True),
+        ("add_n", op("add_n"), [acts, acts * 2, acts * 3, acts * 4],
+         "f32", True),
+        ("argmax_channel", op("argmax_channel"), [rnd(64, 1000, 7, 7)],
+         "f32", False),
+        ("shape_array", op("shape_array"), [acts], "f32", False),
+        ("size_array", op("size_array"), [acts], "f32", False),
+        ("im2col (16, 64, 56, 56) 3x3", op("im2col", kernel=(3, 3),
+                                            pad=(1, 1)), [conv], "f32",
+         True),
+        ("col2im (16, 576, 3136) 3x3", op("col2im", output_size=(56, 56),
+                                           kernel=(3, 3), pad=(1, 1)),
+         [rnd(16, 576, 3136)], "f32_sum", True),
+        ("quantize uint8", op("quantize"), [acts, torch.tensor(-8.0),
+                                             torch.tensor(9.0)],
+         "quantized", False),
+        ("quantize_v2 int8", op("quantize_v2"), [acts], "quantized", False),
+        ("dequantize", op("dequantize"),
+         [torch.randint(0, 256, (4096, 1024), generator=gen).to(
+             torch.uint8), torch.tensor(-8.0), torch.tensor(9.0)], "f32",
+         False),
+        ("bincount", op("bincount"), [torch.randint(
+            0, 1000, (1 << 20,), generator=gen).int()], "f32", False),
+        ("bincount weights", op("bincount"),
+         [torch.randint(0, 1000, (1 << 20,), generator=gen).int(),
+          uni(0, 1, 1 << 20)], "f32_sum", False),
+        ("onehot_encode", op("onehot_encode"),
+         [idx.float(), torch.zeros(4096, 1000)], "f32", False),
+        ("choose_element_0index", op("choose_element_0index"),
+         [rnd(4096, 1000), idx], "f32", True),
+        ("fill_element_0index", op("fill_element_0index"),
+         [rnd(4096, 1000), rnd(4096), idx], "f32", True),
+        ("amp_cast bf16", op("amp_cast", dtype="bfloat16"), [acts], "f32",
+         False),
+        ("amp_multicast", op("amp_multicast"),
+         [acts.bfloat16(), acts.half(), acts], "f32", False),
+        ("linalg_gemm (64, 256, 256)", op("linalg_gemm", alpha=0.5,
+                                          beta=2.0),
+         [rnd(64, 256, 256), rnd(64, 256, 256), rnd(64, 256, 256)],
+         "f32_sum", True),
+        ("linalg_gemm2 (64, 256, 256)", op("linalg_gemm2", transpose_b=True),
+         [rnd(64, 256, 256), rnd(64, 256, 256)], "f32_sum", True),
+        ("linalg_potrf (64, 256, 256)", op("linalg_potrf"), [a], "lapack",
+         True),
+        ("linalg_potri", op("linalg_potri"), [chol], "lapack", True),
+        ("linalg_trsm", op("linalg_trsm", alpha=2.0),
+         [chol, rnd(64, 256, 256)], "lapack", True),
+        ("linalg_trsm right transposed",
+         op("linalg_trsm", rightside=True, transpose=True),
+         [chol, rnd(64, 256, 256)], "lapack", True),
+        ("linalg_trmm", op("linalg_trmm"), [chol, rnd(64, 256, 256)],
+         "f32_sum", True),
+        ("linalg_syrk", op("linalg_syrk"), [rnd(64, 256, 256)], "f32_sum",
+         True),
+        ("linalg_sumlogdiag", op("linalg_sumlogdiag"), [chol], "lapack",
+         True),
+        ("linalg_det (64, 16, 16)", op("linalg_det"), [small], "lapack",
+         True),
+        ("linalg_slogdet", op("linalg_slogdet"), [a], "lapack", True),
+        ("linalg_inverse", op("linalg_inverse"), [a], "lapack", True),
+        ("linalg_extractdiag", op("linalg_extractdiag", offset=1), [a],
+         "f32", True),
+        ("linalg_makediag", op("linalg_makediag", offset=-1),
+         [rnd(64, 255)], "f32", True),
+        ("linalg_extracttrian", op("linalg_extracttrian"), [a], "f32",
+         True),
+        ("linalg_maketrian", op("linalg_maketrian", offset=1, lower=False),
+         [rnd(64, 255 * 256 // 2)], "f32", True),
+    ]
+    return cases
+
+
+class _Owner:
+    """A capture-stream owner for one capture check (``StepGraph``)."""
+
+
+def _capture_status(what, fn, inputs):
+    """"captured" when one forward of ``fn`` on card copies of ``inputs``
+    can be captured as a CUDA graph (``StepGraph``) and its replay equals
+    an eager call bit for bit, else "synced" (the capture raised: a host
+    read)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import cuda_graph as cg
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    ins = [t.to(dev) for t in inputs]
+
+    def step():
+        out = fn(*ins)
+        return tuple(out) if isinstance(out, (tuple, list)) else (out,)
+
+    owner = _Owner()
+    prog = cg.StepGraph(step, what, dev, stream=cg.capture_stream(owner, dev))
+    with torch.no_grad():
+        try:
+            prog()
+            got = prog()
+        except mx.MXNetError:
+            return "synced"
+        want = step()
+    for g, w in zip(got, want):
+        if not torch.equal(g.nan_to_num(), w.nan_to_num()):
+            raise AssertionError(f"{what}: the captured replay differs from "
+                                 f"an eager call")
+    return "captured"
+
+
+def _extra_sign_cases(gen, failures):
+    """gelqf and syevd at (64, 256, 256): the card's factors reconstruct
+    the input and agree with the CPU's up to the sign of each row; potrf of
+    a batch with one matrix that is not positive definite gives NaN in that
+    matrix's lower triangle only. syevd's input has eigenvalues spaced
+    0.035 apart (1 to 10 on a random basis): an eigenvector moves by about
+    ulp · |A| / gap, and a random matrix's near-equal eigenvalues make its
+    eigenvectors differ between two correct solvers."""
+    from mxnet_tpu_torch import registry as reg
+
+    a = torch.randn(64, 256, 256, generator=gen)
+    basis = torch.linalg.qr(torch.randn(64, 256, 256, generator=gen))[0]
+    s = (basis * torch.linspace(1.0, 10.0, 256)) @ basis.transpose(-1, -2)
+    s = (s + s.transpose(-1, -2)) / 2
+    errs = {}
+    for name, inp in (("linalg_gelqf", a), ("linalg_syevd", s)):
+        card = [t.cpu() for t in reg.get(name).fn(inp.cuda())]
+        cpu = reg.get(name).fn(inp)
+        rows = card[1] if name == "linalg_gelqf" else card[0]
+        ref = cpu[1] if name == "linalg_gelqf" else cpu[0]
+        sign = torch.sign((rows * ref).sum(-1, keepdim=True))
+        errs[name + " rows"] = _close(
+            f"{name} rows up to sign", rows * sign, ref,
+            EXTRA_TOL["lapack" if name == "linalg_gelqf" else "eigvec"])
+        if name == "linalg_gelqf":
+            recon = card[0] @ card[1]
+            other = _close("linalg_gelqf L up to sign",
+                           card[0] * sign.transpose(-1, -2), cpu[0],
+                           EXTRA_TOL["lapack"])
+        else:
+            recon = card[0].transpose(-1, -2) @ (card[1][..., None] *
+                                                 card[0])
+            other = _close("linalg_syevd eigenvalues", card[1], cpu[1],
+                           EXTRA_TOL["eig"])
+        errs[name] = max(other, _close(
+            f"{name} reconstruction", recon, inp,
+            EXTRA_TOL["lapack" if name == "linalg_gelqf" else "eig"]))
+    bad = s.clone()
+    bad[7] -= 3 * torch.eye(256)
+    bad[7, 0, 1] = bad[7, 1, 0] = 5.0
+    L = reg.get("linalg_potrf").fn(bad.cuda()).cpu()
+    tri = torch.ones(256, 256, dtype=torch.bool).tril()
+    if not (L[7][tri].isnan().all() and (L[7][~tri] == 0).all()
+            and torch.isfinite(torch.cat([L[:7], L[8:]])).all()):
+        failures.append("linalg_potrf: a matrix that is not positive "
+                        "definite must give NaN in its lower triangle only")
+    errs["linalg_potrf others"] = _close(
+        "linalg_potrf, the positive-definite rest of the batch",
+        torch.cat([L[:7], L[8:]]),
+        torch.linalg.cholesky(torch.cat([bad[:7], bad[8:]])),
+        EXTRA_TOL["lapack"])
+    return errs
+
+
+def phase_extra_ops():
+    """``[extra_ops]``: every op of ops/extra.py and ops/linalg.py on the
+    card against the same op on CPU tensors, values and (where it has one)
+    the gradient under a seeded cotangent (``_card_and_cpu``), at the
+    shapes models give them; gemm and gemm2 also under
+    ``amp.init("bfloat16")`` (their LP16 rule); gelqf, syevd and a potrf
+    batch holding a matrix that is not positive definite
+    (``_extra_sign_cases``); then which ops a captured step can hold
+    (``_capture_status``), the control-flow operators among them. Any
+    mismatch fails the phase. Returns the launch counts of the phase (no
+    kernel of the port: these ops are compositions) and the results."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.contrib import amp
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(41)
+    _reset_launch_counts()
+    errs, capture, failures, took = {}, {}, [], {}
+    for what, fn, inputs, tol, grad in _extra_cases(gen):
+        t = time.perf_counter()
+        try:  # every case runs; the phase fails after the last
+            errs[what] = _card_and_cpu(what, fn, inputs, EXTRA_TOL[tol],
+                                       grad=grad)
+        except AssertionError as e:
+            log(f"  FAILED {e}")
+            failures.append(str(e))
+        capture[what] = _capture_status(what, fn, inputs)
+        took[what] = time.perf_counter() - t
+    amp.init("bfloat16")
+    try:
+        for name in ("linalg_gemm2", "linalg_gemm"):
+            n = 3 if name == "linalg_gemm" else 2
+            ins = [torch.randn(64, 256, 256, generator=gen)
+                   for _ in range(n)]
+            errs[f"{name} amp bf16"] = _card_and_cpu(
+                f"{name} under amp.init('bfloat16')",
+                mx.registry.get(name).fn, ins, EXTRA_TOL["f32_sum"])
+    finally:
+        amp._reset()
+    t = time.perf_counter()
+    try:
+        errs.update(_extra_sign_cases(gen, failures))
+    except AssertionError as e:
+        log(f"  FAILED {e}")
+        failures.append(str(e))
+    took["gelqf, syevd, potrf up to sign"] = time.perf_counter() - t
+    if failures:
+        raise AssertionError("extra_ops: " + "; ".join(failures))
+    for name in ("linalg_gelqf", "linalg_syevd"):
+        capture[name] = _capture_status(
+            name, mx.registry.get(name).fn,
+            [torch.eye(64).expand(8, 64, 64).contiguous()])
+    nd = mx.nd
+    x = torch.randn(WLM_T, WLM_B, WLM_WIDTH, generator=gen)
+    flow = {
+        "nd.contrib.foreach": lambda d: nd.contrib.foreach(
+            lambda r, s: (r * s, r + s), nd.NDArray(d),
+            nd.NDArray(d[0]))[0]._data,
+        "nd.contrib.while_loop": lambda d: nd.contrib.while_loop(
+            lambda v: v.sum() < 1e9, lambda v: (v, [v * 2]),
+            [nd.NDArray(d[0])], max_iterations=4)[0]._data,
+        "nd.contrib.cond": lambda d: nd.contrib.cond(
+            nd.NDArray(d[0, 0, :1]), lambda: nd.NDArray(d) * 2,
+            lambda: nd.NDArray(d) - 1)._data}
+    for what, fn in flow.items():
+        capture[what] = _capture_status(what, fn, [x])
+    launches = _launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"extra_ops: kernels launched {launches}")
+    # bincount raises inside a capture before it queues anything: the
+    # capture ends, and StepGraph must leave the pool to the graph (a second
+    # release aborted the process when the graph was freed)
+    gc.collect()
+    if capture["bincount"] != "synced":
+        raise AssertionError("extra_ops: bincount was captured")
+    # the captures that did not end (syevd's host read, ...) must leave
+    # PyTorch's default generator out of capture mode: an eager draw
+    torch.nn.functional.dropout(torch.ones(64, device="cuda"), 0.5)
+    synced = sorted(k for k, v in capture.items() if v != "captured")
+    res = {"max_abs_err": errs, "capture": capture, "synced": synced,
+           "seconds": time.perf_counter() - t0, "seconds_by_case": took}
+    slow = sorted(took.items(), key=lambda kv: -kv[1])[:5]
+    log(f"[extra_ops] {len(errs)} checks card against CPU, largest error "
+        f"{max(errs.values()):.3e}; ops a captured step cannot hold (a host "
+        f"read): {synced}; in {res['seconds']:.1f} s (slowest "
+        f"{', '.join(f'{k} {v:.1f}' for k, v in slow)})")
+    log("[extra_ops] " + json.dumps(res))
+    _release()
+    return launches, res
+
+
+def word_lm_flops(tokens, vocab, width, layers):
+    """Training FLOPs of a word-LM step: per token forward, each LSTM layer
+    2·4H·(in + H) (the input projection and the recurrent product; in = H
+    here) and the decoder 2·H·V; the backward twice the forward (its
+    products of the data and of the weights). The gate math and the lookup
+    are left out."""
+    fwd = layers * 2 * 4 * width * (2 * width) + 2 * width * vocab
+    return 3 * fwd * tokens
+
+
+def _wlm_args(ex, *extra):
+    """The example's flags at Zaremba-medium width on the card."""
+    return ex.build_parser().parse_args(
+        ["--vocab", str(WLM_VOCAB), "--embed-size", str(WLM_WIDTH),
+         "--hidden-size", str(WLM_WIDTH), "--batch-size", str(WLM_B),
+         "--bptt", str(WLM_T), "--tied", *extra])
+
+
+def _wlm_net(ex, dropout, seed=0):
+    """The example's RNNModel at Zaremba-medium width on the card, its
+    weights drawn from ``seed`` (Xavier, the example's init)."""
+    import mxnet_tpu_torch as mx
+
+    mx.random.seed(seed)
+    with mx.gpu():
+        net = ex.RNNModel(WLM_VOCAB, WLM_WIDTH, WLM_WIDTH,
+                          num_layers=WLM_LAYERS, dropout=dropout,
+                          tie_weights=True)
+        net.initialize(mx.init.Xavier(), ctx=mx.gpu())
+        net(mx.nd.array(np.zeros((WLM_T, WLM_B), np.int32), dtype="int32"))
+    return net
+
+
+def _wlm_batches(ex, n):
+    """The first ``n`` (x, y) batches of the example's corpus at
+    vocabulary 10,000, B=20, bptt 35, int32 on the card."""
+    data = ex.batchify(ex.synthetic_corpus(vocab=WLM_VOCAB), WLM_B)
+    out = []
+    for i in range(0, n * WLM_T, WLM_T):
+        out.append(tuple(torch.from_numpy(np.ascontiguousarray(
+            data[i + o:i + o + WLM_T])).cuda() for o in (0, 1)))
+    return out
+
+
+def _wlm_loss():
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+
+    fn = SoftmaxCrossEntropyLoss()
+    return lambda out, y: fn(out.reshape(-1, WLM_VOCAB), y.reshape(-1))
+
+
+def _wlm_step(net, engine_type):
+    from mxnet_tpu_torch import TrainStep
+    from mxnet_tpu_torch.optimizer import Adam
+
+    return TrainStep(net, _wlm_loss(), Adam(learning_rate=WLM_LR,
+                                            clip_gradient=WLM_CLIP),
+                     engine_type=engine_type)
+
+
+def _wlm_turn(ex, dropout, engine_type, batches):
+    """3 TrainStep steps from the seed-0 weights with PyTorch's generator
+    seeded alike (the dropout masks' source under a call on tensors):
+    losses and the state (weights, Adam moments, step count)."""
+    net = _wlm_net(ex, dropout)
+    ts = _wlm_step(net, engine_type)
+    torch.manual_seed(7)
+    losses = [float(ts(*b)) for b in batches]
+    state = _state(ts, host=True)
+    del ts, net
+    _release()
+    return losses, state
+
+
+def _wlm_yardstick(net, gen):
+    """The port's LSTM route (``ops.nn.rnn``, the net's flat weights) beside
+    ``torch.nn.LSTM`` (cuDNN) with the same weights on one (35, 20, 650)
+    input, forward and backward: outputs and gradients (input and every
+    weight) at EXTRA_TOL["rnn"], and each one's device time (a CUDA graph
+    of forward + backward) and eager time. Then the GRU: the port's fused
+    GRU against ``torch.nn.GRU`` at a nonzero b_hn (MXNet's formula, which
+    cuDNN's is)."""
+    from mxnet_tpu_torch.ops import nn as tnn
+
+    flat = net.rnn._reg_params["parameters"].data()._data.detach()
+    res = {}
+    for mode, cls in (("lstm", torch.nn.LSTM), ("gru", torch.nn.GRU)):
+        ng = 4 if mode == "lstm" else 3
+        if mode == "gru":
+            size = tnn.rnn_param_size("gru", WLM_WIDTH, WLM_WIDTH, WLM_LAYERS)
+            flat = (torch.rand(size, generator=gen) * 0.2 - 0.1).cuda()
+        lib = cls(WLM_WIDTH, WLM_WIDTH, num_layers=WLM_LAYERS).cuda()
+        g = ng * WLM_WIDTH
+        ws, bs = tnn._rnn_unflatten(flat, ng, WLM_LAYERS, 1, WLM_WIDTH,
+                                    WLM_WIDTH)
+        with torch.no_grad():
+            for layer in range(WLM_LAYERS):
+                (wx, wh), (bx, bh) = ws[layer][0], bs[layer][0]
+                getattr(lib, f"weight_ih_l{layer}").copy_(wx)
+                getattr(lib, f"weight_hh_l{layer}").copy_(wh)
+                getattr(lib, f"bias_ih_l{layer}").copy_(bx)
+                getattr(lib, f"bias_hh_l{layer}").copy_(bh)
+        x = torch.randn(WLM_T, WLM_B, WLM_WIDTH, generator=gen).cuda()
+        cot = torch.randn(WLM_T, WLM_B, WLM_WIDTH, generator=gen).cuda()
+        h0 = torch.zeros(WLM_LAYERS, WLM_B, WLM_WIDTH, device="cuda")
+        xp = x.clone().requires_grad_()
+        fp = flat.clone().requires_grad_()
+        xl = x.clone().requires_grad_()
+
+        def port():
+            out = tnn.rnn(xp, fp, h0, h0 if mode == "lstm" else None,
+                          state_size=WLM_WIDTH, num_layers=WLM_LAYERS,
+                          mode=mode)[0]
+            return out, torch.autograd.grad(out, (xp, fp), cot)
+
+        def library():
+            out = lib(xl)[0]
+            return out, torch.autograd.grad(out, (xl,) + tuple(
+                lib.parameters()), cot)
+
+        po, (pdx, pdw) = port()
+        lo, lg = library()
+        lws, lbs = tnn._rnn_unflatten(pdw, ng, WLM_LAYERS, 1, WLM_WIDTH,
+                                      WLM_WIDTH)
+        mine = [pdx]
+        for layer in range(WLM_LAYERS):
+            (wx, wh), (bx, bh) = lws[layer][0], lbs[layer][0]
+            mine += [wx, wh, bx, bh]
+        err = _close(f"{mode} output, port against cuDNN", po, lo,
+                     EXTRA_TOL["rnn"])
+        for i, (a, b) in enumerate(zip(mine, lg)):
+            err = max(err, _close(f"{mode} gradient {i}, port against cuDNN",
+                                  a, b, EXTRA_TOL["rnn"]))
+        row = {"max_abs_err": err}
+        # the eager calls' graphs hold the leaves' gradient nodes, made on
+        # this stream: a capture on another stream must not reuse them
+        del po, pdx, pdw, lo, lg, lws, lbs, mine
+        if mode == "lstm":
+            row.update(
+                port_ms=graph_time_ms(port, calls=1, replays=5, repeats=3),
+                cudnn_ms=graph_time_ms(library, calls=1, replays=5,
+                                       repeats=3),
+                port_eager_ms=cuda_time_ms(port, warmup=2, iters=5,
+                                           repeats=3),
+                cudnn_eager_ms=cuda_time_ms(library, warmup=2, iters=5,
+                                            repeats=3))
+            row["port_over_cudnn"] = row["port_ms"] / row["cudnn_ms"]
+            row["port_eager_over_cudnn_eager"] = \
+                row["port_eager_ms"] / row["cudnn_eager_ms"]
+            log(f"[word_lm yardstick] LSTM 2x650, T 35, B 20, forward + "
+                f"backward: the port's route {row['port_ms']:.3f} ms device "
+                f"(eager {row['port_eager_ms']:.3f}), cuDNN "
+                f"{row['cudnn_ms']:.3f} ms (eager {row['cudnn_eager_ms']:.3f})"
+                f": {row['port_over_cudnn']:.2f}x in a graph, "
+                f"{row['port_eager_over_cudnn_eager']:.2f}x eager; max abs "
+                f"err {err:.3e}")
+        else:
+            log(f"[word_lm yardstick] GRU 2x650 at nonzero b_hn, the port's "
+                f"fused GRU against torch.nn.GRU: max abs err {err:.3e}")
+        res[mode] = row
+        del lib, xp, fp, xl
+    return res
+
+
+def phase_word_lm(card, loop_steps=50, profile_at=(30, 40)):
+    """``[word_lm]``: examples/torch_train_word_lm.py's model at Zaremba
+    et al.'s medium width on the synthetic corpus (vocabulary 10,000):
+
+    (a) the example's Gluon loop (``train(args, net=, on_step=)`` with
+        ``_wlm_net``'s seeded model, dropout 0.2, Adam 1e-3, clip 0.25)
+        for ``loop_steps`` batches, each launching
+        WLM_WANT; the loss falls (the mean of the last 10 below the first
+        10); ms a step over steps 10-30 (host clock, synced) and the host
+        share over steps ``profile_at`` under the profiler;
+    (b) TrainStep: 3 steps naive against graph, losses and state bit for
+        bit, at the example's dropout 0.2; then 2 warm-up and 10 timed
+        graph steps, WLM_WANT
+        a step, ms a step, tokens/s, MFU (``word_lm_flops`` over the f32
+        CUDA-core peak), peak memory, a profiled replay's launches and the
+        device time by kernel group with the idle share;
+    (c) the yardstick: cuDNN's LSTM and GRU beside the port's route
+        (``_wlm_yardstick``);
+    (d) the example itself as a subprocess at its defaults, one epoch.
+
+    Returns the launches of (b)'s timed run, of (a), and the results."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    ex = _example("torch_train_word_lm")
+    if int(ex.synthetic_corpus(vocab=WLM_VOCAB).max()) + 1 != WLM_VOCAB:
+        raise AssertionError("word_lm: the corpus does not span the "
+                             "vocabulary")
+    res = {"card": card}
+    # (a) the Gluon loop
+    losses, marks, counts = [], {}, {}
+    loop_total = dict.fromkeys(WLM_WANT, 0)
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    _reset_launch_counts()
+
+    def on_step(step, loss):
+        now = _launch_counts()
+        got = {k: v - counts.get(k, 0) for k, v in now.items()}
+        if got != WLM_WANT:
+            raise AssertionError(f"word_lm loop step {step}: launches {got}, "
+                                 f"expected {WLM_WANT}")
+        for k in loop_total:
+            loop_total[k] += got[k]
+        counts.update(now)
+        losses.append(loss)
+        if step in (10,) + tuple(profile_at):
+            torch.cuda.synchronize()
+            marks[step] = time.perf_counter()
+        if step == profile_at[0]:
+            prof.__enter__()
+        elif step == profile_at[1]:
+            prof.__exit__(None, None, None)
+        return step == loop_steps
+
+    epochs = ex.train(_wlm_args(ex, "--epochs", "1"),
+                      net=_wlm_net(ex, WLM_DROPOUT), on_step=on_step)
+    device_ms = sum(
+        float(getattr(e, "self_device_time_total",
+                      getattr(e, "self_cuda_time_total", 0.0)))
+        for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    n_prof = profile_at[1] - profile_at[0]
+    prof_wall = (marks[profile_at[1]] - marks[profile_at[0]]) * 1e3
+    step_ms = (marks[profile_at[0]] - marks[10]) * 1e3 / (profile_at[0] - 10)
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    loop = {"steps": len(losses), "losses": losses, "epoch_mean": epochs,
+            "ms_per_step": step_ms, "profiled_ms_per_step": prof_wall / n_prof,
+            "device_ms_per_step": device_ms / n_prof,
+            "host_share": 1 - device_ms / prof_wall if device_ms else None,
+            "host_share_untraced":
+                1 - device_ms / n_prof / step_ms if device_ms else None,
+            "first10_mean": first, "last10_mean": last,
+            "tokens_per_s": WLM_T * WLM_B / step_ms * 1e3}
+    log(f"[word_lm loop] the example's train(), Zaremba-medium, dropout "
+        f"{WLM_DROPOUT}, "
+        f"{len(losses)} steps: {step_ms:.2f} ms/step (steps 10-"
+        f"{profile_at[0]}), {loop['tokens_per_s']:.0f} tokens/s; steps "
+        f"{profile_at[0]}-{profile_at[1]} under the profiler "
+        f"{loop['profiled_ms_per_step']:.2f} ms/step, device "
+        f"{loop['device_ms_per_step']:.2f}, host share {loop['host_share']} "
+        f"(against the untraced steps {loop['host_share_untraced']}); mean "
+        f"loss first 10 {first:.4f}, last 10 {last:.4f} on {card}")
+    if not all(np.isfinite(losses)) or not last < first:
+        raise AssertionError(f"word_lm loop: losses {losses} do not fall")
+    res["loop"] = loop
+    _release()
+    parts = {"loop": time.perf_counter() - t0}
+    # (b) TrainStep, naive against graph
+    batches = _wlm_batches(ex, 3)
+    runs = {m: _wlm_turn(ex, WLM_DROPOUT, m, batches)
+            for m in ("naive", "graph")}
+    same = runs["naive"][0] == runs["graph"][0] and \
+        _same_state(runs["naive"][1], runs["graph"][1])
+    log(f"[word_lm] TrainStep 3 steps at dropout {WLM_DROPOUT}: graph "
+        f"{'==' if same else '!='} naive bit for bit (losses naive "
+        f"{runs['naive'][0]}, graph {runs['graph'][0]})")
+    if not same:
+        raise AssertionError(f"word_lm: graph != naive at dropout "
+                             f"{WLM_DROPOUT}")
+    res["parity"] = {"dropout": WLM_DROPOUT, "losses": runs["graph"][0]}
+    parts["parity"] = time.perf_counter() - t0 - sum(parts.values())
+    del runs
+    net = _wlm_net(ex, WLM_DROPOUT)
+    ts = _wlm_step(net, "graph")
+    (x, y), = _wlm_batches(ex, 1)
+    total = dict.fromkeys(WLM_WANT, 0)
+    step_losses = []
+    torch.cuda.synchronize()
+    _release()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    for i in range(12):
+        if i == 2:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+        before = _launch_counts()
+        step_losses.append(ts(x, y))
+        got = {k: v - before[k] for k, v in _launch_counts().items()}
+        if got != WLM_WANT:
+            raise AssertionError(f"word_lm graph step {i}: launches {got}, "
+                                 f"expected {WLM_WANT}")
+        for k in total:
+            total[k] += got[k]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    step_losses = [float(v) for v in step_losses]
+    if not all(np.isfinite(step_losses)) or \
+            not step_losses[-1] < step_losses[0] or ts.compiled_programs != 1:
+        raise AssertionError(f"word_lm graph: losses {step_losses}, "
+                             f"{ts.compiled_programs} programs")
+    ms = wall / 10 * 1e3
+    flops = word_lm_flops(WLM_T * WLM_B, WLM_VOCAB, WLM_WIDTH, WLM_LAYERS)
+    (prog, _, _), = ts._programs.values()
+    step = {"ms_per_step": ms, "tokens_per_s": WLM_T * WLM_B / ms * 1e3,
+            "flops_per_step": flops,
+            "mfu": flops / (ms * 1e-3) / F32_FLOPS_PER_S,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
+            "losses": step_losses, "dropout": WLM_DROPOUT,
+            "replay_launches": check_replay_launches(prog, "word_lm step "
+                                                     "graph"),
+            "breakdown": _device_groups(prog.graph.replay, 5,
+                                        "word_lm graph step", ms)}
+    log(f"[word_lm graph] Zaremba-medium, TrainStep Adam, dropout "
+        f"{WLM_DROPOUT}, "
+        f"10 timed steps: {ms:.2f} ms/step, {step['tokens_per_s']:.0f} "
+        f"tokens/s, MFU {step['mfu']:.4f} ({flops:.4e} flops a step over "
+        f"the f32 CUDA cores' 67 TFLOP/s), peak "
+        f"{step['peak_bytes'] / 2**30:.2f} GiB allocated / "
+        f"{step['peak_reserved_bytes'] / 2**30:.2f} reserved; losses "
+        f"{['%.4f' % v for v in step_losses]} on {card}")
+    res["graph"] = step
+    parts["graph"] = time.perf_counter() - t0 - sum(parts.values())
+    del ts
+    _release()
+    # (c) the yardstick, on the graph run's trained weights
+    res["yardstick"] = _wlm_yardstick(net, torch.Generator().manual_seed(43))
+    parts["yardstick"] = time.perf_counter() - t0 - sum(parts.values())
+    res["timing_net"] = net
+    # (d) the example at its defaults, one epoch
+    root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as d:
+        cmd = [sys.executable, str(root / "examples" /
+                                   "torch_train_word_lm.py"),
+               "--epochs", "1", "--save", str(Path(d) / "word_lm.params")]
+        t = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=d, capture_output=True, text=True,
+                              timeout=600,
+                              env=dict(os.environ, PYTHONPATH=str(root)))
+        line = proc.stdout.strip().splitlines()[-1] \
+            if proc.stdout.strip() else ""
+        if proc.returncode != 0 or not line.startswith("epoch 0: loss ") or \
+                not (Path(d) / "word_lm.params").exists():
+            raise AssertionError(f"examples/torch_train_word_lm.py exited "
+                                 f"{proc.returncode}: {line!r} "
+                                 f"{proc.stderr[-2000:]}")
+    res["example"] = {"line": line, "seconds": time.perf_counter() - t}
+    parts["example"] = time.perf_counter() - t0 - sum(parts.values())
+    log(f"[word_lm] the example at its defaults, one epoch: {line} "
+        f"({res['example']['seconds']:.1f} s)")
+    res["seconds"] = time.perf_counter() - t0
+    res["seconds_by_part"] = parts
+    log(f"[word_lm seconds] {res['seconds']:.1f} s: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items()))
+    return total, loop_total, res
+
+
+def phase_word_lm_timing(net):
+    """The kernels at the word LM's shapes: the xent pair at (700, 10000)
+    f32 (T·B rows over the vocabulary) and Adam over its 3 tensors (the
+    tied table, the decoder bias, the flat LSTM parameter)."""
+    gen = torch.Generator().manual_seed(44)
+    fwd, bwd = _xent_rows(gen, WLM_T * WLM_B, WLM_VOCAB, torch.float32)
+    return {"xent_fwd_word_lm": fwd, "xent_bwd_word_lm": bwd,
+            "adam_word_lm": _adam_row(net, gen)}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this script needs one "
@@ -6516,6 +7263,10 @@ def main():
     mnist_launches, mnist = phase_mnist(card)
     log("[mnist] " + json.dumps(mnist))
     log(f"[transformer and mnist seconds] {time.perf_counter() - t:.1f} s")
+    extra_launches, _ = phase_extra_ops()
+    wlm_launches, wlm_loop_launches, word_lm = phase_word_lm(card)
+    wlm_net = word_lm.pop("timing_net")
+    log("[word_lm] " + json.dumps(word_lm, default=str))
     log("[engine types] " + json.dumps(
         {"turns": MODE_TURNS, "serve": serve, "train": train,
          "train_amp": train_amp, "bert_amp": bert_amp,
@@ -6524,6 +7275,9 @@ def main():
     timing.update(phase_xent_timing())
     timing.update(phase_transformer_timing(card))
     timing.update(phase_vision_timing())
+    timing.update(phase_word_lm_timing(wlm_net))
+    del wlm_net
+    _release()
     log("[batch_norm] " + json.dumps(timing["batch_norm"]))
     # (source, replaced TPU kernel, the path whose run gives `launches`[,
     # its counter when the name without "_bf16" is not; the BERT rows'
@@ -6684,11 +7438,26 @@ def main():
             "mxnet_tpu/ops/pallas_paged_attention.py:79",
             "transformer_decode", "paged_attention",
             "paged_attention_transformer"),
+        # the word LM's shapes (Zaremba-medium): the xent pair on the
+        # (700, 10000) f32 logits and Adam over its 3 tensors (their
+        # max_abs_err: the checks at their shapes)
+        "xent_fwd_word_lm": ("mxnet_tpu_torch/csrc/softmax_xent.cu",
+                             "mxnet_tpu/ops/pallas_softmax_xent.py:54",
+                             "word_lm", "xent_fwd",
+                             "xent_fwd float32 (700, 10000)"),
+        "xent_bwd_word_lm": ("mxnet_tpu_torch/csrc/softmax_xent.cu",
+                             "mxnet_tpu/ops/pallas_softmax_xent.py:54",
+                             "word_lm", "xent_bwd",
+                             "xent_bwd float32 (700, 10000)"),
+        "adam_word_lm": ("mxnet_tpu_torch/csrc/adam.cu",
+                         "mxnet_tpu/ops/pallas_optimizer.py:63", "word_lm",
+                         "adam", None),
     }
     errs["adam_bert"] = timing["adam_bert"]["max_abs_err_at_shape"]
     errs["adam_lenet"] = timing["adam_lenet"]["max_abs_err_at_shape"]
     errs["adam_transformer"] = \
         timing["adam_transformer"]["max_abs_err_at_shape"]
+    errs["adam_word_lm"] = timing["adam_word_lm"]["max_abs_err_at_shape"]
     by_path = {"serve": serve_launches, "spec": spec_launches,
                "prefix": prefix_launches, "fork": fork_launches,
                "governed": governed_launches, "drill": drill_launches,
@@ -6702,7 +7471,9 @@ def main():
                "transformer_big": big_launches,
                "transformer_decode": decode_launches,
                "transformer_loop": tf_loop_launches, "mnist": mnist_launches,
-               "nn_ops": nn_launches, "pretrain_bert": pretrain_launches}
+               "nn_ops": nn_launches, "pretrain_bert": pretrain_launches,
+               "extra_ops": extra_launches, "word_lm": wlm_launches,
+               "word_lm_loop": wlm_loop_launches}
     kernels = []
     for name, (src, rep, path, *extra) in meta.items():
         t = timing[name]

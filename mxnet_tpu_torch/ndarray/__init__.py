@@ -606,3 +606,22 @@ random.multinomial = _make_op_func("_sample_multinomial")
 random.shuffle = _make_op_func("shuffle")
 random.seed = _rng.seed
 sys.modules[random.__name__] = random
+
+# ---------------------------------------------------------------------------
+# mx.nd.contrib (the ``_contrib_`` ops, and the control-flow operators) and
+# mx.nd.linalg (``nd.linalg.gemm2`` is ``linalg_gemm2``)
+# ---------------------------------------------------------------------------
+contrib = types.ModuleType(__name__ + ".contrib")
+contrib.__getattr__ = lambda name: _make_op_func("_contrib_" + name)
+from ..control_flow import cond as _cf_cond  # noqa: E402
+from ..control_flow import foreach as _cf_foreach  # noqa: E402
+from ..control_flow import while_loop as _cf_while_loop  # noqa: E402
+
+contrib.foreach = _cf_foreach
+contrib.while_loop = _cf_while_loop
+contrib.cond = _cf_cond
+sys.modules[contrib.__name__] = contrib
+
+linalg = types.ModuleType(__name__ + ".linalg")
+linalg.__getattr__ = lambda name: _make_op_func("linalg_" + name)
+sys.modules[linalg.__name__] = linalg

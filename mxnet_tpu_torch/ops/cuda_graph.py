@@ -20,7 +20,8 @@ nothing, so the counts it made are taken back and added again at every
 replay: the counters say what the card ran, as in the eager step.
 
 There is no fallback: a capture that fails (a host sync or a pageable copy
-inside the step) raises :class:`MXNetError` with the step's signature.
+inside the step, or an error the step raises on the host) raises
+:class:`MXNetError` with the step's signature.
 
 A StepGraph built with ``capture=False`` (``engine_type="naive"``), and
 every StepGraph on the CPU, never captures: each call runs the same step
@@ -32,6 +33,7 @@ copy-out as the card does.
 from __future__ import annotations
 
 import gc
+import warnings
 import weakref
 from typing import Callable, Dict, Optional, Tuple
 
@@ -280,6 +282,7 @@ class StepGraph:
         pool = torch.cuda.graph_pool_handle() if self.pool is None \
             else self.pool.handle
         err = outs = None
+        ended = False
         _active = self
         collecting = gc.isenabled()
         gc.disable()  # and no collection while it runs
@@ -292,6 +295,7 @@ class StepGraph:
                     err = e
                 try:
                     graph.capture_end()
+                    ended = True
                 except Exception as e:
                     err = err or e
         finally:
@@ -304,9 +308,16 @@ class StepGraph:
             _add_launches(delta, -1)
         if err is not None:
             self._after, self._held, self._owned = [], [], {}
-            _abandon_pool(self.device, pool)
-            if self.pool is not None:
-                self.pool.handle = torch.cuda.graph_pool_handle()
+            if not ended:
+                # a capture that ended (the step raised on the host, with
+                # nothing illegal queued) holds its use of the pool and
+                # gives it back when the graph is freed: releasing it here
+                # too would free the pool under the graph, and PyTorch
+                # aborts the process when the graph is destroyed
+                _abandon_pool(self.device, pool)
+                _close_generators(self.stream)
+                if self.pool is not None:
+                    self.pool.handle = torch.cuda.graph_pool_handle()
             raise MXNetError(f"CUDA graph capture of step {self.sig} failed "
                              f"(a host sync or a pageable copy inside the "
                              f"step?): {type(err).__name__}: {err}") from err
@@ -317,8 +328,25 @@ class StepGraph:
         self.graph, self.outputs = graph, outs
 
 
+def _close_generators(stream):
+    """After a capture that did not end: PyTorch takes the CUDA generators
+    out of their capture mode only at a successful end of capture, so
+    every later eager draw from the default generator (a Dropout under
+    ``TrainStep(engine_type="naive")``) raises "Offset increment outside
+    graph capture". An empty capture on ``stream`` begins and ends that
+    mode, and its graph is dropped."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream), warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # "The CUDA Graph is empty"
+        graph.capture_begin()
+        graph.capture_end()
+    del graph
+
+
 def _abandon_pool(device, pool):
-    """After a failed capture into ``pool``. PyTorch stops sending
+    """After a capture into ``pool`` that did not end (``capture_end``
+    raised; a capture that ended belongs to its graph, which gives the
+    pool's use back when it is freed). PyTorch stops sending
     allocations to the pool only once ``cudaStreamEndCapture`` succeeded,
     so a failed capture leaves the allocator believing a capture is under
     way, and it then defers, for good, the free of every block used on a

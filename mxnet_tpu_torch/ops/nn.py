@@ -7,7 +7,8 @@ Counterpart of ``mxnet_tpu/ops/nn.py`` (``fully_connected``, the
 ``instance_norm``; the heads and losses ``softmax_cross_entropy``,
 ``SoftmaxOutput``, the three regression outputs, ``smooth_l1`` and
 ``CTCLoss``; ``L2Normalization``, ``RMSNorm``, ``UpSampling`` and
-``BilinearResize2D``) and ``mxnet_tpu/ops/core.py`` (``embedding``).
+``BilinearResize2D``; the fused ``RNN``) and ``mxnet_tpu/ops/core.py``
+(``embedding``).
 Matrix products stay ``torch.matmul`` and convolutions cuDNN's, as the JAX
 package leaves both to XLA; pooling, the normalizations, the heads and CTC
 are plain compositions, as there (none of them is a Pallas kernel in the
@@ -16,6 +17,7 @@ JAX package).
 from __future__ import annotations
 
 import contextlib
+import math
 
 import torch
 import torch.nn.functional as F
@@ -31,7 +33,7 @@ __all__ = ["fully_connected", "layer_norm", "tanh_gelu", "embedding",
            "softmax_output", "linear_regression_output",
            "logistic_regression_output", "mae_regression_output",
            "smooth_l1", "ctc_loss", "l2_normalization", "rms_norm",
-           "upsampling", "bilinear_resize"]
+           "upsampling", "bilinear_resize", "rnn", "rnn_param_size"]
 
 
 def fully_connected(data, weight, bias=None, flatten=True):
@@ -718,3 +720,127 @@ register("RMSNorm", aliases=("_contrib_rms_norm",))(rms_norm)
 register("UpSampling")(upsampling)
 register("BilinearResize2D", aliases=("_contrib_BilinearResize2D",))(
     bilinear_resize)
+
+
+# -- the fused RNN (the JAX ops/nn.py:475-591; reference: rnn.cc, cuDNN's
+# fused op) --
+_RNN_GATES = {"lstm": 4, "gru": 3, "rnn_tanh": 1, "rnn_relu": 1}
+
+
+def rnn_param_size(mode, input_size, state_size, num_layers=1,
+                   bidirectional=False):
+    """The length of the flat parameter vector: per layer and direction
+    W_x (gates·H, in) and W_h (gates·H, H), then a b_x and a b_h
+    (gates·H) for each."""
+    ng, h = _RNN_GATES[mode], int(state_size)
+    d = 2 if bidirectional else 1
+    size = 0
+    for layer in range(int(num_layers)):
+        in_dim = int(input_size) if layer == 0 else h * d
+        size += d * (ng * h * in_dim + ng * h * h)
+    return size + int(num_layers) * d * 2 * ng * h
+
+
+def _rnn_unflatten(params, ng, num_layers, d, c, h):
+    """Views of the flat vector in cuDNN's order: every layer's and
+    direction's (W_x, W_h), then every (b_x, b_h)."""
+    off = 0
+
+    def take(*shape):
+        nonlocal off
+        n = math.prod(shape)
+        out = params[off:off + n].reshape(shape)
+        off += n
+        return out
+
+    ws = [[(take(ng * h, c if layer == 0 else h * d), take(ng * h, h))
+           for _ in range(d)] for layer in range(num_layers)]
+    bs = [[(take(ng * h), take(ng * h)) for _ in range(d)]
+          for _ in range(num_layers)]
+    return ws, bs
+
+
+def _rnn_direction(xp, h, c, wh, bh, mode, reverse):
+    """One layer and direction over time. ``xp`` (T, B, gates·H) is the
+    input projection with its bias (for the GRU only b_x; b_h stays with
+    the recurrent product, MXNet's ``n = tanh(x W_n + b_xn + r * (h W_hn +
+    b_hn))``). Returns the outputs (T, B, H) and the last (h, c)."""
+    hs = h.shape[-1]
+    wt = wh.t()
+    ys = [None] * xp.shape[0]
+    for t in (range(xp.shape[0] - 1, -1, -1) if reverse else
+              range(xp.shape[0])):
+        if mode == "lstm":
+            gates = torch.addmm(xp[t], h, wt)
+            s = torch.sigmoid(gates)
+            g = torch.tanh(gates[:, 2 * hs:3 * hs])
+            c = torch.addcmul(s[:, hs:2 * hs] * c, s[:, :hs], g)
+            h = s[:, 3 * hs:] * torch.tanh(c)
+        elif mode == "gru":
+            hz = torch.addmm(bh, h, wt)
+            x_t = xp[t]
+            ru = torch.sigmoid(x_t[:, :2 * hs] + hz[:, :2 * hs])
+            r, u = ru[:, :hs], ru[:, hs:]
+            n = torch.tanh(x_t[:, 2 * hs:] + r * hz[:, 2 * hs:])
+            h = (1 - u) * n + u * h
+        else:
+            pre = torch.addmm(xp[t], h, wt)
+            h = torch.tanh(pre) if mode == "rnn_tanh" else torch.relu(pre)
+        ys[t] = h
+    return torch.stack(ys), h, c
+
+
+def rnn(data, params, state, state_cell=None, state_size=None, num_layers=1,
+        mode="lstm", bidirectional=False, p=0.0, projection_size=None,
+        training=False, key=None):
+    """The fused multi-layer RNN over ``data`` (T, B, C) with cuDNN's flat
+    parameter layout (:func:`rnn_param_size`) and the initial states
+    ``state`` (and ``state_cell`` for the LSTM; zeros when None), (L·D, B,
+    H). Returns (output (T, B, D·H), h_n, c_n), c_n zeros but for the LSTM.
+
+    Each layer and direction makes one input-projection product over all
+    T·B rows, then runs the recurrence one step at a time (the recurrent
+    product and the gate math), all differentiated by autograd and with no
+    host read, so a captured step may hold it. With ``training`` and
+    ``p`` > 0 the output of every layer but the last is dropped out,
+    drawn from ``key`` (a ``torch.Generator``; None: the port's generator
+    of the device, as ``Dropout``)."""
+    if mode not in _RNN_GATES:
+        raise ValueError(f"RNN: unknown mode {mode!r}")
+    if projection_size is not None:
+        raise NotImplementedError("RNN: projection_size (LSTMP) is not "
+                                  "ported")
+    ng = _RNN_GATES[mode]
+    t_len, b, c = data.shape
+    h, n_layers = int(state_size), int(num_layers)
+    d = 2 if bidirectional else 1
+    want = rnn_param_size(mode, c, h, n_layers, bidirectional)
+    if params.numel() != want:
+        raise ValueError(f"RNN: {params.numel()} parameters, {want} "
+                         f"expected for {mode} L={n_layers} D={d} C={c} "
+                         f"H={h}")
+    ws, bs = _rnn_unflatten(params, ng, n_layers, d, c, h)
+    h_n, c_n = [], []
+    x = data
+    for layer in range(n_layers):
+        outs = []
+        rows = x.reshape(t_len * b, x.shape[-1])
+        for direction in range(d):
+            idx = layer * d + direction
+            (wx, wh), (bx, bh) = ws[layer][direction], bs[layer][direction]
+            bias = bx if mode == "gru" else bx + bh
+            xp = torch.addmm(bias, rows, wx.t()).reshape(t_len, b, ng * h)
+            c0 = state_cell[idx] if state_cell is not None else \
+                torch.zeros_like(state[idx])
+            ys, hl, cl = _rnn_direction(xp, state[idx], c0, wh, bh, mode,
+                                        reverse=direction == 1)
+            outs.append(ys)
+            h_n.append(hl)
+            c_n.append(cl if mode == "lstm" else torch.zeros_like(hl))
+        x = torch.cat(outs, dim=-1) if d == 2 else outs[0]
+        if training and p > 0 and layer < n_layers - 1:
+            x = dropout(x, p=p, training=True, key=key)
+    return x, torch.stack(h_n), torch.stack(c_n)
+
+
+register("RNN", nout=3, stochastic=True)(rnn)

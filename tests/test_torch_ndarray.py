@@ -1,5 +1,5 @@
 """``mx.nd`` of the port (mxnet_tpu_torch.ndarray over the registry of
-ops/core.py, ops/nn.py and ops/attention.py) against the JAX package's on
+ops/core.py, ops/nn.py, ops/attention.py and the rest) against the JAX package's on
 the same seeded numpy inputs: every operator that mxnet_tpu/ops/core.py
 registers (one case each, by its primary name), reshape's special codes
 with and without ``reverse``, getitem/setitem and broadcasting operators,
@@ -366,20 +366,19 @@ def test_array_copies_host_data():
     assert a[0, 0] == 0.0 and x.asnumpy()[0, 0] == 7.0
 
 
-# the JAX modules of the NN ops and optimizers whose registered names the
-# port carries (and the extra parameter the port's samplers that take no
+# the JAX modules of the NN ops, optimizers, the operator long tail and
+# linalg whose registered names the port carries (and the extra parameter the port's samplers that take no
 # tensor accept, as the creation ops' ctx=)
 PORTED_MODULES = ("mxnet_tpu.ops.nn", "mxnet_tpu.ops.attention",
                   "mxnet_tpu.ops.random_ops", "mxnet_tpu.ops.optimizer_ops",
-                  "mxnet_tpu.ops.pallas_softmax_xent")
+                  "mxnet_tpu.ops.pallas_softmax_xent", "mxnet_tpu.ops.extra",
+                  "mxnet_tpu.ops.linalg")
 
 
 def _ported_names():
-    """The primary names the JAX modules above register (RNN, queued with
-    the recurrent nets, left out) and the aliases of boolean_mask."""
-    ops = {op.name for op in jreg._REGISTRY.values()
-           if op.fn.__module__ in PORTED_MODULES}
-    return sorted(ops - {"RNN"})
+    """The primary names the JAX modules above register."""
+    return sorted({op.name for op in jreg._REGISTRY.values()
+                   if op.fn.__module__ in PORTED_MODULES})
 
 
 @pytest.mark.parametrize("name", _ported_names())

@@ -484,3 +484,55 @@ def test_failed_capture_gives_the_allocator_back(monkeypatch, ended):
                                                           pool)))
     tcg._abandon_pool(torch.device("cuda", 1), (0, 5))
     assert calls == [("end", 1, (0, 5)), ("release", 1, (0, 5))]
+
+
+@pytest.mark.parametrize("ended", [True, False],
+                         ids=["capture-ended", "capture-failed"])
+def test_step_that_raises_during_capture(monkeypatch, ended):
+    """A step that raises while it is captured gives MXNetError. When the
+    capture still ended (the step raised on the host, nothing illegal was
+    queued), the graph holds its use of the pool and gives it back when it
+    is freed, so the step must not give it back too: PyTorch then aborts
+    the process as the graph is destroyed (the use count below zero); only
+    a capture that did not end is abandoned, and its generators taken out
+    of capture mode (PyTorch does that only at a successful end, and every
+    eager draw from the default generator then raises). The card's capture
+    calls are stood in for on the CPU (the ``meta`` device takes the
+    allocation)."""
+    import contextlib
+
+    events = []
+
+    class Graph:
+        def capture_begin(self, pool=None):
+            events.append(("begin", pool))
+
+        def capture_end(self):
+            events.append(("end",))
+            if not ended:
+                raise RuntimeError("operation not permitted when stream is "
+                                   "capturing")
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", Graph)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: (0, 9))
+    monkeypatch.setattr(torch.cuda, "stream",
+                        lambda s: contextlib.nullcontext())
+    monkeypatch.setattr(tcg, "_keep_stream", lambda device: None)
+    monkeypatch.setattr(tcg, "_abandon_pool", lambda device, pool:
+                        events.append(("abandon", pool)))
+    monkeypatch.setattr(tcg, "_close_generators", lambda stream:
+                        events.append(("close generators",)))
+
+    def step():
+        raise ValueError("a check on the host")
+
+    g = tcg.StepGraph(step, ("probe",), torch.device("meta"), capture=False)
+    g.capture, g.stream = True, object()
+    with pytest.raises(MXNetError, match="probe.*ValueError"):
+        g._capture()
+    assert events[:2] == [("begin", (0, 9)), ("end",)]
+    assert events[2:] == ([] if ended else [("abandon", (0, 9)),
+                                            ("close generators",)])
+    assert g.graph is None and not tcg.capturing()
