@@ -189,6 +189,7 @@ import contextlib
 import ctypes
 import gc
 import json
+import logging
 import math
 import os
 import statistics
@@ -197,6 +198,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -4379,8 +4381,9 @@ def _tf_step(net, engine_type):
 def _device_groups(fn, n, what, step_ms):
     """Device time of one of ``n`` calls of ``fn`` under the profiler, by
     the kernel groups of tools/torch_train_profile.py (``group_of``, the
-    table the ResNet, BERT and GPT-2 breakdowns use), and the idle share
-    against ``step_ms``, the untraced wall time of one call."""
+    table the ResNet, BERT and GPT-2 breakdowns use) and by kernel (the 8
+    largest), and the idle share against ``step_ms``, the untraced wall
+    time of one call."""
     from torch.profiler import ProfilerActivity, profile
 
     group_of = _tool("torch_train_profile").group_of
@@ -4389,17 +4392,20 @@ def _device_groups(fn, n, what, step_ms):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    groups = collections.Counter()
+    groups, kernels = collections.Counter(), collections.Counter()
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
         us = float(getattr(evt, "self_device_time_total",
                            getattr(evt, "self_cuda_time_total", 0.0)))
         groups[group_of(evt.key)] += us / n / 1e3
+        kernels[evt.key[:90]] += us / n / 1e3
     device = sum(groups.values())
     res = {"device_ms": device, "step_ms": step_ms,
            "idle_share": 1 - device / step_ms if device else None,
-           "by_group_ms": dict(groups.most_common())}
+           "by_group_ms": dict(groups.most_common()),
+           "top_kernels_ms": {k: round(v, 4)
+                              for k, v in kernels.most_common(8)}}
     log(f"[{what}] {n} calls under the profiler: device "
         f"{device:.3f} ms of a {step_ms:.3f} ms call (idle share "
         f"{res['idle_share']}); by group "
@@ -7166,6 +7172,655 @@ def phase_word_lm_timing(net):
             "adam_word_lm": _adam_row(net, gen)}
 
 
+# ---------------------------------------------------------------------------
+# Detection (ops/contrib_vision.py, models/ssd.py, examples/torch_train_ssd.py)
+# and the training utilities (callback.py, gluon/contrib/estimator.py,
+# test_utils.py)
+# ---------------------------------------------------------------------------
+# card against CPU: the anchors, IoUs, NMS decisions, targets and pooled
+# maxima are sums, products and quotients in one order on both (exact); the
+# decode's exp and the targets' log may differ by an ulp (f32); a gradient
+# summed over a broadcast axis (the anchors' over the batch) adds in another
+# order (f32_sum); the sampled ops add corners and samples in another order,
+# their gradients many contributions (atomics on the card; a deformable
+# weight gradient sums 4,788 products of magnitude ~1 to a few hundred:
+# sampled_sum's atol is 1e-5 of that scale)
+DET_TOL = {"exact": (0.0, 0.0), "f32": (1e-5, 1e-6), "f32_sum": (1e-5, 1e-5),
+           "sampled": (1e-4, 1e-4), "sampled_sum": (1e-4, 1e-3)}
+SSD_SIZES = ((0.2, 0.27), (0.37, 0.44), (0.54, 0.62))
+SSD_RATIOS = (1.0, 2.0, 0.5)
+SSD_B, SSD_SIZE = 16, 32            # examples/train_ssd.py's defaults
+# MXNet example/ssd/train.py's data shape and batch size, and its nms_topk
+SSD300_B, SSD300_SIZE, SSD300_ANCHORS, SSD_NMS_TOPK = 32, 300, 117976, 400
+SSD_LR = 5e-3
+# an SSD step launches one multi-tensor Adam over its 24 tensors and no
+# other kernel of the port (convolutions, pooling and the detection ops are
+# cuDNN and plain compositions)
+SSD_WANT = dict(VISION_WANT, adam=1, xent_fwd=0, xent_bwd=0)
+# Mask R-CNN's box head (FPN level, 7x7, 1/16, 2 samples a bin) and
+# Deformable R-FCN's res5 (3x3, pad 2, dilate 2, 4 deformable groups)
+MASKRCNN_BOX_HEAD = dict(data=(2, 256, 50, 84), rois=512, pooled=(7, 7),
+                         scale=1 / 16, sample_ratio=2)
+DEFORM_RES5 = dict(data=(2, 512, 38, 63), filters=512, kernel=(3, 3),
+                   pad=(2, 2), dilate=(2, 2), groups=4)
+
+
+def _ssd_anchors(size):
+    """The SSD's anchors at a ``size`` x ``size`` input: MultiBoxPrior on
+    its three maps (size/2, /4, /8), concatenated (CPU)."""
+    from mxnet_tpu_torch.ops import contrib_vision as cv
+
+    out, hw = [], size
+    for sizes in SSD_SIZES:
+        hw //= 2
+        out.append(cv.multibox_prior(torch.zeros(1, 1, hw, hw), sizes=sizes,
+                                     ratios=SSD_RATIOS))
+    return torch.cat(out, 1)
+
+
+def _ssd_labels(batch, size, seed):
+    """The example's synthetic labels (one box an image) and a padded row
+    (class -1), CPU."""
+    import mxnet_tpu_torch as mx
+
+    ex = _example("torch_train_ssd")
+    _, labels = ex.synthetic_batch(np.random.RandomState(seed), batch, size,
+                                   ctx=mx.cpu())
+    pad = torch.full((batch, 1, 5), -1.0)
+    return torch.cat([labels._data, pad], 1)
+
+
+def _rois(gen, n, batch, height, width):
+    """``n`` rois [batch, x1, y1, x2, y2] in image pixels, inside the
+    image, 16 to 400 px a side, the batch index -1 for every 64th."""
+    b = torch.randint(0, batch, (n,), generator=gen).float()
+    b[::64] = -1
+    w = 16 + torch.rand(n, generator=gen) * 384
+    h = 16 + torch.rand(n, generator=gen) * 384
+    x1 = torch.rand(n, generator=gen) * (width - w).clamp_min(1)
+    y1 = torch.rand(n, generator=gen) * (height - h).clamp_min(1)
+    return torch.stack([b, x1, y1, x1 + w, y1 + h], 1)
+
+
+def _detection_cases(gen):
+    """(what, fn, CPU inputs, value tolerance key, gradient tolerance key or
+    None) for every op of ops/contrib_vision.py at the SSD's shapes (32x32: 1,344 anchors, B=16;
+    300x300: 117,976 anchors, B=32), Mask R-CNN's box head and Deformable
+    R-FCN's res5."""
+    from mxnet_tpu_torch.ops import contrib_vision as cv
+
+    cases = []
+    for size, batch, topk in ((SSD_SIZE, SSD_B, -1),
+                              (SSD300_SIZE, SSD300_B, SSD_NMS_TOPK)):
+        anchors = _ssd_anchors(size)
+        a = anchors.shape[1]
+        tag = f"{size}x{size} (B={batch}, {a} anchors)"
+        hw = size // 2
+        cases.append((f"MultiBoxPrior {hw}x{hw} map",
+                      lambda x: cv.multibox_prior(x, sizes=SSD_SIZES[0],
+                                                  ratios=SSD_RATIOS),
+                      [torch.zeros(batch, 16, hw, hw)], "exact", None))
+        labels = _ssd_labels(batch, size, seed=size)
+        prob = torch.softmax(torch.randn(batch, 3, a, generator=gen), 1)
+        loc = torch.randn(batch, a * 4, generator=gen) * 0.5
+        cases.append((f"box_iou anchors x ground truths {tag}",
+                      lambda x, g: cv.box_iou(x, g),
+                      [anchors[0], labels[..., 1:]], "exact", "f32_sum"))
+        rows = torch.cat([torch.randint(0, 2, (batch, a, 1),
+                                        generator=gen).float(),
+                          torch.rand(batch, a, 1, generator=gen),
+                          anchors.expand(batch, a, 4)], -1)
+        cases.append((f"box_nms topk {topk} {tag}",
+                      lambda r, k=topk: cv.box_nms(r, topk=k, id_index=0),
+                      [rows], "exact", "exact"))
+        cases.append((f"MultiBoxDetection decode, nothing suppressed {tag}",
+                      lambda p, lp, an, k=topk: cv.multibox_detection(
+                          p, lp, an, nms_threshold=2.0, nms_topk=k),
+                      [prob, loc, anchors], "f32", "f32_sum"))
+        cases.append((f"MultiBoxDetection nms_topk {topk}, zero offsets "
+                      f"{tag}",
+                      lambda p, lp, an, k=topk: cv.multibox_detection(
+                          p, lp, an, nms_topk=k),
+                      [prob, torch.zeros_like(loc), anchors], "exact",
+                      None))
+        cases.append((f"MultiBoxTarget mining 3:1 {tag}",
+                      lambda an, lab, p: cv.multibox_target(
+                          an, lab, p, negative_mining_ratio=3.0),
+                      [anchors, labels, prob], "f32", None))
+        cases.append((f"getnnz of the background column {tag}",
+                      lambda p: cv.getnnz(p[:, 0] > 0.5, axis=1),
+                      [prob], "exact", None))
+        cases.append((f"index_array {tag}", lambda p: cv.index_array(p),
+                      [prob], "exact", None))
+    box = MASKRCNN_BOX_HEAD
+    n, c, h, w = box["data"]
+    data = torch.randn(n, c, h, w, generator=gen)
+    rois = _rois(gen, box["rois"], n, h / box["scale"], w / box["scale"])
+    tag = f"Mask R-CNN box head {box['data']}, {box['rois']} rois, 7x7, 1/16"
+    cases.append((f"ROIAlign {tag}, 2 samples",
+                  lambda d, r: cv.roi_align(
+                      d, r, pooled_size=box["pooled"],
+                      spatial_scale=box["scale"],
+                      sample_ratio=box["sample_ratio"]),
+                  [data, rois], "sampled", "sampled"))
+    cases.append((f"ROIPooling {tag}",
+                  lambda d, r: cv.roi_pooling(d, r.detach(),
+                                              pooled_size=box["pooled"],
+                                              spatial_scale=box["scale"]),
+                  [data, rois], "exact", "sampled"))
+    dc = DEFORM_RES5
+    n, c, h, w = dc["data"]
+    kh, kw = dc["kernel"]
+    # offsets of +-2 around 0.13: no sample on an integer
+    offset = (torch.rand(n, 2 * dc["groups"] * kh * kw, h, w, generator=gen)
+              - 0.5) * 4 + 0.13
+    weight = torch.randn(dc["filters"], c, kh, kw, generator=gen) * 0.02
+    bias = torch.randn(dc["filters"], generator=gen)
+    cases.append((f"DeformableConvolution Deformable R-FCN res5 {dc['data']}"
+                  f", {dc['filters']} filters, 3x3, pad 2, dilate 2, "
+                  f"{dc['groups']} deformable groups",
+                  lambda d, o, wt, b: cv.deformable_convolution(
+                      d, o, wt, b, kernel=dc["kernel"], pad=dc["pad"],
+                      dilate=dc["dilate"], num_filter=dc["filters"],
+                      num_deformable_group=dc["groups"]),
+                  [torch.randn(n, c, h, w, generator=gen), offset, weight,
+                   bias], "sampled", "sampled_sum"))
+    return cases
+
+
+def _nbytes(ts):
+    ts = ts if isinstance(ts, (tuple, list)) else [ts]
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def phase_detection():
+    """``[detection]``: every op of ops/contrib_vision.py on the card
+    against the same op on CPU tensors, values and (where it has one) the
+    gradients under a seeded cotangent, each at its DET_TOL
+    (``_card_and_cpu``),
+    at the 32x32 and 300x300 SSD's shapes, Mask R-CNN's box head and
+    Deformable R-FCN's res5 (``_detection_cases``); then whether a captured
+    step can hold each (``_capture_status``; MultiBoxTarget must), and each
+    forward's device time (a CUDA graph replay where it is captured, else
+    eager), its launches (one profiled call) and its byte bound (inputs
+    read once, outputs written once). Returns the results."""
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(51)
+    _reset_launch_counts()
+    errs, capture, rows, failures = {}, {}, {}, []
+    for what, fn, inputs, tol, grad_tol in _detection_cases(gen):
+        t = time.perf_counter()
+        try:  # every case runs; the phase fails after the last
+            errs[what] = _card_and_cpu(what, fn, inputs, DET_TOL[tol],
+                                       grad=False)
+            if grad_tol is not None:
+                errs[what] = max(errs[what], _card_and_cpu(
+                    f"{what} (gradients)", fn, inputs, DET_TOL[grad_tol]))
+        except AssertionError as e:
+            log(f"  FAILED {e}")
+            failures.append(str(e))
+        capture[what] = _capture_status(what, fn, inputs)
+        ins = [x.cuda() for x in inputs]
+        with torch.no_grad():
+            out = fn(*ins)
+            call = (lambda: fn(*ins))
+            timed = graph_time_ms(call, calls=1, replays=3, repeats=3) \
+                if capture[what] == "captured" else \
+                cuda_time_ms(call, warmup=1, iters=3, repeats=3)
+            launches = _profiled_count(call, "")
+        nbytes = _nbytes(ins) + _nbytes(out)
+        rows[what] = {"ms": timed, "launches": launches, "bytes": nbytes,
+                      "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                      "capture": capture[what],
+                      "seconds": time.perf_counter() - t}
+        log(f"[detection] {what}: {timed:.3f} ms device"
+            f"{'' if capture[what] == 'captured' else ' (eager)'}, "
+            f"{launches} launches, byte bound "
+            f"{rows[what]['bound_ms'] * 1e3:.2f} us; {capture[what]}")
+        del ins, out
+    if failures:
+        raise AssertionError("detection: " + "; ".join(failures))
+    target = [k for k in capture if k.startswith("MultiBoxTarget")]
+    if any(capture[k] != "captured" for k in target):
+        raise AssertionError("detection: MultiBoxTarget was not captured")
+    launches = _launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"detection: kernels launched {launches}")
+    synced = sorted(k for k, v in capture.items() if v != "captured")
+    res = {"max_abs_err": errs, "ops": rows, "synced": synced,
+           "seconds": time.perf_counter() - t0}
+    log(f"[detection] {len(errs)} ops card against CPU, largest error "
+        f"{max(errs.values()):.3e}; ops a captured step cannot hold: "
+        f"{synced or 'none'}; in {res['seconds']:.1f} s")
+    _release()
+    return res
+
+
+def _ssd_step_loss(out, labels):
+    """The SSD loss of a TrainStep: the targets (MultiBoxTarget) from the
+    step's own predictions, then ssd_loss, as the example's recorded step
+    computes them."""
+    from mxnet_tpu_torch.models.ssd import ssd_loss, ssd_train_targets
+
+    anchors, cls_preds, box_preds = out
+    loc_t, loc_m, cls_t = ssd_train_targets(anchors, labels, cls_preds)
+    return ssd_loss(cls_preds, box_preds, cls_t, loc_t, loc_m)
+
+
+def _ssd_net(size, seed=0):
+    """The example's SSD (2 classes, default width) on the card, its
+    weights drawn from ``seed`` as the example draws them, its shapes
+    resolved by one call."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.models.ssd import get_ssd
+
+    mx.random.seed(seed)
+    net = get_ssd(num_classes=2)
+    net.initialize(ctx=mx.gpu())
+    net(mx.nd.array(torch.zeros(1, 3, size, size, device="cuda")))
+    return net
+
+
+def _ssd_step(net, engine_type, batch):
+    """TrainStep with the example's Adam: the Gluon loop's
+    ``trainer.step(B)`` divides the gradient by B, so does rescale_grad."""
+    from mxnet_tpu_torch import TrainStep
+    from mxnet_tpu_torch.optimizer import Adam
+
+    return TrainStep(net, _ssd_step_loss,
+                     Adam(learning_rate=SSD_LR, rescale_grad=1.0 / batch),
+                     engine_type=engine_type)
+
+
+def _ssd_batches(n, batch, size, seed=0):
+    """``n`` of the example's synthetic batches on the card (tensors)."""
+    import mxnet_tpu_torch as mx
+
+    ex = _example("torch_train_ssd")
+    rs = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        x, y = ex.synthetic_batch(rs, batch, size, ctx=mx.gpu())
+        out.append((x._data, y._data))
+    return out
+
+
+def phase_ssd(card):
+    """``[ssd]``: the repo's SSD at its default width (filters 16/32/64, 3
+    scales, 4 anchors a pixel), f32:
+
+    (a) examples/torch_train_ssd.py's ``train()`` at its defaults (B=16,
+        32x32, Adam 5e-3 through ``gluon.Trainer``, 200 steps, then
+        ``detect`` and the IoU hits): one Adam launch a step and no other
+        kernel of the port, the logged loss falling, ms a step;
+    (b) SSD300's input and batch (300x300, B=32, 117,976 anchors) through
+        ``TrainStep`` with MultiBoxTarget inside the step: 3 steps naive
+        against graph, losses and state bit for bit; then 2 warm-up and 10
+        timed graph steps (one program, SSD_WANT a step): ms a step,
+        images/s, MFU (``_vision_flops`` over the f32 CUDA cores' 67
+        TFLOP/s), peak memory, and a profiled replay's device time by
+        kernel group and its largest kernels, with the idle share;
+    (c) MultiBoxDetection(nms_topk=400) at 300x300 on the trained net's
+        predictions (device time, launches), its greedy loop alone, the
+        mining's stable sort at this shape, and the example net's
+        ``detect`` at 32x32 (eager, as the example calls it).
+
+    Returns the launches of (a) and of (b)'s timed run, the 300x300 net
+    (for the Adam row) and the results."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import contrib_vision as cv
+
+    t0 = time.perf_counter()
+    ex = _example("torch_train_ssd")
+    res = {"card": card}
+    # (a) the example at its defaults
+    args = ex.build_parser().parse_args([])
+    _reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = ex.train(args)
+    wall = time.perf_counter() - t
+    example_launches = _launch_counts()
+    want = {k: v * args.steps for k, v in SSD_WANT.items()}
+    if example_launches != want:
+        raise AssertionError(f"ssd example: launches {example_launches}, "
+                             f"expected {want}")
+    losses = [v for _, v in out["losses"]]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"ssd example: logged losses {out['losses']} "
+                             f"do not fall")
+    res["example"] = {"steps": args.steps, "batch": args.batch_size,
+                      "losses": out["losses"], "hits": out["hits"],
+                      "seconds": wall,
+                      "ms_per_step_with_eval": wall / args.steps * 1e3}
+    log(f"[ssd example] examples/torch_train_ssd.py train() at its defaults "
+        f"(B={args.batch_size}, {args.size}x{args.size}, {args.steps} steps, "
+        f"Adam {args.lr}): {wall:.1f} s with the eval, logged losses "
+        f"{['%.4f' % v for v in losses]}, detection hits {out['hits']}/"
+        f"{args.batch_size}; launches {example_launches} on {card}")
+    parts = {"example": time.perf_counter() - t0}
+    # (b) 300x300, B=32: naive against graph
+    batches = _ssd_batches(3, SSD300_B, SSD300_SIZE)
+    net0 = _ssd_net(SSD300_SIZE)
+    init = [p.detach().clone() for _, p in sorted(net0.named_parameters())]
+    if len(init) != 24:
+        raise AssertionError(f"ssd: {len(init)} parameter tensors")
+    x0 = batches[0][0]
+    with torch.no_grad():
+        anchors = net0(x0[:1])[0]
+    if anchors.shape[1] != SSD300_ANCHORS:
+        raise AssertionError(f"ssd300: {anchors.shape[1]} anchors")
+    macs, macs0 = _vision_flops(net0, x0)
+    flops = 2 * (3 * macs - macs0) * SSD300_B
+    del net0
+    runs = {}
+    for mode in ("naive", "graph"):
+        net = _ssd_net(SSD300_SIZE)
+        _restore(net, init)
+        ts = _ssd_step(net, mode, SSD300_B)
+        runs[mode] = ([float(ts(*b)) for b in batches], _state(ts, host=True),
+                      ts.compiled_programs)
+        del ts, net
+        _release()
+    same = runs["naive"][0] == runs["graph"][0] and \
+        _same_state(runs["naive"][1], runs["graph"][1])
+    log(f"[ssd300] TrainStep 3 steps, 300x300, B={SSD300_B}, "
+        f"{SSD300_ANCHORS} anchors, MultiBoxTarget inside the step: graph "
+        f"{'==' if same else '!='} naive bit for bit (losses naive "
+        f"{runs['naive'][0]}, graph {runs['graph'][0]}; programs "
+        f"{runs['graph'][2]})")
+    if not same or runs["graph"][2] != 1:
+        raise AssertionError("ssd300: graph != naive, or more than one "
+                             "program")
+    res["parity"] = {"losses": runs["graph"][0]}
+    del runs
+    parts["parity"] = time.perf_counter() - t0 - sum(parts.values())
+    net = _ssd_net(SSD300_SIZE)
+    _restore(net, init)
+    ts = _ssd_step(net, "graph", SSD300_B)
+    x, y = batches[0]
+    total = dict.fromkeys(SSD_WANT, 0)
+    step_losses = []
+    torch.cuda.synchronize()
+    _release()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    for i in range(12):
+        if i == 2:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+        before = _launch_counts()
+        step_losses.append(ts(x, y))
+        got = {k: v - before[k] for k, v in _launch_counts().items()}
+        if got != SSD_WANT:
+            raise AssertionError(f"ssd300 graph step {i}: launches {got}, "
+                                 f"expected {SSD_WANT}")
+        for k in total:
+            total[k] += got[k]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    step_losses = [float(v) for v in step_losses]
+    if not all(np.isfinite(step_losses)) or \
+            not step_losses[-1] < step_losses[0] or ts.compiled_programs != 1:
+        raise AssertionError(f"ssd300 graph: losses {step_losses}, "
+                             f"{ts.compiled_programs} programs")
+    ms = wall / 10 * 1e3
+    (prog, _, _), = ts._programs.values()
+    step = {"ms_per_step": ms, "images_per_s": SSD300_B / ms * 1e3,
+            "flops_per_step": flops,
+            "mfu": flops / (ms * 1e-3) / F32_FLOPS_PER_S,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
+            "losses": step_losses,
+            "replay_launches": check_replay_launches(prog, "ssd300 step "
+                                                     "graph"),
+            "breakdown": _device_groups(prog.graph.replay, 5,
+                                        "ssd300 graph step", ms)}
+    log(f"[ssd300 graph] 300x300, B={SSD300_B}, TrainStep Adam, 10 timed "
+        f"steps: {ms:.2f} ms/step, {step['images_per_s']:.1f} images/s, MFU "
+        f"{step['mfu']:.4f} ({flops:.4e} flops a step over the f32 CUDA "
+        f"cores' 67 TFLOP/s), peak {step['peak_bytes'] / 2**30:.2f} GiB "
+        f"allocated / {step['peak_reserved_bytes'] / 2**30:.2f} reserved; "
+        f"losses {['%.4f' % v for v in step_losses]}; top kernels "
+        f"{step['breakdown'].get('top_kernels_ms')} on {card}")
+    res["ssd300"] = step
+    del ts
+    _release()
+    parts["ssd300"] = time.perf_counter() - t0 - sum(parts.values())
+    # (c) detection times
+    with torch.no_grad():
+        anchors, cls_preds, box_preds = net(x)
+        prob = torch.softmax(cls_preds, -1).transpose(1, 2).contiguous()
+
+        def det300():
+            return cv.multibox_detection(prob, box_preds, anchors,
+                                         nms_topk=SSD_NMS_TOPK)
+
+        out300 = det300()
+        det = {"ms_300": graph_time_ms(det300, calls=1, replays=3, repeats=3),
+               "eager_ms_300": cuda_time_ms(det300, warmup=1, iters=3,
+                                            repeats=3),
+               "launches_300": _profiled_count(det300, ""),
+               "kept_300": int((out300[..., 0] >= 0).sum())}
+        # its greedy loop alone (400 rows, two launches each), and the
+        # stable sort of MultiBoxTarget's mining at this shape
+        sup = torch.rand(SSD300_B, SSD_NMS_TOPK, SSD_NMS_TOPK,
+                         device="cuda") > 0.9
+        keep = torch.ones(SSD300_B, SSD_NMS_TOPK, dtype=torch.bool,
+                          device="cuda")
+        det["nms_loop_ms_300"] = graph_time_ms(
+            lambda: cv._greedy_keep(sup, keep), calls=1, replays=3,
+            repeats=3)
+        neg = torch.rand(SSD300_B, SSD300_ANCHORS, device="cuda")
+        det["mining_sort_ms_300"] = graph_time_ms(
+            lambda: torch.sort(neg, dim=1, stable=True), calls=1, replays=3,
+            repeats=3)
+    small = _ssd_net(SSD_SIZE)
+    imgs = mx.nd.array(_ssd_batches(1, SSD_B, SSD_SIZE, seed=1)[0][0])
+
+    def det32():
+        return small.detect(imgs, threshold=0.3)
+
+    det.update(ms_32=cuda_time_ms(det32, warmup=1, iters=3, repeats=3),
+               launches_32=_profiled_count(det32, ""))
+    log(f"[ssd detect] MultiBoxDetection(nms_topk={SSD_NMS_TOPK}) at "
+        f"300x300, B={SSD300_B}: {det['ms_300']:.3f} ms device (eager "
+        f"{det['eager_ms_300']:.3f}), {det['launches_300']} launches, "
+        f"{det['kept_300']} rows kept (its greedy loop alone "
+        f"{det['nms_loop_ms_300']:.3f} ms; the mining's stable sort of "
+        f"({SSD300_B}, {SSD300_ANCHORS}) {det['mining_sort_ms_300']:.3f} "
+        f"ms); detect at 32x32, B={SSD_B} (eager, "
+        f"nms_topk -1): {det['ms_32']:.3f} ms, {det['launches_32']} launches")
+    res["detect"] = det
+    del small, prob, out300
+    parts["detect"] = time.perf_counter() - t0 - sum(parts.values())
+    res["seconds"] = time.perf_counter() - t0
+    res["seconds_by_part"] = parts
+    log(f"[ssd seconds] {res['seconds']:.1f} s: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items()))
+    return example_launches, total, net, res
+
+
+def phase_ssd_timing(net):
+    """The Adam kernel over the SSD's 24 tensors (``_adam_row``)."""
+    return {"adam_ssd": _adam_row(net, torch.Generator().manual_seed(52))}
+
+
+class _LogLines(logging.Handler):
+    """The messages of the log records emitted while attached."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def phase_estimator(card):
+    """``[estimator]``: chip_smoke's LeNet (``_lenet_net``, seeded batches of
+    ``_lenet_data``) on the card through the Gluon Estimator:
+
+    (a) ``Estimator.fit`` for 2 epochs of 4 batches with every handler
+        (Logging, Checkpoint with save_best, EarlyStopping, Metric,
+        GradientUpdate, Validation every 2 batches, Stopping, Preemption),
+        telemetry on: the parameters bit-identical to a hand-written
+        ``record`` / ``backward`` / ``Trainer.step`` loop over the same
+        batches, one Adam launch a step; LoggingHandler's lines carry the
+        registry's loss and throughput;
+    (b) a SIGTERM sent at batch 2 goes through PreemptionHandler (the
+        step's parameters and trainer states saved, the fit stopped); a
+        fresh net and trainer resumed from them take the next step with
+        the loss of the uninterrupted loop's, bit for bit;
+    (c) ``callback.Speedometer`` logs the registry's samples/s (its second
+        line equals the registry's delta);
+    (d) ``test_utils.check_consistency`` (CPU against the card) on a few
+        ops.
+
+    Returns the launches of (a) and the results."""
+    import signal
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import observability as obs
+    from mxnet_tpu_torch.gluon.contrib import estimator as est
+
+    t0 = time.perf_counter()
+    data = [(mx.nd.array(x), mx.nd.array(y)) for x, y in _lenet_data(6)]
+    train, val = data[:4], data[4:]
+    net0 = _lenet_net(mx)
+    init = [p.detach().clone() for _, p in sorted(net0.named_parameters())]
+    del net0
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def trainer(net):
+        return mx.gluon.Trainer(net.collect_params(), "adam",
+                                {"learning_rate": LENET_LR})
+
+    hnet = _lenet_net(mx, init)
+    htr = trainer(hnet)
+    hand = [float(_gluon_step(mx, hnet, htr, loss_fn, *b))
+            for _ in range(2) for b in train]
+    res = {"card": card}
+    lines = _LogLines()
+    logging.getLogger().addHandler(lines)
+    logging.getLogger().setLevel(logging.INFO)
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            obs.enable(os.path.join(d, "telemetry"))
+            try:
+                enet = _lenet_net(mx, init)
+                e = est.Estimator(enet, loss_fn, train_metrics="acc",
+                                  trainer=trainer(enet))
+                handlers = [est.LoggingHandler(log_interval=2),
+                            est.CheckpointHandler(d, save_best=True),
+                            est.EarlyStoppingHandler(monitor="accuracy",
+                                                     patience=10),
+                            est.ValidationHandler(val, batch_period=2),
+                            est.StoppingHandler(max_epoch=2),
+                            est.PreemptionHandler(d)]
+                torch.cuda.synchronize()
+                _reset_launch_counts()
+                t = time.perf_counter()
+                e.fit(train, epochs=3, event_handlers=handlers)
+                torch.cuda.synchronize()
+                fit_s = time.perf_counter() - t
+                launches = _launch_counts()
+                # (c) the Speedometer over 4 Trainer steps
+                meter = mx.callback.Speedometer(LENET_B, frequent=2)
+                snet = _lenet_net(mx, init)
+                st = trainer(snet)
+                param = SimpleNamespace(epoch=0, nbatch=0, eval_metric=None)
+                meter(param)
+                marks = []
+                for i, b in enumerate(train, 1):
+                    _gluon_step(mx, snet, st, loss_fn, *b)
+                    param.nbatch = i
+                    meter(param)
+                    if i % 2 == 0:
+                        marks.append((
+                            obs.REGISTRY.get("train_samples_total").total(),
+                            obs.REGISTRY.get("train_step_seconds")
+                            .total_sum()))
+            finally:
+                obs.disable()
+            files = sorted(os.listdir(d))
+            diff = [k for (k, a), (_, b) in zip(
+                sorted(enet.named_parameters()),
+                sorted(hnet.named_parameters())) if not torch.equal(a, b)]
+            want = {k: v * 8 for k, v in LENET_WANT.items()}
+            batch_lines = [s for s in lines.lines if s.startswith("Batch[")]
+            log(f"[estimator] Estimator.fit, LeNet B={LENET_B}, 2 epochs of "
+                f"4 batches, every handler, telemetry on: {fit_s:.2f} s; "
+                f"parameters that differ from the hand-written loop: "
+                f"{diff or 'none'}; launches {launches}; files {files}; "
+                f"last log line {batch_lines[-1] if batch_lines else None}")
+            if diff or launches != want:
+                raise AssertionError("estimator: fit differs from the "
+                                     "hand-written loop, or launched other "
+                                     "than one Adam and one xent pair a step")
+            if not any("throughput=" in s and " loss=" in s
+                       for s in batch_lines):
+                raise AssertionError("estimator: LoggingHandler did not read "
+                                     "the registry")
+            if "model-best.params" not in files or \
+                    "model-0001.params" not in files:
+                raise AssertionError(f"estimator: checkpoints {files}")
+            speeds = [float(s.split("Speed: ")[1].split(" ")[0])
+                      for s in lines.lines if "Speed: " in s]
+            (s0, t0_), (s1, t1_) = marks
+            reg_speed = (s1 - s0) / (t1_ - t0_)
+            log(f"[estimator] Speedometer lines {speeds} samples/s; the "
+                f"registry's between them {reg_speed:.1f}")
+            if len(speeds) != 2 or abs(speeds[1] / reg_speed - 1) > 1e-3:
+                raise AssertionError("estimator: the Speedometer did not "
+                                     "read the registry")
+            res["fit"] = {"seconds": fit_s, "files": files,
+                          "speedometer": speeds, "registry_speed": reg_speed}
+            # (b) SIGTERM at batch 2, then a resume
+            pnet = _lenet_net(mx, init)
+            ptr = trainer(pnet)
+
+            class Kill(est.BatchBegin):
+                def batch_begin(self, estimator, batch=None, **kw):
+                    if batch == 2:
+                        os.kill(os.getpid(), signal.SIGTERM)
+
+            pre = est.PreemptionHandler(d, model_prefix="pre")
+            e = est.Estimator(pnet, loss_fn, trainer=ptr)
+            e.fit(train, epochs=1, event_handlers=[Kill(), pre])
+            if not pre.stop_training:
+                raise AssertionError("estimator: SIGTERM did not stop fit")
+            rnet = _lenet_net(mx, init)
+            rnet.load_parameters(os.path.join(d, "pre-preempt.params"),
+                                 ctx=mx.gpu())
+            rtr = trainer(rnet)
+            rtr.load_states(os.path.join(d, "pre-preempt.states"))
+            resumed = float(_gluon_step(mx, rnet, rtr, loss_fn, *train[3]))
+            log(f"[estimator] SIGTERM at batch 2: saved "
+                f"{sorted(f for f in os.listdir(d) if f.startswith('pre'))},"
+                f" fit stopped; the resumed step's loss {resumed} against "
+                f"the uninterrupted loop's {hand[3]}")
+            if resumed != hand[3]:
+                raise AssertionError("estimator: the resumed step differs")
+            res["preemption"] = {"resumed_loss": resumed, "want": hand[3]}
+    finally:
+        logging.getLogger().removeHandler(lines)
+    # (d) check_consistency
+    x = np.random.RandomState(5).randn(64, 128).astype(np.float32)
+    checks = {"softmax": lambda v: mx.nd.softmax(v, axis=-1),
+              "dot": lambda v: mx.nd.dot(v, v, transpose_b=True),
+              "box_iou": lambda v: mx.nd.contrib.box_iou(v[:, :4].abs(),
+                                                         v[:, 4:8].abs())}
+    for name, fn in checks.items():
+        mx.test_utils.check_consistency(fn, [x])
+    res["check_consistency"] = sorted(checks)
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[estimator] check_consistency CPU against the card: "
+        f"{sorted(checks)}; phase {res['seconds']:.1f} s")
+    _release()
+    return launches, res
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this script needs one "
@@ -7267,6 +7922,12 @@ def main():
     wlm_launches, wlm_loop_launches, word_lm = phase_word_lm(card)
     wlm_net = word_lm.pop("timing_net")
     log("[word_lm] " + json.dumps(word_lm, default=str))
+    detection = phase_detection()
+    log("[detection] " + json.dumps(detection))
+    ssd_launches, ssd300_launches, ssd_net, ssd = phase_ssd(card)
+    log("[ssd] " + json.dumps(ssd, default=str))
+    est_launches, estimator = phase_estimator(card)
+    log("[estimator] " + json.dumps(estimator))
     log("[engine types] " + json.dumps(
         {"turns": MODE_TURNS, "serve": serve, "train": train,
          "train_amp": train_amp, "bert_amp": bert_amp,
@@ -7276,7 +7937,9 @@ def main():
     timing.update(phase_transformer_timing(card))
     timing.update(phase_vision_timing())
     timing.update(phase_word_lm_timing(wlm_net))
-    del wlm_net
+    timing.update(phase_ssd_timing(ssd_net))
+    timing["adam_ssd300"] = timing["adam_ssd"]
+    del wlm_net, ssd_net
     _release()
     log("[batch_norm] " + json.dumps(timing["batch_norm"]))
     # (source, replaced TPU kernel, the path whose run gives `launches`[,
@@ -7452,12 +8115,23 @@ def main():
         "adam_word_lm": ("mxnet_tpu_torch/csrc/adam.cu",
                          "mxnet_tpu/ops/pallas_optimizer.py:63", "word_lm",
                          "adam", None),
+        # the SSD's 24 tensors (one timing row): the example's Gluon loop
+        # (32x32, B=16, 200 steps) and SSD300's TrainStep (300x300, B=32,
+        # 12 graph steps); the max_abs_err: the check at this shape
+        "adam_ssd": ("mxnet_tpu_torch/csrc/adam.cu",
+                     "mxnet_tpu/ops/pallas_optimizer.py:63", "ssd_example",
+                     "adam", None),
+        "adam_ssd300": ("mxnet_tpu_torch/csrc/adam.cu",
+                        "mxnet_tpu/ops/pallas_optimizer.py:63", "ssd300",
+                        "adam", None),
     }
     errs["adam_bert"] = timing["adam_bert"]["max_abs_err_at_shape"]
     errs["adam_lenet"] = timing["adam_lenet"]["max_abs_err_at_shape"]
     errs["adam_transformer"] = \
         timing["adam_transformer"]["max_abs_err_at_shape"]
     errs["adam_word_lm"] = timing["adam_word_lm"]["max_abs_err_at_shape"]
+    errs["adam_ssd"] = errs["adam_ssd300"] = \
+        timing["adam_ssd"]["max_abs_err_at_shape"]
     by_path = {"serve": serve_launches, "spec": spec_launches,
                "prefix": prefix_launches, "fork": fork_launches,
                "governed": governed_launches, "drill": drill_launches,
@@ -7473,7 +8147,9 @@ def main():
                "transformer_loop": tf_loop_launches, "mnist": mnist_launches,
                "nn_ops": nn_launches, "pretrain_bert": pretrain_launches,
                "extra_ops": extra_launches, "word_lm": wlm_launches,
-               "word_lm_loop": wlm_loop_launches}
+               "word_lm_loop": wlm_loop_launches,
+               "ssd_example": ssd_launches, "ssd300": ssd300_launches,
+               "estimator": est_launches}
     kernels = []
     for name, (src, rep, path, *extra) in meta.items():
         t = timing[name]

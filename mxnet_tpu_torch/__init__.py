@@ -14,7 +14,10 @@ Adam and softmax cross-entropy. The training loop: ``TrainStep.run`` and
 with crash-safe ``checkpoint``s, preemption (``resilience``) and
 ``mon.Monitor``. The image data path: ``image``, ``io.recordio``,
 ``io.ImageRecordIter`` and ``gluon.data.vision``, over the shared C++
-decoder (``native``). Imports torch, numpy and the standard
+decoder (``native``). Detection: the contrib ops (``ops.contrib_vision``)
+and the SSD (``models.ssd``). The training utilities: ``callback``, the
+Gluon ``Estimator`` (``gluon.contrib.estimator``), ``test_utils``,
+``runtime.Features`` and ``AttrScope``. Imports torch, numpy and the standard
 library only. Entry points run on the card unless the caller names the
 CPU (``device="cpu"``, ``ctx=mx.cpu()``), which runs the kernels' plain
 PyTorch versions.
@@ -36,6 +39,9 @@ from .monitor import Monitor
 from . import observability
 from . import observability as obs
 from . import resilience
+from . import callback, runtime, test_utils
+from .attribute import AttrScope
+from .util import is_np_array
 from .inference import ContinuousBatcher, GenerationEngine, SamplingConfig
 from .models import get_gpt2
 from .parallel import TrainStep
@@ -45,5 +51,7 @@ __all__ = ["base", "config", "MXNetError", "Context", "cpu", "gpu",
            "autograd", "random", "initializer", "init", "gluon", "inference",
            "lr_scheduler", "models", "ops", "optimizer", "parallel",
            "serialization", "checkpoint", "image", "io", "metric", "monitor", "mon",
-           "Monitor", "observability", "obs", "resilience", "ContinuousBatcher", "GenerationEngine",
+           "Monitor", "observability", "obs", "resilience", "callback",
+           "runtime", "test_utils", "AttrScope", "is_np_array",
+           "ContinuousBatcher", "GenerationEngine",
            "SamplingConfig", "TrainStep", "get_gpt2"]

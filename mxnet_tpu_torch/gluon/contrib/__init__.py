@@ -1,5 +1,6 @@
-"""``gluon.contrib`` of the port: the ``nn`` layers (the estimator is not
-ported yet)."""
-from . import nn
+"""``gluon.contrib`` of the port: the ``nn`` layers and the ``estimator``
+(the high-level fit loop with event handlers)."""
+from . import estimator, nn
+from .estimator import Estimator
 
-__all__ = ["nn"]
+__all__ = ["estimator", "nn", "Estimator"]

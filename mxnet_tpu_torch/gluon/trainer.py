@@ -31,10 +31,12 @@ from __future__ import annotations
 
 import os
 import pickle
+import time
 
 import numpy as np
 import torch
 
+from .. import observability as _obs
 from .. import optimizer as opt_mod
 from ..base import MXNetError
 from .parameter import Parameter, ParameterDict
@@ -102,6 +104,7 @@ class Trainer:
         self._preempt_exit = True
         self._preempt_saved = False
         self._monitors = []  # run around every step()
+        self._obs_steps = 0  # steps recorded under telemetry
         # run()'s TrainStep, cached with its signature
         self._fused = None
         # float16 overflow skips of every TrainStep run() built: num_update
@@ -144,7 +147,13 @@ class Trainer:
         """One update from the current gradients, each divided by
         ``batch_size``. Under float16 AMP (``contrib.amp.init_trainer``) a
         step whose gradients overflowed is skipped and the loss scale
-        shrinks."""
+        shrinks. Under telemetry (``observability.enabled()``) each step,
+        skipped or not, records ``train_step_seconds{loop="trainer"}``,
+        ``train_steps_total``, ``train_samples_total`` and the step id, and
+        a skipped one ``train_amp_skipped_steps_total``, as the JAX
+        Trainer does; without it the step does no telemetry work."""
+        obs_on = _obs.enabled()
+        t0 = time.perf_counter() if obs_on else 0.0
         for m in self._monitors:
             m.tic()
         self._optimizer.rescale_grad = self._scale / batch_size
@@ -156,9 +165,25 @@ class Trainer:
             scaler.update_scale(skip)
         if not skip:
             self._update(ignore_stale_grad)
+        self._finish_step(obs_on, t0, batch_size, skipped=skip)
+        self._check_preemption()
+
+    def _finish_step(self, obs_on, t0, batch_size, skipped=False):
         for m in self._monitors:
             m.toc_print()
-        self._check_preemption()
+        if not obs_on:
+            return
+        dt = time.perf_counter() - t0
+        self._obs_steps += 1
+        _obs.set_step(self._obs_steps)
+        _obs.histogram("train_step_seconds", "full train-step wall clock",
+                       unit="s").observe(dt, loop="trainer")
+        _obs.counter("train_steps_total").inc(loop="trainer")
+        _obs.counter("train_samples_total").inc(int(batch_size),
+                                                loop="trainer")
+        if skipped:
+            _obs.counter("train_amp_skipped_steps_total",
+                         "steps dropped by AMP overflow handling").inc()
 
     # -- graceful preemption --------------------------------------------------
     def install_preemption(self, save_fn, guard=None, exit_on_preempt=True):

@@ -41,7 +41,27 @@ from .metrics import REGISTRY, counter, gauge, histogram  # noqa: F401
 
 __all__ = ["metrics", "events", "REGISTRY", "counter", "gauge", "histogram",
            "emit", "set_step", "read_events", "enabled", "enable", "disable",
-           "shutdown", "span", "timed_region", "telemetry_dir"]
+           "shutdown", "span", "timed_region", "telemetry_dir",
+           "throughput_delta"]
+
+
+def throughput_delta(prev):
+    """samples/sec from the registry's step telemetry since ``prev``.
+
+    The one throughput calculation the console reporters share
+    (``callback.Speedometer``, the estimator's ``LoggingHandler``), so they
+    agree with each other and with the exporters. Returns ``(speed,
+    state)``: pass ``state`` back as ``prev`` on the next call; ``speed``
+    is None until two calls bracket new step telemetry."""
+    c = REGISTRY.get("train_samples_total")
+    h = REGISTRY.get("train_step_seconds")
+    if c is None or h is None:
+        return None, prev
+    cur = (c.total(), h.total_sum())
+    if prev is None:
+        return None, cur
+    ds, dt = cur[0] - prev[0], cur[1] - prev[1]
+    return (ds / dt if ds > 0 and dt > 0 else None), cur
 
 _enabled: Optional[bool] = None  # tri-state: None = not yet resolved from config
 _dir: Optional[str] = None
