@@ -166,7 +166,18 @@ prints its last line):
      with the xent pair and one Adam a step (ms a step, tokens/s, MFU,
      peak memory, a profiled replay, the device time by kernel group);
      cuDNN's LSTM and GRU beside the port's route, outputs, gradients and
-     times; the example at its defaults as a subprocess);
+     times; the example at its defaults as a subprocess); the detection
+     ops, the SSD and the Estimator (``[detection]``, ``[ssd]``,
+     ``[estimator]``); and the symbolic API: transformer_base exported to
+     its symbol.json and imported as a ``SymbolBlock`` on the card (its
+     forward and three ``Trainer("adam")`` steps bit for bit the Gluon
+     net's, with its LayerNorm, flash and Adam launches), resnet50_v1 and
+     back, a CustomOp inside a captured step and an ``Executor`` against
+     the CPU (``[symbol]``), and MXNet's bucketing LSTM language model
+     (example/rnn/bucketing at its widths) through ``BucketingModule.fit``
+     with Adam (a falling perplexity, one Adam launch an update, ms a batch
+     by bucket, the idle share of a bucket-60 batch, ``Module.load`` bit
+     for bit; ``[module]``);
   8. time each kernel, its plain version and a PyTorch library yardstick
      with CUDA events, on the device (CUDA graph replay) and per eager
      call, at the shapes the paths give them (the paged read also at the
@@ -175,7 +186,9 @@ prints its last line):
      10 tensors; BatchNorm's composition beside ``F.batch_norm`` at
      (B, 64, 112, 112); the Transformer's flash, LayerNorm, Adam and
      decode-read shapes; the xent pair at the word LM's (700, 10000) f32
-     and Adam over its 3 tensors), and the launch floor
+     and Adam over its 3 tensors; LayerNorm at the imported
+     transformer_base's (2048, 512) f32 and Adam over the bucketing LM's 11
+     tensors), and the launch floor
      (``EMPTY_CU``, a kernel that does nothing on the grid and block of
      the route LayerNorm's forward takes, built here);
   9. print the kernel table as one JSON line, then the result line.
@@ -1903,7 +1916,7 @@ def phase_gluon_parity():
     loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
     im_losses = [float(_gluon_step(mx, inet, trainer, loss_fn, x, y))
                  for _ in range(TRAIN_STEPS)]
-    by_var = {id(p.var()): st for p, st in zip(trainer._params,
+    by_var = {id(p.tensor()): st for p, st in zip(trainer._params,
                                                 trainer._states)}
     diff = []
     for (name, a), (_, b) in zip(sorted(inet.named_parameters()),
@@ -1948,7 +1961,7 @@ def phase_gluon_parity():
                 raise AssertionError("gluon bf16: weights left bf16 or "
                                      "masters left f32")
             for p, st in zip(trainer._params, trainer._states):
-                if not torch.equal(p.var().detach(), st["master"].bfloat16()):
+                if not torch.equal(p.tensor().detach(), st["master"].bfloat16()):
                     raise AssertionError(f"gluon bf16: {p.name} is not its "
                                          f"master rounded")
         runs.append((losses, masters))
@@ -2537,7 +2550,7 @@ def phase_loop_trainer():
     # one imperative step after the run: it takes the states run left
     by_var = {id(p): name for _, name, p in ts._train}
     for p, st in zip(trainer._params, trainer._states):
-        name = by_var[id(p.var())]
+        name = by_var[id(p.tensor())]
         if st["master"] is not ts._master[name] or \
                 st["base"] is not ts.opt_state[name]:
             raise AssertionError(f"Trainer.run: {p.name}'s state is not the "
@@ -2806,8 +2819,8 @@ def _resnet_net(dtype, batch):
         x = x.to(torch.bfloat16)
         for k, p in net.collect_params().items():
             want = torch.float32 if "batchnorm" in k else torch.bfloat16
-            if p.var().dtype != want:
-                raise AssertionError(f"resnet cast: {k} is {p.var().dtype}")
+            if p.tensor().dtype != want:
+                raise AssertionError(f"resnet cast: {k} is {p.tensor().dtype}")
     init = [p.detach().clone() for _, p in sorted(net.named_parameters())]
     flops = 2 * (3 * macs - macs0) * batch
     log(f"[resnet] resnet50_v1 {dtype} B={batch}: {len(init)} parameters "
@@ -2902,7 +2915,7 @@ def _check_eval_reads_statistics(net, x, what):
     initial values, and it leaves them as they were."""
     import mxnet_tpu_torch as mx
 
-    stats = {k: p.var() for k, p in net.collect_params().items()
+    stats = {k: p.tensor() for k, p in net.collect_params().items()
              if p.is_state}
     held = {k: v.clone() for k, v in stats.items()}
     with torch.no_grad():
@@ -3017,7 +3030,7 @@ def phase_lenet():
     nd = [(mx.nd.array(x), mx.nd.array(y)) for x, y in data]
     im_losses = [float(_gluon_step(mx, inet, trainer, loss_fn,
                                    *nd[i % len(nd)])) for i in range(3)]
-    by_var = {id(p.var()): st for p, st in zip(trainer._params,
+    by_var = {id(p.tensor()): st for p, st in zip(trainer._params,
                                                 trainer._states)}
     diff = [name for (name, a), (_, b) in zip(sorted(inet.named_parameters()),
                                               sorted(tnet.named_parameters()))
@@ -4393,6 +4406,7 @@ def _device_groups(fn, n, what, step_ms):
             fn()
         torch.cuda.synchronize()
     groups, kernels = collections.Counter(), collections.Counter()
+    ops = 0
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -4400,15 +4414,16 @@ def _device_groups(fn, n, what, step_ms):
                            getattr(evt, "self_cuda_time_total", 0.0)))
         groups[group_of(evt.key)] += us / n / 1e3
         kernels[evt.key[:90]] += us / n / 1e3
+        ops += evt.count
     device = sum(groups.values())
     res = {"device_ms": device, "step_ms": step_ms,
            "idle_share": 1 - device / step_ms if device else None,
-           "by_group_ms": dict(groups.most_common()),
+           "device_ops": ops / n, "by_group_ms": dict(groups.most_common()),
            "top_kernels_ms": {k: round(v, 4)
                               for k, v in kernels.most_common(8)}}
     log(f"[{what}] {n} calls under the profiler: device "
         f"{device:.3f} ms of a {step_ms:.3f} ms call (idle share "
-        f"{res['idle_share']}); by group "
+        f"{res['idle_share']}), {ops / n:.0f} device operations; by group "
         f"{ {g: round(v, 3) for g, v in groups.most_common()} }"
         if device else f"[{what}] the profiler recorded no device time: "
         f"not measured")
@@ -7821,6 +7836,521 @@ def phase_estimator(card):
     return launches, res
 
 
+# ---------------------------------------------------------------------------
+# the symbolic API: mx.sym, HybridBlock.export and
+# SymbolBlock, mx.operator, Module / BucketingModule and mx.rnn
+# ---------------------------------------------------------------------------
+SYM_NAMES = ("src_ids", "tgt_ids", "src_valid")
+# the imported transformer_base's forward launches what the Gluon net's
+# does: the decoder's 6 causal self-attentions on the flash forward and 30
+# LayerNorms (2 an encoder layer, 3 a decoder layer); a fine-tune step
+# launches a TrainStep step's kernels (TF_WANT)
+SYM_FWD_WANT = dict(dict.fromkeys(TF_WANT, 0), flash_fwd=TF_LAYERS,
+                    layernorm=5 * TF_LAYERS)
+SYM_STEPS, SYM_LR = 3, 1e-4
+# the CPU tests' f32 limits (tests/test_torch_transformer.py): logits and
+# losses rtol = atol = 1e-4; after three Adam steps no weight beyond the
+# sign-flip bound 2.01 * lr * steps and 99.9% of them within 1e-2 * lr
+SYM_TOL, SYM_FAR = 1e-4, 1e-3
+RESNET_SYM_B = 32
+# MXNet's example/rnn/bucketing/lstm_bucketing.py: 2 layers of
+# LSTMCell(200), Embedding 200, batch 32, buckets 10..60, invalid label 0,
+# Xavier(factor_type="in", magnitude=2.34); PTB's vocabulary size
+LM_VOCAB, LM_EMBED, LM_HIDDEN, LM_LAYERS, LM_B = 10000, 200, 200, 2, 32
+LM_BUCKETS = (10, 20, 30, 40, 50, 60)
+LM_SENTENCES, LM_EPOCHS, LM_LR = 1152, 2, 1e-2
+# a bucketing LM update: one multi-tensor Adam over its 11 tensors, no
+# other kernel of the port (the LSTM cells are registry compositions)
+LM_WANT = dict(dict.fromkeys(TF_WANT, 0), adam=1)
+
+
+def _sync_ms(fn, n=5):
+    """Mean host time of ``n`` calls of ``fn``, each ended by a sync (after
+    one untimed call)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3 / n
+
+
+def _weights_close(what, got, want, lr, steps, far_limit):
+    """Adam's sign-flip bound over parameters paired by name."""
+    err = torch.cat([(got[k] - want[k]).abs().flatten() for k in want])
+    worst = err.max().item()
+    far = (err > 1e-2 * lr).float().mean().item()
+    bound = 2.01 * lr * steps
+    log(f"[{what}] max |weight diff| {worst:.3e} (bound {bound:.3e}), share "
+        f"beyond 1e-2*lr {far:.2e} (limit {far_limit})")
+    if worst > bound or far > far_limit:
+        raise AssertionError(f"{what}: weights differ beyond the Adam "
+                             f"sign-flip bound, or too many beyond 1e-2*lr")
+    return {"max_weight_diff": worst, "weight_bound": bound,
+            "share_beyond_1e-2_lr": far}
+
+
+def _sym_transformer(mx, d):
+    """transformer_base (f32, dropout 0, seed TF_SEED) exported into ``d``
+    and imported back on the card; the Gluon net, the SymbolBlock and the
+    export's op counts."""
+    net = _tf_net("transformer_base")
+    t = time.perf_counter()
+    sym_file, params = net.export(os.path.join(d, "transformer_base"),
+                                  input_names=SYM_NAMES)
+    export_s = time.perf_counter() - t
+    t = time.perf_counter()
+    sb = mx.gluon.SymbolBlock.imports(sym_file, list(SYM_NAMES), params)
+    import_s = time.perf_counter() - t
+    nodes = json.load(open(sym_file))["nodes"]
+    ops = collections.Counter(n["op"] for n in nodes)
+    args = mx.sym.load(sym_file).list_arguments()
+    log(f"[symbol] transformer_base exported in {export_s:.2f} s: "
+        f"{len(nodes)} nodes, {len(args)} arguments, "
+        f"{os.path.getsize(sym_file)} bytes of symbol.json, "
+        f"{os.path.getsize(params)} of params; LayerNorm "
+        f"{ops['LayerNorm']}, multi_head_attention "
+        f"{ops['multi_head_attention']}; imported in {import_s:.2f} s")
+    if ops["LayerNorm"] != 5 * TF_LAYERS or \
+            ops["multi_head_attention"] != 3 * TF_LAYERS:
+        raise AssertionError(f"symbol: transformer_base export ops {ops}")
+    return net, sb, {"nodes": len(nodes), "arguments": len(args),
+                     "export_s": export_s, "import_s": import_s}
+
+
+def _sym_forward(mx, block, batch):
+    """One imperative forward of ``block`` on the NDArrays of ``batch``,
+    with its launches."""
+    torch.cuda.synchronize()
+    _reset_launch_counts()
+    out = block(*[mx.nd.array(a) for a in batch[:3]])
+    torch.cuda.synchronize()
+    return out, _launch_counts()
+
+
+def _sym_finetune(mx, block, batches):
+    """SYM_STEPS Gluon ``Trainer("adam")`` steps of ``block`` on the
+    label-smoothed loss: the losses, the launches of each step and the
+    parameters by name after."""
+    from mxnet_tpu_torch.models.transformer import label_smoothing_loss
+
+    tr = mx.gluon.Trainer(block.collect_params(), "adam",
+                          {"learning_rate": SYM_LR})
+    losses, launches = [], []
+    for batch in batches:
+        src, tgt, valid, labels = [mx.nd.array(a) for a in batch]
+        torch.cuda.synchronize()
+        _reset_launch_counts()
+        with mx.autograd.record():
+            loss = label_smoothing_loss(block(src, tgt, valid), labels,
+                                        epsilon=0.1, ignore_index=0)
+        loss.backward()
+        tr.step(1)
+        torch.cuda.synchronize()
+        launches.append(_launch_counts())
+        losses.append(float(loss.asnumpy()))
+    return losses, launches, {p.name: p.tensor().detach().clone()
+                              for p in block.collect_params().values()}
+
+
+def phase_symbol(card):
+    """``[symbol]``: the deploy path of the symbolic API on the card.
+
+    (a) transformer_base (6 + 6 layers, 512 units, 8 heads, FFN 2048, f32,
+        dropout 0) through ``net.export`` and ``SymbolBlock.imports`` on
+        the card; the imported block's forward on the first bucket-32
+        batch (B=64, ragged src_valid) against the Gluon net's at SYM_TOL,
+        launching what the Gluon forward launches (SYM_FWD_WANT); ms a
+        forward of each; then SYM_STEPS Gluon ``Trainer("adam")`` steps of
+        each from the same weights: losses at SYM_TOL, every step
+        launching TF_WANT (the flash backward pair, the LayerNorm
+        backward, one Adam), the weights within the sign-flip bound;
+    (b) resnet50_v1 (224x224, B=32) exported and imported: its forward
+        against the Gluon net's at the CPU tests' 1e-3 / 1e-4;
+    (c) the JAX test's CustomOp ``Sigmoid`` (nd ops only) as the step of a
+        captured ``StepGraph``, replayed, against the CPU; its gradient
+        through ``nd.Custom`` under ``record`` on the card against the
+        CPU;
+    (d) an ``Executor`` (FullyConnected, tanh, sum; ``grad_req`` write and
+        add) bound on the card against one bound on the CPU.
+
+    Returns the launches of the imported forward, those of its fine-tune
+    (summed) and the results."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops.cuda_graph import StepGraph, capture_stream
+
+    t0 = time.perf_counter()
+    res = {"card": card}
+    batches = _tf_batches()[32]
+    first = batches[0][0]
+    with tempfile.TemporaryDirectory() as d:
+        net, sb, res["export"] = _sym_transformer(mx, d)
+        g_out, g_launch = _sym_forward(mx, net, first)
+        s_out, s_launch = _sym_forward(mx, sb, first)
+        diff = (s_out._data - g_out._data).abs().max().item()
+        scale = g_out._data.abs().max().item()
+        log(f"[symbol] imported transformer_base forward B={TF_B}, T=32: "
+            f"max |diff| {diff:.3e} against the Gluon net's (max |logit| "
+            f"{scale:.3f}); launches {s_launch}, the Gluon forward's "
+            f"{g_launch}")
+        ok = torch.allclose(s_out._data, g_out._data, rtol=SYM_TOL,
+                            atol=SYM_TOL)
+        if not ok or s_launch != g_launch or s_launch != SYM_FWD_WANT:
+            raise AssertionError("symbol: the imported transformer_base "
+                                 "differs from the Gluon net, or launched "
+                                 "other kernels")
+        src = [mx.nd.array(a) for a in first[:3]]
+        ms = {"gluon": _sync_ms(lambda: net(*src)),
+              "symbolblock": _sync_ms(lambda: sb(*src))}
+        log(f"[symbol] ms a forward (host clock, synced): SymbolBlock "
+            f"{ms['symbolblock']:.3f}, Gluon net {ms['gluon']:.3f}")
+        res["forward"] = {"max_abs_diff": diff, "max_abs_logit": scale,
+                          "launches": s_launch, "ms": ms}
+        steps = [b for b, _ in batches[1:1 + SYM_STEPS]]
+        g_losses, g_steps, g_w = _sym_finetune(mx, net, steps)
+        s_losses, s_steps, s_w = _sym_finetune(mx, sb, steps)
+        log(f"[symbol] {SYM_STEPS} Trainer('adam') steps at lr {SYM_LR}: "
+            f"losses {s_losses}, the Gluon net's {g_losses}; launches a "
+            f"step {s_steps[0]}")
+        for a, b in zip(s_losses, g_losses):
+            if not abs(a - b) <= SYM_TOL + SYM_TOL * abs(b):
+                raise AssertionError("symbol: fine-tune losses differ")
+        if any(s != TF_WANT for s in s_steps + g_steps):
+            raise AssertionError(f"symbol: fine-tune steps launched "
+                                 f"{s_steps}, expected {TF_WANT}")
+        if sorted(s_w) != sorted(g_w):
+            raise AssertionError("symbol: parameter names differ")
+        res["finetune"] = dict(_weights_close(
+            "symbol", s_w, g_w, SYM_LR, SYM_STEPS, SYM_FAR),
+            losses=s_losses, gluon_losses=g_losses)
+        finetune = {k: sum(s[k] for s in s_steps) for k in TF_WANT}
+        del net, sb, g_out, s_out, g_w, s_w
+        _release()
+        # (b) resnet50_v1 and back
+        mx.random.seed(0)
+        rnet = mx.gluon.model_zoo.vision.get_model("resnet50_v1",
+                                                   classes=1000)
+        rnet.initialize(mx.init.MSRAPrelu())
+        x = mx.nd.array(np.random.RandomState(0).rand(
+            RESNET_SYM_B, 3, 224, 224).astype(np.float32))
+        want = rnet(x)
+        t = time.perf_counter()
+        rfile, rparams = rnet.export(os.path.join(d, "resnet50_v1"))
+        rsb = mx.gluon.SymbolBlock.imports(rfile, ["data"], rparams)
+        got = rsb(x)
+        torch.cuda.synchronize()
+        rdiff = (got._data - want._data).abs().max().item()
+        nodes = len(json.load(open(rfile))["nodes"])
+        log(f"[symbol] resnet50_v1 B={RESNET_SYM_B} export, import and "
+            f"forward {time.perf_counter() - t:.2f} s ({nodes} nodes, "
+            f"{len(rsb.collect_params())} parameters): max |diff| "
+            f"{rdiff:.3e} against the Gluon forward")
+        if not torch.allclose(got._data, want._data, rtol=1e-3, atol=1e-4):
+            raise AssertionError("symbol: resnet50_v1 round trip differs")
+        res["resnet50_v1"] = {"max_abs_diff": rdiff, "nodes": nodes}
+        del rnet, rsb, x, want, got
+        _release()
+
+    # (c) CustomOp: JAX's test Sigmoid, nd ops only
+    class Sigmoid(mx.operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            self.assign(out_data[0], req[0],
+                        1.0 / (1.0 + mx.nd.exp(-in_data[0])))
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            y = out_data[0]
+            self.assign(in_grad[0], req[0], out_grad[0] * y * (1.0 - y))
+
+    @mx.operator.register("chip_smoke_sigmoid")
+    class SigmoidProp(mx.operator.CustomOpProp):
+        def create_operator(self, ctx, shapes, dtypes):
+            return Sigmoid()
+
+    dev = torch.device("cuda")
+    xs = torch.from_numpy(np.random.RandomState(1).uniform(
+        -4, 4, (TF_B * 32, 512)).astype(np.float32))
+    fn, _ = mx.operator.make_custom_fn("chip_smoke_sigmoid", {})
+    x_dev = xs.to(dev)
+
+    class Owner:  # the capture stream's owner (held by a weak reference)
+        pass
+
+    owner = Owner()
+    graph = StepGraph(lambda: (fn(x_dev),), ("custom",), dev,
+                      stream=capture_stream(owner, dev))
+    for _ in range(3):  # warm-up, capture and replay, replay
+        (out,) = graph()
+    torch.cuda.synchronize()
+    cerr = (out.cpu() - fn(xs)).abs().max().item()
+
+    def custom_grad(ctx):
+        a = mx.nd.array(xs.numpy(), ctx=ctx)
+        a.attach_grad()
+        with mx.autograd.record():
+            y = mx.nd.Custom(a, op_type="chip_smoke_sigmoid")
+        y.backward()
+        return a.grad.asnumpy()
+    gerr = float(np.abs(custom_grad(mx.gpu()) - custom_grad(mx.cpu())).max())
+    log(f"[symbol] CustomOp Sigmoid at ({TF_B * 32}, 512): captured "
+        f"{graph.graph is not None}, replayed {graph.calls - 1} times, max "
+        f"|diff| against the CPU {cerr:.3e}; gradient through nd.Custom "
+        f"{gerr:.3e}")
+    if graph.graph is None or cerr > 1e-6 or gerr > 1e-6:
+        raise AssertionError("symbol: the CustomOp differs from the CPU or "
+                             "was not captured")
+    res["custom_op"] = {"captured": True, "max_abs_diff": cerr,
+                        "grad_max_abs_diff": gerr}
+    del graph, owner
+
+    # (d) an Executor on the card against one on the CPU
+    def executor(ctx, req):
+        sym = mx.sym
+        y = sym.sum(sym.tanh(sym.FullyConnected(
+            sym.var("x"), num_hidden=256, name="fc")) ** 2)
+        rs = np.random.RandomState(2)
+        ex = y.simple_bind(ctx=ctx, grad_req=req, x=(64, 512))
+        for k in ("x", "fc_weight", "fc_bias"):
+            ex.arg_dict[k][:] = rs.normal(0, 0.1, ex.arg_dict[k].shape)
+        outs = []
+        for _ in range(2):
+            outs.append(ex.forward(is_train=True)[0].asnumpy())
+            ex.backward()
+        return outs + [ex.grad_dict[k].asnumpy() for k in sorted(ex.grad_dict)]
+    eerr = 0.0
+    for req in ("write", "add"):
+        for a, b in zip(executor(mx.gpu(), req), executor(mx.cpu(), req)):
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+            eerr = max(eerr, float(np.abs(a - b).max()))
+    log(f"[symbol] Executor forward/backward (grad_req write and add) on "
+        f"the card against the CPU: max |diff| {eerr:.3e}")
+    res["executor"] = {"max_abs_diff": eerr}
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[symbol] phase {res['seconds']:.1f} s")
+    _release()
+    return s_launch, finetune, res
+
+
+def _lm_elements():
+    """The LM's parameter count: embedding, each LSTM layer's i2h and h2h
+    weights and biases, the output layer (4,653,200 at the example's
+    widths)."""
+    lstm = sum(4 * LM_HIDDEN * (LM_EMBED if i == 0 else LM_HIDDEN) +
+               4 * LM_HIDDEN * LM_HIDDEN + 8 * LM_HIDDEN
+               for i in range(LM_LAYERS))
+    return LM_VOCAB * LM_EMBED + lstm + LM_VOCAB * LM_HIDDEN + LM_VOCAB
+
+
+def _lm_sentences(seed=0):
+    """LM_SENTENCES synthetic sentences over LM_VOCAB ids (0 is padding),
+    lengths spread over 2..60 so that every bucket gets batches; ids drawn
+    by rank with probability 1/rank (Zipf's law, as words are), and half
+    the time the successor that a fixed permutation gives the previous id
+    (structure to learn)."""
+    rs = np.random.RandomState(seed)
+    nxt = rs.permutation(LM_VOCAB - 1) + 1
+    p = 1.0 / np.arange(1, LM_VOCAB)
+    lens = rs.randint(2, LM_BUCKETS[-1] + 1, LM_SENTENCES)
+    draws = rs.choice(LM_VOCAB - 1, size=int(lens.sum()), p=p / p.sum()) + 1
+    follow = rs.rand(int(lens.sum())) < 0.5
+    out, k = [], 0
+    for n in lens:
+        s = [int(draws[k])]
+        for j in range(1, n):
+            s.append(int(nxt[s[-1] - 1]) if follow[k + j] else
+                     int(draws[k + j]))
+        out.append(s)
+        k += n
+    return out
+
+
+def _lm_sym_gen(mx):
+    """MXNet's lstm_bucketing.py symbol: Embedding, the unrolled stack of
+    LSTMCells, FullyConnected over the vocabulary, SoftmaxOutput."""
+    stack = mx.rnn.SequentialRNNCell()
+    for i in range(LM_LAYERS):
+        stack.add(mx.rnn.LSTMCell(num_hidden=LM_HIDDEN, prefix=f"lstm_l{i}_"))
+
+    def sym_gen(seq_len):
+        data = mx.sym.var("data")
+        label = mx.sym.var("softmax_label")
+        embed = mx.sym.Embedding(data, input_dim=LM_VOCAB,
+                                 output_dim=LM_EMBED, name="embed")
+        outputs, _ = stack.unroll(seq_len, embed, merge_outputs=True)
+        pred = mx.sym.reshape(outputs, shape=(-1, LM_HIDDEN))
+        pred = mx.sym.FullyConnected(pred, num_hidden=LM_VOCAB, name="pred")
+        label = mx.sym.reshape(label, shape=(-1,))
+        pred = mx.sym.SoftmaxOutput(pred, label, name="softmax")
+        return pred, ("data",), ("softmax_label",)
+    return sym_gen
+
+
+class _Recorded:
+    """A data iterator that records each batch it gives (its bucket and
+    its tokens that are not padding)."""
+
+    def __init__(self, it):
+        self.it, self.seen = it, []
+        self.provide_data, self.provide_label = it.provide_data, \
+            it.provide_label
+
+    def reset(self):
+        self.it.reset()
+
+    def __iter__(self):
+        for b in self.it:
+            self.seen.append((b.bucket_key, int((b.label[0]._data != 0)
+                                                .sum())))
+            yield b
+
+
+def phase_module(card):
+    """``[module]``: the bucketing LSTM language model of MXNet's
+    example/rnn/bucketing/lstm_bucketing.py at its widths (2 x
+    LSTMCell(200), Embedding 200, vocabulary 10,000, B=32, buckets 10..60,
+    invalid label 0, Xavier(in, 2.34)) trained through
+    ``BucketingModule.fit`` with ``optimizer="adam"``, ``Perplexity(0)``
+    and ``Speedometer`` on LM_SENTENCES synthetic sentences (``_lm_sentences``)
+    for LM_EPOCHS epochs: the perplexity over the data before and after
+    (it must fall), one Adam launch an update and nothing else of the
+    port's kernels, per-bucket ms a batch and tokens/s (host clock, each
+    batch synced); the
+    device time, idle share, device operations and top kernels of one
+    bucket-60 batch (forward, backward, update) under the profiler
+    (``_device_groups``); then
+    ``save_checkpoint(save_optimizer_states=True)`` and ``Module.load``:
+    the parameters and a bucket-60 forward bit for bit. Returns the fit's
+    launches and the results."""
+    import mxnet_tpu_torch as mx
+
+    t0 = time.perf_counter()
+    res = {"card": card}
+    mx.random.seed(0)
+    it = mx.rnn.BucketSentenceIter(_lm_sentences(), batch_size=LM_B,
+                                   buckets=list(LM_BUCKETS), invalid_label=0,
+                                   shuffle_seed=0)
+    counts = collections.Counter(b.bucket_key for b in it)
+    it.reset()
+    mod = mx.mod.BucketingModule(_lm_sym_gen(mx),
+                                 default_bucket_key=LM_BUCKETS[-1],
+                                 context=mx.gpu())
+    mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+    mod.init_params(initializer=mx.init.Xavier(factor_type="in",
+                                               magnitude=2.34))
+    mod.init_optimizer(optimizer="adam",
+                       optimizer_params={"learning_rate": LM_LR})
+    arg, _ = mod.get_params()
+    n_el = sum(v.size for v in arg.values())
+    log(f"[module] bucketing LM: {len(arg)} tensors, {n_el} elements; "
+        f"batches a bucket {dict(sorted(counts.items()))}")
+    if (len(arg), n_el) != (3 + 4 * LM_LAYERS, _lm_elements()):
+        raise AssertionError(f"module: {len(arg)} tensors of {n_el}")
+    before = mod.score(it, mx.metric.Perplexity(0))[0][1]
+    rec = _Recorded(it)
+    stamps = []
+
+    def timer(param):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    lines = _LogLines()
+    logging.getLogger().addHandler(lines)
+    logging.getLogger().setLevel(logging.INFO)
+    try:
+        torch.cuda.synchronize()
+        _reset_launch_counts()
+        t = time.perf_counter()
+        stamps.append(t)
+        mod.fit(rec, eval_metric=mx.metric.Perplexity(0),
+                batch_end_callback=[mx.callback.Speedometer(LM_B, 10),
+                                    timer],
+                optimizer="adam", num_epoch=LM_EPOCHS)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t
+        launches = _launch_counts()
+    finally:
+        logging.getLogger().removeHandler(lines)
+    updates = len(rec.seen)
+    after = mod.score(it, mx.metric.Perplexity(0))[0][1]
+    speed = [s for s in lines.lines if "Speed:" in s]
+    want = {k: v * updates for k, v in LM_WANT.items()}
+    log(f"[module] BucketingModule.fit, {LM_EPOCHS} epochs, {updates} "
+        f"updates in {fit_s:.2f} s: perplexity {before:.2f} before, "
+        f"{after:.2f} after; launches {launches}; Speedometer "
+        f"{speed[0] if speed else None} ... {speed[-1] if speed else None}")
+    if not after < before or launches != want or not speed:
+        raise AssertionError("module: the perplexity did not fall, or the "
+                             "updates launched other than one Adam each")
+    # per-bucket ms a batch (every bucket was bound by the score before)
+    by_bucket = collections.defaultdict(list)
+    for (key, tokens), dt in zip(rec.seen, np.diff(stamps)):
+        by_bucket[key].append((dt * 1e3, tokens))
+    per_bucket = {k: {"ms_batch": statistics.median(d for d, _ in v),
+                      "tokens_s": sum(n for _, n in v) /
+                      (sum(d for d, _ in v) / 1e3), "batches": len(v)}
+                  for k, v in sorted(by_bucket.items())}
+    log("[module] per bucket (median ms a batch, tokens/s not counting "
+        "padding): " + "; ".join(
+            f"{k}: {v['ms_batch']:.1f} ms, {v['tokens_s']:.0f} tok/s"
+            for k, v in per_bucket.items()))
+    res.update(perplexity_before=before, perplexity_after=after,
+               updates=updates, fit_s=fit_s, per_bucket=per_bucket,
+               adam_launches_per_update=launches["adam"] / updates,
+               speedometer=speed[-1])
+    # one bucket-60 batch under the profiler
+    it.reset()
+    b60 = next(b for b in it if b.bucket_key == LM_BUCKETS[-1])
+
+    def step():
+        mod.forward_backward(b60)
+        mod.update()
+    res["profile_bucket_60"] = _device_groups(
+        step, 1, "module bucket 60 (forward, backward, update)",
+        _sync_ms(step, n=3))
+    # the checkpoint and Module.load
+    with tempfile.TemporaryDirectory() as d:
+        prefix = os.path.join(d, "lm")
+        mod.save_checkpoint(prefix, LM_EPOCHS, save_optimizer_states=True)
+        mod.forward(b60, is_train=False)
+        want_out = mod.get_outputs()[0]._data.clone()
+        mod2 = mx.mod.Module.load(prefix, LM_EPOCHS, data_names=("data",),
+                                  label_names=("softmax_label",),
+                                  context=mx.gpu())
+        mod2.bind(data_shapes=b60.provide_data,
+                  label_shapes=b60.provide_label, for_training=False)
+        mod2.init_params_from_pending()
+        mod2.forward(b60, is_train=False)
+        got = mod2.get_outputs()[0]._data
+        p1, p2 = mod.get_params()[0], mod2.get_params()[0]
+        same = sorted(p1) == sorted(p2) and all(
+            torch.equal(p1[k]._data, p2[k]._data) for k in p1)
+        files = sorted(os.listdir(d))
+    log(f"[module] save_checkpoint(save_optimizer_states=True) wrote "
+        f"{files}; Module.load: parameters equal {same}, bucket-60 "
+        f"outputs equal {torch.equal(got, want_out)}")
+    if not same or not torch.equal(got, want_out):
+        raise AssertionError("module: Module.load differs from the saved "
+                             "module")
+    res["checkpoint"] = {"files": files, "bit_identical": True}
+    res["timing_params"] = [v._data for v in p1.values()]
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[module] phase {res['seconds']:.1f} s")
+    return launches, res
+
+
+def phase_symbol_timing(lm_params):
+    """The kernels at the symbolic paths' shapes: LayerNorm forward and
+    backward in f32 at (2048, 512) (the imported transformer_base, B=64 x
+    T=32 rows) and Adam over the bucketing LM's 11 tensors (4,653,200
+    elements). The imported block's flash launches run at the f32 rows
+    phase_transformer_timing measures (64, 8, 32, 32, D 64)."""
+    gen = torch.Generator().manual_seed(20)
+    fwd, bwd, _ = _ln_rows(gen, TF_B * 32, torch.float32, d=512)
+    lm = SimpleNamespace(parameters=lambda: lm_params)
+    return {"layernorm_symbol": fwd, "layernorm_bwd_symbol": bwd,
+            "adam_bucketing_lm": _adam_row(lm, gen)}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this script needs one "
@@ -7928,6 +8458,11 @@ def main():
     log("[ssd] " + json.dumps(ssd, default=str))
     est_launches, estimator = phase_estimator(card)
     log("[estimator] " + json.dumps(estimator))
+    sym_launches, sym_ft_launches, symbol = phase_symbol(card)
+    log("[symbol] " + json.dumps(symbol))
+    lm_launches, module = phase_module(card)
+    lm_params = module.pop("timing_params")
+    log("[module] " + json.dumps(module))
     log("[engine types] " + json.dumps(
         {"turns": MODE_TURNS, "serve": serve, "train": train,
          "train_amp": train_amp, "bert_amp": bert_amp,
@@ -7939,7 +8474,13 @@ def main():
     timing.update(phase_word_lm_timing(wlm_net))
     timing.update(phase_ssd_timing(ssd_net))
     timing["adam_ssd300"] = timing["adam_ssd"]
-    del wlm_net, ssd_net
+    timing.update(phase_symbol_timing(lm_params))
+    # the imported transformer_base runs the Transformer's f32 flash shapes
+    # and its fine-tune updates transformer_base's tensors
+    for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+        timing[f"{k}_symbol"] = timing[f"{k}_transformer"]
+    timing["adam_symbol"] = timing["adam_transformer"]
+    del wlm_net, ssd_net, lm_params
     _release()
     log("[batch_norm] " + json.dumps(timing["batch_norm"]))
     # (source, replaced TPU kernel, the path whose run gives `launches`[,
@@ -8124,6 +8665,35 @@ def main():
         "adam_ssd300": ("mxnet_tpu_torch/csrc/adam.cu",
                         "mxnet_tpu/ops/pallas_optimizer.py:63", "ssd300",
                         "adam", None),
+        # the symbolic paths: transformer_base imported from its
+        # symbol.json (f32, B=64, bucket 32; its forward's LayerNorm and
+        # flash forward, its Trainer("adam") fine-tune's backward kernels
+        # and Adam over its tensors), and the bucketing LSTM LM's Adam over
+        # its 11 tensors (their max_abs_err: the checks at their shapes)
+        "layernorm_symbol": ("mxnet_tpu_torch/csrc/layernorm.cu",
+                             "mxnet_tpu/ops/pallas_layernorm.py:53",
+                             "symbol", "layernorm", "layernorm_2048x512"),
+        "layernorm_bwd_symbol": ("mxnet_tpu_torch/csrc/layernorm.cu",
+                                 "mxnet_tpu/ops/pallas_layernorm.py:97",
+                                 "symbol_finetune", "layernorm_bwd",
+                                 "layernorm_bwd_2048x512"),
+        "flash_fwd_symbol": ("mxnet_tpu_torch/csrc/flash_attention.cu",
+                             "mxnet_tpu/ops/flash_attention.py:100",
+                             "symbol", "flash_fwd", "flash_fwd@64,8,32,32,1"),
+        "flash_bwd_dkv_symbol": ("mxnet_tpu_torch/csrc/flash_attention.cu",
+                                 "mxnet_tpu/ops/flash_attention.py:256",
+                                 "symbol_finetune", "flash_bwd_dkv",
+                                 "flash_bwd_dkv@64,8,32,32,1"),
+        "flash_bwd_dq_symbol": ("mxnet_tpu_torch/csrc/flash_attention.cu",
+                                "mxnet_tpu/ops/flash_attention.py:285",
+                                "symbol_finetune", "flash_bwd_dq",
+                                "flash_bwd_dq@64,8,32,32,1"),
+        "adam_symbol": ("mxnet_tpu_torch/csrc/adam.cu",
+                        "mxnet_tpu/ops/pallas_optimizer.py:63",
+                        "symbol_finetune", "adam", "adam_transformer"),
+        "adam_bucketing_lm": ("mxnet_tpu_torch/csrc/adam.cu",
+                              "mxnet_tpu/ops/pallas_optimizer.py:63",
+                              "module", "adam", None),
     }
     errs["adam_bert"] = timing["adam_bert"]["max_abs_err_at_shape"]
     errs["adam_lenet"] = timing["adam_lenet"]["max_abs_err_at_shape"]
@@ -8132,6 +8702,8 @@ def main():
     errs["adam_word_lm"] = timing["adam_word_lm"]["max_abs_err_at_shape"]
     errs["adam_ssd"] = errs["adam_ssd300"] = \
         timing["adam_ssd"]["max_abs_err_at_shape"]
+    errs["adam_bucketing_lm"] = \
+        timing["adam_bucketing_lm"]["max_abs_err_at_shape"]
     by_path = {"serve": serve_launches, "spec": spec_launches,
                "prefix": prefix_launches, "fork": fork_launches,
                "governed": governed_launches, "drill": drill_launches,
@@ -8149,7 +8721,8 @@ def main():
                "extra_ops": extra_launches, "word_lm": wlm_launches,
                "word_lm_loop": wlm_loop_launches,
                "ssd_example": ssd_launches, "ssd300": ssd300_launches,
-               "estimator": est_launches}
+               "estimator": est_launches, "symbol": sym_launches,
+               "symbol_finetune": sym_ft_launches, "module": lm_launches}
     kernels = []
     for name, (src, rep, path, *extra) in meta.items():
         t = timing[name]

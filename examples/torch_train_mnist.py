@@ -28,7 +28,8 @@ def build_parser():
     ap.add_argument("--device", default="gpu", choices=("gpu", "cpu"))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--export", default="",
-                    help="write the trained weights to <export>.params")
+                    help="export the trained net to <export>-symbol.json "
+                         "and <export>-0000.params")
     return ap
 
 
@@ -105,9 +106,7 @@ def train(args, on_step=None):
             print(f"epoch {epoch}: train {name}={acc:.4f} "
                   f"val={val.get()[1]:.4f} loss={last:.4f}", flush=True)
     if args.export:
-        # the symbolic export waits for the symbol API; the weights go to
-        # a .params file that either package loads
-        net.save_parameters(args.export + ".params")
+        net.export(args.export)
     return history
 
 

@@ -172,9 +172,8 @@ def train(args, net=None, on_step=None):
               f"{token_accuracy(net, src, tgt, buckets, args, ctx):.4f}",
               flush=True)
     if args.export:
-        # the symbolic export waits for the symbol API; the weights go to
-        # a .params file that either package loads
-        net.save_parameters(args.export + ".params")
+        net.export(args.export,
+                   input_names=("src_ids", "tgt_ids", "src_valid"))
     return history
 
 
@@ -214,7 +213,8 @@ def build_parser():
     ap.add_argument("--log-interval", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--export", default="",
-                    help="write the trained weights to <export>.params")
+                    help="export the trained net to <export>-symbol.json "
+                         "and <export>-0000.params")
     # small-model overrides (smoke runs)
     ap.add_argument("--num-layers", type=int, default=0)
     ap.add_argument("--units", type=int, default=512)

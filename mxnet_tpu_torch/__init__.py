@@ -17,7 +17,12 @@ with crash-safe ``checkpoint``s, preemption (``resilience``) and
 decoder (``native``). Detection: the contrib ops (``ops.contrib_vision``)
 and the SSD (``models.ssd``). The training utilities: ``callback``, the
 Gluon ``Estimator`` (``gluon.contrib.estimator``), ``test_utils``,
-``runtime.Features`` and ``AttrScope``. Imports torch, numpy and the standard
+``runtime.Features`` and ``AttrScope``. The symbolic API: ``sym``
+(``symbol``: the Symbol graph, its JSON and ``Executor``),
+``HybridBlock.export`` and ``gluon.SymbolBlock``, ``mod`` (``module``:
+``Module``, ``BucketingModule``), ``model``, ``rnn`` (the symbolic cells,
+``BucketSentenceIter``), ``viz`` and ``operator`` (CustomOp, ``nd.Custom``,
+``sym.Custom``). Imports torch, numpy and the standard
 library only. Entry points run on the card unless the caller names the
 CPU (``device="cpu"``, ``ctx=mx.cpu()``), which runs the kernels' plain
 PyTorch versions.
@@ -40,6 +45,12 @@ from . import observability
 from . import observability as obs
 from . import resilience
 from . import callback, runtime, test_utils
+from . import symbol
+from . import symbol as sym
+from . import operator, rnn, model, module
+from . import module as mod
+from . import visualization
+from . import visualization as viz
 from .attribute import AttrScope
 from .util import is_np_array
 from .inference import ContinuousBatcher, GenerationEngine, SamplingConfig
@@ -52,6 +63,8 @@ __all__ = ["base", "config", "MXNetError", "Context", "cpu", "gpu",
            "lr_scheduler", "models", "ops", "optimizer", "parallel",
            "serialization", "checkpoint", "image", "io", "metric", "monitor", "mon",
            "Monitor", "observability", "obs", "resilience", "callback",
-           "runtime", "test_utils", "AttrScope", "is_np_array",
+           "runtime", "test_utils", "AttrScope", "is_np_array", "symbol",
+           "sym", "operator", "rnn", "model", "module", "mod",
+           "visualization", "viz",
            "ContinuousBatcher", "GenerationEngine",
            "SamplingConfig", "TrainStep", "get_gpt2"]

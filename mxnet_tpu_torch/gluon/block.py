@@ -16,6 +16,12 @@ call unwraps them, runs the forward with PyTorch's grad mode set by
 wraps the outputs; inside, tensors flow as they do for a call on tensors
 (``TrainStep``, the engine), where Dropout follows ``Module.training``.
 
+Calling a block on Symbols (``mx.sym.var``) traces it: each
+``hybrid_forward`` receives ``F = mx.sym`` and its parameters' Symbol
+variables (``Parameter.var()``), and the call returns the output Symbol.
+:meth:`HybridBlock.export` writes that graph as ``symbol.json`` with the
+weights, and :class:`SymbolBlock` runs such a file as a block.
+
 ``hybridize()`` keeps eager execution: the port's compiled step is
 ``TrainStep``'s captured CUDA graph, and nothing here compiles. Its
 ``remat=`` runs each ``_remat_unit`` layer under
@@ -32,11 +38,13 @@ import torch.utils.checkpoint
 
 from .. import autograd as _ag
 from .. import ndarray as nd
+from .. import symbol as _sym
 from ..base import MXNetError
+from ..context import as_device as _as_device
 from ..ndarray import NDArray
 from .parameter import DeferredInitializationError, Parameter, ParameterDict
 
-__all__ = ["Block", "HybridBlock", "SymbolBlock", "imperative",
+__all__ = ["Block", "HybridBlock", "SymbolBlock", "imperative", "symbolic",
            "record_state_update"]
 
 
@@ -89,6 +97,7 @@ def _global_count(hint):
 class _CallState(threading.local):
     def __init__(self):
         self.imperative = False
+        self.symbolic = False
 
 
 _CALL = _CallState()
@@ -97,6 +106,11 @@ _CALL = _CallState()
 def imperative() -> bool:
     """Whether an imperative (NDArray) block call is running."""
     return _CALL.imperative
+
+
+def symbolic() -> bool:
+    """Whether a block call on Symbols (a trace) is running."""
+    return _CALL.symbolic
 
 
 def record_state_update(param, value):
@@ -110,7 +124,7 @@ def record_state_update(param, value):
     and a ``TrainStep`` step (eager or a captured graph's replay, where the
     write is a node of the graph) all update the same f32 statistic."""
     with torch.no_grad():
-        param.var().copy_(value)
+        param.tensor().copy_(value)
 
 
 def _unwrap(obj):
@@ -285,6 +299,9 @@ class Block(torch.nn.Module):
 
     # -- call ---------------------------------------------------------------
     def __call__(self, *args, **kwargs):
+        if _CALL.symbolic or any(isinstance(a, _sym.Symbol) for a in args) \
+                or any(isinstance(v, _sym.Symbol) for v in kwargs.values()):
+            return self._trace(args, kwargs)
         if _has_nd(args, kwargs):
             args, kwargs = _unwrap(args), {k: _unwrap(v)
                                            for k, v in kwargs.items()}
@@ -296,6 +313,18 @@ class Block(torch.nn.Module):
                 finally:
                     _CALL.imperative = False
         return self._call(args, kwargs)
+
+    def _trace(self, args, kwargs):
+        """The forward on Symbols: no hooks, no rematerialization, no
+        gradient; returns Symbols."""
+        if _CALL.symbolic:
+            return self.forward(*args, **kwargs)
+        _CALL.symbolic = True
+        try:
+            with torch.no_grad():
+                return self.forward(*args, **kwargs)
+        finally:
+            _CALL.symbolic = False
 
     def _call(self, args, kwargs):
         with nd.block_scope():
@@ -339,6 +368,9 @@ class HybridBlock(Block):
             "and no infer_shape; run one forward or give full shapes")
 
     def forward(self, x, *args, **kwargs):
+        if _CALL.symbolic:
+            params = {name: p.var() for name, p in self._reg_params.items()}
+            return self.hybrid_forward(_sym, x, *args, **params, **kwargs)
         params = {}
         for name in self._reg_params:
             t = self._parameters.get(name)
@@ -368,10 +400,88 @@ class HybridBlock(Block):
     def hybrid_forward(self, F, x, *args, **kwargs):
         raise NotImplementedError
 
+    # -- deployment (MXNet's HybridBlock.export -> symbol.json + params) ----
+    def trace_symbol(self, *input_names):
+        """This block's forward traced into a Symbol graph: the inputs are
+        ``sym.var`` of ``input_names`` and the parameters their named
+        variables. A block whose forward reads shapes or calls torch
+        directly (GPT-2, BERT, the fused RNN layers, as in the JAX package)
+        does not trace and raises :class:`MXNetError`."""
+        input_names = input_names or ("data",)
+        try:
+            return self(*[_sym.var(n) for n in input_names])
+        except (AttributeError, TypeError) as e:
+            raise MXNetError(f"{type(self).__name__} does not trace to a "
+                             f"Symbol graph: {e}") from e
+
+    def export(self, path, epoch=0, input_names=("data",)):
+        """Write ``path-symbol.json`` and ``path-{epoch:04d}.params`` (the
+        deploy format: every parameter under ``arg:`` and its name) and
+        return the two file names."""
+        from ..serialization import save_ndarrays
+
+        out = self.trace_symbol(*input_names)
+        if isinstance(out, (tuple, list)):
+            out = _sym.Group(list(out))
+        out.save(f"{path}-symbol.json")
+        fname = f"{path}-{epoch:04d}.params"
+        save_ndarrays(fname, {"arg:" + p.name: p._var.detach()
+                              for p in self.collect_params().values()
+                              if p._var is not None})
+        return f"{path}-symbol.json", fname
+
 
 class SymbolBlock(Block):
-    """Waits for the symbol API."""
+    """A block that runs a Symbol graph (MXNet's deploy path,
+    ``SymbolBlock.imports(symbol_file, ['data'], param_file)``). Every
+    argument of the graph that is not an input is a Gluon
+    :class:`Parameter` of this block (named as in the graph, registered
+    as a torch parameter of the module), so ``collect_params()``, a
+    ``gluon.Trainer`` and a ``TrainStep`` train it. The graph is
+    evaluated op by op through the registry (:func:`symbol.eval_symbol`)."""
 
-    def __init__(self, *args, **kwargs):
-        raise MXNetError("SymbolBlock is not ported: the symbol API comes "
-                         "with the export/import slice")
+    def __init__(self, outputs, inputs, params=None, ctx=None):
+        super().__init__(prefix="symbolblock_", params=None)
+        if isinstance(outputs, (list, tuple)):
+            outputs = _sym.Group(list(outputs))
+        self._out_symbol = outputs
+        self._input_names = [i.name if isinstance(i, _sym.Symbol) else i
+                             for i in (inputs if isinstance(inputs,
+                                                            (list, tuple))
+                                       else [inputs])]
+        device = None
+        for name in outputs.list_arguments():
+            if name in self._input_names:
+                continue
+            p = Parameter(name, allow_deferred_init=True)
+            self._params._params[name] = p
+            p._attach_owner(self, name.replace(".", "_"))
+            if params and name in params:
+                device = device or _as_device(ctx)
+                value = params[name]
+                value = value._data if isinstance(value, NDArray) else value
+                p._shape = tuple(value.shape)
+                p._write(torch.as_tensor(value), device)
+
+    @staticmethod
+    def imports(symbol_file, input_names, param_file=None, ctx=None):
+        """A SymbolBlock of ``symbol_file`` with the ``arg:``/``aux:``
+        values of ``param_file``, on ``ctx`` (the current context, the
+        card, by default)."""
+        from ..serialization import load_tensors
+
+        out = _sym.load(symbol_file)
+        params = {}
+        if param_file:
+            params = {k.removeprefix("arg:").removeprefix("aux:"): v
+                      for k, v in load_tensors(param_file).items()}
+        if isinstance(input_names, str):
+            input_names = [input_names]
+        return SymbolBlock(out, input_names, params, ctx=ctx)
+
+    def forward(self, *args):
+        env = dict(zip(self._input_names, args))
+        for name, p in self._params.items():
+            if p._var is not None:
+                env[name] = p._var
+        return _sym.eval_symbol(self._out_symbol, env)

@@ -17,7 +17,8 @@ import math
 import torch
 
 from ... import autograd as _ag
-from ..block import Block, HybridBlock, imperative, record_state_update
+from ..block import (Block, HybridBlock, imperative, record_state_update,
+                     symbolic)
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "BatchNorm",
            "LayerNorm", "InstanceNorm", "Embedding", "Flatten", "Lambda",
@@ -106,7 +107,7 @@ class Dropout(HybridBlock):
         self._axes = tuple(axes)
 
     def hybrid_forward(self, F, x):
-        if imperative():
+        if imperative() or symbolic():
             return F.Dropout(x, p=self._rate, axes=self._axes,
                              training=_ag.is_training())
         if not self.training or self._rate == 0.0:
@@ -126,7 +127,9 @@ class BatchNorm(HybridBlock):
     """Batch normalization over every axis but ``axis``; ``in_channels=0``
     is inferred at the first forward. In training (``autograd.is_training()``
     under an imperative call, as in the JAX package; the module's training
-    flag under a call on tensors, which ``TrainStep`` sets) it
+    flag under a call on tensors, which ``TrainStep`` sets; under a
+    symbolic trace the node records ``autograd.is_training()`` and nothing
+    is written) it
     normalizes with the batch's statistics and moves the moving ones to
     ``momentum * running + (1 - momentum) * batch``, the batch variance
     the biased one, as the JAX layer computes them; that write goes
@@ -179,18 +182,18 @@ class BatchNorm(HybridBlock):
         return self
 
     def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
-        training = (_ag.is_training() if imperative() else self.training) \
-            and not self._use_global_stats
+        training = (_ag.is_training() if imperative() or symbolic()
+                    else self.training) and not self._use_global_stats
         out, mean, var = F.BatchNorm(
             x, gamma, beta, running_mean, running_var, eps=self._eps,
             momentum=self._momentum, axis=self._axis, training=training,
             use_global_stats=self._use_global_stats)
-        if training:
+        if training and not symbolic():
             m = self._momentum
             for name, batch in (("running_mean", mean), ("running_var", var)):
                 p = self._reg_params[name]
                 with torch.no_grad():
-                    new = m * p.var() + (1 - m) * batch
+                    new = m * p.tensor() + (1 - m) * batch
                 record_state_update(p, new)
         return out
 

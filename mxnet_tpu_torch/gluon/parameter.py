@@ -1,12 +1,13 @@
 """Parameter / Constant / ParameterDict.
 
 Counterpart of ``mxnet_tpu/gluon/parameter.py``. A :class:`Parameter`
-holds one ``torch.nn.Parameter`` (its *variable*), which every block that
-declared it registers as its own torch parameter under the declaring
-attribute's name, so ``state_dict``, ``named_parameters``, ``TrainStep``
-and the generation engine see exactly the tensors that Gluon sees. A
-block attribute (``dense.weight``) is that tensor, as in PyTorch; the
-Parameter itself is reached through ``block.params``,
+holds one ``torch.nn.Parameter`` (its *variable*, :meth:`Parameter.tensor`;
+:meth:`Parameter.var` is its Symbol variable, as in MXNet), which every
+block that declared it registers as its own torch parameter under the
+declaring attribute's name, so ``state_dict``, ``named_parameters``,
+``TrainStep`` and the generation engine see exactly the tensors that Gluon
+sees. A block attribute (``dense.weight``) is that tensor, as in PyTorch;
+the Parameter itself is reached through ``block.params``,
 ``collect_params()`` or ``_collect_params_with_prefix()``.
 
 ``grad_req`` maps to the variable: ``"null"`` is ``requires_grad=False``,
@@ -55,6 +56,7 @@ class Parameter:
             raise MXNetError("sparse parameter storage is not ported")
         self.stype = self.grad_stype = "default"
         self._var = None
+        self._sym_var = None
         self._initialized = False
         self._deferred_init = None
         # (block, attribute name) of every block that declared this one
@@ -116,11 +118,21 @@ class Parameter:
                 self._shape, dtype=dtype_torch(self._dtype),
                 device=as_device(device))))
 
-    def var(self) -> torch.nn.Parameter:
+    def tensor(self) -> torch.nn.Parameter:
         """The ``torch.nn.Parameter`` (raises before it exists)."""
         if self._var is None:
             self.data()
         return self._var
+
+    def var(self):
+        """The parameter's Symbol variable, ``symbol.var(name, shape=,
+        dtype=)``, made once (what a symbolic trace of a block reads)."""
+        from .. import symbol
+
+        if self._sym_var is None:
+            self._sym_var = symbol.var(self.name, shape=self.shape,
+                                       dtype=self.dtype)
+        return self._sym_var
 
     # -- attributes kept on the variable --------------------------------------
     @property
@@ -238,7 +250,7 @@ class Parameter:
         """The gradient as an NDArray (zeros before the first backward)."""
         from ..ndarray import NDArray
 
-        var = self.var()
+        var = self.tensor()
         if self.grad_req == "null":
             raise MXNetError(f"Parameter {self.name} has grad_req='null'")
         if var.grad is None:

@@ -125,7 +125,7 @@ class Trainer:
     def _ensure_states(self):
         for i, p in enumerate(self._params):
             if not self._states_created[i]:
-                var = p.var()
+                var = p.tensor()
                 master = p.take_f32_source() \
                     if self._optimizer._needs_master(var) else None
                 self._states[i] = \
@@ -366,7 +366,7 @@ class Trainer:
             raise MXNetError(f"{fname}: {len(states)} states for "
                              f"{len(self._params)} parameters")
         for i, p in enumerate(self._params):
-            dev = p.var().device
+            dev = p.tensor().device
             states[i] = _tree_map(
                 lambda a: torch.from_numpy(np.array(a)).to(dev), states[i])
         self._states = states

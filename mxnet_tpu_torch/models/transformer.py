@@ -25,6 +25,12 @@ path). The cached decode reads the
 dense self-attention cache through the paged kernel
 (``multi_head_attention(cache=, position=)``); cross-attention K/V are
 recomputed from ``mem`` at every step, as in the JAX package.
+
+Traced on Symbols (``HybridBlock.export``), each block takes a symbolic
+branch written as the JAX model is (``slice_axis`` of the projections,
+reshape codes, ``arange_like`` positions and a ``lesser`` mask), so the
+exported ``symbol.json`` is the JAX package's graph; the tensor branches
+are unchanged.
 """
 from __future__ import annotations
 
@@ -36,7 +42,7 @@ from .. import autograd as _ag
 from .. import initializer as init
 from ..context import as_device
 from ..gluon import nn as gnn
-from ..gluon.block import HybridBlock, _unwrap, _wrap
+from ..gluon.block import HybridBlock, _unwrap, _wrap, symbolic
 from ..ndarray import NDArray
 from ..ops.attention import alloc_kv_cache, multi_head_attention
 
@@ -89,6 +95,8 @@ class MultiHeadAttention(HybridBlock):
 
     def hybrid_forward(self, F, x, mem=None, mask=None, causal=False,
                        cache=None, start_pos=None):
+        if symbolic():
+            return self._symbolic_forward(F, x, mem, mask, causal)
         b, t, _ = x.shape
         if self._self:
             q, k, v = self._heads_of(self.qkv(x), 3)
@@ -102,6 +110,29 @@ class MultiHeadAttention(HybridBlock):
             return self.drop(self.proj(out)), (k_buf, v_buf)
         out = multi_head_attention(q, k, v, mask=mask, causal=causal)
         out = out.transpose(1, 2).reshape(b, t, self._units)
+        return self.drop(self.proj(out))
+
+    def _symbolic_forward(self, F, x, mem, mask, causal):
+        """The traced graph, as the JAX block writes it: ``slice_axis`` of
+        the projections and shape-free reshape codes (0/-1/-3)."""
+        h, u = self._heads, self._units
+        if self._self:
+            qkv = self.qkv(x)  # (b, t, 3u)
+            q = F.slice_axis(qkv, axis=-1, begin=0, end=u)
+            k = F.slice_axis(qkv, axis=-1, begin=u, end=2 * u)
+            v = F.slice_axis(qkv, axis=-1, begin=2 * u, end=3 * u)
+        else:
+            q = self.q_proj(x)
+            kv = self.kv_proj(mem)  # (b, tk, 2u)
+            k = F.slice_axis(kv, axis=-1, begin=0, end=u)
+            v = F.slice_axis(kv, axis=-1, begin=u, end=2 * u)
+
+        def heads(z):  # (b, t, u) -> (b, h, t, u//h)
+            return z.reshape((0, 0, h, -1)).transpose((0, 2, 1, 3))
+
+        out = F.multi_head_attention(heads(q), heads(k), heads(v), mask=mask,
+                                     causal=causal)
+        out = out.transpose((0, 2, 1, 3)).reshape((0, 0, -3))  # merge h, d
         return self.drop(self.proj(out))
 
 
@@ -252,7 +283,32 @@ class Transformer(HybridBlock):
             x = layer(x, mask)
         return x, mask
 
+    def _symbolic_embed(self, F, embed, ids):
+        pos = F.arange_like(ids, axis=1, dtype="int32")
+        scale = math.sqrt(self._units)
+        return self.drop(embed(ids) * scale + self.pos_embed(pos))
+
+    def _symbolic_encode(self, F, src_ids, src_valid=None):
+        x = self._symbolic_embed(F, self.src_embed, src_ids)
+        mask = None
+        if src_valid is not None:
+            steps = F.arange_like(src_ids, axis=1, dtype="int32")
+            mask = (steps.reshape((1, 1, 1, -1)) <
+                    src_valid.astype("int32").reshape((-1, 1, 1, 1)))
+        for layer in self.enc_layers:
+            x = layer(x, mask)
+        return x, mask
+
     def hybrid_forward(self, F, src_ids, tgt_ids, src_valid=None):
+        if symbolic():
+            # the traced graph, as the JAX model writes it (arange_like
+            # positions, a `lesser` mask); the position clamp of the tensor
+            # branch is not in it, as it is not in the JAX graph
+            mem, mem_mask = self._symbolic_encode(F, src_ids, src_valid)
+            y = self._symbolic_embed(F, self.tgt_embed, tgt_ids)
+            for layer in self.dec_layers:
+                y = layer(y, mem, mem_mask)
+            return self.out_proj(y)
         mem, mem_mask = self._encode(src_ids, src_valid)
         y = self._embed(self.tgt_embed, tgt_ids)
         for layer in self.dec_layers:

@@ -495,6 +495,17 @@ for _name in _registry.list_ops():
         _g[_name] = _make_op_func(_name)
 
 
+def Custom(*args, op_type=None, **kwargs):
+    """Run a registered user-defined operator (``mx.operator``)."""
+    from ..operator import make_custom_fn
+
+    if op_type is None:
+        raise MXNetError("nd.Custom requires op_type=")
+    fn, nout = make_custom_fn(op_type, kwargs)
+    opdef = _registry.OpDef(name=f"Custom:{op_type}", fn=fn, nout=nout)
+    return invoke(opdef, args, {})
+
+
 def __getattr__(name):  # ops registered after import
     try:
         return _make_op_func(name)

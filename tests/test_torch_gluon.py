@@ -334,7 +334,7 @@ def test_parameter_semantics():
         d = tmx.gluon.nn.Dense(3, in_units=2, prefix="d_")
         d.initialize()
     w = d.collect_params()["d_weight"]
-    assert w.var() is d.weight and w.data()._data is d.weight
+    assert w.tensor() is d.weight and w.data()._data is d.weight
     w.grad_req = "null"
     assert not d.weight.requires_grad
     w.grad_req = "add"
@@ -342,7 +342,7 @@ def test_parameter_semantics():
     w.lr_mult = 0.5
     assert d.weight.lr_mult == 0.5
     d.cast("bfloat16")
-    assert d.weight.dtype == torch.bfloat16 and w.var() is d.weight
+    assert d.weight.dtype == torch.bfloat16 and w.tensor() is d.weight
     assert w.dtype == "bfloat16"
 
 

@@ -95,7 +95,7 @@ def test_get_model_refuses_an_unknown_name():
 def test_get_model_places_parameters_on_ctx():
     net = tvision.get_model("resnet18_v1", classes=3, ctx=tmx.cpu())
     p = net.collect_params()[net.prefix + "dense0_weight"]
-    assert p.var().device.type == "cpu" and p.shape == (3, 512)
+    assert p.tensor().device.type == "cpu" and p.shape == (3, 512)
     with pytest.raises(tmx.MXNetError, match="pretrained"):
         tvision.get_model("lenet", pretrained=True)
 

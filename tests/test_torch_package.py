@@ -176,7 +176,7 @@ def test_default_context_is_the_card(monkeypatch):
     q = mt.gluon.Parameter("v", shape=(2,))
     with mt.cpu():
         q.initialize()
-    assert q.var().device.type == "cpu"
+    assert q.tensor().device.type == "cpu"
     with pytest.raises(MXNetError, match="CUDA is not available"):
         mt.nd.ones((2,))
     with pytest.raises(MXNetError, match="CUDA is not available"):

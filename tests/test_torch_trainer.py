@@ -149,8 +149,8 @@ def test_multi_precision_adam_matches_jax():
         for a, b in zip(_state_arrays(ts["base"]), _state_arrays(js["base"])):
             np.testing.assert_allclose(a, b, rtol=5e-2, atol=1e-4)
     for p, st in zip(ttr._params, ttr._states):
-        assert p.var().dtype == torch.bfloat16
-        assert torch.equal(p.var().detach(), st["master"].bfloat16())
+        assert p.tensor().dtype == torch.bfloat16
+        assert torch.equal(p.tensor().detach(), st["master"].bfloat16())
     # the bf16 weights: the masters rounded, so one bf16 ulp apart at most
     _close(_params(tnet), _params(jnet), rtol=2 ** -7, atol=1e-4)
 

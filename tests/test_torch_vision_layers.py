@@ -237,15 +237,15 @@ def test_batchnorm_statistics_update_in_place_and_only_in_training():
         x = tmx.nd.array(_x((4, 3, 5, 5), 4))
         net(x)
     rm = net.collect_params()["bnnet_batchnorm0_running_mean"]
-    var, before = rm.var(), rm.data().asnumpy().copy()
+    var, before = rm.tensor(), rm.data().asnumpy().copy()
     with tmx.cpu():
         net(x)  # an inference call: the statistics stay
         np.testing.assert_array_equal(rm.data().asnumpy(), before)
         with tmx.autograd.record():
             net(x)
-    assert rm.var() is var and rm.var().dtype == torch.float32
+    assert rm.tensor() is var and rm.tensor().dtype == torch.float32
     assert not np.array_equal(rm.data().asnumpy(), before)
-    assert rm.is_state and not rm.var().requires_grad
+    assert rm.is_state and not rm.tensor().requires_grad
     assert not net.collect_params()["bnnet_batchnorm0_gamma"].is_state
 
 

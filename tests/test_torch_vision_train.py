@@ -203,7 +203,7 @@ def test_trainstep_matches_jax(init, jax_f32, amp):
     fresh = _stats(_jnet(init))
     for k, v in _stats(tnet).items():
         assert not np.allclose(v, fresh[k]), k
-    assert all(p.var().dtype == torch.float32
+    assert all(p.tensor().dtype == torch.float32
                for p in tnet.collect_params().values() if p.is_state)
     assert not any("running" in name for name in ts._low)
 
