@@ -177,7 +177,20 @@ prints its last line):
      (example/rnn/bucketing at its widths) through ``BucketingModule.fit``
      with Adam (a falling perplexity, one Adam launch an update, ms a batch
      by bucket, the idle share of a bucket-60 batch, ``Module.load`` bit
-     for bit; ``[module]``);
+     for bit; ``[module]``); row-sparse storage (``[sparse]``): the word LM
+     untied at Zaremba-medium width with ``Embedding(10000, 650,
+     sparse_grad=True)`` through ``gluon.Trainer("adam", wd > 0)`` for 20
+     steps (two Adam launches a step, the lazy block and the rest, and the
+     xent pair; the first 3 steps against the plain lazy update; untouched
+     rows bit-identical; a falling loss; ms a step, the idle share), the
+     same net under a captured ``TrainStep`` equal to its dense twin, the
+     lazy update at LM1B's 793,471 x 512 table beside the dense gradient,
+     ``dot(csr, dense)`` both ways at 8192 Criteo-like rows over 2^20
+     columns (against a dense slice, equal run to run, beside
+     ``torch.sparse.mm``), the storage casts, ``retain``, ``rsp + rsp``,
+     the lazy ``adam_update`` op and a sparse ``.params`` round trip on the
+     card; and a dozen ``mx.np`` names on the card against the CPU
+     (``[np]``);
   8. time each kernel, its plain version and a PyTorch library yardstick
      with CUDA events, on the device (CUDA graph replay) and per eager
      call, at the shapes the paths give them (the paged read also at the
@@ -188,7 +201,9 @@ prints its last line):
      decode-read shapes; the xent pair at the word LM's (700, 10000) f32
      and Adam over its 3 tensors; LayerNorm at the imported
      transformer_base's (2048, 512) f32 and Adam over the bucketing LM's 11
-     tensors), and the launch floor
+     tensors; Adam on the sparse word LM's lazy block and its other
+     tensors, and on LM1B's lazy block and whole table), and the launch
+     floor
      (``EMPTY_CU``, a kernel that does nothing on the grid and block of
      the route LayerNorm's forward takes, built here);
   9. print the kernel table as one JSON line, then the result line.
@@ -6327,17 +6342,19 @@ def phase_train_timing(net):
     return rows
 
 
-def _adam_row(net, gen):
-    """The Adam kernel over ``net``'s parameters (f32 grads, lr 1e-4, wd
-    0), its plain version tensor by tensor and torch.optim.Adam(fused=True,
-    capturable=True); first one update of the kernel against the plain
-    version from the same state at ADAM_TOL["step"] (``max_abs_err`` of the
-    row, at the path's shapes). Bound: 28 bytes an element (w, g, m, v
-    read, w, m, v written), ~12 flops an element."""
+def _adam_row(net, gen, ws=None):
+    """The Adam kernel over ``net``'s parameters (or over copies of the
+    tensors ``ws``; f32 grads, lr 1e-4, wd 0), its plain version tensor by
+    tensor and torch.optim.Adam(fused=True, capturable=True); first one
+    update of the kernel against the plain version from the same state at
+    ADAM_TOL["step"] (``max_abs_err`` of the row, at the path's shapes).
+    Bound: 28 bytes an element (w, g, m, v read, w, m, v written), ~12
+    flops an element."""
     from mxnet_tpu_torch.ops import optimizer as oo
 
     dev = torch.device("cuda")
-    ws = [p.detach().clone() for p in net.parameters()]
+    ws = [p.detach().clone() for p in
+          (net.parameters() if ws is None else ws)]
     gs = [torch.randn(w.shape, generator=gen).to(dev) * 1e-3 for w in ws]
     ms = [torch.zeros_like(w) for w in ws]
     vs = [torch.zeros_like(w) for w in ws]
@@ -8351,6 +8368,576 @@ def phase_symbol_timing(lm_params):
             "adam_bucketing_lm": _adam_row(lm, gen)}
 
 
+# ---------------------------------------------------------------------------
+# Row-sparse and CSR storage (ndarray/sparse.py): the lazy updates of
+# Embedding(sparse_grad=True) through gluon.Trainer, the CSR product, the
+# storage casts and sparse .params on the card; mx.np (numpy_api.py)
+# ---------------------------------------------------------------------------
+SPARSE_STEPS = 20
+SPARSE_WD = 1e-5
+# each step of the row-sparse word LM: the xent pair on the (700, 10000)
+# logits and two Adam launches, the embedding's touched rows (the lazy
+# block) and the other tensors
+SPARSE_WANT = dict(WLM_WANT, adam=2)
+# LM1B's vocabulary (Jozefowicz et al. 2016, "Exploring the limits of
+# language modeling") at width 512: 1.63 GB of f32 table
+LM1B_VOCAB, LM1B_WIDTH = 793471, 512
+# Criteo's 13 + 26 fields, one nonzero each, hashed into 2^20 columns
+CSR_ROWS, CSR_FIELDS, CSR_COLS, CSR_K = 8192, 39, 1 << 20, 16
+CSR_TOL = (1e-5, 1e-5)  # (rtol, atol) against torch.matmul of a dense slice
+
+
+def _sparse_lm(vocab=WLM_VOCAB, width=WLM_WIDTH, layers=WLM_LAYERS,
+               sparse=True, seed=0):
+    """The word LM untied, its embedding's gradient row-sparse:
+    Embedding(vocab, width, sparse_grad=True) -> gluon.rnn.LSTM(width,
+    layers) -> Dense(vocab), on the card, Xavier from ``seed``."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+
+    class SparseLM(gluon.HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.encoder = gluon.nn.Embedding(vocab, width,
+                                                  sparse_grad=sparse)
+                self.rnn = gluon.rnn.LSTM(width, num_layers=layers,
+                                          layout="TNC")
+                self.decoder = gluon.nn.Dense(vocab, flatten=False)
+
+        def hybrid_forward(self, F, x):
+            return self.decoder(self.rnn(self.encoder(x)))
+
+    mx.random.seed(seed)
+    with mx.gpu():
+        net = SparseLM()
+        net.initialize(mx.init.Xavier(), ctx=mx.gpu())
+        net(mx.nd.array(np.zeros((WLM_T, WLM_B), np.int32), dtype="int32"))
+    return net
+
+
+def _sparse_trainer(net):
+    import mxnet_tpu_torch as mx
+
+    return mx.gluon.Trainer(net.collect_params(), "adam",
+                            {"learning_rate": WLM_LR, "wd": SPARSE_WD,
+                             "clip_gradient": WLM_CLIP})
+
+
+def _sparse_lm_backward(net, x, y):
+    """The example's forward and backward of the per-token losses; returns
+    their mean (on the card)."""
+    import mxnet_tpu_torch as mx
+
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    with mx.autograd.record():
+        out = net(x)
+        loss = loss_fn(out.reshape(-1, out.shape[-1]), y.reshape(-1))
+    loss.backward()
+    return loss.mean()
+
+
+def _sparse_lm_step(net, trainer, x, y):
+    """The example's step: ``_sparse_lm_backward``, ``trainer.step(B)``."""
+    loss = _sparse_lm_backward(net, x, y)
+    trainer.step(x.shape[1])
+    return loss
+
+
+def _plain_update(trainer, batch):
+    """What the next ``trainer.step(batch)`` must give, by the plain Adam
+    (``ops/optimizer.adam_update``) on copies: a row-sparse parameter's
+    recorded rows gathered, updated and scattered back, every other
+    parameter updated whole. Read after the backward, before the step."""
+    from mxnet_tpu_torch.ops import optimizer as oo
+
+    opt = trainer._optimizer
+    trainer._ensure_states()
+    out = []
+    for i, p in enumerate(trainer._params):
+        w, g = p._var.detach().clone(), p._var.grad.detach().clone()
+        m, v = (t.clone() for t in trainer._states[i])
+        lr_t = opt._lr_t(opt._get_lr(i),
+                         opt._index_update_count.get(i, 0) + 1)
+        args = (lr_t, opt.beta1, opt.beta2, opt.epsilon, opt._get_wd(i),
+                trainer._scale / batch, opt.clip_gradient)
+        if p._sparse_rows is None:
+            oo.adam_update(w, g, m, v, *args)
+        else:
+            rows = p._sparse_rows.long()
+            blk = [t.index_select(0, rows) for t in (w, g, m, v)]
+            oo.adam_update(*blk, *args)
+            for full, part in zip((w, m, v), (blk[0], blk[2], blk[3])):
+                full.index_copy_(0, rows, part)
+        out.append((w, m, v))
+    return out
+
+
+def _trainer_state(trainer):
+    return [(p._var.detach(), *trainer._states[i])
+            for i, p in enumerate(trainer._params)]
+
+
+def _sparse_capture_check(card):
+    """A sparse-gradient net through ``TrainStep`` (one captured CUDA graph
+    a step) against its dense twin: losses and weights bit for bit (the
+    step updates densely, as the JAX TrainStep), no rows recorded."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import TrainStep
+
+    ex = _example("torch_train_word_lm")
+    batches = _wlm_batches(ex, 3)
+    res = []
+    for sparse in (True, False):
+        net = _sparse_lm(vocab=WLM_VOCAB, width=64, layers=1, sparse=sparse,
+                         seed=3)
+        ts = TrainStep(net, _wlm_loss(), mx.optimizer.Adam(
+            learning_rate=WLM_LR, wd=SPARSE_WD), engine_type="graph")
+        losses = [float(ts(*b)) for b in batches]
+        rows = net.encoder.collect_params()[
+            net.encoder.prefix + "weight"]._sparse_rows
+        res.append((losses, _state(ts, host=True), ts.compiled_programs,
+                    rows))
+        del ts, net
+        _release()
+    same = res[0][0] == res[1][0] and _same_state(res[0][1], res[1][1])
+    log(f"[sparse] TrainStep graph, vocabulary {WLM_VOCAB} width 64: the "
+        f"sparse_grad net {'==' if same else '!='} its dense twin bit for "
+        f"bit over 3 captured steps (losses {res[0][0]}); rows recorded "
+        f"{res[0][3]} on {card}")
+    if not same or res[0][3] is not None or res[0][2] != 1:
+        raise AssertionError(f"sparse TrainStep: {res[0][0]} vs "
+                             f"{res[1][0]}, programs {res[0][2]}, rows "
+                             f"{res[0][3]}")
+    return {"losses": res[0][0], "equal_dense_twin": same}
+
+
+def phase_sparse_lm(card):
+    """``[sparse]`` (a): the word LM at Zaremba-medium width, untied, its
+    embedding ``Embedding(10000, 650, sparse_grad=True)``, trained by
+    ``gluon.Trainer("adam", wd=SPARSE_WD)`` on the example's Zipf corpus
+    for SPARSE_STEPS steps: each step SPARSE_WANT (two Adam launches: the
+    lazy block and the rest; the xent pair), the first 3 each held against
+    the plain update from the same state (``_plain_update``) at
+    ADAM_TOL["step"], the loss falling, every embedding row no batch
+    touched bit-identical to its start; ms a step, tokens/s; then a
+    profiled step's Adam launches, the device time by kernel group with
+    the idle share; and the TrainStep capture check. Returns the run's
+    launches, the results and the tensors for the timing rows."""
+    import mxnet_tpu_torch as mx
+
+    t0 = time.perf_counter()
+    ex = _example("torch_train_word_lm")
+    batches = [tuple(mx.nd.array(t) for t in b)
+               for b in _wlm_batches(ex, SPARSE_STEPS + 6)]
+    net = _sparse_lm()
+    emb = net.encoder.collect_params()[net.encoder.prefix + "weight"]
+    start = emb.tensor().detach().clone()
+    touched = torch.unique(torch.cat([x._data.reshape(-1)
+                                      for x, _ in batches[:SPARSE_STEPS]]))
+    trainer = _sparse_trainer(net)
+    losses, errs, block_rows = [], [], []
+    total = dict.fromkeys(SPARSE_WANT, 0)
+    torch.cuda.synchronize()
+    _reset_launch_counts()
+    for i, (x, y) in enumerate(batches[:SPARSE_STEPS]):
+        if i == 5:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+        before = _launch_counts()
+        if i < 3:
+            loss = _sparse_lm_backward(net, x, y)
+            block_rows.append(int(emb._sparse_rows.numel()))
+            want = _plain_update(trainer, WLM_B)
+            trainer.step(WLM_B)
+            err = 0.0
+            for (w, m, v), got in zip(want, _trainer_state(trainer)):
+                for name, a, b in zip(("w", "m", "v"), got, (w, m, v)):
+                    err = max(err, _adam_close(a, b, ADAM_TOL["step"],
+                                               f"sparse step {i} {name}"))
+            errs.append(err)
+        else:
+            loss = _sparse_lm_step(net, trainer, x, y)
+        losses.append(loss)
+        got = {k: v - before[k] for k, v in _launch_counts().items()}
+        if got != SPARSE_WANT:
+            raise AssertionError(f"sparse step {i}: launches {got}, "
+                                 f"expected {SPARSE_WANT}")
+        for k in total:
+            total[k] += got[k]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) / (SPARSE_STEPS - 5) * 1e3
+    losses = [float(v) for v in losses]
+    now = emb.tensor().detach()
+    keep = torch.ones(WLM_VOCAB, dtype=torch.bool, device=now.device)
+    keep[touched.long()] = False
+    untouched_same = bool(torch.equal(now[keep], start[keep]))
+    moved = bool((now[~keep] != start[~keep]).any())
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    log(f"[sparse] word LM untied at Zaremba-medium, Embedding({WLM_VOCAB}, "
+        f"{WLM_WIDTH}, sparse_grad=True), Trainer adam wd {SPARSE_WD}, "
+        f"{SPARSE_STEPS} steps: launches {total}; first 3 steps against the "
+        f"plain lazy update max abs err {errs} (lazy block rows "
+        f"{block_rows}); {int(keep.sum())} untouched rows "
+        f"{'bit-identical' if untouched_same else 'CHANGED'}; mean loss "
+        f"first 5 {first:.4f}, last 5 {last:.4f}; {ms:.2f} ms/step (steps "
+        f"5-{SPARSE_STEPS}), {WLM_T * WLM_B / ms * 1e3:.0f} tokens/s on "
+        f"{card}")
+    if not untouched_same or not moved:
+        raise AssertionError("sparse: untouched rows changed, or touched "
+                             "rows did not move")
+    if not all(np.isfinite(losses)) or not last < first:
+        raise AssertionError(f"sparse: losses {losses} do not fall")
+    res = {"card": card, "steps": SPARSE_STEPS, "losses": losses,
+           "first5_mean": first, "last5_mean": last, "ms_per_step": ms,
+           "tokens_per_s": WLM_T * WLM_B / ms * 1e3,
+           "plain_max_abs_err": errs, "lazy_block_rows": block_rows,
+           "untouched_rows": int(keep.sum()), "untouched_bit_identical": True}
+    # a profiled step: its Adam launches as the card sees them, then the
+    # device time of a step by kernel group and the idle share
+    it = iter(batches[SPARSE_STEPS:])
+
+    def step():
+        x, y = next(it)
+        _sparse_lm_step(net, trainer, x, y)
+
+    res["profiled_adam_launches"] = _profiled_count(step, "adam_kernel")
+    if res["profiled_adam_launches"] != SPARSE_WANT["adam"]:
+        raise AssertionError(f"sparse: a profiled step launched "
+                             f"{res['profiled_adam_launches']} adam kernels")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    res["breakdown"] = _device_groups(step, 3, "sparse word LM step",
+                                      (time.perf_counter() - t) * 1e3)
+    # the timing rows' tensors: one batch's lazy block, the other tensors
+    x, _ = batches[0]
+    rows = torch.unique(x._data.reshape(-1)).long()
+    block = emb.tensor().detach().index_select(0, rows)
+    dense = [p.tensor().detach() for p in trainer._params if p is not emb]
+    del trainer
+    res["capture"] = _sparse_capture_check(card)
+    res["seconds"] = time.perf_counter() - t0
+    return total, res, (block, dense, net)
+
+
+def _lm1b_ids(dev):
+    """A (35, 20) batch of Zipf(1.3) ids over LM1B's vocabulary."""
+    ids = np.random.RandomState(21).zipf(1.3, WLM_T * WLM_B) % LM1B_VOCAB
+    return torch.from_numpy(ids.astype(np.int32).reshape(WLM_T, WLM_B)).to(
+        dev)
+
+
+def phase_sparse_lm1b(card):
+    """``[sparse]`` (b): the lazy update at LM1B's vocabulary, 793,471 x
+    512 f32 (1.63 GB; 6.5 GB with its gradient and moments), for one (35,
+    20) batch of Zipf ids: the Trainer's lazy path (compact the dense
+    gradient to the batch's rows, gather w, m and v, the Adam kernel on the
+    block, scatter back) against the plain lazy update at ADAM_TOL["step"]
+    and timed (eager: the block is new each call), beside the dense
+    gradient the embedding's backward writes. Returns the launches of the
+    timed lazy run, the results and the table for the dense row."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import registry
+    from mxnet_tpu_torch.ndarray.sparse import RowSparseNDArray
+    from mxnet_tpu_torch.ops import optimizer as oo
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(22)
+    w = torch.randn(LM1B_VOCAB, LM1B_WIDTH, device=dev, generator=gen) * 0.05
+    g = torch.randn(LM1B_VOCAB, LM1B_WIDTH, device=dev, generator=gen) * 1e-3
+    m, v = torch.zeros_like(w), torch.zeros_like(w)
+    ids = _lm1b_ids(dev)
+    rows32 = torch.unique(ids.reshape(-1))
+    n_rows, n = int(rows32.numel()), int(rows32.numel()) * LM1B_WIDTH
+    opt = mx.optimizer.Adam(learning_rate=1e-3, wd=SPARSE_WD)
+
+    def lazy():
+        rsp = RowSparseNDArray(g.index_select(0, rows32.long()), (rows32,),
+                               g.shape)
+        opt.update(0, w, rsp, (m, v))
+
+    # one lazy update against the plain one from the same state
+    want = [t.clone() for t in (w, m, v)]
+    rows = rows32.long()
+    blk = [t.index_select(0, rows) for t in (want[0], g, want[1], want[2])]
+    oo.adam_update(*blk, opt._lr_t(1e-3, 1), opt.beta1, opt.beta2,
+                   opt.epsilon, SPARSE_WD)
+    for full, part in zip(want, (blk[0], blk[2], blk[3])):
+        full.index_copy_(0, rows, part)
+    lazy()
+    torch.cuda.synchronize()
+    err = max(_adam_close(a, b, ADAM_TOL["step"], f"lm1b lazy {name}")
+              for name, a, b in zip("wmv", (w, m, v), want))
+    keep = torch.ones(LM1B_VOCAB, dtype=torch.bool, device=dev)
+    keep[rows] = False
+    if not torch.equal(w[keep], want[0][keep]):
+        raise AssertionError("lm1b lazy: untouched rows changed")
+    del want, blk
+    _release()
+    _reset_launch_counts()
+    lazy_ms = cuda_time_ms(lazy, warmup=2, iters=10, repeats=3)
+    launches = _launch_counts()
+    # the dense gradient a step of Embedding(sparse_grad=True) still
+    # writes: the lookup's backward into a (793471, 512) f32 tensor
+    table = torch.nn.Parameter(w.detach())
+    embed = registry.get("Embedding").fn
+
+    def dense_grad():
+        out = embed(ids, table, input_dim=LM1B_VOCAB, output_dim=LM1B_WIDTH)
+        torch.autograd.grad(out.sum(), table)
+
+    grad_ms = cuda_time_ms(dense_grad, warmup=2, iters=5, repeats=3)
+    grad_bound = (LM1B_VOCAB * LM1B_WIDTH * 4 + n * 4 * 2) / \
+        HBM_BYTES_PER_S * 1e3
+    res = {"card": card, "table": [LM1B_VOCAB, LM1B_WIDTH],
+           "touched_rows": n_rows, "touched_elements": n,
+           "lazy_ms": lazy_ms, "lazy_max_abs_err": err,
+           "lazy_bound_ms": (28 + 56) * n / HBM_BYTES_PER_S * 1e3,
+           "dense_grad_ms": grad_ms, "dense_grad_bound_ms": grad_bound}
+    log(f"[sparse lm1b] table {LM1B_VOCAB} x {LM1B_WIDTH} f32, a (35, 20) "
+        f"Zipf batch touches {n_rows} rows ({n} elements): the lazy update "
+        f"(compact, gather, Adam kernel, scatter) {lazy_ms * 1e3:.2f} us "
+        f"eager (bound {res['lazy_bound_ms'] * 1e3:.2f} us at 84 B an "
+        f"element), max abs err {err:.3e} against the plain lazy update; "
+        f"the embedding backward's dense gradient {grad_ms * 1e3:.2f} us "
+        f"(bound {grad_bound * 1e3:.2f} us: the table written once) on "
+        f"{card}")
+    del table, g, m, v
+    _release()
+    return launches, res, (w, rows)
+
+
+def _criteo_csr(dev, seed=23):
+    """A CSR of CSR_ROWS Criteo-like samples: one nonzero in each of
+    CSR_FIELDS fields, each field its own slice of CSR_COLS hashed
+    columns (sorted, no duplicates), N(0, 1) values."""
+    from mxnet_tpu_torch.ndarray.sparse import csr_matrix
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    width = CSR_COLS // CSR_FIELDS
+    base = torch.arange(CSR_FIELDS, device=dev) * width
+    cols = base + torch.randint(0, width, (CSR_ROWS, CSR_FIELDS),
+                                device=dev, generator=gen)
+    data = torch.randn(CSR_ROWS * CSR_FIELDS, device=dev, generator=gen)
+    indptr = torch.arange(CSR_ROWS + 1, device=dev) * CSR_FIELDS
+    return csr_matrix((data, cols.reshape(-1), indptr),
+                      shape=(CSR_ROWS, CSR_COLS))
+
+
+def phase_sparse_csr(card):
+    """``[sparse]`` (c): ``nd.dot(csr, dense)`` at 8192 Criteo-like rows
+    over 2^20 columns, times a (2^20, 16) f32 matrix, and with
+    ``transpose_a`` times an (8192, 16) one: each against ``torch.matmul``
+    of a densified slice (the first 64 rows) at CSR_TOL, each run twice
+    with equal bytes, timed (eager) beside ``torch.sparse.mm`` (cuSPARSE)
+    on the same matrix."""
+    import mxnet_tpu_torch as mx
+
+    dev = torch.device("cuda")
+    csr = _criteo_csr(dev)
+    gen = torch.Generator(device=dev).manual_seed(24)
+    rhs = mx.nd.array(torch.randn(CSR_COLS, CSR_K, device=dev,
+                                  generator=gen))
+    rhs_t = mx.nd.array(torch.randn(CSR_ROWS, CSR_K, device=dev,
+                                    generator=gen))
+    head = csr[0:64]
+    dense_head = head.todense()._data
+    lib = torch.sparse_csr_tensor(csr._aux[1].long(), csr._aux[0].long(),
+                                  csr._data, (CSR_ROWS, CSR_COLS))
+    res = {"card": card, "rows": CSR_ROWS, "cols": CSR_COLS,
+           "nnz": int(csr._data.numel()), "k": CSR_K}
+    nnz = CSR_ROWS * CSR_FIELDS
+    for ta, r in ((False, rhs), (True, rhs_t)):
+        key = "transpose_a" if ta else "plain"
+        a = mx.nd.dot(csr, r, transpose_a=ta)._data
+        b = mx.nd.dot(csr, r, transpose_a=ta)._data
+        torch.cuda.synchronize()
+        if a.device.type != "cuda" or not torch.equal(a, b):
+            raise AssertionError(f"csr dot {key}: two runs differ")
+        if ta:
+            got = mx.nd.dot(head, mx.nd.array(r._data[:64]),
+                            transpose_a=True)._data
+            want = dense_head.t() @ r._data[:64]
+        else:
+            got, want = a[:64], dense_head @ r._data
+        err = (got - want).abs()
+        if (err > CSR_TOL[1] + CSR_TOL[0] * want.abs()).any():
+            raise AssertionError(f"csr dot {key}: max abs err "
+                                 f"{float(err.max())}")
+        ms = cuda_time_ms(lambda: mx.nd.dot(csr, r, transpose_a=ta),
+                          warmup=2, iters=5, repeats=3)
+        lib_fn = (lambda: torch.sparse.mm(lib.t(), r._data)) if ta else \
+            (lambda: torch.sparse.mm(lib, r._data))
+        try:
+            lib_ms = cuda_time_ms(lib_fn, warmup=2, iters=5, repeats=3)
+        except RuntimeError as e:  # the yardstick only
+            lib_ms = f"not measured: {str(e)[:120]}"
+        # the products read once: values, columns, indptr, the rows of rhs
+        # they touch, the output written once; 2 flops a nonzero a column
+        nbytes = nnz * (4 + 4) + (CSR_ROWS + 1) * 4 + \
+            nnz * CSR_K * 4 + (CSR_COLS if ta else CSR_ROWS) * CSR_K * 4
+        bound_ms, bound_by, _ = _bound_ms(nbytes, 2 * nnz * CSR_K)
+        res[key] = {"ms": ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "max_abs_err": float(err.max()),
+                    "equal_run_to_run": True}
+        log(f"[sparse csr] dot(csr {CSR_ROWS}x{CSR_COLS}, {nnz} nonzeros, "
+            f"transpose_a={ta}) x {tuple(r.shape)}: {ms * 1e3:.2f} us eager "
+            f"(torch.sparse.mm {lib_ms if isinstance(lib_ms, str) else f'{lib_ms * 1e3:.2f} us'}), "
+            f"bound {bound_ms * 1e3:.2f} us ({bound_by}), max abs err "
+            f"{float(err.max()):.3e} against torch.matmul of the dense "
+            f"slice, two runs bit-identical on {card}")
+    return res
+
+
+def phase_sparse_storage(card, tmp):
+    """``[sparse]`` (d): the storage ops on the card: cast_storage round
+    trips (dense -> row_sparse -> dense, dense -> csr -> dense), retain,
+    rsp + rsp against the dense sum, the lazy ``nd.adam_update`` op, and a
+    ``.params`` file of both types saved and loaded back to the card; every
+    result on the GPU and exact."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ndarray import sparse as sp
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(25)
+    a = torch.randn(1000, 64, device=dev, generator=gen)
+    a[torch.rand(1000, device=dev, generator=gen) < 0.7] = 0
+    b = torch.randn(1000, 64, device=dev, generator=gen)
+    b[torch.rand(1000, device=dev, generator=gen) < 0.7] = 0
+    c = torch.randn(300, 500, device=dev, generator=gen)
+    c[c.abs() < 1.5] = 0
+    ra, rb = mx.nd.array(a).tostype("row_sparse"), \
+        mx.nd.array(b).tostype("row_sparse")
+    csr = mx.nd.array(c).tostype("csr")
+    kept = sp.retain(ra, ra.indices._data[::2])
+    total = ra + rb
+    want_kept = torch.zeros_like(a)
+    rows = ra._aux[0][::2].long()
+    want_kept[rows] = a[rows]
+    w, mean, var = (torch.randn(1000, 64, device=dev, generator=gen),
+                    torch.zeros(1000, 64, device=dev),
+                    torch.zeros(1000, 64, device=dev))
+    nw, nm, _ = mx.nd.adam_update(mx.nd.array(w), ra, mx.nd.array(mean),
+                                  mx.nd.array(var), lr=0.1, wd=0.01,
+                                  lazy_update=True)
+    fname = os.path.join(tmp, "sparse.params")
+    mx.nd.save(fname, {"rsp": ra, "csr": csr})
+    back = {k: v.as_in_context(mx.gpu()) for k, v in mx.nd.load(fname).items()}
+    checks = {
+        "rsp_roundtrip": torch.equal(ra.tostype("default")._data, a),
+        "csr_roundtrip": torch.equal(csr.tostype("default")._data, c),
+        "retain": torch.equal(kept.todense()._data, want_kept),
+        "rsp_add": total.stype == "row_sparse" and
+        torch.equal(total.todense()._data, a + b),
+        "lazy_adam_untouched": torch.equal(
+            nw._data[~(a != 0).any(1)], w[~(a != 0).any(1)]) and
+        bool((nm._data[~(a != 0).any(1)] == 0).all()),
+        "params_roundtrip": torch.equal(back["rsp"].todense()._data, a) and
+        torch.equal(back["csr"].todense()._data, c)}
+    on_card = all(t.is_cuda for x in (ra, csr, kept, total, back["rsp"],
+                                      back["csr"])
+                  for t in (x._data, *x._aux)) and nw._data.is_cuda
+    log(f"[sparse storage] row_sparse {ra.indices.shape[0]} of 1000 rows, "
+        f"csr {csr.data.shape[0]} nonzeros: {checks}; every result on the "
+        f"card: {on_card} ({card})")
+    if not all(checks.values()) or not on_card:
+        raise AssertionError(f"sparse storage: {checks}, on card {on_card}")
+    return dict(checks, on_card=on_card)
+
+
+# the [np] names: (name, inputs, kwargs), each run on the card and on the
+# CPU; from the list of numpy semantics PyTorch does not share
+NP_CASES = [("var", ("x",), {"axis": 1}), ("std", ("x",), {}),
+            ("median", ("x",), {"axis": 0}), ("meshgrid", ("v", "w"), {}),
+            ("array_split", ("x", 3), {"axis": 1}),
+            ("pad", ("x", ((1, 0), (2, 1))), {}), ("mod", ("x", "neg"), {}),
+            ("cross", ("c", "d"), {}), ("digitize", ("x", "bins"), {}),
+            ("histogram", ("x",), {"bins": 7}), ("cbrt", ("x",), {}),
+            ("ptp", ("x",), {"axis": 1}),
+            ("average", ("x",), {"axis": 1, "weights": "wts"}),
+            ("interp", ("v", "xp", "fp"), {}), ("ediff1d", ("x",), {}),
+            ("tril_indices", (5, -1), {}), ("empty_like", ("x",), {})]
+
+
+def phase_np(card):
+    """``[np]``: each NP_CASES name of ``mx.np`` on CUDA tensors against the
+    same call on CPU tensors (floats at NN_TOL["f32"], the rest exact), its
+    results on the card."""
+    import mxnet_tpu_torch as mx
+
+    rs = np.random.RandomState(26)
+    host = {"x": rs.randn(64, 48).astype(np.float32),
+            "neg": -rs.uniform(0.5, 2, (64, 48)).astype(np.float32),
+            "v": np.sort(rs.randn(48)).astype(np.float32),
+            "w": rs.randn(30).astype(np.float32),
+            "c": rs.randn(64, 3).astype(np.float32),
+            "d": rs.randn(64, 3).astype(np.float32),
+            "bins": np.float32([-1, -0.2, 0, 0.5, 1.5]),
+            "wts": rs.uniform(0, 1, 48).astype(np.float32),
+            "xp": np.float32([-2, -1, 0, 1, 2]),
+            "fp": np.float32([3, 1, 0, 1, 3])}
+    rtol, atol = NN_TOL["f32"]
+    out = {}
+    for name, args, kw in NP_CASES:
+        res = {}
+        for ctx in (mx.gpu(), mx.cpu()):
+            def arg(a):
+                return mx.nd.array(host[a], ctx=ctx) \
+                    if isinstance(a, str) and a in host else a
+            with ctx:
+                r = getattr(mx.np, name)(*[arg(a) for a in args],
+                                         **{k: arg(v) for k, v in kw.items()})
+            res[ctx.device_type] = list(r) if isinstance(r, tuple) else [r]
+        for g, c in zip(res["gpu"], res["cpu"]):
+            if not g._data.is_cuda:
+                raise AssertionError(f"np.{name}: a result left the card")
+            gt, ct = g._data.cpu(), c._data
+            if gt.dtype != ct.dtype or gt.shape != ct.shape:
+                raise AssertionError(f"np.{name}: {gt.dtype} {gt.shape} on "
+                                     f"the card, {ct.dtype} {ct.shape} on "
+                                     "the CPU")
+            ok = torch.allclose(gt, ct, rtol=rtol, atol=atol) \
+                if gt.is_floating_point() else torch.equal(gt, ct)
+            if not ok:
+                raise AssertionError(f"np.{name}: the card's result differs "
+                                     "from the CPU's")
+        out[name] = [tuple(g.shape) for g in res["gpu"]]
+    log(f"[np] {len(NP_CASES)} mx.np names on the card equal to the CPU "
+        f"(floats at {NN_TOL['f32']}), results on the card: {sorted(out)} "
+        f"({card})")
+    return out
+
+
+def phase_sparse(card):
+    """``[sparse]``: phase_sparse_lm (the main path, its launches counted
+    from 0), phase_sparse_lm1b, phase_sparse_csr, phase_sparse_storage.
+    Returns the launches of the word LM run and of the LM1B lazy run, the
+    results, and the timing rows of the Adam kernel at the path's shapes:
+    the lazy block, the untied LM's other tensors, the LM1B table."""
+    t0 = time.perf_counter()
+    launches, lm, (block, dense, net) = phase_sparse_lm(card)
+    gen = torch.Generator().manual_seed(27)
+    timing = {"adam_sparse_block": _adam_row(None, gen, ws=[block]),
+              "adam_sparse_rest": _adam_row(None, gen, ws=dense)}
+    del block, dense, net
+    _release()
+    lm1b_launches, lm1b, (table, rows) = phase_sparse_lm1b(card)
+    timing["adam_lm1b_block"] = _adam_row(
+        None, gen, ws=[table.index_select(0, rows)])
+    timing["adam_lm1b"] = _adam_row(None, gen, ws=[table])
+    del table
+    _release()
+    csr = phase_sparse_csr(card)
+    with tempfile.TemporaryDirectory() as d:
+        storage = phase_sparse_storage(card, d)
+    res = {"word_lm": lm, "lm1b": lm1b, "csr": csr, "storage": storage,
+           "seconds": time.perf_counter() - t0}
+    log(f"[sparse seconds] {res['seconds']:.1f} s")
+    return launches, lm1b_launches, res, timing
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this script needs one "
@@ -8463,6 +9050,10 @@ def main():
     lm_launches, module = phase_module(card)
     lm_params = module.pop("timing_params")
     log("[module] " + json.dumps(module))
+    sparse_launches, lm1b_launches, sparse, sparse_timing = \
+        phase_sparse(card)
+    log("[sparse] " + json.dumps(sparse, default=str))
+    log("[np] " + json.dumps(phase_np(card)))
     log("[engine types] " + json.dumps(
         {"turns": MODE_TURNS, "serve": serve, "train": train,
          "train_amp": train_amp, "bert_amp": bert_amp,
@@ -8475,6 +9066,7 @@ def main():
     timing.update(phase_ssd_timing(ssd_net))
     timing["adam_ssd300"] = timing["adam_ssd"]
     timing.update(phase_symbol_timing(lm_params))
+    timing.update(sparse_timing)
     # the imported transformer_base runs the Transformer's f32 flash shapes
     # and its fine-tune updates transformer_base's tensors
     for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
@@ -8694,6 +9286,23 @@ def main():
         "adam_bucketing_lm": ("mxnet_tpu_torch/csrc/adam.cu",
                               "mxnet_tpu/ops/pallas_optimizer.py:63",
                               "module", "adam", None),
+        # the row-sparse paths: the untied word LM's lazy block (one batch's
+        # embedding rows) and its other tensors, two launches a step; the
+        # lazy block at LM1B's vocabulary, and the dense launch over that
+        # whole table it is compared with (its launches: the LM1B lazy
+        # run's); their max_abs_err: the checks at their shapes
+        "adam_sparse_block": ("mxnet_tpu_torch/csrc/adam.cu",
+                              "mxnet_tpu/ops/pallas_optimizer.py:63",
+                              "sparse", "adam", None),
+        "adam_sparse_rest": ("mxnet_tpu_torch/csrc/adam.cu",
+                             "mxnet_tpu/ops/pallas_optimizer.py:63",
+                             "sparse", "adam", None),
+        "adam_lm1b_block": ("mxnet_tpu_torch/csrc/adam.cu",
+                            "mxnet_tpu/ops/pallas_optimizer.py:63",
+                            "sparse_lm1b", "adam", None),
+        "adam_lm1b": ("mxnet_tpu_torch/csrc/adam.cu",
+                      "mxnet_tpu/ops/pallas_optimizer.py:63",
+                      "sparse_lm1b", "adam", None),
     }
     errs["adam_bert"] = timing["adam_bert"]["max_abs_err_at_shape"]
     errs["adam_lenet"] = timing["adam_lenet"]["max_abs_err_at_shape"]
@@ -8704,6 +9313,8 @@ def main():
         timing["adam_ssd"]["max_abs_err_at_shape"]
     errs["adam_bucketing_lm"] = \
         timing["adam_bucketing_lm"]["max_abs_err_at_shape"]
+    for k in sparse_timing:
+        errs[k] = timing[k]["max_abs_err_at_shape"]
     by_path = {"serve": serve_launches, "spec": spec_launches,
                "prefix": prefix_launches, "fork": fork_launches,
                "governed": governed_launches, "drill": drill_launches,
@@ -8722,7 +9333,8 @@ def main():
                "word_lm_loop": wlm_loop_launches,
                "ssd_example": ssd_launches, "ssd300": ssd300_launches,
                "estimator": est_launches, "symbol": sym_launches,
-               "symbol_finetune": sym_ft_launches, "module": lm_launches}
+               "symbol_finetune": sym_ft_launches, "module": lm_launches,
+               "sparse": sparse_launches, "sparse_lm1b": lm1b_launches}
     kernels = []
     for name, (src, rep, path, *extra) in meta.items():
         t = timing[name]

@@ -22,7 +22,9 @@ Gluon ``Estimator`` (``gluon.contrib.estimator``), ``test_utils``,
 ``HybridBlock.export`` and ``gluon.SymbolBlock``, ``mod`` (``module``:
 ``Module``, ``BucketingModule``), ``model``, ``rnn`` (the symbolic cells,
 ``BucketSentenceIter``), ``viz`` and ``operator`` (CustomOp, ``nd.Custom``,
-``sym.Custom``). Imports torch, numpy and the standard
+``sym.Custom``). Row-sparse and CSR storage: ``nd.sparse``, lazy optimizer
+updates, ``Embedding(sparse_grad=True)``. The numpy namespace: ``np`` and
+``npx`` (``numpy_api``). Imports torch, numpy and the standard
 library only. Entry points run on the card unless the caller names the
 CPU (``device="cpu"``, ``ctx=mx.cpu()``), which runs the kernels' plain
 PyTorch versions.
@@ -51,6 +53,7 @@ from . import operator, rnn, model, module
 from . import module as mod
 from . import visualization
 from . import visualization as viz
+from .numpy_api import np, npx
 from .attribute import AttrScope
 from .util import is_np_array
 from .inference import ContinuousBatcher, GenerationEngine, SamplingConfig
@@ -65,6 +68,6 @@ __all__ = ["base", "config", "MXNetError", "Context", "cpu", "gpu",
            "Monitor", "observability", "obs", "resilience", "callback",
            "runtime", "test_utils", "AttrScope", "is_np_array", "symbol",
            "sym", "operator", "rnn", "model", "module", "mod",
-           "visualization", "viz",
+           "visualization", "viz", "np", "npx",
            "ContinuousBatcher", "GenerationEngine",
            "SamplingConfig", "TrainStep", "get_gpt2"]

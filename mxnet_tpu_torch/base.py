@@ -10,7 +10,10 @@ import numpy as np
 import torch
 
 __all__ = ["MXNetError", "dtype_torch", "dtype_name", "dtype_flag",
-           "resolve_device"]
+           "resolve_device", "as_index_array"]
+
+_INT32_MAX = 2 ** 31 - 1
+_INT32_MIN = -2 ** 31
 
 
 class MXNetError(RuntimeError):
@@ -80,3 +83,30 @@ def resolve_device(device="cuda") -> torch.device:
     elif dev.type != "cpu":
         raise MXNetError(f"unsupported device {dev}")
     return dev
+
+
+def as_index_array(values, what="indices"):
+    """Index values (sparse aux arrays, loaded int64 payloads) narrowed to
+    int32, as the JAX package keeps them: an int64, uint64 or uint32 array
+    or tensor is checked to fit and cast, and a value outside the int32
+    range raises ``MXNetError``. A tensor stays a tensor on its device
+    (the range check reads two values on the host); anything else comes
+    back as a numpy array."""
+    if torch.is_tensor(values):
+        if values.dtype == torch.int64:
+            if values.numel():
+                lo, hi = int(values.min()), int(values.max())
+                if hi > _INT32_MAX or lo < _INT32_MIN:
+                    raise MXNetError(f"{what}: value out of int32 range "
+                                     f"[{lo}, {hi}]")
+            return values.to(torch.int32)
+        return values
+    arr = np.asarray(values)
+    if arr.dtype in (np.dtype(np.int64), np.dtype(np.uint64),
+                     np.dtype(np.uint32)):
+        if arr.size and (int(arr.max()) > _INT32_MAX or
+                         int(arr.min()) < _INT32_MIN):
+            raise MXNetError(f"{what}: value out of int32 range "
+                             f"[{int(arr.min())}, {int(arr.max())}]")
+        arr = arr.astype(np.int32)
+    return arr

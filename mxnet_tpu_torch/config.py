@@ -60,6 +60,10 @@ _KNOBS: Dict[str, tuple] = {
     "engine_type": (str, "graph", ("MXNET_ENGINE_TYPE",),
                     "'graph': one captured CUDA graph per step signature, "
                     "replayed from static buffers; 'naive': the eager step"),
+    "storage_fallback_warn": (bool, True, ("MXNET_STORAGE_FALLBACK_WARN",),
+                              "warn (once per op) when a sparse input is "
+                              "densified at an op boundary that has no "
+                              "sparse handler"),
     # -- fault injection and retries (resilience/faults.py, retry.py) -------
     "faults": (str, "", ("MXNET_TPU_FAULTS",),
                "fault-injection spec armed at first use, e.g. "

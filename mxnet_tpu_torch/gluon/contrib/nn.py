@@ -3,8 +3,9 @@ SyncBatchNorm, SparseEmbedding, PixelShuffle2D.
 
 Counterpart of ``mxnet_tpu/gluon/contrib/nn.py``. ``SyncBatchNorm`` is
 ``BatchNorm`` on the one device the port trains on; ``SparseEmbedding``
-is a dense ``Embedding`` under its own prefix (the port has no row-sparse
-gradients), as the JAX alias is in effect.
+is an ``Embedding(sparse_grad=True)`` under its own prefix (MXNet's
+meaning: its gradient is row-sparse and the Trainer updates its rows
+lazily), where the JAX alias builds a dense ``Embedding``.
 """
 from __future__ import annotations
 
@@ -40,12 +41,13 @@ class Identity(HybridBlock):
 
 
 class SparseEmbedding(HybridBlock):
-    """An ``Embedding`` child; its gradient is dense here."""
+    """An ``Embedding`` child with a row-sparse gradient."""
 
     def __init__(self, input_dim, output_dim, dtype="float32", **kwargs):
         super().__init__(**kwargs)
         with self.name_scope():
-            self.embedding = Embedding(input_dim, output_dim, dtype=dtype)
+            self.embedding = Embedding(input_dim, output_dim, dtype=dtype,
+                                       sparse_grad=True)
 
     def hybrid_forward(self, F, x):
         return self.embedding(x)

@@ -259,25 +259,50 @@ class InstanceNorm(HybridBlock):
 
 
 class Embedding(HybridBlock):
-    """Row lookup into a (input_dim, output_dim) weight."""
+    """Row lookup into a (input_dim, output_dim) weight.
+
+    ``sparse_grad=True`` declares the weight's gradient row-sparse: the
+    backward still writes a dense gradient, but each recorded forward
+    notes the rows its ids touch, and ``gluon.Trainer`` hands the
+    optimizer only those rows (a RowSparseNDArray, the lazy update)."""
 
     def __init__(self, input_dim, output_dim, dtype="float32",
                  weight_initializer=None, sparse_grad=False, prefix=None,
                  params=None, device=None):
         super().__init__(prefix=prefix, params=params)
-        if sparse_grad:
-            raise ValueError("Embedding(sparse_grad=True): row-sparse "
-                             "gradients are not ported")
         self._input_dim, self._output_dim = input_dim, output_dim
+        self._sparse_grad = sparse_grad
         with self.name_scope():
             self.weight = self.params.get(
                 "weight", shape=(input_dim, output_dim), dtype=dtype,
-                init=weight_initializer)
+                init=weight_initializer,
+                grad_stype="row_sparse" if sparse_grad else "default")
         self._alloc_params(device)
 
     def hybrid_forward(self, F, x, weight):
+        if self._sparse_grad:
+            self._record_rows(x)
         return F.Embedding(x, weight, input_dim=self._input_dim,
                            output_dim=self._output_dim)
+
+    def _record_rows(self, x):
+        """Add the rows ``x`` touches to the weight's ``_sparse_rows`` (a
+        sorted union until the Trainer's next update). Only a recorded
+        forward on a tensor counts: not an inference forward (its rows are
+        in no gradient), not a trace to a Symbol, and not a forward inside
+        a CUDA graph capture (``TrainStep`` updates densely, and finding
+        the unique ids reads their count on the host)."""
+        from ... import autograd
+
+        if not autograd.is_recording() or not torch.is_tensor(x):
+            return
+        if x.is_cuda and torch.cuda.is_current_stream_capturing():
+            return
+        param = self._reg_params["weight"]
+        rows = torch.unique(x.detach().reshape(-1)).to(torch.int32)
+        if param._sparse_rows is not None:
+            rows = torch.unique(torch.cat([param._sparse_rows, rows]))
+        param._sparse_rows = rows
 
 
 class Activation(HybridBlock):

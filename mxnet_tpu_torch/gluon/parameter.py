@@ -35,6 +35,9 @@ __all__ = ["Parameter", "Constant", "ParameterDict",
            "DeferredInitializationError"]
 
 
+_STYPES = ("default", "row_sparse", "csr")
+
+
 class DeferredInitializationError(MXNetError):
     pass
 
@@ -52,9 +55,18 @@ class Parameter:
         self.init = init
         self._grad_req = grad_req if differentiable else "null"
         self.allow_deferred_init = allow_deferred_init
-        if stype != "default" or grad_stype != "default":
-            raise MXNetError("sparse parameter storage is not ported")
-        self.stype = self.grad_stype = "default"
+        for what, st in (("stype", stype), ("grad_stype", grad_stype)):
+            if st not in _STYPES:
+                raise MXNetError(f"Parameter {name}: unknown {what} {st!r}")
+        # storage types: the values stay dense; grad_stype "row_sparse"
+        # makes gluon.Trainer hand the optimizer the gradient's rows in
+        # _sparse_rows (recorded by the layer that reads the parameter,
+        # Embedding(sparse_grad=True)) as a RowSparseNDArray: a lazy update
+        self.stype = stype
+        self.grad_stype = grad_stype
+        #: the sorted int32 rows recorded forwards touched since the last
+        #: update (a tensor on the parameter's device), or None
+        self._sparse_rows = None
         self._var = None
         self._sym_var = None
         self._initialized = False

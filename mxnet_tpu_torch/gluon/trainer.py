@@ -39,21 +39,12 @@ import torch
 from .. import observability as _obs
 from .. import optimizer as opt_mod
 from ..base import MXNetError
+from ..optimizer import _tree_map
 from .parameter import Parameter, ParameterDict
 
 __all__ = ["Trainer"]
 
 _LOCAL_KVSTORES = (None, "device", "local")
-
-
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(_tree_map(fn, v) for v in tree)
-    if tree is None:
-        return None
-    return fn(tree)
 
 
 def _leaves(state):
@@ -318,9 +309,15 @@ class Trainer:
         self.step(batch_size, ignore_stale_grad)
 
     def _update(self, ignore_stale_grad=False):
-        """Every parameter's update in one optimizer call. A parameter
-        without a gradient yet is updated with zeros, as in the JAX
-        package, where a gradient starts at zeros."""
+        """Every parameter's update, in the JAX package's order: a
+        parameter with ``grad_stype="row_sparse"`` and recorded rows takes
+        the lazy update on those rows (its gradient compacted to them),
+        unless it is a low-precision weight with an f32 master, which
+        drops laziness as in JAX; then the rest in one optimizer call. A
+        parameter without a gradient yet is updated with zeros, as in the
+        JAX package, where a gradient starts at zeros."""
+        from ..ndarray.sparse import RowSparseNDArray
+
         self._ensure_states()
         idxs, ws, gs, sts = [], [], [], []
         for i, p in enumerate(self._params):
@@ -330,6 +327,15 @@ class Trainer:
             g = var.grad
             if g is None:
                 g = p.grad()._data
+            rows, p._sparse_rows = p._sparse_rows, None
+            st = self._states[i]
+            if rows is not None and p.grad_stype == "row_sparse" and \
+                    not (isinstance(st, dict) and "master" in st):
+                rsp = RowSparseNDArray(g.index_select(0, rows.long()),
+                                       (rows,), tuple(g.shape))
+                self._states[i] = self._optimizer.update(i, var.detach(),
+                                                         rsp, st)
+                continue
             idxs.append(i)
             ws.append(var.detach())
             gs.append(g)

@@ -37,7 +37,7 @@ from ..context import Context, as_device
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
            "waitall", "concat", "stack", "save", "load", "zeros_like",
-           "ones_like", "invoke"]
+           "ones_like", "invoke", "sparse", "cast_storage"]
 
 _pyslice = slice  # an op named "slice" is generated below
 
@@ -222,9 +222,8 @@ class NDArray:
         return self
 
     def tostype(self, stype):
-        if stype != "default":
-            raise MXNetError("sparse storage types are not ported")
-        return self
+        """This array in storage ``stype`` (``nd.sparse.cast_storage``)."""
+        return sparse.cast_storage(self, stype)
 
     # -- indexing --------------------------------------------------------------
     def __getitem__(self, key):
@@ -426,9 +425,50 @@ def _mark_implicit(args):
                 t.requires_grad_(True)
 
 
+_DENSIFY_WARNED: set = set()
+_DENSIFY_LOCK = threading.Lock()  # ops may be invoked from several threads
+
+
+def _is_sparse(a):
+    return isinstance(a, sparse.BaseSparseNDArray)
+
+
+def _storage_dispatch(opdef, args, kwargs):
+    """The op's sparse handler's result, or NotImplemented and the
+    arguments with every sparse input densified (warned once per op name
+    while the ``storage_fallback_warn`` knob is on)."""
+    handler = _registry.get_sparse(opdef.name)
+    if handler is not None:
+        with torch.set_grad_enabled(_ag.is_recording()):
+            out = handler(*args, **kwargs)
+        if out is not NotImplemented:
+            return out, args
+    from .. import config as _config
+
+    if _config.get("storage_fallback_warn"):
+        with _DENSIFY_LOCK:
+            first = opdef.name not in _DENSIFY_WARNED
+            _DENSIFY_WARNED.add(opdef.name)
+        if first:
+            import warnings
+
+            warnings.warn(
+                f"op {opdef.name!r}: sparse input densified at the op "
+                "boundary (storage type fallback). Use "
+                "nd.sparse.{dot,add,retain} for sparse-aware compute, or set "
+                "MXNET_STORAGE_FALLBACK_WARN=0 to silence.", stacklevel=4)
+    return NotImplemented, tuple(a.todense() if _is_sparse(a) else a
+                                 for a in args)
+
+
 def invoke(opdef, args, kwargs):
     """Run ``opdef`` on NDArrays (NDArrays out, grad mode from
-    ``autograd``) or on tensors (tensors out, grad mode untouched)."""
+    ``autograd``) or on tensors (tensors out, grad mode untouched). A
+    sparse input goes to the op's sparse handler, else is densified."""
+    if any(_is_sparse(a) for a in args):
+        out, args = _storage_dispatch(opdef, args, kwargs)
+        if out is not NotImplemented:
+            return out
     has_nd = any(isinstance(a, NDArray) for a in args) or \
         any(isinstance(v, NDArray) for v in kwargs.values())
     if not has_nd:
@@ -582,25 +622,38 @@ def save(fname, data):
     ``.params`` file (bfloat16 stored as bfloat16)."""
     from ..serialization import save_ndarrays
 
+    def payload(v):  # a sparse array is written as its sparse block
+        return v if _is_sparse(v) else _raw(v)
+
     if isinstance(data, NDArray):
         data = [data]
     if isinstance(data, dict):
-        data = {k: _raw(v) for k, v in data.items()}
+        data = {k: payload(v) for k, v in data.items()}
     else:
-        data = [_raw(v) for v in data]
+        data = [payload(v) for v in data]
     save_ndarrays(fname, data)
 
 
 def load(fname):
     """``mx.nd.load``: a dict (or a list) of NDArrays on the CPU, the
     context a ``.params`` file records; bfloat16 arrays come back as
-    bfloat16."""
+    bfloat16, sparse blocks as sparse arrays, int64 payloads narrowed to
+    int32 (raising on a value out of its range, as the JAX package)."""
+    from ..base import as_index_array
     from ..serialization import load_tensors
+
+    def build(v):
+        if isinstance(v, tuple):  # (stype, data, aux, shape)
+            stype, data, aux, shape = v
+            cls = sparse.RowSparseNDArray if stype == "row_sparse" \
+                else sparse.CSRNDArray
+            return cls(data, aux, shape)
+        return NDArray(as_index_array(v, "loaded int64 tensor"))
 
     loaded = load_tensors(fname)
     if isinstance(loaded, dict):
-        return {k: NDArray(v) for k, v in loaded.items()}
-    return [NDArray(v) for v in loaded]
+        return {k: build(v) for k, v in loaded.items()}
+    return [build(v) for v in loaded]
 
 
 # ---------------------------------------------------------------------------
@@ -636,3 +689,7 @@ sys.modules[contrib.__name__] = contrib
 linalg = types.ModuleType(__name__ + ".linalg")
 linalg.__getattr__ = lambda name: _make_op_func("linalg_" + name)
 sys.modules[linalg.__name__] = linalg
+
+from . import sparse  # noqa: E402  (row-sparse and CSR storage; needs NDArray)
+
+cast_storage = sparse.cast_storage

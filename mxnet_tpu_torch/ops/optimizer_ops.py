@@ -21,6 +21,12 @@ Two layers:
   weights go into ``out`` (an NDArray, or a list for the ``multi_*``
   ops) and the new states into the state arguments they came from, in
   place, as MXNet's update ops write them (``write_back``).
+
+``lazy_update=True`` with a row-sparse gradient reaches the sparse
+handlers of ``sgd_update``, ``sgd_mom_update`` and ``adam_update``
+through ``mx.nd``'s storage dispatch (``ndarray/sparse.py``): only the
+gradient's rows are updated. With a dense gradient the op is the dense
+one, as in JAX.
 """
 from __future__ import annotations
 

@@ -8,6 +8,8 @@ hyperparameters, the ``lr_scheduler``, the ``lr_mult``/``wd_mult`` dicts,
 (``update``, ``update_multi``, per-index update counts) with
 ``multi_precision``: a bf16/f16 weight is updated through an f32 master
 kept in its state as ``{"master": f32, "base": state}``, the JAX layout.
+A row-sparse gradient takes the lazy update: only its rows of the weight
+and the states are read and written.
 Updates run in place on the weight and state tensors (see
 ``ops/optimizer.py``). :meth:`Optimizer.update_raw_multi` applies one
 update to a list of parameters; Adam's runs as one multi-tensor kernel
@@ -62,6 +64,26 @@ def _state_tensors(state):
 
 
 _LOW = (torch.bfloat16, torch.float16)
+
+
+def _is_row_sparse(x):
+    return getattr(x, "stype", "default") == "row_sparse"
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return None if tree is None else fn(tree)
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _tree_leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in _tree_leaves(v)]
+    return [] if tree is None else [tree]
 
 
 class Optimizer:
@@ -209,8 +231,49 @@ class Optimizer:
 
     def update(self, index, weight, grad, state):
         """One parameter (NDArrays or tensors), in place; returns its
-        state."""
+        state. A RowSparseNDArray gradient takes the lazy update
+        (:meth:`_update_lazy`)."""
+        if _is_row_sparse(grad):
+            self._update_count(index)
+            return self._update_lazy(index, weight, grad, state)
         return self.update_multi([index], [weight], [grad], [state])[0]
+
+    def _update_lazy(self, index, weight, grad, state):
+        """MXNet's ``lazy_update`` for a row-sparse gradient: the
+        gradient's rows of the weight and of every state leaf with the
+        weight's rows (of the f32 master too) are gathered into compact
+        blocks, updated by one :meth:`update_raw_multi` call (Adam's
+        launches its kernel on the card), and written back. Rows the
+        gradient does not hold see no weight decay and no state decay."""
+        w = (weight._data if hasattr(weight, "_data") else weight).detach()
+        rows = grad._aux[0].long()
+        n = w.shape[0]
+
+        def gather(x):
+            if torch.is_tensor(x) and x.dim() >= 1 and x.shape[0] == n:
+                return x.index_select(0, rows)
+            return x
+
+        master = isinstance(state, dict) and "master" in state
+        base = state["base"] if master else state
+        sub = _tree_map(gather, base)
+        t = self._index_update_count[index]
+        with torch.no_grad():
+            if master:
+                blk, low = gather(state["master"]), gather(w)
+                self._update_group([index], [low], [grad._data],
+                                   [{"master": blk, "base": sub}], t, True)
+                state["master"].index_copy_(0, rows, blk)
+                w.index_copy_(0, rows, low)
+            else:
+                blk = gather(w)
+                self._update_group([index], [blk], [grad._data], [sub], t,
+                                   False)
+                w.index_copy_(0, rows, blk)
+            for full, part in zip(_tree_leaves(base), _tree_leaves(sub)):
+                if part is not full:
+                    full.index_copy_(0, rows, part)
+        return state
 
     def update_multi(self, indices, weights, grads, states):
         """Parameters ``indices`` at once (NDArrays or tensors), in place;

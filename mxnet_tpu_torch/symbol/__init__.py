@@ -20,6 +20,7 @@ Python's recursion limit.
 from __future__ import annotations
 
 import contextlib
+import inspect
 import json
 import numbers
 import threading as _threading
@@ -685,6 +686,35 @@ _AUTO_PARAM_SUFFIXES = {
 }
 
 
+_POSITIONAL = (inspect.Parameter.POSITIONAL_ONLY,
+               inspect.Parameter.POSITIONAL_OR_KEYWORD)
+
+
+def _bind_positional(opdef, args, params):
+    """Bind the positional arguments that are not Symbols into ``params``
+    under the op's parameter names, as ``nd`` binds them: the i-th
+    argument is the i-th parameter of the registered function
+    (``sym.sum(d, 1)`` is ``axis=1``, ``sym.clip(d, -1, 1)`` sets
+    ``a_min`` and ``a_max``). ``None`` stands for an absent input and is
+    skipped. A parameter also given by keyword raises, as a Python call
+    does."""
+    try:
+        sig = list(inspect.signature(opdef.fn).parameters.values())
+    except (TypeError, ValueError):  # a builtin without a signature
+        sig = []
+    for i, a in enumerate(args):
+        if a is None or isinstance(a, Symbol):
+            continue
+        if i >= len(sig) or sig[i].kind not in _POSITIONAL:
+            raise TypeError(f"{opdef.name}: positional argument {i} "
+                            f"({a!r}) names no parameter of the op")
+        pname = sig[i].name
+        if pname in params:
+            raise TypeError(f"{opdef.name}() got multiple values for "
+                            f"argument {pname!r}")
+        params[pname] = a
+
+
 def __getattr__(name):
     try:
         opdef = _registry.get(name)
@@ -697,6 +727,7 @@ def __getattr__(name):
         data_kw = {k: v for k, v in kwargs.items() if isinstance(v, Symbol)}
         params = {k: v for k, v in kwargs.items()
                   if not isinstance(v, Symbol)}
+        _bind_positional(opdef, args, params)
         suffixes = _AUTO_PARAM_SUFFIXES.get(opdef.name)
         if suffixes:
             # resolve by INPUT NAME: slot order is (data, *suffixes);

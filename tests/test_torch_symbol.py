@@ -286,6 +286,62 @@ def test_json_crosses_packages(writer, tmp_path):
     _close(o1, o2)
 
 
+# -- positional parameters of the sym ops ---------------------------------------
+# (sym op, its positional parameters, the same by keyword); each is the nd
+# call with those positional parameters
+POSITIONAL_CASES = [("sum", (1,), dict(axis=1)),
+                    ("reshape", ((3, 2),), dict(shape=(3, 2))),
+                    ("clip", (-0.5, 0.5), dict(a_min=-0.5, a_max=0.5))]
+
+
+@pytest.mark.parametrize("op,pos,kw", POSITIONAL_CASES,
+                         ids=[c[0] for c in POSITIONAL_CASES])
+def test_positional_parameters_bind_as_nd(op, pos, kw):
+    """``mx.sym.sum(d, 1)``, ``reshape(d, (3, 2))`` and ``clip(d, -0.5,
+    0.5)`` equal their ``nd`` calls, and the JAX graph built with keywords
+    (the JAX ``sym`` drops positional parameters)."""
+    x = _x((2, 3), 40)
+    with tmx.cpu():
+        got = getattr(tmx.sym, op)(tmx.sym.var("d"), *pos).eval(
+            d=tmx.nd.array(x))[0].asnumpy()
+        want = getattr(tmx.nd, op)(tmx.nd.array(x), *pos).asnumpy()
+    jax_kw = getattr(jmx.sym, op)(jmx.sym.var("d"), **kw).eval(
+        d=jmx.nd.array(x))[0].asnumpy()
+    assert got.shape == want.shape == jax_kw.shape
+    np.testing.assert_allclose(got, want, **FWD)
+    np.testing.assert_allclose(got, jax_kw, **FWD)
+
+
+@pytest.mark.parametrize("op,pos,kw", POSITIONAL_CASES,
+                         ids=[c[0] for c in POSITIONAL_CASES])
+def test_positional_parameters_in_json_load_in_jax(op, pos, kw, tmp_path):
+    """The port's JSON of the positional form carries the parameters: the
+    JAX package loads it and gives the port's output; it equals the JSON
+    of the keyword form."""
+    x = _x((2, 3), 41)
+    fname = str(tmp_path / "pos-symbol.json")
+    s = getattr(tmx.sym, op)(tmx.sym.var("d"), *pos, name="op")
+    s.save(fname)
+    assert json.loads(s.tojson())["nodes"] == json.loads(getattr(
+        tmx.sym, op)(tmx.sym.var("d"), name="op", **kw).tojson())["nodes"]
+    with tmx.cpu():
+        got = s.eval(d=tmx.nd.array(x))[0].asnumpy()
+    back = jmx.sym.load(fname).eval(d=jmx.nd.array(x))[0].asnumpy()
+    np.testing.assert_allclose(back, got, **FWD)
+
+
+def test_positional_parameter_clash_raises():
+    """A parameter given by position and by keyword raises, as in ``nd``;
+    a positional value past the op's parameters raises too."""
+    d = tmx.sym.var("d")
+    with pytest.raises(TypeError, match="multiple values"):
+        tmx.sym.sum(d, 1, axis=0)
+    with pytest.raises(TypeError):
+        tmx.nd.sum(tmx.nd.array(np.ones((2, 2)), ctx=tmx.cpu()), 1, axis=0)
+    with pytest.raises(TypeError, match="names no parameter"):
+        tmx.sym.relu(d, 1, 2, 3, 4, 5, 6, 7)
+
+
 # -- mx.rnn cells -------------------------------------------------------------
 def _cell_feed(args, seed):
     rs = np.random.RandomState(seed)
