@@ -1517,11 +1517,14 @@ def _reset_launch_counts():
     from mxnet_tpu_torch.ops import optimizer as oo
     from mxnet_tpu_torch.ops import paged_attention as pa
     from mxnet_tpu_torch.ops import softmax_xent as sx
+    from mxnet_tpu_torch.contrib import quantization as q8
 
     for counts in (fa.launches, sx.launches, pa.launches, ln.launches):
         for key in counts:
             counts[key] = 0
     oo.launches = 0
+    for key in q8.launches:
+        q8.launches[key] = 0
 
 
 # each launch counter (chip_smoke's names, by the wrapper's module and key)
@@ -8938,6 +8941,520 @@ def phase_sparse(card):
     return launches, lm1b_launches, res, timing
 
 
+# -- INT8 on csrc/int8_gemm.cu, ONNX, and the DCGAN, generate_gpt2
+# and ImageNet-ResNet example routes ---------------------------------------
+INT8_TOPS = 1979e12  # dense int8 on the tensor cores (H100 SXM, 700 W)
+PEAKS["int8"] = ("int8 tensor cores, 1,979 TOPS", INT8_TOPS)
+INT8_NOTE = ("not a pallas_call site: the counterpart of XLA's int8 dot and "
+             "conv (lax.dot_general / lax.conv_general_dilated with "
+             "preferred_element_type=int32)")
+INT8_B = 32
+INT8_LAYERS = 54  # resnet50_v1: 53 Conv2D and the Dense
+# (name, B, C, H, W, O, kernel, stride, pad, dilate, groups) of the kernel
+# checks: resnet50_v1's at B=32 (the stem, res2's and res5's 1x1 and 3x3,
+# a stride-2 downsample), a grouped 3x3 (ResNeXt's 32 groups at res3) and
+# LeNet's conv1 (K = 25)
+INT8_CONV_CASES = [("stem", 32, 3, 224, 224, 64, 7, 2, 3, 1, 1),
+                   ("res2 1x1", 32, 256, 56, 56, 64, 1, 1, 0, 1, 1),
+                   ("res2 3x3", 32, 64, 56, 56, 64, 3, 1, 1, 1, 1),
+                   ("res5 1x1", 32, 2048, 7, 7, 512, 1, 1, 0, 1, 1),
+                   ("res5 3x3", 32, 512, 7, 7, 512, 3, 1, 1, 1, 1),
+                   ("downsample s2", 32, 512, 28, 28, 1024, 1, 2, 0, 1, 1),
+                   ("grouped 32", 32, 256, 28, 28, 256, 3, 1, 1, 1, 32),
+                   ("lenet conv1", 64, 1, 28, 28, 6, 5, 1, 2, 1, 1)]
+# (name, M, K, N) of the products checked alone: resnet50_v1's Dense and
+# LeNet's three (K = 400, 120 and 84: rows that are not 16-byte aligned
+# take the kernel's byte loads)
+INT8_FC_CASES = [("dense 2048->1000", 32, 2048, 1000),
+                 ("lenet dense 400->120", 64, 400, 120),
+                 ("lenet dense 120->84", 64, 120, 84),
+                 ("lenet dense 84->4", 64, 84, 4)]
+# the timed shapes: res4's 3x3, res5's 3x3 and the stem
+INT8_ROWS = {"": ("res4 3x3", 32, 256, 14, 14, 256, 3, 1, 1),
+             "_res5": ("res5 3x3", 32, 512, 7, 7, 512, 3, 1, 1),
+             "_stem": ("stem", 32, 3, 224, 224, 64, 7, 2, 3)}
+DCGAN_B, DCGAN_SAMPLES = 64, 4096
+GEN_RUNS = (("default", []), ("paged", ["--paged"]),
+            ("speculate", ["--paged", "--speculate", "4"]),
+            ("share_prefix", ["--share-prefix"]), ("samples", ["--samples", "4"]))
+IMAGENET_STEPS, REC_IMAGES, REC_STEPS = 12, 256, 4
+
+
+def _int8_counts():
+    from mxnet_tpu_torch.contrib import quantization as Q
+
+    return dict(Q.launches)
+
+
+def _int8_q(gen, *shape):
+    return torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                         dtype=torch.int8)
+
+
+def _int8_conv_check(gen, case, dtype):
+    """quantized_conv on the card (the im2col and product kernels) against
+    its plain version on the same CUDA tensors (F.unfold and a matmul in
+    f64), and the im2col alone; then the int32 accumulator itself (unit
+    scales, no bias). Returns the three max |diff|."""
+    from mxnet_tpu_torch.contrib import quantization as Q
+
+    name, b, c, h, w, o, k, s, p, d, g = case
+    x, wt = _int8_q(gen, b, c, h, w), _int8_q(gen, o, c // g, k, k)
+    ws = torch.rand(o, device="cuda", generator=gen) * 1e-2
+    bias = torch.randn(o, device="cuda", generator=gen)
+    kw = dict(kernel=(k, k), stride=(s, s), pad=(p, p), dilate=(d, d),
+              num_group=g, data_scale=torch.full((), 0.0123, device="cuda"),
+              weight_scale=ws, out_dtype=dtype)
+    got = Q.quantized_conv(x, wt, bias, **kw)
+    kk = wt[0].numel()
+    kp, geo = Q.k_padded(kk), ((k, k), (s, s), (p, p), (d, d), g)
+    cols = Q.int8_im2col_plain(x, *geo, kp)
+    cols_k = Q.int8_im2col(x, *geo, kp)
+    pos = got.shape[2] * got.shape[3]
+    w2 = wt.reshape(o, kk)
+    want = Q.int8_gemm_plain(cols, w2, kk, kw["data_scale"], ws, bias, dtype,
+                             g, pos).reshape(got.shape)
+    acc = Q.int8_gemm(cols_k, w2, kk, 1.0, 1.0, None, "float32", g, pos)
+    acc_p = Q.int8_gemm_plain(cols, w2, kk, 1.0, 1.0, None, "float32", g, pos)
+    torch.cuda.synchronize()
+    errs = ((got.float() - want.float()).abs().max().item(),
+            (cols_k.int() - cols.int()).abs().max().item(),
+            (acc - acc_p).abs().max().item())
+    log(f"[int8 kernels] {name} {dtype}: out {tuple(got.shape)}, K {kk} "
+        f"(rows of {kp}), max|diff| {errs[0]}, im2col {errs[1]}, int32 "
+        f"accumulator {errs[2]} (largest |acc| {acc_p.abs().max().item():.0f})")
+    return errs
+
+
+def _int8_rows(gen):
+    """Timing rows of the two kernels at INT8_ROWS: the product over the
+    path's padded patches and weight (f32 NCHW out) beside its plain
+    version and ``torch._int_mm`` on the same zero-padded operands (the
+    library yardstick, s32 out, no epilogue; the port never calls it), and
+    the im2col beside its plain version (no library call takes int8).
+    Bounds: ops 2·M·N·K at 1,979 int8 TOPS, bytes the patches (M·K_pad),
+    the weight and the f32 output (the product) or the input and the
+    patches (the im2col), at 3.35 TB/s."""
+    from mxnet_tpu_torch.contrib import quantization as Q
+
+    rows = {}
+    for suffix, (name, b, c, h, w, o, k, s, p) in INT8_ROWS.items():
+        x, wt = _int8_q(gen, b, c, h, w), _int8_q(gen, o, c, k, k)
+        kk = wt[0].numel()
+        kp, oh = Q.k_padded(kk), (h + 2 * p - k) // s + 1
+        geo = ((k, k), (s, s), (p, p), (1, 1), 1)
+        cols = Q.int8_im2col(x, *geo, kp)
+        w2 = torch.zeros((o, kp), dtype=torch.int8, device="cuda")
+        w2[:, :kk] = wt.reshape(o, kk)
+        ws = torch.rand(o, device="cuda", generator=gen) * 1e-2
+        ds = torch.full((), 0.0123, device="cuda")
+        m = b * oh * oh
+        shape = f"int8_gemm {name} M={m} K={kk} (rows of {kp}) N={o}"
+        rows["int8_gemm" + suffix] = _timed(
+            lambda: Q.int8_gemm(cols, w2, kk, ds, ws, None, "float32", 1,
+                                oh * oh),
+            lambda: Q.int8_gemm_plain(cols, w2, kk, ds, ws, None, "float32",
+                                      1, oh * oh),
+            lambda: torch._int_mm(cols[0], w2.t()),
+            m * kp + o * kp + 4 * m * o, 2 * m * o * kk, shape, dtype="int8")
+        rows["int8_gemm" + suffix]["library"] = \
+            "torch._int_mm on the zero-padded operands (s32 out)"
+        rows["int8_gemm" + suffix]["note"] = INT8_NOTE
+        rows["int8_im2col" + suffix] = _timed(
+            lambda: Q.int8_im2col(x, *geo, kp),
+            lambda: Q.int8_im2col_plain(x, *geo, kp), None,
+            x.numel() + m * kp, 0,
+            f"int8_im2col {name} ({b}, {c}, {h}, {w}) -> ({m}, {kp})",
+            dtype="int8")
+        rows["int8_im2col" + suffix].update(library_ms=None,
+                                            library_eager_ms=None,
+                                            note=INT8_NOTE)
+    return rows
+
+
+def _resnet50_f32(seed=0):
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.vision import get_model
+
+    mx.random.seed(seed)
+    net = get_model("resnet50_v1", classes=1000)
+    net.initialize(mx.init.MSRAPrelu())
+    return net
+
+
+def _top1_and_err(a, b):
+    """Top-1 agreement of logits ``a`` with ``b`` and |a - b|'s norm over
+    |b|'s (f32)."""
+    a, b = a.float(), b.float()
+    return ((a.argmax(1) == b.argmax(1)).float().mean().item(),
+            ((a - b).norm() / b.norm()).item())
+
+
+def phase_int8(card):
+    """``[int8]``: the kernel checks (INT8_CONV_CASES in f32 and bf16,
+    INT8_FC_CASES, max |diff| 0 against the plain versions, the int32
+    accumulator too), then resnet50_v1 at 224x224, B=32 (MSRAPrelu weights
+    from seed 0): its f32 and bf16 forwards, ``convert_to_int8`` with
+    minmax calibration on 2 batches (INT8_LAYERS layers), its int8 forward
+    with its launches counted from 0 and on a profiled forward (one im2col
+    a convolution, one product a layer), top-1 agreement and relative logit
+    error against f32 and bf16; the entropy calibration once on a fresh
+    net. Returns the launches, the results, the max |diff| of each kernel
+    and the timing rows."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.contrib import quantization as Q
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    errs = {"int8_gemm": 0.0, "int8_im2col": 0.0}
+    for case in INT8_CONV_CASES:
+        for dtype in ("float32", "bfloat16"):
+            e_out, e_col, e_acc = _int8_conv_check(gen, case, dtype)
+            errs["int8_gemm"] = max(errs["int8_gemm"], e_out, e_acc)
+            errs["int8_im2col"] = max(errs["int8_im2col"], e_col)
+    for name, m, kk, n in INT8_FC_CASES:
+        a, wt = _int8_q(gen, m, kk), _int8_q(gen, n, kk)
+        ws = torch.rand(n, device="cuda", generator=gen) * 1e-2
+        bias = torch.randn(n, device="cuda", generator=gen)
+        got = Q.quantized_fully_connected(a, wt, bias, data_scale=0.01,
+                                          weight_scale=ws)
+        want = Q.int8_gemm_plain(a, wt, kk, 0.01, ws, bias)
+        e = (got - want).abs().max().item()
+        log(f"[int8 kernels] {name}: max|diff| {e}")
+        errs["int8_gemm"] = max(errs["int8_gemm"], e)
+    if errs["int8_gemm"] != 0 or errs["int8_im2col"] != 0:
+        raise AssertionError(f"[int8] kernels differ from their plain "
+                             f"versions: {errs}")
+
+    rs = np.random.RandomState(0)
+    xs = [torch.from_numpy(rs.rand(INT8_B, 3, 224, 224).astype(np.float32))
+          .cuda() for _ in range(2)]
+    x = mx.nd.array(xs[0])
+    net = _resnet50_f32()
+    with torch.no_grad():
+        ref = net(x)._data.clone()
+        f32_ms = cuda_time_ms(lambda: net(x), warmup=1, iters=3, repeats=3)
+        with tempfile.TemporaryDirectory() as d:
+            f = os.path.join(d, "r50.params")
+            net.save_parameters(f)
+            bnet = _resnet50_f32()
+            bnet.load_parameters(f)
+            bnet.cast("bfloat16")
+            xb = mx.nd.array(xs[0].to(torch.bfloat16))
+            ref_bf16 = bnet(xb)._data.float()
+            bf16_ms = cuda_time_ms(lambda: bnet(xb), warmup=1, iters=3,
+                                   repeats=3)
+            del bnet
+            enet = _resnet50_f32()
+            enet.load_parameters(f)
+        t = time.perf_counter()
+        net, scales = Q.convert_to_int8(
+            net, calib_data=[mx.nd.array(v) for v in xs])
+        calib_s = time.perf_counter() - t
+        if len(scales) != INT8_LAYERS:
+            raise AssertionError(f"[int8] {len(scales)} layers quantized, "
+                                 f"expected {INT8_LAYERS}")
+        _reset_launch_counts()
+        out = net(x)._data
+        torch.cuda.synchronize()
+        launches = _int8_counts()
+        want = {"int8_gemm": INT8_LAYERS, "int8_im2col": INT8_LAYERS - 1}
+        if launches != want:
+            raise AssertionError(f"[int8] a forward launched {launches}, "
+                                 f"expected {want}")
+        profiled = {k: _profiled_count(lambda: net(x), k + "_kernel")
+                    for k in want}
+        if profiled != want:
+            raise AssertionError(f"[int8] a profiled forward ran {profiled}"
+                                 f" kernels, expected {want}")
+        if out.shape != (INT8_B, 1000) or not torch.isfinite(out).all():
+            raise AssertionError("[int8] the int8 logits are not finite")
+        int8_ms = cuda_time_ms(lambda: net(x), warmup=1, iters=3, repeats=3)
+        groups = _device_groups(lambda: net(x), 3, "int8 forward", int8_ms)
+        agree_f32, err_f32 = _top1_and_err(out, ref)
+        agree_bf16, err_bf16 = _top1_and_err(out, ref_bf16)
+        bf16_agree, bf16_err = _top1_and_err(ref_bf16, ref)
+        t = time.perf_counter()
+        enet, escales = Q.convert_to_int8(
+            enet, calib_data=[mx.nd.array(v) for v in xs],
+            calib_mode="entropy")
+        entropy_s = time.perf_counter() - t
+        eout = enet(x)._data
+        e_agree, e_err = _top1_and_err(eout, ref)
+        if len(escales) != INT8_LAYERS or not torch.isfinite(eout).all():
+            raise AssertionError("[int8] the entropy-calibrated net failed")
+    del net, enet
+    _release()
+    res = {"forward_ms": {"int8": int8_ms, "f32": f32_ms, "bf16": bf16_ms},
+           "int8_vs_f32": {"top1_agreement": agree_f32,
+                           "rel_logit_err": err_f32},
+           "int8_vs_bf16": {"top1_agreement": agree_bf16,
+                            "rel_logit_err": err_bf16},
+           "bf16_vs_f32": {"top1_agreement": bf16_agree,
+                           "rel_logit_err": bf16_err},
+           "entropy_vs_f32": {"top1_agreement": e_agree,
+                              "rel_logit_err": e_err},
+           "layers": len(scales), "launches": launches,
+           "profiled_launches": profiled, "calib_minmax_s": calib_s,
+           "calib_entropy_s": entropy_s, "device": groups,
+           "max_abs_err": errs}
+    log(f"[int8] resnet50_v1 B={INT8_B} 224x224: {len(scales)} layers; "
+        f"a forward int8 {int8_ms:.2f} ms, f32 {f32_ms:.2f}, bf16 "
+        f"{bf16_ms:.2f}; int8 vs f32 top-1 {agree_f32:.4f}, rel logit err "
+        f"{err_f32:.4g}; vs bf16 {agree_bf16:.4f} / {err_bf16:.4g}; bf16 vs "
+        f"f32 {bf16_agree:.4f} / {bf16_err:.4g}; entropy calibration "
+        f"{entropy_s:.1f} s, vs f32 {e_agree:.4f} / {e_err:.4g}; launches "
+        f"{launches} ({card})")
+    timing = _int8_rows(gen)
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[int8 seconds] {res['seconds']:.1f} s")
+    return launches, res, errs, timing
+
+
+def phase_quantize_model(card):
+    """``[quantize_model]``: examples/torch_quantize_model.py at its defaults
+    (lenet, 4 classes, 2 epochs of f32 Adam, minmax calibration) on the
+    card: f32 accuracy > 0.5 and int8 within 0.05 of it
+    (tests/test_quantize_example.py's limits), its int8 launches counted
+    from 0 (4 test batches x 5 layers, 2 convolutions of them)."""
+    ex = _example("torch_quantize_model")
+    _reset_launch_counts()
+    t = time.perf_counter()
+    fp32_acc, int8_acc = ex.main([])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launches = dict(_launch_counts(), **_int8_counts())
+    if not (fp32_acc > 0.5 and int8_acc >= fp32_acc - 0.05):
+        raise AssertionError(f"[quantize_model] accuracy f32 {fp32_acc}, "
+                             f"int8 {int8_acc}")
+    want = {"int8_gemm": 20, "int8_im2col": 8, "adam": 24, "xent_fwd": 24,
+            "xent_bwd": 24}
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"[quantize_model] launches {launches}, "
+                             f"expected {want}")
+    res = {"fp32_acc": fp32_acc, "int8_acc": int8_acc, "seconds": secs}
+    log(f"[quantize_model] f32 {fp32_acc:.4f}, int8 {int8_acc:.4f} in "
+        f"{secs:.1f} s; launches {launches} ({card})")
+    return launches, res
+
+
+def phase_onnx(card):
+    """``[onnx]``: resnet50_v1 (MSRAPrelu, seed 0, BatchNorm statistics
+    drawn) through ``HybridBlock.export`` -> ``export_model`` ->
+    ``import_model`` -> ``SymbolBlock`` on the card at B=32, 224x224,
+    against the Gluon forward within tests/test_onnx.py's resnet tolerance
+    (rtol 1e-3, atol 1e-4)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.contrib.onnx import export_model, import_model
+
+    net = _resnet50_f32(seed=1)
+    rs = np.random.RandomState(41)
+    x = mx.nd.array(rs.rand(INT8_B, 3, 224, 224).astype(np.float32))
+    with torch.no_grad():
+        net(x)  # the deferred shapes
+    for name, p in net.collect_params().items():
+        n = p.shape[0]
+        if name.endswith(("running_var", "gamma")):
+            p.set_data(rs.uniform(0.5, 1.5, n).astype(np.float32))
+        elif name.endswith(("running_mean", "beta")):
+            p.set_data(rs.randn(n).astype(np.float32) * 0.1)
+    with torch.no_grad(), tempfile.TemporaryDirectory() as d:
+        want = net(x)._data
+        t = time.perf_counter()
+        sym_file, param_file = net.export(os.path.join(d, "r50"))
+        onnx_file = export_model(sym_file, param_file,
+                                 input_shapes={"data": tuple(x.shape)},
+                                 onnx_file=os.path.join(d, "r50.onnx"))
+        export_s = time.perf_counter() - t
+        t = time.perf_counter()
+        sym, arg_params, aux_params = import_model(onnx_file)
+        inputs = [s for s in sym.list_arguments() if s not in arg_params]
+        block = mx.gluon.SymbolBlock(sym, inputs,
+                                     {**arg_params, **aux_params},
+                                     ctx=mx.gpu())
+        import_s = time.perf_counter() - t
+        nbytes = os.path.getsize(onnx_file)
+        got = block(x)._data
+        torch.cuda.synchronize()
+    if not got.is_cuda or got.shape != want.shape:
+        raise AssertionError("[onnx] the imported block's output")
+    err = (got - want).abs().max().item()
+    if not torch.allclose(got, want, rtol=1e-3, atol=1e-4):
+        raise AssertionError(f"[onnx] imported resnet50_v1 differs from the "
+                             f"Gluon forward by {err}")
+    del net, block
+    _release()
+    res = {"max_abs_diff": err, "export_s": export_s, "import_s": import_s,
+           "onnx_bytes": nbytes}
+    log(f"[onnx] resnet50_v1 B={INT8_B}: export {export_s:.2f} s "
+        f"({nbytes} bytes), import {import_s:.2f} s, max|diff| {err:.3g} "
+        f"against the Gluon forward ({card})")
+    return res
+
+
+def phase_dcgan(card):
+    """``[dcgan]``: examples/torch_train_dcgan.py at the example's widths
+    (ngf = ndf = 32, nz 64, 32x32) at B=64 over DCGAN_SAMPLES synthetic
+    blobs, one epoch (64 D/G iterations): losses finite, G's loss moved,
+    D's not collapsed (tests/test_dcgan.py's checks), two Adam launches an
+    iteration (one a Trainer), ms an iteration (the first excluded), then
+    8 more iterations on the same nets under the profiler for the idle
+    share."""
+    ex = _example("torch_train_dcgan")
+    args = ex.build_parser().parse_args(
+        ["--epochs", "1", "--batch-size", str(DCGAN_B), "--n-samples",
+         str(DCGAN_SAMPLES)])
+    stamps, per_iter = [], []
+
+    def on_step(i):
+        stamps.append(time.perf_counter())
+        per_iter.append(_launch_counts()["adam"])
+
+    _reset_launch_counts()
+    d, g, gen, disc = ex.train(args, log=log, on_step=on_step)
+    launches = _launch_counts()
+    adam = np.diff([0] + per_iter)
+    if not (np.isfinite(d).all() and np.isfinite(g).all()):
+        raise AssertionError("[dcgan] losses are not finite")
+    if abs(g[-1] - g[0]) <= 1e-3 or d[-1] <= 1e-4:
+        raise AssertionError(f"[dcgan] G {g[0]} -> {g[-1]}, D {d[-1]}")
+    if len(d) != DCGAN_SAMPLES // DCGAN_B or (adam != 2).any():
+        raise AssertionError(f"[dcgan] {len(d)} iterations, Adam launches "
+                             f"an iteration {sorted(set(adam))}")
+    ms = (stamps[-1] - stamps[0]) / (len(stamps) - 1) * 1e3
+    short = ex.build_parser().parse_args(
+        ["--epochs", "1", "--batch-size", str(DCGAN_B), "--n-samples",
+         str(8 * DCGAN_B)])
+
+    def eight():
+        ex.train(short, gen=gen, disc=disc, log=lambda *_: None)
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    eight()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3
+    groups = _device_groups(eight, 1, "dcgan 8 iterations", wall)
+    del gen, disc
+    _release()
+    res = {"iterations": len(d), "ms_per_iteration": ms,
+           "d_loss": [d[0], d[-1]], "g_loss": [g[0], g[-1]],
+           "adam_per_iteration": 2, "device": groups}
+    log(f"[dcgan] B={DCGAN_B}, {len(d)} iterations: {ms:.2f} ms an "
+        f"iteration, D {d[0]:.4f} -> {d[-1]:.4f}, G {g[0]:.4f} -> "
+        f"{g[-1]:.4f}, 2 Adam launches an iteration, idle share "
+        f"{groups['idle_share']} ({card})")
+    return launches, res
+
+
+def phase_generate(card):
+    """``[generate]``: examples/torch_generate_gpt2.py with gpt2_117m at the
+    full 50,257 vocabulary, batch 8, in GEN_RUNS (default, ``--paged``,
+    ``--paged --speculate 4``, ``--share-prefix``, ``--samples 4``), the
+    telemetry reset before each: the greedy tokens of the paged and
+    speculative runs equal the dense run's (tests/test_paged_inference.py's
+    bit-identity), tokens/s (wall of ``main()``, the engine's first calls
+    and captures included), pages, prefix hits, forks, accept rate."""
+    from mxnet_tpu_torch.models import gpt2
+    from mxnet_tpu_torch.observability import REGISTRY
+
+    ex = _example("torch_generate_gpt2")
+    net = gpt2.get_gpt2("gpt2_117m", dropout=0.0, vocab_size=50257,
+                        max_length=256, device="cuda", seed=0)
+    base = ["--model", "gpt2_117m", "--vocab", "50257", "--batch-size", "8"]
+    _reset_launch_counts()
+    runs = {}
+    for name, flags in GEN_RUNS:
+        REGISTRY.reset()
+        t = time.perf_counter()
+        r = ex.main(base + flags, net=net)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        toks = sum(len(q["tokens"]) for q in r["requests"])
+        runs[name] = dict(r, seconds=wall, tokens_per_s=toks / wall)
+    launches = _launch_counts()
+    dense = [q["tokens"] for q in runs["default"]["requests"]]
+    for name in ("paged", "speculate"):
+        if [q["tokens"] for q in runs[name]["requests"]] != dense:
+            raise AssertionError(f"[generate] {name}'s greedy tokens differ "
+                                 "from the dense run's")
+    if runs["speculate"]["accept_rate"] != 1.0:
+        raise AssertionError("[generate] the self-draft's accept rate")
+    if runs["samples"]["prefix"]["forks"] != 3 or \
+            runs["share_prefix"]["prefix"]["hits"] < 1:
+        raise AssertionError(f"[generate] forks / prefix hits: "
+                             f"{runs['samples']['prefix']}, "
+                             f"{runs['share_prefix']['prefix']}")
+    del net
+    _release()
+    res = {k: {kk: v[kk] for kk in ("seconds", "tokens_per_s", "programs",
+                                    "pages", "prefix", "accept_rate")
+               if kk in v} for k, v in runs.items()}
+    log(f"[generate] gpt2_117m B=8 vocab 50257: " + json.dumps(res)
+        + f" ({card})")
+    return launches, res
+
+
+def _write_jpeg_pack(d, n, size, seed=42):
+    """``n`` synthetic ``size`` x ``size`` RGB JPEGs (smooth gradients and
+    noise) packed with the port's ``io.recordio`` writer into ``d``."""
+    from mxnet_tpu_torch.io import recordio
+
+    rs = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size
+    path = os.path.join(d, "synthetic.rec")
+    rec = recordio.IndexedRecordIO(os.path.join(d, "synthetic.idx"), path,
+                                   "w")
+    for i in range(n):
+        a, b, c = rs.uniform(0, 255, 3)
+        img = np.stack([a * xx, b * yy, c * (1 - xx)], -1)
+        img = np.clip(img + rs.randn(size, size, 3) * 20, 0, 255)
+        rec.write_idx(i, recordio.pack_img(
+            recordio.IRHeader(0, float(rs.randint(0, 1000)), i, 0),
+            img.astype(np.uint8), quality=90))
+    rec.close()
+    return path
+
+
+def phase_imagenet(card):
+    """``[imagenet]``: examples/torch_train_imagenet_resnet.py at
+    ``--layers 50 --batch-size 64 --image-size 224 --steps 12`` on its
+    synthetic batches (img/s over the 10 steps after the eager one and the
+    capture, a finite loss, one xent pair a step), then ``--rec`` over REC_IMAGES synthetic
+    256x256 JPEGs written here by the port's recordio writer, REC_STEPS
+    steps (decode img/s)."""
+    ex = _example("torch_train_imagenet_resnet")
+    args = ex.build_parser().parse_args(
+        ["--layers", "50", "--batch-size", "64", "--image-size", "224",
+         "--steps", str(IMAGENET_STEPS)])
+    _reset_launch_counts()
+    syn = ex.train(args)
+    launches = _launch_counts()
+    if not np.isfinite(syn["losses"]).all():
+        raise AssertionError(f"[imagenet] losses {syn['losses']}")
+    if launches["xent_fwd"] != IMAGENET_STEPS or \
+            launches["xent_bwd"] != IMAGENET_STEPS:
+        raise AssertionError(f"[imagenet] launches {launches}")
+    _release()
+    with tempfile.TemporaryDirectory() as d:
+        t = time.perf_counter()
+        path = _write_jpeg_pack(d, REC_IMAGES, 256)
+        write_s = time.perf_counter() - t
+        rec_args = ex.build_parser().parse_args(
+            ["--layers", "50", "--batch-size", "64", "--image-size", "224",
+             "--steps", str(REC_STEPS), "--rec", path])
+        rec = ex.train(rec_args)
+    if not np.isfinite(rec["losses"]).all():
+        raise AssertionError(f"[imagenet --rec] losses {rec['losses']}")
+    _release()
+    res = {"synthetic": syn, "rec": dict(rec, pack_write_s=write_s)}
+    log(f"[imagenet] resnet50 B=64: {syn['img_per_s']:.1f} img/s, loss "
+        f"{syn['loss']:.4f}; --rec over {REC_IMAGES} JPEGs: "
+        f"{rec['img_per_s']:.1f} img/s, decode "
+        f"{rec['decode_img_per_s']:.1f} img/s ({card})")
+    return launches, res
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this script needs one "
@@ -9054,6 +9571,20 @@ def main():
         phase_sparse(card)
     log("[sparse] " + json.dumps(sparse, default=str))
     log("[np] " + json.dumps(phase_np(card)))
+    t = time.perf_counter()
+    int8_launches, int8, int8_errs, int8_timing = phase_int8(card)
+    log("[int8] " + json.dumps(int8, default=str))
+    qm_launches, quantize_model = phase_quantize_model(card)
+    log("[quantize_model] " + json.dumps(quantize_model))
+    log("[onnx] " + json.dumps(phase_onnx(card)))
+    dcgan_launches, dcgan = phase_dcgan(card)
+    log("[dcgan] " + json.dumps(dcgan, default=str))
+    gen_launches, generate = phase_generate(card)
+    log("[generate] " + json.dumps(generate, default=str))
+    imagenet_launches, imagenet = phase_imagenet(card)
+    log("[imagenet] " + json.dumps(imagenet, default=str))
+    log(f"[int8, quantize_model, onnx and example routes seconds] "
+        f"{time.perf_counter() - t:.1f} s")
     log("[engine types] " + json.dumps(
         {"turns": MODE_TURNS, "serve": serve, "train": train,
          "train_amp": train_amp, "bert_amp": bert_amp,
@@ -9067,6 +9598,8 @@ def main():
     timing["adam_ssd300"] = timing["adam_ssd"]
     timing.update(phase_symbol_timing(lm_params))
     timing.update(sparse_timing)
+    timing.update(int8_timing)
+    errs.update(int8_errs)
     # the imported transformer_base runs the Transformer's f32 flash shapes
     # and its fine-tune updates transformer_base's tensors
     for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
@@ -9303,6 +9836,29 @@ def main():
         "adam_lm1b": ("mxnet_tpu_torch/csrc/adam.cu",
                       "mxnet_tpu/ops/pallas_optimizer.py:63",
                       "sparse_lm1b", "adam", None),
+        # INT8 (no pallas_call site: XLA's int8 conv, lax.conv_general_
+        # dilated with preferred_element_type=int32): resnet50_v1's int8
+        # forward at B=32, rows at res4's 3x3, res5's 3x3 and the stem
+        # (their max_abs_err: the largest of the checks at INT8_CONV_CASES
+        # and INT8_FC_CASES)
+        "int8_gemm": ("mxnet_tpu_torch/csrc/int8_gemm.cu",
+                      "mxnet_tpu/contrib/quantization.py:135", "int8",
+                      "int8_gemm", "int8_gemm"),
+        "int8_gemm_res5": ("mxnet_tpu_torch/csrc/int8_gemm.cu",
+                           "mxnet_tpu/contrib/quantization.py:135", "int8",
+                           "int8_gemm", "int8_gemm"),
+        "int8_gemm_stem": ("mxnet_tpu_torch/csrc/int8_gemm.cu",
+                           "mxnet_tpu/contrib/quantization.py:135", "int8",
+                           "int8_gemm", "int8_gemm"),
+        "int8_im2col": ("mxnet_tpu_torch/csrc/int8_gemm.cu",
+                        "mxnet_tpu/contrib/quantization.py:135", "int8",
+                        "int8_im2col", "int8_im2col"),
+        "int8_im2col_res5": ("mxnet_tpu_torch/csrc/int8_gemm.cu",
+                             "mxnet_tpu/contrib/quantization.py:135",
+                             "int8", "int8_im2col", "int8_im2col"),
+        "int8_im2col_stem": ("mxnet_tpu_torch/csrc/int8_gemm.cu",
+                             "mxnet_tpu/contrib/quantization.py:135",
+                             "int8", "int8_im2col", "int8_im2col"),
     }
     errs["adam_bert"] = timing["adam_bert"]["max_abs_err_at_shape"]
     errs["adam_lenet"] = timing["adam_lenet"]["max_abs_err_at_shape"]
@@ -9334,7 +9890,10 @@ def main():
                "ssd_example": ssd_launches, "ssd300": ssd300_launches,
                "estimator": est_launches, "symbol": sym_launches,
                "symbol_finetune": sym_ft_launches, "module": lm_launches,
-               "sparse": sparse_launches, "sparse_lm1b": lm1b_launches}
+               "sparse": sparse_launches, "sparse_lm1b": lm1b_launches,
+               "int8": int8_launches, "quantize_model": qm_launches,
+               "dcgan": dcgan_launches, "generate": gen_launches,
+               "imagenet": imagenet_launches}
     kernels = []
     for name, (src, rep, path, *extra) in meta.items():
         t = timing[name]
@@ -9357,7 +9916,7 @@ def main():
             "library_ms": t["library_ms"], "shape": t["shape"],
             "eager_ms": t["eager_ms"], "plain_eager_ms": t["plain_eager_ms"],
             "library_eager_ms": t["library_eager_ms"],
-            "library": t.get("library")})
+            "library": t.get("library"), "note": t.get("note")})
     log(f"[done] {time.perf_counter() - t0:.1f}s on {card}")
     print(json.dumps({"kernels": kernels}))
     print(card)

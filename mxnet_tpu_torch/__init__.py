@@ -24,7 +24,9 @@ Gluon ``Estimator`` (``gluon.contrib.estimator``), ``test_utils``,
 ``BucketSentenceIter``), ``viz`` and ``operator`` (CustomOp, ``nd.Custom``,
 ``sym.Custom``). Row-sparse and CSR storage: ``nd.sparse``, lazy optimizer
 updates, ``Embedding(sparse_grad=True)``. The numpy namespace: ``np`` and
-``npx`` (``numpy_api``). Imports torch, numpy and the standard
+``npx`` (``numpy_api``). INT8 post-training quantization on a
+hand-written s8 tensor-core kernel (``contrib.quantization``) and ONNX
+export and import (``contrib.onnx``). Imports torch, numpy and the standard
 library only. Entry points run on the card unless the caller names the
 CPU (``device="cpu"``, ``ctx=mx.cpu()``), which runs the kernels' plain
 PyTorch versions.

@@ -1,6 +1,7 @@
 // Warp-level tensor-core helpers for the port's bf16 and f32 kernels:
 // 16-byte cp.async copies into shared memory, ldmatrix fragment loads, the
-// m16n8k16 bf16 mma and the m16n8k8 TF32 mma with f32 accumulation, and the
+// m16n8k16 bf16 mma and the m16n8k8 TF32 mma with f32 accumulation, the
+// m16n8k32 s8 mma with s32 accumulation, and the
 // split of an f32 value into two TF32 values for 3xTF32 products (inline
 // PTX, sm_80 and later; built here for sm_90a).
 //
@@ -62,6 +63,20 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b over one 16 x 8 x 32 step, s8 operands, s32 accumulation. The
+// fragments hold four int8 a register where the bf16 ones hold two, at the
+// same byte positions: A (16 x 32 bytes) and B (32 x 8, stored [n][k]) load
+// with ldsm_x4, a_off and bn_off as 16 x 16 bf16 tiles, and C (s32) has the
+// f32 layout above.
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

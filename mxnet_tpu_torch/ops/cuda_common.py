@@ -36,7 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 #: kernel sources, one shared library each
 SOURCES = ("layernorm", "paged_attention", "flash_attention", "adam",
-           "softmax_xent")
+           "softmax_xent", "int8_gemm")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -155,6 +155,15 @@ _ARGTYPES = {
     # (x, label, stats, g, dx), then n, c, dtype, stream
     "mx_xent_bwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
                    + [ctypes.c_void_p],
+    # (x, out), then B, C, H, W, G, KH, KW, stride h w, pad h w, dilate h w,
+    # OH, OW, K_pad, stream
+    "mx_int8_im2col": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 16
+                      + [ctypes.c_void_p],
+    # (a, w, out, data_scale, ws, bias | NULL), then M, N, K, lda, ldw,
+    # a_group, w_group, G, P, out dtype, stream
+    "mx_int8_gemm": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+                    + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 3
+                    + [ctypes.c_void_p],
 }
 
 
