@@ -542,6 +542,8 @@ def phase_build():
             elif "registers" in line and fn is not None:
                 regs = line.split("Used ")[1].split(",")[0]
                 log(f"  {name}: {fn[:72]}: {regs}, {spill}")
+            elif "Performance Loss" in line:  # e.g. serialised wgmma
+                log(f"  {name}: ptxas: {line.strip()[:240]}")
     check_tensor_cores(libs)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -552,10 +554,12 @@ def phase_build():
 
 
 # the kernels that must multiply on the tensor cores, by library: (name
-# fragments of the kernel, TF32): the bf16 flash forward and backward, the
-# f32 flash forward and backward in 3xTF32, and the paged prefill read in
-# 3xTF32 (every instantiation), whose HMMA must have the TF32 m16n8k8 shape
-# (.TF32, 1688)
+# fragments of the kernel, what they need): the bf16 flash forward and
+# backward, the f32 flash forward and backward in 3xTF32, and the paged
+# prefill read in 3xTF32 (every instantiation), whose HMMA must have the
+# TF32 m16n8k8 shape (.TF32, 1688: True); the int8 product's wgmma route,
+# whose tensor-core instructions must be warpgroup MMAs (IGMMA: "gmma"),
+# and its mma.sync route (IMMA: False)
 TC_KERNELS = {
     "flash_attention": [((ns, f"{kern}ILi{d}"), ns == "tf32x3")
                         for ns in ("bf16tc", "tf32x3")
@@ -565,14 +569,19 @@ TC_KERNELS = {
                         for d in (64, 128)],
     "paged_attention": [((f"paged_prefill_tc_kernelILi{ch}",), True)
                         for ch in (16, 32, 64, 128)],
+    "int8_gemm": [((f"int8_gemm_wgmma_kernelILi{bn}",), "gmma")
+                  for bn in (64, 128)]
+                 + [(("16int8_gemm_kernelILi64",), False),
+                    (("16int8_gemm_kernelILi128",), False)],
 }
 
 
 def check_tensor_cores(libs):
-    """Count the tensor-core instructions (HMMA, HGMMA) of each kernel of
-    the libraries in TC_KERNELS in their SASS (``cuobjdump -sass``), and
-    among them the TF32 ones, and fail unless every kernel that a
-    TC_KERNELS entry names has some (TF32 ones where it says so): each
+    """Count the tensor-core instructions (HMMA, IMMA, and the warpgroup
+    HGMMA, IGMMA) of each kernel of the libraries in TC_KERNELS in their
+    SASS (``cuobjdump -sass``), and among them the TF32 ones and the
+    warpgroup ones, and fail unless every kernel that a TC_KERNELS entry
+    names has some (TF32 or warpgroup ones where it says so): each
     instantiation of a name on its own."""
     from mxnet_tpu_torch.ops import cuda_common
 
@@ -585,21 +594,25 @@ def check_tensor_cores(libs):
         for line in sass.splitlines():
             if "Function :" in line:
                 fn = line.split("Function :", 1)[1].strip()
-                counts[fn] = [0, 0]
-            elif fn is not None and "HMMA" in line:  # HMMA and HGMMA
+                counts[fn] = [0, 0, 0]
+            elif fn is not None and ("HMMA" in line or "IMMA" in line
+                                     or "GMMA" in line):
                 counts[fn][0] += 1
                 counts[fn][1] += ".TF32" in line or "1688" in line
-        for fn, (n, n_tf32) in sorted(counts.items()):
+                counts[fn][2] += "GMMA" in line
+        for fn, (n, n_tf32, n_gmma) in sorted(counts.items()):
             if n:
                 log(f"  {name} SASS: {n} tensor-core instructions "
-                    f"({n_tf32} TF32) in {fn[:80]}")
-        for parts, tf32 in wants:
+                    f"({n_tf32} TF32, {n_gmma} warpgroup) in {fn[:80]}")
+        for parts, need in wants:
             fns = [fn for fn in counts if all(p in fn for p in parts)]
-            bare = [fn for fn in fns if counts[fn][1 if tf32 else 0] == 0]
+            col = 2 if need == "gmma" else 1 if need else 0
+            bare = [fn for fn in fns if counts[fn][col] == 0]
             if not fns or bare:
+                what = {2: "warpgroup ", 1: "TF32 ", 0: ""}[col]
                 raise AssertionError(
-                    f"no {'TF32 ' if tf32 else ''}tensor-core instruction "
-                    f"in {'::'.join(parts)} ({bare or 'no such kernel'})")
+                    f"no {what}tensor-core instruction in "
+                    f"{'::'.join(parts)} ({bare or 'no such kernel'})")
 
 
 def _paged_case(gen, b, h, tq, ch, ps, n_pages, pool_pages, qdtype, dtype,
@@ -8952,8 +8965,13 @@ INT8_B = 32
 INT8_LAYERS = 54  # resnet50_v1: 53 Conv2D and the Dense
 # (name, B, C, H, W, O, kernel, stride, pad, dilate, groups) of the kernel
 # checks: resnet50_v1's at B=32 (the stem, res2's and res5's 1x1 and 3x3,
-# a stride-2 downsample), a grouped 3x3 (ResNeXt's 32 groups at res3) and
-# LeNet's conv1 (K = 25)
+# a stride-2 downsample), a grouped 3x3 (ResNeXt's 32 groups at res3),
+# LeNet's conv1 (K = 25), and windows too large for one block at 64
+# channels: a 3x3 over rows 1024 wide (VGG16's conv1_2 at a 1024-pixel
+# input; 32 channels a block), the same over rows 4096 wide (16 channels
+# and half a row a block), a rate-24 dilated 3x3 on a 65x65 map
+# (DeepLabv3's ASPP at output stride 8) and a 1x1 over rows 4096 wide
+# (half a row a block)
 INT8_CONV_CASES = [("stem", 32, 3, 224, 224, 64, 7, 2, 3, 1, 1),
                    ("res2 1x1", 32, 256, 56, 56, 64, 1, 1, 0, 1, 1),
                    ("res2 3x3", 32, 64, 56, 56, 64, 3, 1, 1, 1, 1),
@@ -8961,18 +8979,32 @@ INT8_CONV_CASES = [("stem", 32, 3, 224, 224, 64, 7, 2, 3, 1, 1),
                    ("res5 3x3", 32, 512, 7, 7, 512, 3, 1, 1, 1, 1),
                    ("downsample s2", 32, 512, 28, 28, 1024, 1, 2, 0, 1, 1),
                    ("grouped 32", 32, 256, 28, 28, 256, 3, 1, 1, 1, 32),
-                   ("lenet conv1", 64, 1, 28, 28, 6, 5, 1, 2, 1, 1)]
-# (name, M, K, N) of the products checked alone: resnet50_v1's Dense and
-# LeNet's three (K = 400, 120 and 84: rows that are not 16-byte aligned
-# take the kernel's byte loads)
+                   ("lenet conv1", 64, 1, 28, 28, 6, 5, 1, 2, 1, 1),
+                   ("wide 3x3", 1, 64, 8, 1024, 64, 3, 1, 1, 1, 1),
+                   ("wider 3x3", 1, 64, 2, 4096, 64, 3, 1, 1, 1, 1),
+                   ("dilated 24", 2, 64, 65, 65, 64, 3, 1, 24, 24, 1),
+                   ("wide 1x1", 1, 64, 2, 4096, 64, 1, 1, 0, 1, 1)]
+# (name, M, K, N) of the products checked alone: resnet50_v1's Dense (K
+# split on the wgmma route) and LeNet's three (K = 400 on wgmma; 120 and 84:
+# rows that are not 16-byte aligned, the mma.sync route's byte loads)
 INT8_FC_CASES = [("dense 2048->1000", 32, 2048, 1000),
                  ("lenet dense 400->120", 64, 400, 120),
                  ("lenet dense 120->84", 64, 120, 84),
                  ("lenet dense 84->4", 64, 84, 4)]
-# the timed shapes: res4's 3x3, res5's 3x3 and the stem
+# the timed shapes: res4's 3x3, res5's 3x3, the stem, res2's 3x3 and res3's
+# 1x1 (the product on its wgmma route, the im2col from the f32 activation)
 INT8_ROWS = {"": ("res4 3x3", 32, 256, 14, 14, 256, 3, 1, 1),
              "_res5": ("res5 3x3", 32, 512, 7, 7, 512, 3, 1, 1),
-             "_stem": ("stem", 32, 3, 224, 224, 64, 7, 2, 3)}
+             "_stem": ("stem", 32, 3, 224, 224, 64, 7, 2, 3),
+             "_res2": ("res2 3x3", 32, 64, 56, 56, 64, 3, 1, 1),
+             "_res3": ("res3 1x1", 32, 512, 28, 28, 128, 1, 1, 0)}
+# the mma.sync route's timed shape: LeNet's Dense 120 -> 84 at the
+# quantize_model example's test batch of 32
+INT8_MMA_ROW = ("lenet dense 120->84", 32, 120, 84)
+# activation scales of the im2col checks: a power of two, so that x / s
+# lands exactly on the ties (n + 0.5) the activations are built on, and
+# one that is not
+INT8_ACT_SCALES = (2.0 ** -6, 0.0123)
 DCGAN_B, DCGAN_SAMPLES = 64, 4096
 GEN_RUNS = (("default", []), ("paged", ["--paged"]),
             ("speculate", ["--paged", "--speculate", "4"]),
@@ -8991,85 +9023,174 @@ def _int8_q(gen, *shape):
                          dtype=torch.int8)
 
 
-def _int8_conv_check(gen, case, dtype):
-    """quantized_conv on the card (the im2col and product kernels) against
-    its plain version on the same CUDA tensors (F.unfold and a matmul in
-    f64), and the im2col alone; then the int32 accumulator itself (unit
-    scales, no bias). Returns the three max |diff|."""
+def _int8_act(gen, shape, scale, dtype):
+    """f32 or bf16 activations on the quantisation's edges: a third
+    integers n and a third n + 0.5 (|n| up to 160, so past the clamp at
+    127) times ``scale``, a third arbitrary (normal, 60 ``scale`` wide)."""
+    n = torch.randint(-160, 161, shape, generator=gen, device="cuda").float()
+    pick = torch.randint(0, 3, shape, generator=gen, device="cuda")
+    wild = torch.randn(shape, generator=gen, device="cuda") * 60
+    x = torch.where(pick == 0, n, torch.where(pick == 1, n + 0.5, wild))
+    return (x * scale).to(dtype)
+
+
+def _int8_conv_check(gen, case):
+    """A convolution's kernels on the card against their plain versions on
+    the same CUDA tensors: the im2col on an int8 activation and on f32 and
+    bf16 ones it quantises (each INT8_ACT_SCALES; the plain version
+    quantises as ``_QuantizedLayer`` does, then unfolds), padded edges
+    included; the product on each route (``gemm_plan``'s and mma.sync) in
+    f32 and bf16 out and its int32 accumulator at unit scales; and the
+    layer's whole fused path (``_conv`` from the f32 activation). Returns
+    max |diff| by kernel and the plan of the product."""
     from mxnet_tpu_torch.contrib import quantization as Q
 
     name, b, c, h, w, o, k, s, p, d, g = case
-    x, wt = _int8_q(gen, b, c, h, w), _int8_q(gen, o, c // g, k, k)
+    kk = c // g * k * k
+    kp, geo = Q.k_padded(kk), ((k, k), (s, s), (p, p), (d, d), g)
+    errs = {"int8_im2col": 0.0, "int8_gemm_wgmma": 0.0, "int8_gemm_mma": 0.0}
+    col_errs = {}
+    for dtype, scale in ([(torch.int8, None)]
+                         + [(dt, sc) for dt in (torch.float32, torch.bfloat16)
+                            for sc in INT8_ACT_SCALES]):
+        if dtype == torch.int8:
+            x = _int8_q(gen, b, c, h, w)
+        else:
+            x = _int8_act(gen, (b, c, h, w), scale, dtype)
+            scale = torch.full((), scale, device="cuda")
+        got = Q.int8_im2col(x, *geo, kp, scale)
+        want = Q.int8_im2col_plain(x if scale is None
+                                   else Q._quantize(x, scale), *geo, kp)
+        e = (got.int() - want.int()).abs().max().item()
+        col_errs[str(dtype).split(".")[-1] + (
+            "" if scale is None else f"@{scale.item():g}")] = e
+        errs["int8_im2col"] = max(errs["int8_im2col"], e)
+    xq, wt = _int8_q(gen, b, c, h, w), _int8_q(gen, o, c // g, k, k)
+    w2 = torch.zeros((o, kp), dtype=torch.int8, device="cuda")
+    w2[:, :kk] = wt.reshape(o, kk)
     ws = torch.rand(o, device="cuda", generator=gen) * 1e-2
     bias = torch.randn(o, device="cuda", generator=gen)
-    kw = dict(kernel=(k, k), stride=(s, s), pad=(p, p), dilate=(d, d),
-              num_group=g, data_scale=torch.full((), 0.0123, device="cuda"),
-              weight_scale=ws, out_dtype=dtype)
-    got = Q.quantized_conv(x, wt, bias, **kw)
-    kk = wt[0].numel()
-    kp, geo = Q.k_padded(kk), ((k, k), (s, s), (p, p), (d, d), g)
-    cols = Q.int8_im2col_plain(x, *geo, kp)
-    cols_k = Q.int8_im2col(x, *geo, kp)
-    pos = got.shape[2] * got.shape[3]
-    w2 = wt.reshape(o, kk)
-    want = Q.int8_gemm_plain(cols, w2, kk, kw["data_scale"], ws, bias, dtype,
-                             g, pos).reshape(got.shape)
-    acc = Q.int8_gemm(cols_k, w2, kk, 1.0, 1.0, None, "float32", g, pos)
+    ds = torch.full((), 0.0123, device="cuda")
+    cols = Q.int8_im2col_plain(xq, *geo, kp)
+    oh, ow = Q._out_hw(h, w, (k, k), (s, s), (p, p), (d, d))
+    pos = oh * ow
+    plan = Q.gemm_plan(b * pos, o // g, kk, g, kp, kp, True,
+                       Q._sm_count(xq.device))
     acc_p = Q.int8_gemm_plain(cols, w2, kk, 1.0, 1.0, None, "float32", g, pos)
+    gemm_errs = {}
+    for pl in (plan, ("mma", 0, 1)):
+        key = "int8_gemm_" + pl[0]
+        acc = Q._int8_gemm(cols, w2, kk, 1.0, 1.0, None, "float32", g, pos,
+                           pl)
+        e = [(acc - acc_p).abs().max().item()]
+        for dtype in ("float32", "bfloat16"):
+            got = Q._int8_gemm(cols, w2, kk, ds, ws, bias, dtype, g, pos,
+                               pl)
+            want = Q.int8_gemm_plain(cols, w2, kk, ds, ws, bias, dtype, g,
+                                     pos)
+            e.append((got.float() - want.float()).abs().max().item())
+        gemm_errs[pl[0]] = e
+        errs[key] = max(errs[key], *e)
+    # the layer's path: the f32 activation through the fused im2col and the
+    # plan's product, against quantise, unfold and the plain product
+    xf = _int8_act(gen, (b, c, h, w), INT8_ACT_SCALES[1], torch.float32)
+    got = Q._conv(xf, w2, kk, bias, (k, k), s, p, d, g, ds, ws, "float32",
+                  quantize=True)
+    want = Q.int8_gemm_plain(
+        Q.int8_im2col_plain(Q._quantize(xf, ds), *geo, kp), w2, kk, ds, ws,
+        bias, "float32", g, pos).reshape(got.shape)
+    e_layer = (got - want).abs().max().item()
+    errs[f"int8_gemm_{plan[0]}"] = max(errs[f"int8_gemm_{plan[0]}"], e_layer)
+    errs["int8_im2col"] = max(errs["int8_im2col"], e_layer)
     torch.cuda.synchronize()
-    errs = ((got.float() - want.float()).abs().max().item(),
-            (cols_k.int() - cols.int()).abs().max().item(),
-            (acc - acc_p).abs().max().item())
-    log(f"[int8 kernels] {name} {dtype}: out {tuple(got.shape)}, K {kk} "
-        f"(rows of {kp}), max|diff| {errs[0]}, im2col {errs[1]}, int32 "
-        f"accumulator {errs[2]} (largest |acc| {acc_p.abs().max().item():.0f})")
-    return errs
+    log(f"[int8 kernels] {name}: K {kk} (rows of {kp}), plan {plan}; im2col "
+        f"max|diff| {col_errs}; product (int32 accumulator, f32, bf16) "
+        f"{gemm_errs}; the layer's fused path {e_layer} (largest |acc| "
+        f"{acc_p.abs().max().item():.0f})")
+    return errs, plan
 
 
 def _int8_rows(gen):
-    """Timing rows of the two kernels at INT8_ROWS: the product over the
-    path's padded patches and weight (f32 NCHW out) beside its plain
-    version and ``torch._int_mm`` on the same zero-padded operands (the
-    library yardstick, s32 out, no epilogue; the port never calls it), and
-    the im2col beside its plain version (no library call takes int8).
-    Bounds: ops 2·M·N·K at 1,979 int8 TOPS, bytes the patches (M·K_pad),
-    the weight and the f32 output (the product) or the input and the
-    patches (the im2col), at 3.35 TB/s."""
+    """Timing rows at INT8_ROWS: the product on its wgmma route over the
+    path's padded patches and weight (f32 NCHW out) beside its plain version
+    and ``torch._int_mm`` on the same zero-padded operands (the library
+    yardstick, s32 out, no epilogue; the port never calls it), and the
+    im2col from the f32 activation (quantising as it writes) beside its
+    plain version (the quantisation passes and F.unfold; no library call
+    takes int8); then the mma.sync route at INT8_MMA_ROW (``_int_mm`` does
+    not take N = 84). Bounds: ops 2·M·N·K at 1,979 int8 TOPS, bytes the
+    patches (M·K_pad), the weight and the f32 output (the product) or the
+    f32 input and the patches (the im2col), at 3.35 TB/s."""
     from mxnet_tpu_torch.contrib import quantization as Q
 
     rows = {}
     for suffix, (name, b, c, h, w, o, k, s, p) in INT8_ROWS.items():
-        x, wt = _int8_q(gen, b, c, h, w), _int8_q(gen, o, c, k, k)
+        x = torch.randn((b, c, h, w), device="cuda", generator=gen)
+        ds = x.abs().amax() / 127.0 + 1e-12
+        wt = _int8_q(gen, o, c, k, k)
         kk = wt[0].numel()
         kp, oh = Q.k_padded(kk), (h + 2 * p - k) // s + 1
         geo = ((k, k), (s, s), (p, p), (1, 1), 1)
-        cols = Q.int8_im2col(x, *geo, kp)
+        cols = Q.int8_im2col(x, *geo, kp, ds)
         w2 = torch.zeros((o, kp), dtype=torch.int8, device="cuda")
         w2[:, :kk] = wt.reshape(o, kk)
         ws = torch.rand(o, device="cuda", generator=gen) * 1e-2
-        ds = torch.full((), 0.0123, device="cuda")
         m = b * oh * oh
-        shape = f"int8_gemm {name} M={m} K={kk} (rows of {kp}) N={o}"
-        rows["int8_gemm" + suffix] = _timed(
+        plan = Q.gemm_plan(m, o, kk, 1, kp, kp, True, Q._sm_count(x.device))
+        shape = (f"int8_gemm {name} M={m} K={kk} (rows of {kp}) N={o}, "
+                 f"plan {plan}")
+        key = "int8_gemm_wgmma" + suffix
+        rows[key] = _timed(
             lambda: Q.int8_gemm(cols, w2, kk, ds, ws, None, "float32", 1,
                                 oh * oh),
             lambda: Q.int8_gemm_plain(cols, w2, kk, ds, ws, None, "float32",
                                       1, oh * oh),
             lambda: torch._int_mm(cols[0], w2.t()),
             m * kp + o * kp + 4 * m * o, 2 * m * o * kk, shape, dtype="int8")
-        rows["int8_gemm" + suffix]["library"] = \
-            "torch._int_mm on the zero-padded operands (s32 out)"
-        rows["int8_gemm" + suffix]["note"] = INT8_NOTE
+        rows[key].update(
+            library="torch._int_mm on the zero-padded operands (s32 out)",
+            note=INT8_NOTE, plan=list(plan))
         rows["int8_im2col" + suffix] = _timed(
-            lambda: Q.int8_im2col(x, *geo, kp),
-            lambda: Q.int8_im2col_plain(x, *geo, kp), None,
-            x.numel() + m * kp, 0,
-            f"int8_im2col {name} ({b}, {c}, {h}, {w}) -> ({m}, {kp})",
+            lambda: Q.int8_im2col(x, *geo, kp, ds),
+            lambda: Q.int8_im2col_plain(Q._quantize(x, ds), *geo, kp), None,
+            4 * x.numel() + m * kp, 0,
+            f"int8_im2col {name} f32 ({b}, {c}, {h}, {w}) -> ({m}, {kp})",
             dtype="int8")
         rows["int8_im2col" + suffix].update(library_ms=None,
                                             library_eager_ms=None,
                                             note=INT8_NOTE)
+    name, m, kk, n = INT8_MMA_ROW
+    a, wt = _int8_q(gen, m, kk), _int8_q(gen, n, kk)
+    ws = torch.rand(n, device="cuda", generator=gen) * 1e-2
+    ds = torch.full((), 0.0123, device="cuda")
+    plan = Q.gemm_plan(m, n, kk, 1, kk, kk, True, Q._sm_count(a.device))
+    if plan[0] != "mma":
+        raise AssertionError(f"[int8] {name} takes {plan}, not mma.sync")
+    rows["int8_gemm_mma"] = _timed(
+        lambda: Q.int8_gemm(a, wt, kk, ds, ws),
+        lambda: Q.int8_gemm_plain(a, wt, kk, ds, ws), None,
+        m * kk + n * kk + 4 * m * n, 2 * m * n * kk,
+        f"int8_gemm {name} M={m} K={kk} N={n}, plan {plan}", dtype="int8")
+    rows["int8_gemm_mma"].update(library_ms=None, library_eager_ms=None,
+                                 note=INT8_NOTE, plan=list(plan))
     return rows
+
+
+def _profiled_names(fn):
+    """Device kernel launches by name in one call of ``fn`` under the
+    profiler (a warm-up call the profiler discards first)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    once = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    with profile(activities=[ProfilerActivity.CUDA], schedule=once) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return collections.Counter({
+        e.key: e.count for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA})
 
 
 def _resnet50_f32(seed=0):
@@ -9091,13 +9212,16 @@ def _top1_and_err(a, b):
 
 
 def phase_int8(card):
-    """``[int8]``: the kernel checks (INT8_CONV_CASES in f32 and bf16,
-    INT8_FC_CASES, max |diff| 0 against the plain versions, the int32
-    accumulator too), then resnet50_v1 at 224x224, B=32 (MSRAPrelu weights
-    from seed 0): its f32 and bf16 forwards, ``convert_to_int8`` with
-    minmax calibration on 2 batches (INT8_LAYERS layers), its int8 forward
-    with its launches counted from 0 and on a profiled forward (one im2col
-    a convolution, one product a layer), top-1 agreement and relative logit
+    """``[int8]``: the kernel checks (INT8_CONV_CASES: the im2col on int8,
+    f32 and bf16 activations, the product on both routes in f32 and bf16
+    out and its int32 accumulator; INT8_FC_CASES on both routes; max |diff|
+    0 against the plain versions, a split-K plan among them), then
+    resnet50_v1 at 224x224, B=32 (MSRAPrelu weights from seed 0): its f32
+    and bf16 forwards, ``convert_to_int8`` with minmax calibration on 2
+    batches (INT8_LAYERS layers), its int8 forward with its launches
+    counted from 0 and on a profiled forward (one im2col a convolution, one
+    product a layer, every product on wgmma; no round, clamp or division
+    kernel but the Dense's quantisation), top-1 agreement and relative logit
     error against f32 and bf16; the entropy calibration once on a fresh
     net. Returns the launches, the results, the max |diff| of each kernel
     and the timing rows."""
@@ -9106,25 +9230,35 @@ def phase_int8(card):
 
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(40)
-    errs = {"int8_gemm": 0.0, "int8_im2col": 0.0}
+    errs = {"int8_gemm_wgmma": 0.0, "int8_gemm_mma": 0.0, "int8_im2col": 0.0}
+    plans = {}
     for case in INT8_CONV_CASES:
-        for dtype in ("float32", "bfloat16"):
-            e_out, e_col, e_acc = _int8_conv_check(gen, case, dtype)
-            errs["int8_gemm"] = max(errs["int8_gemm"], e_out, e_acc)
-            errs["int8_im2col"] = max(errs["int8_im2col"], e_col)
+        e, plans[case[0]] = _int8_conv_check(gen, case)
+        errs = {k: max(v, e[k]) for k, v in errs.items()}
     for name, m, kk, n in INT8_FC_CASES:
         a, wt = _int8_q(gen, m, kk), _int8_q(gen, n, kk)
         ws = torch.rand(n, device="cuda", generator=gen) * 1e-2
         bias = torch.randn(n, device="cuda", generator=gen)
-        got = Q.quantized_fully_connected(a, wt, bias, data_scale=0.01,
-                                          weight_scale=ws)
         want = Q.int8_gemm_plain(a, wt, kk, 0.01, ws, bias)
-        e = (got - want).abs().max().item()
-        log(f"[int8 kernels] {name}: max|diff| {e}")
-        errs["int8_gemm"] = max(errs["int8_gemm"], e)
-    if errs["int8_gemm"] != 0 or errs["int8_im2col"] != 0:
+        plans[name] = Q.gemm_plan(m, n, kk, 1, kk, kk, True,
+                                  Q._sm_count(a.device))
+        got = {}
+        for pl in {plans[name], ("mma", 0, 1)}:
+            out = Q._int8_gemm(a, wt, kk, 0.01, ws, bias, "float32", 1, 1,
+                               pl)
+            got[pl[0]] = (out - want).abs().max().item()
+            errs["int8_gemm_" + pl[0]] = max(errs["int8_gemm_" + pl[0]],
+                                             got[pl[0]])
+        log(f"[int8 kernels] {name}: plan {plans[name]}, max|diff| {got}")
+    if any(errs.values()):
         raise AssertionError(f"[int8] kernels differ from their plain "
                              f"versions: {errs}")
+    split = [k for k, pl in plans.items() if pl[2] > 1]
+    if not split or not any(pl[0] == "mma" for pl in plans.values()):
+        raise AssertionError(f"[int8] the checks miss a split-K plan or the "
+                             f"mma.sync route: {plans}")
+    log(f"[int8 kernels] every route equals its plain version; K split at "
+        f"{split}")
 
     rs = np.random.RandomState(0)
     xs = [torch.from_numpy(rs.rand(INT8_B, 3, 224, 224).astype(np.float32))
@@ -9158,15 +9292,38 @@ def phase_int8(card):
         out = net(x)._data
         torch.cuda.synchronize()
         launches = _int8_counts()
-        want = {"int8_gemm": INT8_LAYERS, "int8_im2col": INT8_LAYERS - 1}
+        want = {"int8_gemm": INT8_LAYERS, "int8_gemm_wgmma": INT8_LAYERS,
+                "int8_gemm_mma": 0, "int8_im2col": INT8_LAYERS - 1}
         if launches != want:
             raise AssertionError(f"[int8] a forward launched {launches}, "
                                  f"expected {want}")
         profiled = {k: _profiled_count(lambda: net(x), k + "_kernel")
-                    for k in want}
-        if profiled != want:
+                    for k in ("int8_gemm_wgmma", "int8_im2col")}
+        # PyTorch's own round, clamp and division kernels (at::native; not
+        # cuDNN's, whose names hold "div") in the int8 forward beside the
+        # f32 one's (ReLU runs as a clamp in both): the difference is the
+        # Dense's quantisation alone, one of each; the convolutions' runs
+        # inside the im2col
+        kinds = {}
+        for what, fwd in (("int8", net), ("f32", enet)):
+            names = _profiled_names(lambda: fwd(x))
+            kinds[what] = {
+                kind: sum(c for key, c in names.items()
+                          if kind in key.lower()
+                          and (kind == "int8_gemm_kernel"
+                               or "at::native" in key))
+                for kind in ("int8_gemm_kernel", "round", "clamp", "div")}
+        profiled["int8_gemm_mma"] = kinds["int8"].pop("int8_gemm_kernel")
+        kinds["f32"].pop("int8_gemm_kernel")
+        if profiled != {k: want[k] for k in profiled}:
             raise AssertionError(f"[int8] a profiled forward ran {profiled}"
                                  f" kernels, expected {want}")
+        extra = {k: v - kinds["f32"][k] for k, v in kinds["int8"].items()}
+        if extra != {"round": 1, "clamp": 1, "div": 1}:
+            raise AssertionError(f"[int8] quantisation kernels in a forward "
+                                 f"beyond the f32 one's: {extra} ({kinds})")
+        log(f"[int8] a profiled forward: {profiled}; round, clamp and "
+            f"division kernels {kinds} (the Dense's quantisation: {extra})")
         if out.shape != (INT8_B, 1000) or not torch.isfinite(out).all():
             raise AssertionError("[int8] the int8 logits are not finite")
         int8_ms = cuda_time_ms(lambda: net(x), warmup=1, iters=3, repeats=3)
@@ -9195,7 +9352,8 @@ def phase_int8(card):
            "entropy_vs_f32": {"top1_agreement": e_agree,
                               "rel_logit_err": e_err},
            "layers": len(scales), "launches": launches,
-           "profiled_launches": profiled, "calib_minmax_s": calib_s,
+           "profiled_launches": profiled, "quantisation_kernels": kinds,
+           "calib_minmax_s": calib_s,
            "calib_entropy_s": entropy_s, "device": groups,
            "max_abs_err": errs}
     log(f"[int8] resnet50_v1 B={INT8_B} 224x224: {len(scales)} layers; "
@@ -9216,7 +9374,8 @@ def phase_quantize_model(card):
     (lenet, 4 classes, 2 epochs of f32 Adam, minmax calibration) on the
     card: f32 accuracy > 0.5 and int8 within 0.05 of it
     (tests/test_quantize_example.py's limits), its int8 launches counted
-    from 0 (4 test batches x 5 layers, 2 convolutions of them)."""
+    from 0 (4 test batches x 5 layers, 2 convolutions of them; the Dense
+    layers at K = 120 and 84 on the mma.sync route, the rest on wgmma)."""
     ex = _example("torch_quantize_model")
     _reset_launch_counts()
     t = time.perf_counter()
@@ -9227,8 +9386,8 @@ def phase_quantize_model(card):
     if not (fp32_acc > 0.5 and int8_acc >= fp32_acc - 0.05):
         raise AssertionError(f"[quantize_model] accuracy f32 {fp32_acc}, "
                              f"int8 {int8_acc}")
-    want = {"int8_gemm": 20, "int8_im2col": 8, "adam": 24, "xent_fwd": 24,
-            "xent_bwd": 24}
+    want = {"int8_gemm": 20, "int8_gemm_wgmma": 12, "int8_gemm_mma": 8,
+            "int8_im2col": 8, "adam": 24, "xent_fwd": 24, "xent_bwd": 24}
     if any(launches[k] != v for k, v in want.items()):
         raise AssertionError(f"[quantize_model] launches {launches}, "
                              f"expected {want}")
@@ -9837,28 +9996,24 @@ def main():
                       "mxnet_tpu/ops/pallas_optimizer.py:63",
                       "sparse_lm1b", "adam", None),
         # INT8 (no pallas_call site: XLA's int8 conv, lax.conv_general_
-        # dilated with preferred_element_type=int32): resnet50_v1's int8
-        # forward at B=32, rows at res4's 3x3, res5's 3x3 and the stem
-        # (their max_abs_err: the largest of the checks at INT8_CONV_CASES
-        # and INT8_FC_CASES)
-        "int8_gemm": ("mxnet_tpu_torch/csrc/int8_gemm.cu",
-                      "mxnet_tpu/contrib/quantization.py:135", "int8",
-                      "int8_gemm", "int8_gemm"),
-        "int8_gemm_res5": ("mxnet_tpu_torch/csrc/int8_gemm.cu",
-                           "mxnet_tpu/contrib/quantization.py:135", "int8",
-                           "int8_gemm", "int8_gemm"),
-        "int8_gemm_stem": ("mxnet_tpu_torch/csrc/int8_gemm.cu",
-                           "mxnet_tpu/contrib/quantization.py:135", "int8",
-                           "int8_gemm", "int8_gemm"),
-        "int8_im2col": ("mxnet_tpu_torch/csrc/int8_gemm.cu",
-                        "mxnet_tpu/contrib/quantization.py:135", "int8",
-                        "int8_im2col", "int8_im2col"),
-        "int8_im2col_res5": ("mxnet_tpu_torch/csrc/int8_gemm.cu",
-                             "mxnet_tpu/contrib/quantization.py:135",
-                             "int8", "int8_im2col", "int8_im2col"),
-        "int8_im2col_stem": ("mxnet_tpu_torch/csrc/int8_gemm.cu",
-                             "mxnet_tpu/contrib/quantization.py:135",
-                             "int8", "int8_im2col", "int8_im2col"),
+        # dilated with preferred_element_type=int32, and the activation's
+        # quantisation before it): resnet50_v1's int8 forward at B=32, the
+        # product on its wgmma route and the im2col from the f32 activation
+        # at res4's 3x3, res5's 3x3, the stem, res2's 3x3 and res3's 1x1;
+        # the product's mma.sync route at LeNet's Dense 120 -> 84 (its
+        # launches: the quantize_model example's); their max_abs_err: the
+        # largest of the checks at INT8_CONV_CASES and INT8_FC_CASES
+        **{f"int8_gemm_wgmma{sfx}": (
+            "mxnet_tpu_torch/csrc/int8_gemm.cu",
+            "mxnet_tpu/contrib/quantization.py:135", "int8",
+            "int8_gemm_wgmma", "int8_gemm_wgmma") for sfx in INT8_ROWS},
+        "int8_gemm_mma": ("mxnet_tpu_torch/csrc/int8_gemm.cu",
+                          "mxnet_tpu/contrib/quantization.py:135",
+                          "quantize_model", "int8_gemm_mma", "int8_gemm_mma"),
+        **{f"int8_im2col{sfx}": (
+            "mxnet_tpu_torch/csrc/int8_gemm.cu",
+            "mxnet_tpu/contrib/quantization.py:135", "int8", "int8_im2col",
+            "int8_im2col") for sfx in INT8_ROWS},
     }
     errs["adam_bert"] = timing["adam_bert"]["max_abs_err_at_shape"]
     errs["adam_lenet"] = timing["adam_lenet"]["max_abs_err_at_shape"]

@@ -10,11 +10,14 @@ JAX package's numpy code. Two execution modes, as there:
   - *real int8* (``quantized_fully_connected`` / ``quantized_conv``
     registry ops + ``convert_to_int8``): s8 x s8 products with s32
     accumulation and one f32 requantisation scale, on the card by the
-    hand-written kernels of ``csrc/int8_gemm.cu`` (an im2col launch for a
-    convolution, then the tensor-core product with the requantisation in
-    its epilogue, written NCHW). PyTorch on the card has no integer matmul
-    or convolution that takes these shapes (``torch._int_mm`` needs M > 16
-    and K, N multiples of 8).
+    hand-written kernels of ``csrc/int8_gemm.cu``: for a convolution an
+    im2col launch, which also quantises a float activation, then the
+    tensor-core product with the requantisation in its epilogue, written
+    NCHW. The product has two routes (:func:`gemm_plan`): ``wgmma`` fed by
+    TMA where every row stride and base is a multiple of 16 bytes, else
+    ``mma.sync``. PyTorch on the card has no integer matmul or convolution
+    that takes these shapes (``torch._int_mm`` needs M > 16 and K, N
+    multiples of 8).
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 version (the patches by ``F.unfold`` and the product by a ``matmul``, both
@@ -24,7 +27,8 @@ tensors. The epilogue is JAX's, in JAX's order:
 Activations are quantized as ``round(x / scale)`` with the divisor a
 device tensor (a CUDA tensor divided by a host scalar is multiplied by its
 reciprocal, which moves values at the rounding edges); ``torch.round``
-rounds half to even, as ``jnp.round``.
+rounds half to even, as ``jnp.round``, and the im2col kernel's
+``rintf(__fdiv_rn(x, scale))`` is the same.
 """
 from __future__ import annotations
 
@@ -39,10 +43,14 @@ from ..registry import register
 __all__ = ["quantize_array", "dequantize_array", "calib_minmax", "calib_entropy",
            "quantize_net", "quantized_fully_connected", "quantized_conv",
            "convert_to_int8", "QuantizedDense", "QuantizedConv2D",
-           "int8_im2col", "int8_im2col_plain", "int8_gemm", "int8_gemm_plain"]
+           "int8_im2col", "int8_im2col_plain", "int8_gemm", "int8_gemm_plain",
+           "gemm_plan"]
 
-#: kernel launches since the last reset (read by chip_smoke.py)
-launches = {"int8_gemm": 0, "int8_im2col": 0}
+#: kernel launches since the last reset (read by chip_smoke.py):
+#: ``int8_gemm`` counts the products of both routes, ``int8_gemm_wgmma``
+#: and ``int8_gemm_mma`` each route's
+launches = {"int8_gemm": 0, "int8_gemm_wgmma": 0, "int8_gemm_mma": 0,
+            "int8_im2col": 0}
 
 
 def _raw(x):
@@ -159,9 +167,19 @@ def _check_int8(name, t, dev):
                          f"tensor on {dev}, got {t.dtype} on {t.device}")
 
 
+def _quantize(x, scale):
+    """``clamp(round(x / scale), -127, 127)`` as int8, x taken to f32 first
+    and ``scale`` a device divisor: ``_QuantizedLayer``'s quantisation (and
+    JAX's ``jnp.clip(jnp.round(xf / a_scale), -127, 127)``)."""
+    xf = x.to(torch.float32)
+    return torch.clamp(torch.round(xf / _scalar(scale, xf.device)), -127,
+                       127).to(torch.int8)
+
+
 def int8_im2col_plain(xq, kernel, stride, pad, dilate, groups, k_pad):
-    """Plain version of ``int8_im2col_kernel``: ``F.unfold`` of the int8
-    NCHW input in float64 as (G, B*OH*OW, k_pad) int8, zero past K."""
+    """Plain version of ``int8_im2col_kernel`` on an int8 input:
+    ``F.unfold`` of the NCHW input in float64 as (G, B*OH*OW, k_pad) int8,
+    zero past K."""
     b, c = xq.shape[:2]
     kh, kw = kernel
     k = c // groups * kh * kw
@@ -174,28 +192,51 @@ def int8_im2col_plain(xq, kernel, stride, pad, dilate, groups, k_pad):
     return out
 
 
-def int8_im2col(xq, kernel, stride, pad, dilate, groups, k_pad):
-    """The patches of an int8 NCHW activation, (G, B*OH*OW, k_pad) int8:
-    the kernel for a CUDA tensor, the plain version for a CPU tensor."""
+# input dtype codes of mx_int8_im2col
+_IM2COL_IN = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 3}
+
+
+def int8_im2col(x, kernel, stride, pad, dilate, groups, k_pad, scale=None):
+    """The s8 patches of an NCHW activation, (G, B*OH*OW, k_pad) int8: of
+    an int8 ``x`` as it is (no ``scale``), or of an f32 or bf16 ``x``
+    quantised with the activation ``scale`` as ``_QuantizedLayer`` does.
+    The kernel for a CUDA tensor, the plain version (the quantisation,
+    then ``int8_im2col_plain``) for a CPU tensor."""
     kernel, stride, pad, dilate = map(_pair, (kernel, stride, pad, dilate))
-    if xq.device.type == "cpu":
+    if x.dtype == torch.int8:
+        if scale is not None:
+            raise MXNetError("int8_im2col: an int8 input is quantised "
+                             "already and takes no scale")
+    elif x.dtype in (torch.float32, torch.bfloat16):
+        if scale is None:
+            raise MXNetError(f"int8_im2col: a {x.dtype} input needs the "
+                             f"activation scale")
+    else:
+        raise MXNetError(f"int8_im2col: input must be int8, float32 or "
+                         f"bfloat16, got {x.dtype}")
+    if x.device.type == "cpu":
+        xq = x if scale is None else _quantize(x, scale)
         return int8_im2col_plain(xq, kernel, stride, pad, dilate, groups,
                                  k_pad)
-    _cc.check_device(xq)
-    _check_int8("data", xq, xq.device)
-    b, c, h, w = xq.shape
+    _cc.check_device(x)
+    if not x.is_contiguous():
+        raise MXNetError("int8_im2col: the input must be contiguous")
+    b, c, h, w = x.shape
     oh, ow = _out_hw(h, w, kernel, stride, pad, dilate)
     if c % groups or oh <= 0 or ow <= 0 or k_pad % 32 \
             or c // groups * kernel[0] * kernel[1] > k_pad:
-        raise MXNetError(f"int8_im2col: bad shape {tuple(xq.shape)} for "
+        raise MXNetError(f"int8_im2col: bad shape {tuple(x.shape)} for "
                          f"kernel {kernel}, groups {groups}, k_pad {k_pad}")
+    s = None if scale is None else _scalar(scale, x.device).contiguous()
     out = torch.empty((groups, b * oh * ow, k_pad), dtype=torch.int8,
-                      device=xq.device)
+                      device=x.device)
     lib = _cc.load("int8_gemm")
-    rc = lib.mx_int8_im2col(xq.data_ptr(), out.data_ptr(), b, c, h, w, groups,
+    rc = lib.mx_int8_im2col(x.data_ptr(), out.data_ptr(),
+                            None if s is None else s.data_ptr(),
+                            _IM2COL_IN[x.dtype], b, c, h, w, groups,
                             kernel[0], kernel[1], stride[0], stride[1],
                             pad[0], pad[1], dilate[0], dilate[1], oh, ow,
-                            k_pad, _cc.stream_ptr(xq.device))
+                            k_pad, _cc.stream_ptr(x.device))
     _cc.check_launch(lib, rc, "int8_im2col")
     launches["int8_im2col"] += 1
     return out
@@ -243,6 +284,46 @@ def _channel_scales(ws, n, dev):
     return ws.expand(n).contiguous() if ws.numel() == 1 else ws.contiguous()
 
 
+# the wgmma route's tile: 128 rows, 128 bytes of K a stage
+GEMM_BM, GEMM_BK = 128, 128
+GEMM_MAX_SPLITS = 4
+
+
+def gemm_plan(m, n, k, groups, lda, ldw, aligned, sms):
+    """The product's route for these operands, ``(route, tile width,
+    splits of K)``. ``wgmma`` (TMA loads) when both row strides are
+    multiples of 16 bytes and ``aligned`` (both bases are): tiles 128
+    channels wide where N > 64 and those tiles give half the ``sms`` SMs
+    one each, else 64 wide (more tiles, less shared-memory traffic a
+    slice); K split into at most GEMM_MAX_SPLITS parts, the count that
+    finishes soonest: waves of (tile, part) items times the 128-byte K
+    slices of a part, and, once K is split, four slices more for writing
+    and summing the s32 partial tiles; the fewest parts on a tie. Else
+    ``mma`` (mma.sync with cp.async or byte loads), which picks its own
+    tiles, unsplit."""
+    if lda % 16 or ldw % 16 or not aligned:
+        return "mma", 0, 1
+    m_tiles = groups * -(-m // GEMM_BM)
+    bn = 128 if n > 64 and 2 * m_tiles * -(-n // 128) >= sms else 64
+    tiles = m_tiles * -(-n // bn)
+    slices = -(-k // GEMM_BK)
+
+    def cost(s):
+        return -(-tiles * s // sms) * (-(-slices // s) + (4 if s > 1 else 0))
+
+    return "wgmma", bn, min(range(1, min(slices, GEMM_MAX_SPLITS) + 1),
+                            key=cost)
+
+
+_sms = {}  # device -> its SM count
+
+
+def _sm_count(dev):
+    if dev not in _sms:
+        _sms[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _sms[dev]
+
+
 def int8_gemm(a, w, k, data_scale, ws, bias=None, out_dtype="float32",
               groups=1, positions=1):
     """``C[m, n] = sum_{j < k} a[m, j] w[n, j]`` per group in s32, then
@@ -250,7 +331,17 @@ def int8_gemm(a, w, k, data_scale, ws, bias=None, out_dtype="float32",
     for CPU tensors. ``a``: (G, M, lda) or (M, lda) int8, ``w``: (G*N,
     ldw) int8 (rows past ``k`` ignored), ``data_scale`` a scalar,
     ``ws`` (G*N,) or one value, ``bias`` (G*N,) or None. Returns (M, G*N),
-    or NCHW (M / P, G*N, P) for ``positions`` P > 1."""
+    or NCHW (M / P, G*N, P) for ``positions`` P > 1. The route, tile and
+    split are :func:`gemm_plan`'s."""
+    return _int8_gemm(a, w, k, data_scale, ws, bias, out_dtype, groups,
+                      positions, None)
+
+
+def _int8_gemm(a, w, k, data_scale, ws, bias, out_dtype, groups, positions,
+               plan):
+    """:func:`int8_gemm` on ``plan``'s route, tile and split (a triple as
+    :func:`gemm_plan` returns), or on gemm_plan's for None: the checks and
+    benchmarks hold the routes and tilings against each other with it."""
     if a.device.type == "cpu":
         return int8_gemm_plain(a, w, k, data_scale, ws, bias, out_dtype,
                                groups, positions)
@@ -276,14 +367,43 @@ def int8_gemm(a, w, k, data_scale, ws, bias=None, out_dtype="float32",
     shape = (m, g * n) if positions == 1 else \
         (m // positions, g * n, positions)
     out = torch.empty(shape, dtype=out_dt, device=dev)
+    if plan is None:
+        plan = gemm_plan(m, n, int(k), g, lda, ldw,
+                         a.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0,
+                         _sm_count(dev))
+    if plan[0] not in ("wgmma", "mma"):
+        raise MXNetError(f"int8_gemm: no route {plan[0]!r}")
     lib = _cc.load("int8_gemm")
-    rc = lib.mx_int8_gemm(a.data_ptr(), w.data_ptr(), out.data_ptr(),
-                          ds.data_ptr(), wsc.data_ptr(),
-                          None if b is None else b.data_ptr(), m, n, int(k),
-                          lda, ldw, m * lda, n * ldw, g, int(positions),
-                          _cc.dtype_code(out_dt), _cc.stream_ptr(dev))
-    _cc.check_launch(lib, rc, "int8_gemm")
+    bias_ptr = None if b is None else b.data_ptr()
+    if plan[0] == "wgmma":
+        _, bn, splits = plan
+        partial = counters = None
+        if splits > 1:
+            # the s32 partial tiles, then a zeroed arrival count a tile half:
+            # the call's own, so that no other launch in flight shares them
+            tiles = g * -(-m // GEMM_BM) * -(-n // bn)
+            size = tiles * splits * GEMM_BM * bn
+            work = torch.empty(size + 2 * tiles, dtype=torch.int32,
+                               device=dev)
+            partial, counters = work[:size], work[size:].zero_()
+        rc = lib.mx_int8_gemm_wgmma(
+            a.data_ptr(), w.data_ptr(), out.data_ptr(), ds.data_ptr(),
+            wsc.data_ptr(), bias_ptr,
+            None if partial is None else partial.data_ptr(),
+            None if counters is None else counters.data_ptr(), m, n, int(k),
+            lda, ldw, m * lda, n * ldw, g, int(positions), bn, splits,
+            _cc.dtype_code(out_dt), _cc.stream_ptr(dev))
+        kind = "int8_gemm_wgmma"
+    else:
+        rc = lib.mx_int8_gemm(a.data_ptr(), w.data_ptr(), out.data_ptr(),
+                              ds.data_ptr(), wsc.data_ptr(), bias_ptr, m, n,
+                              int(k), lda, ldw, m * lda, n * ldw, g,
+                              int(positions), _cc.dtype_code(out_dt),
+                              _cc.stream_ptr(dev))
+        kind = "int8_gemm_mma"
+    _cc.check_launch(lib, rc, kind)
     launches["int8_gemm"] += 1
+    launches[kind] += 1
     return out
 
 
@@ -299,15 +419,18 @@ def _fc(dataq, w2d, k, bias, data_scale, weight_scale, flatten, out_dtype):
     return out.reshape(*lead, out.shape[-1])
 
 
-def _conv(dataq, w2d, k, bias, kernel, stride, pad, dilate, groups,
-          data_scale, weight_scale, out_dtype):
+def _conv(data, w2d, k, bias, kernel, stride, pad, dilate, groups,
+          data_scale, weight_scale, out_dtype, quantize=False):
     """``quantized_conv`` with the weight as (O, ldw) rows: the im2col
-    launch, then the product written NCHW."""
+    launch (which, with ``quantize``, quantises the float ``data`` by
+    ``data_scale``; else ``data`` is int8), then the product written
+    NCHW."""
     stride, pad, dilate = _pair(stride), _pair(pad), _pair(dilate)
-    x = dataq.contiguous()
+    x = data.contiguous()
     b, _, h, w = x.shape
     oh, ow = _out_hw(h, w, kernel, stride, pad, dilate)
-    cols = int8_im2col(x, kernel, stride, pad, dilate, groups, k_padded(k))
+    cols = int8_im2col(x, kernel, stride, pad, dilate, groups, k_padded(k),
+                       data_scale if quantize else None)
     out = int8_gemm(cols, w2d.contiguous(), k, data_scale, weight_scale,
                     bias, out_dtype, groups=groups, positions=oh * ow)
     return out.reshape(b, -1, oh, ow)
@@ -344,9 +467,11 @@ class _QuantizedLayer(torch.nn.Module):
     """Shared int8-inference plumbing for the converted layers (the JAX
     ``_QuantizedLayer``): static-or-dynamic activation scale, int8
     clip/round, the full Activation-registry tail, dtype restore.
-    Subclasses supply ``_compute(xq, a_scale)``. A torch module, so it
-    takes a converted child's place in its parent; called on an NDArray it
-    returns an NDArray, on a tensor a tensor."""
+    Subclasses supply ``_compute(data, a_scale)``, ``data`` the input as it
+    came: the Dense quantises it in PyTorch, the convolution's im2col kernel
+    as it writes the patches. A torch module, so it takes a converted
+    child's place in its parent; called on an NDArray it returns an
+    NDArray, on a tensor a tensor."""
 
     def __init__(self, wq, w_scale, bias=None, activation=None,
                  act_scale=None):
@@ -363,14 +488,14 @@ class _QuantizedLayer(torch.nn.Module):
 
         data = _raw(x)
         orig_dtype = data.dtype
-        xf = data.to(torch.float32)
         if self._act_scale is not None:
-            a_scale = _scalar(self._act_scale, xf.device)
+            a_scale = _scalar(self._act_scale, data.device)
         else:
-            a_scale = xf.abs().amax() / _scalar(127.0, xf.device) + 1e-12
-        xq = torch.clamp(torch.round(xf / a_scale), -127, 127) \
-            .to(torch.int8)
-        out = self._compute(xq, a_scale)
+            # |x| and its max are exact in any float type: the f32 max
+            # of the f32 copy JAX takes
+            a_scale = data.abs().amax().to(torch.float32) \
+                / _scalar(127.0, data.device) + 1e-12
+        out = self._compute(data, a_scale)
         if self._act is not None:
             # the full Activation registry (relu/sigmoid/tanh/softrelu/...)
             out = _activation(out, act_type=self._act)
@@ -383,9 +508,9 @@ class QuantizedDense(_QuantizedLayer):
     (produced by :func:`convert_to_int8`). Activations are quantized with the
     calibrated static scale when available, else dynamically per batch."""
 
-    def _compute(self, xq, a_scale):
-        return _fc(xq, self._wq, self._wq.shape[1], self._bias, a_scale,
-                   self._ws, True, "float32")
+    def _compute(self, data, a_scale):
+        return _fc(_quantize(data, a_scale), self._wq, self._wq.shape[1],
+                   self._bias, a_scale, self._ws, True, "float32")
 
 
 class QuantizedConv2D(_QuantizedLayer):
@@ -409,10 +534,13 @@ class QuantizedConv2D(_QuantizedLayer):
                                 device=wq.device)
         self._w2d[:, :self._k] = wq.reshape(o, self._k)
 
-    def _compute(self, xq, a_scale):
-        return _conv(xq, self._w2d, self._k, self._bias, tuple(self._kernel),
-                     self._strides, self._padding, self._dilation,
-                     int(self._groups), a_scale, self._ws, "float32")
+    def _compute(self, data, a_scale):
+        if data.dtype not in (torch.float32, torch.bfloat16):
+            data = data.to(torch.float32)
+        return _conv(data, self._w2d, self._k, self._bias,
+                     tuple(self._kernel), self._strides, self._padding,
+                     self._dilation, int(self._groups), a_scale, self._ws,
+                     "float32", quantize=True)
 
 
 def convert_to_int8(net, calib_data=None, exclude_patterns=("embed",),

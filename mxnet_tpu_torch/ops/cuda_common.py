@@ -155,10 +155,16 @@ _ARGTYPES = {
     # (x, label, stats, g, dx), then n, c, dtype, stream
     "mx_xent_bwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
                    + [ctypes.c_void_p],
-    # (x, out), then B, C, H, W, G, KH, KW, stride h w, pad h w, dilate h w,
-    # OH, OW, K_pad, stream
-    "mx_int8_im2col": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 16
+    # (x, out, scale | NULL), then the input dtype, B, C, H, W, G, KH, KW,
+    # stride h w, pad h w, dilate h w, OH, OW, K_pad, stream
+    "mx_int8_im2col": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 17
                       + [ctypes.c_void_p],
+    # (a, w, out, data_scale, ws, bias | NULL, partial | NULL,
+    # counters | NULL), then M, N, K, lda, ldw, a_group, w_group, G, P, tile
+    # width, splits, out dtype, stream
+    "mx_int8_gemm_wgmma": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+                          + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 5
+                          + [ctypes.c_void_p],
     # (a, w, out, data_scale, ws, bias | NULL), then M, N, K, lda, ldw,
     # a_group, w_group, G, P, out dtype, stream
     "mx_int8_gemm": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3

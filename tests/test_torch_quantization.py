@@ -255,3 +255,116 @@ def test_wrappers_refuse_bad_inputs():
     x = torch.zeros((1, 2, 4, 4), dtype=torch.int8)
     with pytest.raises(tmx.MXNetError):
         TQ.int8_im2col(x.float().to("meta"), (3, 3), 1, 0, 1, 1, 32)
+
+
+def _float_act(rs, shape, scale):
+    """Activations on the quantisation's edges: (n + 0.5) * scale ties for
+    half of them (scale a power of two, so x / scale is exactly n + 0.5),
+    |n| up to 160 (clamped past 127), the rest arbitrary."""
+    n = rs.randint(-160, 161, shape).astype(np.float32)
+    tie = n + np.float32(0.5)
+    wild = (rs.randn(*shape) * 60).astype(np.float32)
+    pick = rs.randint(0, 3, shape)
+    return np.where(pick == 0, n, np.where(pick == 1, tie, wild)) \
+        .astype(np.float32) * np.float32(scale)
+
+
+# (C, H, W, kernel, stride, pad, dilate, groups): padding, stride 2,
+# dilation 2 and 6 (taps mostly in the padding), groups 1 and 3, C = 1
+# and 3, 1x1 layers
+FUSED_CASES = [(3, 9, 11, (7, 7), 2, 3, 1, 1), (1, 8, 8, (5, 5), 1, 2, 1, 1),
+               (6, 9, 10, (3, 3), 1, 1, 2, 3), (6, 7, 9, (3, 3), 2, 1, 1, 1),
+               (12, 5, 6, (1, 1), 1, 0, 1, 1), (12, 6, 7, (1, 1), 2, 0, 1, 3),
+               (4, 13, 13, (3, 3), 1, 6, 6, 1)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FUSED_CASES, ids=[str(c) for c in FUSED_CASES])
+def test_fused_im2col_plain_is_quantise_then_im2col(case, dtype):
+    """The im2col that quantises a float activation itself, on the CPU,
+    equals quantising first (``_QuantizedLayer``'s quantisation, written
+    out here) then ``int8_im2col_plain``, bit for bit; and the quantised
+    values are JAX's ``jnp.clip(jnp.round(xf / a_scale), -127, 127)``."""
+    c, h, w, kernel, s, p, d, g = case
+    rs = np.random.RandomState(4)
+    scale = 2.0 ** -5
+    x = torch.from_numpy(_float_act(rs, (2, c, h, w), scale)) \
+        .to(getattr(torch, dtype))
+    a_scale = torch.tensor(scale, dtype=torch.float32)
+    k = c // g * kernel[0] * kernel[1]
+    kp = TQ.k_padded(k)
+    got = TQ.int8_im2col(x, kernel, s, p, d, g, kp, a_scale)
+    xf = x.to(torch.float32)
+    xq = torch.clamp(torch.round(xf / a_scale), -127, 127).to(torch.int8)
+    want = TQ.int8_im2col_plain(xq, TQ._pair(kernel), TQ._pair(s),
+                                TQ._pair(p), TQ._pair(d), g, kp)
+    assert got.dtype == torch.int8 and torch.equal(got, want)
+    jq = np.asarray(jnp.clip(jnp.round(jnp.asarray(xf.numpy()) / jnp.float32(
+        scale)), -127, 127).astype(jnp.int8))
+    np.testing.assert_array_equal(xq.numpy(), jq)
+    # the edges were there: ties that round to even, clamped values, and
+    # the zero padding past K
+    ratio = (xf / a_scale).numpy()
+    assert (ratio == np.floor(ratio) + 0.5).any() and (np.abs(ratio) > 127).any()
+    assert (got[..., k:] == 0).all()
+
+
+@pytest.mark.parametrize("static", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantized_conv2d_forward_matches_jax(static, dtype):
+    """``QuantizedConv2D`` hands its float input and scale to the im2col;
+    its forward equals the JAX layer's on the same numpy input, with a
+    calibrated (static) and with a dynamic activation scale."""
+    rs = np.random.RandomState(5)
+    x = _float_act(rs, (2, 6, 9, 10), 2.0 ** -6)
+    w = _q(rs, 8, 3, 3, 3)
+    ws = rs.uniform(1e-3, 1e-2, 8).astype(np.float32)
+    bias = rs.randn(8).astype(np.float32)
+    act_scale = np.float32(2.0 ** -6) if static else None
+    geo = ((3, 3), (1, 2), (1, 1), (2, 1), 2)
+    jl = JQ.QuantizedConv2D(jnp.asarray(w), jnp.asarray(ws), jnp.asarray(bias),
+                            *geo, activation="relu", act_scale=act_scale)
+    tl = TQ.QuantizedConv2D(torch.from_numpy(w), torch.from_numpy(ws),
+                            torch.from_numpy(bias), *geo, activation="relu",
+                            act_scale=act_scale)
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    want = jl(jnp.asarray(xt.to(torch.float32).numpy()).astype(dtype))
+    got = tl(xt)
+    assert got.dtype == xt.dtype
+    _same(got, want._data)
+
+
+def test_im2col_refuses_a_scale_that_does_not_fit():
+    x = torch.zeros((1, 2, 4, 4))
+    with pytest.raises(tmx.MXNetError):
+        TQ.int8_im2col(x, (3, 3), 1, 0, 1, 1, 32)            # float, no scale
+    with pytest.raises(tmx.MXNetError):
+        TQ.int8_im2col(x.to(torch.int8), (3, 3), 1, 0, 1, 1, 32, 0.5)
+    with pytest.raises(tmx.MXNetError):
+        TQ.int8_im2col(x.to(torch.float16), (3, 3), 1, 0, 1, 1, 32, 0.5)
+
+
+# (name, M, N, K, groups, row bytes, route, tile width, K splits) on 132
+# SMs: resnet50_v1's layers at B=32 (res5's 3x3 in 64-wide tiles, 104 of
+# them, rather than 52 of 128; its Dense split in four), ResNeXt's 32
+# groups, LeNet's Dense (K = 120 and 84 on mma.sync)
+GEMM_PLANS = [("res4 3x3", 6272, 256, 2304, 1, 2304, "wgmma", 128, 1),
+              ("res5 3x3", 1568, 512, 4608, 1, 4608, "wgmma", 64, 1),
+              ("stem", 401408, 64, 147, 1, 160, "wgmma", 64, 1),
+              ("res2 3x3", 100352, 64, 576, 1, 576, "wgmma", 64, 1),
+              ("res3 1x1", 25088, 128, 512, 1, 512, "wgmma", 128, 1),
+              ("res5 1x1 2048->512", 1568, 512, 2048, 1, 2048, "wgmma", 64,
+               1),
+              ("dense 2048->1000", 32, 1000, 2048, 1, 2048, "wgmma", 64, 4),
+              ("grouped 32", 25088, 8, 72, 32, 96, "wgmma", 64, 1),
+              ("lenet dense 400->120", 32, 120, 400, 1, 400, "wgmma", 64, 1),
+              ("lenet dense 120->84", 32, 84, 120, 1, 120, "mma", 0, 1),
+              ("lenet dense 84->4", 32, 4, 84, 1, 84, "mma", 0, 1)]
+
+
+@pytest.mark.parametrize("case", GEMM_PLANS, ids=[c[0] for c in GEMM_PLANS])
+def test_gemm_plan_at_the_path_shapes(case):
+    _, m, n, k, g, ld, route, bn, splits = case
+    assert TQ.gemm_plan(m, n, k, g, ld, ld, True, 132) == (route, bn, splits)
+    # a base that is not 16-byte aligned takes the mma.sync route
+    assert TQ.gemm_plan(m, n, k, g, ld, ld, False, 132) == ("mma", 0, 1)
