@@ -70,14 +70,28 @@ prints its last line):
      near-tie rule, fewer pages at the peak) and forks (``fork``:
      ``samples=4`` top-k on two 200-token prompts, shared full pages at
      refcount 4, one ``("cow", 8)`` program, naive and graph
-     bit-identical, every page free after the run);
+     bit-identical, every page free after the run); then the serving
+     fleet (``[fleet]``: ``tools/torch_servedrill.py --fleet``'s
+     ``fleet_plan`` with three gpt2_345m replicas and a replacement, each
+     warmed, request tracing keeping everything, a replica killed and one
+     wedged; ``validate_fleet`` green, the fleet report's replica states,
+     every serving replica's paged and LayerNorm launches), the tracer's
+     cost a batcher step (off and on in turns), and, on the timing
+     phase's serve engine, ``GenerationEngine.profile(steps=8)`` (8 step
+     rows, the paged and LayerNorm kernels named, the card's busy time a
+     step against the decode graph's time, the step's device window
+     against the untraced decode step) and ``mx.profiler`` around a few
+     decode steps;
   7. train gpt2_345m at full width (B=4, T=1024, f32, Adam) through
      TrainStep: 2 warm-up and 10 timed steps, with the launch counts of
      every kernel read around each step; then the same in bf16
      (``train_amp``): TrainStep(net, SoftmaxCrossEntropyLoss(),
      Adam(lr_scheduler=...), amp="bfloat16"); each naive, graph, graph,
      naive from the same weights, losses, weights and Adam moments
-     bit-identical across the four; then bench.py's BERT step
+     bit-identical across the four; ``TrainStep.profile(steps=2)`` of the
+     bf16 step at 8 of its 24 layers (only replays traced; the flash, Adam
+     and xent kernels named), one periodic and one trigger-file step
+     capture, the second sweeping the first; then bench.py's BERT step
      (``bert_amp``: bert_large, B=64, T=128, 20 masked positions,
      TrainStep(net, bert_loss, Adam(1e-4), n_model_inputs=4,
      amp="bfloat16")) the same way, with its MFU by bench.py's
@@ -216,6 +230,7 @@ import collections
 import contextlib
 import ctypes
 import gc
+import io
 import json
 import logging
 import math
@@ -381,8 +396,13 @@ def amp_schedule():
 LOGIT_TOL = {None: 1e-4, "bfloat16": 3e-2, "float16": 3e-2 / 8}
 
 
+_T0 = time.perf_counter()
+
+
 def log(*a):
-    print(*a, flush=True)
+    """A line of the run's log, after the seconds since the script
+    started."""
+    print(f"{time.perf_counter() - _T0:7.1f}s", *a, flush=True)
 
 
 def cuda_time_ms(fn, warmup=3, iters=20, repeats=5):
@@ -7023,16 +7043,17 @@ def _wlm_yardstick(net, gen):
     return res
 
 
-def phase_word_lm(card, loop_steps=50, profile_at=(30, 40)):
+def phase_word_lm(card, loop_steps=30, profile_at=(20, 26)):
     """``[word_lm]``: examples/torch_train_word_lm.py's model at Zaremba
     et al.'s medium width on the synthetic corpus (vocabulary 10,000):
 
     (a) the example's Gluon loop (``train(args, net=, on_step=)`` with
         ``_wlm_net``'s seeded model, dropout 0.2, Adam 1e-3, clip 0.25)
-        for ``loop_steps`` batches, each launching
-        WLM_WANT; the loss falls (the mean of the last 10 below the first
-        10); ms a step over steps 10-30 (host clock, synced) and the host
-        share over steps ``profile_at`` under the profiler;
+        for ``loop_steps`` batches (30; cut from 50 for the script's
+        time), each launching WLM_WANT; the loss falls (the
+        mean of the last 10 below the first 10); ms a step over steps 10 to
+        ``profile_at[0]`` (host clock, synced) and the host share over
+        steps ``profile_at`` under the profiler;
     (b) TrainStep: 3 steps naive against graph, losses and state bit for
         bit, at the example's dropout 0.2; then 2 warm-up and 10 timed
         graph steps, WLM_WANT
@@ -7096,7 +7117,8 @@ def phase_word_lm(card, loop_steps=50, profile_at=(30, 40)):
                 1 - device_ms / n_prof / step_ms if device_ms else None,
             "first10_mean": first, "last10_mean": last,
             "tokens_per_s": WLM_T * WLM_B / step_ms * 1e3}
-    log(f"[word_lm loop] the example's train(), Zaremba-medium, dropout "
+    log(f"[word_lm loop] (cut to {loop_steps} steps for time) the example's "
+        f"train(), Zaremba-medium, dropout "
         f"{WLM_DROPOUT}, "
         f"{len(losses)} steps: {step_ms:.2f} ms/step (steps 10-"
         f"{profile_at[0]}), {loop['tokens_per_s']:.0f} tokens/s; steps "
@@ -9176,9 +9198,9 @@ def _int8_rows(gen):
     return rows
 
 
-def _profiled_names(fn):
-    """Device kernel launches by name in one call of ``fn`` under the
-    profiler (a warm-up call the profiler discards first)."""
+def _profiled_rows(fn):
+    """The device rows' names, in start order, of one call of ``fn`` under
+    the profiler (a warm-up call the profiler discards first)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -9188,9 +9210,42 @@ def _profiled_names(fn):
             fn()
             torch.cuda.synchronize()
             prof.step()
-    return collections.Counter({
-        e.key: e.count for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA})
+    rows = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    return [e.name for e in sorted(rows, key=lambda e: e.time_range.start)]
+
+
+def _profiled_names(fn):
+    """Device kernel launches by name in one call of ``fn`` under the
+    profiler: the most of each name over REPLAY_ATTEMPTS traces of a call.
+    A trace can lose a record, and not only at the window's start
+    (``_trace_losses``; on the H100 one trace of an int8 resnet50_v1
+    forward lost 7 of its 50 clamps), but never adds one."""
+    best = collections.Counter()
+    for _ in range(REPLAY_ATTEMPTS):
+        best |= collections.Counter(_profiled_rows(fn))
+    return best
+
+
+#: traces of one int8 forward, for where a trace loses rows
+TRACE_LOSS_TRIES = 4
+
+
+def _trace_losses(fn, tries=TRACE_LOSS_TRIES):
+    """Where traces of one call of ``fn`` lose device rows: against the
+    longest of ``tries`` traces, each trace's count of rows lost, the
+    position of its first row that differs, and the names lost. Reported,
+    never a gate."""
+    traces = [_profiled_rows(fn) for _ in range(tries)]
+    ref = max(traces, key=len)
+    out = []
+    for got in traces:
+        first = next((i for i, (a, b) in enumerate(zip(got, ref)) if a != b),
+                     len(got) if len(got) < len(ref) else None)
+        lost = collections.Counter(ref) - collections.Counter(got)
+        out.append({"lost": len(ref) - len(got), "first_differs_at": first,
+                    "names": {k[:40]: v for k, v in lost.most_common(3)}})
+    return {"rows": len(ref), "traces": out}
 
 
 def _resnet50_f32(seed=0):
@@ -9324,6 +9379,9 @@ def phase_int8(card):
                                  f"beyond the f32 one's: {extra} ({kinds})")
         log(f"[int8] a profiled forward: {profiled}; round, clamp and "
             f"division kernels {kinds} (the Dense's quantisation: {extra})")
+        log(f"[int8 trace losses] {TRACE_LOSS_TRIES} traces of one int8 "
+            f"forward against the longest: "
+            + json.dumps(_trace_losses(lambda: net(x))))
         if out.shape != (INT8_B, 1000) or not torch.isfinite(out).all():
             raise AssertionError("[int8] the int8 logits are not finite")
         int8_ms = cuda_time_ms(lambda: net(x), warmup=1, iters=3, repeats=3)
@@ -9614,6 +9672,417 @@ def phase_imagenet(card):
     return launches, res
 
 
+# ---------------------------------------------------------------------------
+# The serving fleet (serving/, tools/torch_servedrill.py --fleet), request
+# tracing and measured profiling (observability/{tracing,profiling}.py,
+# profiler.py)
+FLEET_TICKS = 600
+#: decode steps a tracer-cost turn times, and the turns (off/on in turns)
+TRACE_COST_STEPS = 24
+TRACE_COST_TURNS = (False, True, True, False, False, True)
+#: the training capture's depth (train_amp runs 24 layers)
+PROFILE_TRAIN_LAYERS = 8
+
+
+def phase_fleet(net, card):
+    """``tools/torch_servedrill.py --fleet`` at full width (``fleet_plan``:
+    three gpt2_345m f32 replicas and a replacement from ``net``, each batch
+    8, pages of 16, 512 pages, EOS 50256, the serve engine's buckets, warmed
+    before the drill's clock starts; FleetRouter(affinity=True, seed=0), a
+    keep-everything tracer; 12 requests, the kill at tick 3 and the wedge at
+    tick 4, 8 more requests, the session's second turn and one hopeless
+    deadline), in graph mode. ``validate_fleet`` must pass (no in-deadline
+    drop, the wedged replica DEGRADED -> DRAINING -> DEAD with its work
+    redistributed, the replacement, affinity, explicit finish reasons,
+    survivors bit-identical to an undisturbed single engine, every
+    terminal trace gap-free and reconciled), ``tools/torch_fleetreport.py``
+    must show each replica's final state, and each replica that served
+    must have launched the paged decode, paged prefill and LayerNorm
+    kernels. Returns the phase's launches (baseline, warm-ups and drill)
+    and its metrics."""
+    sd = _load_drill()
+    plan = sd.fleet_plan()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_") as d:
+        _reset_launch_counts()
+        t = time.perf_counter()
+        run = sd.run_fleet_drill(
+            net, plan, device="cuda", engine_type="graph",
+            max_ticks=FLEET_TICKS, telemetry_dir=os.path.join(d, "run"),
+            fleet_dir=os.path.join(d, "fleet"),
+            launch_counts=_serving_launches)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = _serving_launches()
+        problems = sd.validate_fleet(run)
+        if problems:
+            raise AssertionError(f"fleet: {problems}")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = _tool("torch_fleetreport").main([os.path.join(d, "fleet"),
+                                                  "--json"])
+        if rc:
+            raise AssertionError(f"fleet: torch_fleetreport.py returned {rc}")
+        states = {rid: r.get("state") for rid, r in
+                  json.loads(out.getvalue())["router"]["replicas"].items()}
+    want_states = {str(run["kill_rid"]): "dead", str(run["wedge_rid"]): "dead",
+                   str(sd.REPLACEMENT_RID): "live"}
+    for rid in range(3):
+        want_states.setdefault(str(rid), "live")
+    if states != want_states:
+        raise AssertionError(f"fleet: the fleet report's states {states}, "
+                             f"expected {want_states}")
+    served = {rid: n for rid, n in run["port"]["launches"].items()
+              if n.get("paged_attention_prefill")}
+    for rid, n in run["port"]["launches"].items():
+        admitted = any(rid in r["replicas"] for r in run["requests"].values())
+        if admitted and not all(n.get(k) for k in (
+                "paged_attention", "paged_attention_prefill", "layernorm")):
+            raise AssertionError(f"fleet: replica {rid} served without "
+                                 f"launching every serving kernel: {n}")
+    reasons = [r["reason"] for r in run["requests"].values()]
+    res = {"wall_s": wall, "ticks": run["ticks"],
+           "requests": len(reasons),
+           "reasons": {x: reasons.count(x) for x in set(reasons)},
+           "kill": run["kill_rid"], "wedge": run["wedge_rid"],
+           "transitions": {str(k): "->".join(t["to"] for t in v)
+                           for k, v in run["transitions"].items()},
+           "counters": run["counters"],
+           "traces": {k: run["traces"][k] for k in ("checked", "hops",
+                                                    "phase_err_max")},
+           "report_states": states,
+           "replica_launches": {str(k): v for k, v in
+                                run["port"]["launches"].items()},
+           "compiled_programs": {str(k): v for k, v in
+                                 run["port"]["compiled_programs"].items()},
+           "drill_s": run["wall_s"]}
+    log("[fleet] " + json.dumps(res))
+    log(f"[fleet] gpt2_345m f32, 3 replicas + replacement, batch 8 each, "
+        f"graph: validate_fleet green in {wall:.1f}s ({run['ticks']} ticks); "
+        f"launches in the phase {launches}; replicas that served: "
+        f"{sorted(served)}")
+    del run
+    _release()
+    res["trace_cost"] = phase_trace_cost(net, card)
+    return launches, res
+
+
+def phase_trace_cost(net, card):
+    """The tracer's cost: ms a batcher step on one replica (gpt2_345m f32,
+    batch 8, 8 rows decoding) with request tracing off and on (a
+    keep-everything tracer, sample 1.0, its spans appended to a file), in
+    turns, ``TRACE_COST_STEPS`` steps a turn after every row is
+    admitted."""
+    from mxnet_tpu_torch.inference import ContinuousBatcher
+    from mxnet_tpu_torch.observability import tracing
+
+    sd = _load_drill()
+    eng = _serve_engine(net)
+    sd.warm_engine(eng)
+    rs = np.random.RandomState(5)
+    turns = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as d:
+        for i, on in enumerate(TRACE_COST_TURNS):
+            bat = ContinuousBatcher(eng, device="cuda")
+            if on:
+                bat.tracer = tracing.Tracer(
+                    os.path.join(d, f"spans-{i}.jsonl"), "h0",
+                    sampler=tracing.TailSampler(sample=1.0, seed=0,
+                                                slow_pct=100.0,
+                                                margin_floor=0.0))
+            reqs = [bat.submit(rs.randint(0, 50257, 32).tolist(),
+                               max_new_tokens=TRACE_COST_STEPS + 8)
+                    for _ in range(8)]
+            bat.step()  # admits all 8 (prefills) and decodes once
+            if bat.active != 8:
+                raise AssertionError(f"trace cost: {bat.active} rows active")
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(TRACE_COST_STEPS):
+                bat.step()
+            ms = (time.perf_counter() - t) / TRACE_COST_STEPS * 1e3
+            bat.run_until_idle()
+            if any(r.finish_reason not in ("length", "eos") for r in reqs):
+                raise AssertionError("trace cost: a request did not finish")
+            if on:
+                bat.tracer.close()
+                spans = tracing.read_span_records(
+                    os.path.join(d, f"spans-{i}.jsonl"))
+                if sum(r.get("name") == "decode.round" for r in spans) < \
+                        8 * TRACE_COST_STEPS:
+                    raise AssertionError("trace cost: decode.round spans "
+                                         "missing")
+            turns.append({"trace": on, "ms_per_step": ms})
+    off = [t["ms_per_step"] for t in turns if not t["trace"]]
+    on_ = [t["ms_per_step"] for t in turns if t["trace"]]
+    res = {"turns": turns, "off_ms": statistics.mean(off),
+           "on_ms": statistics.mean(on_),
+           "cost_ms": statistics.mean(on_) - statistics.mean(off)}
+    log(f"[fleet trace cost] gpt2_345m f32 batch 8, 8 rows decoding, "
+        f"{TRACE_COST_STEPS} steps a turn: off {[round(x, 3) for x in off]} "
+        f"ms/step, on {[round(x, 3) for x in on_]} ms/step (sample 1.0); "
+        f"cost {res['cost_ms']:.3f} ms a step on {card}")
+    del eng
+    _release()
+    return res
+
+
+def _decode_graph_ms(eng):
+    """The serve engine's decode step: its captured graph's device time by
+    CUDA events (``cuda_time_ms`` of one replay), the host's ms a
+    ``decode_step`` call (tokens read back; the step as a caller waits for
+    it), one live row, and the host's ms in one untraced
+    ``cudaGraphLaunch`` of the step's graph."""
+    eng.prefill([1, 2, 3, 4], slot=0)
+    for _ in range(2):
+        eng.decode_step()
+    prog = next(p for k, p in eng._programs.items()
+                if k[0] == ("decode", eng.batch_size, "paged"))
+    if prog.graph is None:
+        raise AssertionError("timing: the decode step has no graph")
+    graph_ms = cuda_time_ms(prog.graph.replay, warmup=3, iters=20)
+    launch_s = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        prog.graph.replay()
+        launch_s.append(time.perf_counter() - t)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(20):
+        eng.decode_step()
+    host_ms = (time.perf_counter() - t) / 20 * 1e3
+    eng.release_slot(0)
+    return {"graph_ms": graph_ms, "host_ms": host_ms,
+            "launch_ms": statistics.mean(launch_s) * 1e3}
+
+
+def _kernel_names(report):
+    return {r.name for r in report.op_rows}
+
+
+def _has_kernel(names, kernel):
+    return any(kernel in n for n in names)
+
+
+def _host_rows_ms(timeline, name):
+    """Durations (ms) of the host rows called ``name`` in a timeline."""
+    return [e.dur_ns / 1e6 for p in timeline.planes if p.name == "/host:CPU"
+            for ln in p.lines for e in ln.events if e.name == name]
+
+
+def phase_profile_decode(eng, decode, card):
+    """``GenerationEngine.profile(steps=8)`` on the serve engine: 8 step
+    rows, the paged decode and LayerNorm kernels among the ops, and each
+    step's busy time (``prof_step.busy``, the card busy on the step's
+    rows) within 25% of the decode graph's own replay time (``decode``,
+    timed by CUDA events beside the timing phase). The measured step (the
+    device window, idle gaps included) is held against the untraced
+    decode step (the host's ms a ``decode_step`` call) and the verdict
+    printed: tracing widens the window by the traced ``cudaGraphLaunch``'s
+    extra host time (both printed), so it is not a gate. Also reported:
+    the host annotation against the untraced host step, and the capture's
+    overhead. Then ``mx.profiler``: ``set_state('run')``, a few decode
+    steps, ``set_state('stop')``, ``dump()`` writes a Chrome trace that
+    names the port's kernels."""
+    from mxnet_tpu_torch import profiler
+    from mxnet_tpu_torch.observability import profiling
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_prof_") as d:
+        t = time.perf_counter()
+        cap = eng.profile(steps=8, trace_dir=os.path.join(d, "decode"))
+        call_s = time.perf_counter() - t
+        rep = cap.report
+        steps = rep.step_seconds()
+        spans = rep.span_breakdown()
+        names = _kernel_names(rep)
+        step_ms = statistics.mean(steps) * 1e3 if steps else None
+        busy_ms = spans.get("prof_step.busy", {}).get(
+            "mean_seconds", 0.0) * 1e3
+        launches = _host_rows_ms(cap.timeline, "cudaGraphLaunch")
+        res = {"steps": len(steps), "step_ms": step_ms,
+               "step_ms_min": min(steps) * 1e3 if steps else None,
+               "step_ms_max": max(steps) * 1e3 if steps else None,
+               "busy_ms": busy_ms,
+               "host_annotation_ms": spans.get("prof_step.host", {}).get(
+                   "mean_seconds", 0.0) * 1e3,
+               "decode_graph_ms": decode["graph_ms"],
+               "decode_host_ms": decode["host_ms"],
+               "graph_launch_ms": {
+                   "traced": statistics.mean(launches) if launches
+                   else None, "untraced": decode["launch_ms"]},
+               "busy_ratio": busy_ms / decode["graph_ms"],
+               "window_ratio": step_ms / decode["host_ms"] if steps
+               else None,
+               "traced_window_s": cap.seconds, "profile_call_s": call_s,
+               "op_rows": len(rep.op_rows),
+               "hot_us_per_step": [(h["name"][:60],
+                                    round(h["self_ns"] / 8e3, 2))
+                                   for h in rep.hot_ops(8)]}
+        res["window_within_25pct"] = (res["window_ratio"] is not None and
+                                      0.75 <= res["window_ratio"] <= 1.25)
+        res["overhead_ms_per_step"] = (res["host_annotation_ms"]
+                                       - decode["host_ms"])
+        log("[profile decode] " + json.dumps(res))
+        if len(steps) != 8:
+            raise AssertionError(f"profile: {len(steps)} step rows, not 8")
+        for k in ("paged_attention_kernel", "layernorm_fwd_warp_kernel"):
+            if not _has_kernel(names, k):
+                raise AssertionError(f"profile: no {k} among {sorted(names)}")
+        if not 0.75 <= res["busy_ratio"] <= 1.25:
+            raise AssertionError(
+                f"profile: the card busy {busy_ms:.3f} ms a traced decode "
+                f"step against the decode graph's {decode['graph_ms']:.3f} "
+                f"ms")
+        if not busy_ms <= step_ms:
+            raise AssertionError(f"profile: busy {busy_ms:.3f} ms outside "
+                                 f"its window {step_ms:.3f} ms")
+        # mx.profiler around a few decode steps
+        profiler.set_config(filename=os.path.join(d, "mx", "profile.json"))
+        eng.prefill([1, 2, 3, 4], slot=0)
+        profiler.set_state("run")
+        for _ in range(4):
+            eng.decode_step()
+        profiler.set_state("stop")
+        out = profiler.dump()
+        eng.release_slot(0)
+        tl = profiling.parse_trace(out)
+        names = {e.name for p in tl.planes if p.is_device for ln in p.lines
+                 for e in ln.events}
+        for k in ("paged_attention_kernel", "layernorm_fwd_warp_kernel"):
+            if not _has_kernel(names, k):
+                raise AssertionError(f"mx.profiler: no {k} in the trace")
+        table = profiler.dumps(reset=True)
+        res["mx_profiler"] = {"device_rows": sum(
+            len(ln.events) for p in tl.planes if p.is_device
+            for ln in p.lines), "table_rows": len(table.splitlines()) - 3}
+    gl = res["graph_launch_ms"]
+    log(f"[profile decode] gpt2_345m f32 serve engine: 8 step rows, device "
+        f"window {step_ms:.3f} ms a step against the untraced decode step's "
+        f"{decode['host_ms']:.3f} ms (x{res['window_ratio']:.3f}: "
+        f"{'within' if res['window_within_25pct'] else 'OUTSIDE'} 25%; a "
+        f"traced cudaGraphLaunch holds the host {gl['traced']:.3f} ms "
+        f"against {gl['untraced']:.3f} untraced); card busy {busy_ms:.3f} "
+        f"ms of it (the decode graph {decode['graph_ms']:.3f} ms by CUDA "
+        f"events); host {res['host_annotation_ms']:.3f} ms a traced step "
+        f"against {decode['host_ms']:.3f} untraced; mx.profiler "
+        f"{res['mx_profiler']}; {card}")
+    return res
+
+
+def phase_profile_train(card):
+    """``TrainStep.profile(steps=2)`` on gpt2_345m at full width but
+    ``PROFILE_TRAIN_LAYERS`` layers under ``amp="bfloat16"`` (B=4,
+    T=1024, the train_amp step): 2 step rows, the flash forward, dK/dV and
+    dQ, Adam and xent kernels among the ops, every traced step a replay.
+    Then one periodic capture (``prof_every_n_steps``) and one trigger-file
+    capture (``prof-request-h0.json`` in a fleet dir), whose snapshots
+    land under ``prof/prof-*`` and ``telemetry-h0/prof-*``, the second
+    swept by ``prof_keep_bytes``."""
+    import glob
+
+    from mxnet_tpu_torch import config
+    from mxnet_tpu_torch import observability as obs
+    from mxnet_tpu_torch.models import get_gpt2
+    from mxnet_tpu_torch.observability import profiling
+    from mxnet_tpu_torch.ops import cuda_graph as cg
+
+    net = get_gpt2("gpt2_345m", dropout=0.0, device="cuda", seed=0,
+                   num_layers=PROFILE_TRAIN_LAYERS)
+    ts = _train_step(net, "bfloat16", "graph")
+    batch = _train_batch(4, 1024)
+    knobs = {k: config.get(k) for k in ("prof_every_n_steps", "fleet_dir",
+                                        "profiler_dir", "prof_keep_bytes")}
+    was_dir = obs._dir
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_prof_") as d:
+            n0 = cg.unreplayed_calls()
+            t = time.perf_counter()
+            cap = ts.profile(*batch, steps=2, trace_dir=os.path.join(d, "ts"))
+            call_s = time.perf_counter() - t
+            rep = cap.report
+            names = _kernel_names(rep)
+            spans = rep.span_breakdown()
+            res = {"layers": PROFILE_TRAIN_LAYERS,
+                   "steps": len(rep.step_rows()),
+                   "step_ms": [s * 1e3 for s in rep.step_seconds()],
+                   "busy_ms": spans.get("prof_step.busy", {}).get(
+                       "mean_seconds", 0.0) * 1e3,
+                   "graph_launch_ms": _host_rows_ms(cap.timeline,
+                                                    "cudaGraphLaunch"),
+                   "host_annotation_ms": spans.get("prof_step.host", {}).get(
+                       "mean_seconds", 0.0) * 1e3,
+                   "warmup_and_capture_calls": cg.unreplayed_calls() - n0,
+                   "traced_window_s": cap.seconds, "profile_call_s": call_s,
+                   "op_rows": len(rep.op_rows),
+                   "hot": [(h["name"][:50], round(h["self_ns"] / 2e6, 3))
+                           for h in rep.hot_ops(6)]}
+            log("[profile train] " + json.dumps(res))
+            if res["steps"] != 2:
+                raise AssertionError(f"train profile: {res['steps']} step "
+                                     f"rows")
+            want = ("flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel",
+                    "flash_bwd_dq_tc_kernel", "adam_kernel",
+                    "xent_fwd_kernel", "xent_bwd_kernel")
+            missing = [k for k in want if not _has_kernel(names, k)]
+            if missing:
+                raise AssertionError(f"train profile: no {missing}")
+            # periodic: every 3rd step of a short loop
+            obs._dir = None
+            config.set("prof_every_n_steps", 3)
+            config.set("profiler_dir", os.path.join(d, "local"))
+            profiling._reset_controller()
+            for _ in range(3):
+                ts(*batch)
+            torch.cuda.synchronize()
+            periodic = glob.glob(os.path.join(d, "local", "prof", "prof-*",
+                                              "profile.json"))
+            if len(periodic) != 1:
+                raise AssertionError(f"periodic capture: {periodic}")
+            snap = json.load(open(periodic[0]))
+            if snap["report"]["steps"] != 1 or not any(
+                    dev.startswith("/device:GPU")
+                    for dev in snap["report"]["devices"]):
+                raise AssertionError(f"periodic capture: {snap['report']}")
+            res["periodic"] = {"dir": os.path.basename(
+                os.path.dirname(periodic[0])),
+                "step_ms": snap["report"]["step_seconds"]["mean"] * 1e3}
+            # triggered: a request file in the fleet dir, twice; the keep
+            # cap of 1 byte sweeps the first capture when the second lands
+            fdir = os.path.join(d, "fleet")
+            os.makedirs(fdir)
+            config.set("prof_every_n_steps", 0)
+            config.set("fleet_dir", fdir)
+            config.set("prof_keep_bytes", 1)
+            profiling._reset_controller()
+            seen = []
+            for _ in range(2):
+                with open(profiling.request_path(fdir, 0), "w") as f:
+                    json.dump({"reason": "chip_smoke"}, f)
+                profiling._ensure_controller()._next_probe = 0.0
+                ts(*batch)
+                torch.cuda.synchronize()
+                seen.append(sorted(os.path.basename(p) for p in glob.glob(
+                    os.path.join(fdir, "telemetry-h0", "prof-*"))))
+            if len(seen[0]) != 1 or len(seen[1]) != 1 or seen[0] == seen[1]:
+                raise AssertionError(f"triggered capture / sweep: {seen}")
+            res["triggered"] = {"kept": seen[1], "swept": seen[0]}
+    finally:
+        for k, v in knobs.items():
+            config.set(k, v)
+        obs._dir = was_dir
+        profiling._reset_controller()
+    log("[profile train] " + json.dumps(res))
+    log(f"[profile train] gpt2_345m bf16, {PROFILE_TRAIN_LAYERS} of 24 "
+        f"layers, B=4 T=1024: 2 replayed steps traced (device windows "
+        f"{[round(x, 2) for x in res['step_ms']]} ms, the card busy "
+        f"{res['busy_ms']:.2f} ms a step), flash, Adam and xent kernels "
+        f"named; periodic {res['periodic']['dir']}, triggered "
+        f"{res['triggered']}; {card}")
+    del ts, net
+    _release()
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this script needs one "
@@ -9657,10 +10126,12 @@ def main():
     fork_launches, fork = phase_fork(serve_net)
     log("[serving features] " + json.dumps(
         {"spec": spec, "prefix": prefix, "fork": fork}))
+    fleet_launches, fleet = phase_fleet(serve_net, card)
     # the serve engine's pools and table, for the kernels' timing
     eng = GenerationEngine(serve_net, batch_size=8, max_length=1024,
                            paged=True, page_size=16, device="cuda")
     timing = phase_timing(eng)
+    profile_decode = phase_profile_decode(eng, _decode_graph_ms(eng), card)
     del eng, serve_net
     _release()
     amp_parity = phase_train_parity(amp="bfloat16")
@@ -9675,6 +10146,14 @@ def main():
     del net
     _release()
     log("[train_amp] " + json.dumps(dict(runs=train_amp, parity=amp_parity)))
+    profile_train = phase_profile_train(card)
+    log("[fleet and profile] " + json.dumps(
+        {"fleet_s": fleet["wall_s"],
+         "trace_cost_ms": fleet["trace_cost"]["cost_ms"],
+         "decode_step_ms": profile_decode["step_ms"],
+         "decode_busy_ms": profile_decode["busy_ms"],
+         "decode_capture_overhead_ms": profile_decode["overhead_ms_per_step"],
+         "train_step_ms": profile_train["step_ms"]}))
     gluon_parity = phase_gluon_parity()
     gluon_launches, gluon = phase_gluon()
     log("[gluon] " + json.dumps(dict(run=gluon, parity=gluon_parity)))
@@ -10030,6 +10509,7 @@ def main():
                "prefix": prefix_launches, "fork": fork_launches,
                "governed": governed_launches, "drill": drill_launches,
                "stall": stall_launches, "overload": overload_launches,
+               "fleet": fleet_launches,
                "train": train_launches, "train_amp": amp_launches,
                "gluon": gluon_launches, "train_loop": loop_launches,
                "bert_amp": bert_launches,

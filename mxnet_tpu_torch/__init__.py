@@ -26,7 +26,10 @@ Gluon ``Estimator`` (``gluon.contrib.estimator``), ``test_utils``,
 updates, ``Embedding(sparse_grad=True)``. The numpy namespace: ``np`` and
 ``npx`` (``numpy_api``). INT8 post-training quantization on a
 hand-written s8 tensor-core kernel (``contrib.quantization``) and ONNX
-export and import (``contrib.onnx``). Imports torch, numpy and the standard
+export and import (``contrib.onnx``). The serving fleet (``serving``: a
+router over replicas of the batcher, with fleet health), request tracing
+and fleet snapshots (``observability``), and measured profiling over
+``torch.profiler`` (``observability.profiling``, ``profiler``). Imports torch, numpy and the standard
 library only. Entry points run on the card unless the caller names the
 CPU (``device="cpu"``, ``ctx=mx.cpu()``), which runs the kernels' plain
 PyTorch versions.
@@ -47,6 +50,7 @@ from . import monitor as mon
 from .monitor import Monitor
 from . import observability
 from . import observability as obs
+from . import profiler
 from . import resilience
 from . import callback, runtime, test_utils
 from . import symbol
@@ -67,7 +71,7 @@ __all__ = ["base", "config", "MXNetError", "Context", "cpu", "gpu",
            "autograd", "random", "initializer", "init", "gluon", "inference",
            "lr_scheduler", "models", "ops", "optimizer", "parallel",
            "serialization", "checkpoint", "image", "io", "metric", "monitor", "mon",
-           "Monitor", "observability", "obs", "resilience", "callback",
+           "Monitor", "observability", "obs", "profiler", "resilience", "callback",
            "runtime", "test_utils", "AttrScope", "is_np_array", "symbol",
            "sym", "operator", "rnn", "model", "module", "mod",
            "visualization", "viz", "np", "npx",

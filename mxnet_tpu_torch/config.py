@@ -143,10 +143,107 @@ _KNOBS: Dict[str, tuple] = {
                           "cap on total bytes of retained rotated event-log "
                           "segments (.jsonl.N.gz); 0 = keep exactly one "
                           "rotated segment"),
+    "profiler_dir": (str, "", ("MXNET_PROFILER_DIR",),
+                     "trace output directory of mx.profiler and of "
+                     "captures given no trace_dir (empty = mxnet_tpu_profile "
+                     "under the temporary directory, which honours TMPDIR)"),
+    "peak_flops": (float, 0.0, ("MXNET_TPU_PEAK_FLOPS",),
+                   "accelerator peak FLOP/s per process for the fleet "
+                   "report's MFU column; 0 = MFU not computed"),
+    # -- fleet serving tier (serving/) ---------------------------------------
+    "router_hb_timeout": (float, 5.0, ("MXNET_TPU_ROUTER_HB_TIMEOUT",),
+                          "replica heartbeat staleness (seconds since the "
+                          "last published snapshot) after which fleet "
+                          "health marks it DEGRADED"),
+    "router_drain_after": (float, 5.0, ("MXNET_TPU_ROUTER_DRAIN_AFTER",),
+                           "seconds a replica may stay DEGRADED before the "
+                           "router drains it (no new admissions, queued "
+                           "work redistributed)"),
+    "router_dead_grace": (float, 30.0, ("MXNET_TPU_ROUTER_DEAD_GRACE",),
+                          "seconds a DRAINING replica gets for in-flight "
+                          "rows to finish or expire before it is declared "
+                          "DEAD and its remaining work redistributed"),
+    "router_queue_bound": (int, 4, ("MXNET_TPU_ROUTER_QUEUE_BOUND",),
+                           "max published admission-queue depth the router "
+                           "will dispatch onto; deeper replicas keep the "
+                           "request in the router backlog"),
+    "router_classes": (str, "interactive,normal,batch",
+                       ("MXNET_TPU_ROUTER_CLASSES",),
+                       "priority classes in admission order (first = "
+                       "dispatched first under contention)"),
+    "router_affinity": (bool, True, ("MXNET_TPU_ROUTER_AFFINITY",),
+                        "pin a session's requests to the replica holding "
+                        "its prefix pages while that replica is LIVE"),
+    "router_seed": (int, 0, ("MXNET_TPU_ROUTER_SEED",),
+                    "seed for the power-of-two-choices candidate sampling "
+                    "(deterministic routing in drills and tests)"),
+    "router_prefix_tokens": (int, 16, ("MXNET_TPU_ROUTER_PREFIX_TOKENS",),
+                             "sessionless affinity: requests whose first N "
+                             "prompt tokens match are routed to the same "
+                             "replica so its prefix cache keeps the shared "
+                             "pages hot; 0 disables"),
+    # -- request tracing and the SLO ledger (observability/tracing.py) -------
+    "trace": (bool, False, ("MXNET_TPU_TRACE",),
+              "per-request span tracing for the serving tier: router and "
+              "replicas append span JSONL into the fleet dir, joined by "
+              "request id at aggregation (off = one attribute read per "
+              "emission site)"),
+    "trace_sample": (float, 0.01, ("MXNET_TPU_TRACE_SAMPLE",),
+                     "fraction of HEALTHY traces whose spans are kept "
+                     "(deterministic hash of trace id, so router and "
+                     "replicas agree without coordinating); anomalous/"
+                     "slow/low-margin traces are always kept"),
+    "trace_seed": (int, 0, ("MXNET_TPU_TRACE_SEED",),
+                   "seed of the deterministic healthy-sampling hash"),
+    "trace_slow_pct": (float, 95.0, ("MXNET_TPU_TRACE_SLOW_PCT",),
+                       "tail-sampling slow percentile: traces at or above "
+                       "this percentile of recent end-to-end latency are "
+                       "always kept"),
+    "trace_margin_floor": (float, 0.0, ("MXNET_TPU_TRACE_MARGIN_FLOOR",),
+                           "deadline-margin floor (seconds): a trace "
+                           "finishing with less margin is always kept AND "
+                           "requests a measured-profile capture on its "
+                           "replica (prof-request contract); 0 = off"),
+    "trace_slo_target": (float, 0.99, ("MXNET_TPU_TRACE_SLO_TARGET",),
+                         "SLO attainment target the burn rates are "
+                         "computed against (burn = violation rate / "
+                         "(1 - target); > 1 burns budget)"),
+    "trace_slo_windows": (str, "60,300,3600", ("MXNET_TPU_TRACE_SLO_WINDOWS",),
+                          "comma-separated burn-rate window lengths in "
+                          "seconds, anchored at the newest finish "
+                          "timestamp the aggregator sees"),
+    # -- measured profiling (observability/profiling.py) ---------------------
+    "prof_every_n_steps": (int, 0, ("MXNET_TPU_PROF_EVERY_N_STEPS",),
+                           "trace every N-th training step into a capture "
+                           "dir (periodic measured baseline); 0 = off"),
+    "prof_keep_bytes": (int, 512 * 1024 * 1024, ("MXNET_TPU_PROF_KEEP_BYTES",),
+                        "retention cap on total bytes of kept step-capture "
+                        "trace dirs (oldest swept first, newest always "
+                        "kept); 0 = unbounded"),
+    # -- fleet observability (observability/fleet.py) ------------------------
+    "fleet_dir": (str, "", ("MXNET_TPU_FLEET_DIR",),
+                  "shared directory for cross-rank telemetry snapshots "
+                  "(telemetry-h{rank}/ per rank); empty = fleet snapshots "
+                  "off"),
+    "fleet_snapshot_interval": (float, 5.0,
+                                ("MXNET_TPU_FLEET_SNAPSHOT_INTERVAL",),
+                                "seconds between per-rank fleet telemetry "
+                                "snapshots"),
+    "straggler_factor": (float, 3.0, ("MXNET_TPU_STRAGGLER_FACTOR",),
+                         "a rank whose step / collective-wait time exceeds "
+                         "the fleet median by this factor is flagged as a "
+                         "straggler"),
 }
 
 #: the values a str knob may take; any other raises
 _CHOICES: Dict[str, tuple] = {"engine_type": ("graph", "naive")}
+
+#: the knobs that a step reads while it is captured: the kernel choices.
+#: ``ops.cuda_graph.capture_state`` keys captured programs on these, so a
+#: knob that a step reads is listed here, and no other knob changes a
+#: captured program
+STEP_KNOBS = ("fused_layernorm", "paged_attention_kernel", "flash_attention",
+              "flash_pallas_bwd", "fused_adam", "fused_softmax_xent")
 
 _values: Dict[str, Any] = {}
 

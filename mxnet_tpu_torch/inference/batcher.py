@@ -1,7 +1,6 @@
 """Slot-based continuous batching over a :class:`GenerationEngine`.
 
-Counterpart of ``mxnet_tpu/inference/batcher.py`` (all but request
-tracing). The decode batch is a fixed (B, ...) shape and a *slot* is one
+Counterpart of ``mxnet_tpu/inference/batcher.py``. The decode batch is a fixed (B, ...) shape and a *slot* is one
 row of it. Queued requests are admitted FIFO into free slots at step
 boundaries, by a batch-1 prefill into one cache row; a request holds its
 slot only once its prefill has returned. Finished rows (EOS, token budget,
@@ -63,6 +62,17 @@ Telemetry (always recorded): ``ttft_seconds`` (submit to first token),
 ``gen_queue_age_seconds{outcome=}``, ``gen_requests_total{reason=}``,
 ``gen_shed_total{cause=}``, ``gen_deadline_expired_total{where=}``,
 ``gen_admission_rejects_total{reason=}``, ``gen_admission_bypass_total``.
+
+Request tracing: when ``self.tracer`` is set (the serving replica attaches
+one when the ``trace`` knob is on), every request's residency here becomes
+spans (``replica.queue``, ``prefill`` or ``fork``, ``decode`` and a
+``decode.round`` a dispatch), buffered per trace and tail-sample-flushed
+at local finish, in the JAX batcher's places and with its attributes.
+``trace_id`` rides in through :meth:`submit` (the fleet router passes its
+request id so that the traces of its processes join); direct clients get a
+local ``b{id}`` trace. Spans are taken on the host around a dispatch,
+never inside a captured step graph. Tracing off costs each site one
+``tracer is None`` read.
 """
 from __future__ import annotations
 
@@ -109,6 +119,9 @@ class GenRequest:
         self.cancel_requested = False
         #: admission timestamp (batcher clock)
         self.admit_t: Optional[float] = None
+        #: trace identity: the router's request id for fleet traffic, a
+        #: local ``b{id}`` for direct clients, None when tracing is off
+        self.trace_id: Optional[str] = None
         #: decode steps (or speculative rounds) this request rode
         self.rounds = 0
         #: ``samples=N``: the leader this sibling forks from at admission
@@ -199,8 +212,8 @@ class ContinuousBatcher:
         self._step_id = 0
         self._head_id: Optional[int] = None
         self._head_deferrals = 0
-        #: request tracing (the JAX batcher's span hooks) is not ported:
-        #: always None here
+        #: the request-span emitter (an ``observability.tracing.Tracer``),
+        #: attached by the serving replica when the ``trace`` knob is on
         self.tracer = None
         #: drain mode: no new admissions — queued work is pulled back with
         #: ``withdraw_queued``, in-flight rows finish or expire
@@ -209,6 +222,7 @@ class ContinuousBatcher:
     # -- client side ---------------------------------------------------------
     def submit(self, prompt: Sequence[int], max_new_tokens: int = 32,
                deadline_s: Optional[float] = None,
+               trace_id: Optional[str] = None,
                samples: int = 1) -> GenRequest:
         """Queue a request. Raises ``ValueError`` for a request that could
         never be served: a token id outside ``[0, vocab)``, no prefill
@@ -219,7 +233,11 @@ class ContinuousBatcher:
 
         ``samples=N`` (paged engines) asks for N samples of one prompt,
         whose handles land on the returned leader's ``samples``; siblings
-        ride the same overload controls."""
+        ride the same overload controls.
+
+        ``trace_id`` joins this request to a fleet-level trace (the router
+        passes its request id); when tracing is on and no id is given, a
+        local ``b{id}`` trace is opened."""
         eng = self.engine
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
@@ -255,6 +273,9 @@ class ContinuousBatcher:
             deadline_s = self.default_deadline_s
         req = GenRequest(next(self._ids), prompt, max_new_tokens,
                          deadline_s=deadline_s, clock=self._clock)
+        if self.tracer is not None:
+            req.trace_id = str(trace_id) if trace_id is not None \
+                else f"b{req.id}"
         now = req.submit_t
         if self.draining:
             return self._shed(req, now, cause="draining")
@@ -282,6 +303,8 @@ class ContinuousBatcher:
                 sib = GenRequest(next(self._ids), prompt, max_new_tokens,
                                  deadline_s=deadline_s, clock=self._clock)
                 sib._fork_of = req
+                if self.tracer is not None:
+                    sib.trace_id = f"b{sib.id}"
                 req.samples.append(sib)
                 if self.max_queue > 0 and len(self._queue) >= self.max_queue:
                     self._shed(sib, sib.submit_t, cause="queue_full")
@@ -353,6 +376,14 @@ class ContinuousBatcher:
             self._slots[slot] = None
             req.finish_reason = "redistributed"
             req.finish_t = now
+            tr = self.tracer
+            if tr is not None and req.trace_id is not None:
+                tr.span(req.trace_id, "decode",
+                        req.first_token_t if req.first_token_t is not None
+                        else now, now, rounds=req.rounds, slot=slot,
+                        outcome="redistributed", req=req.id)
+                tr.finish(req.trace_id, "redistributed", req.submit_t,
+                          now, deadline=req.deadline_t, req=req.id)
             _obs.counter("gen_requests_total",
                          "completed generation requests").inc(
                              reason="redistributed")
@@ -408,6 +439,20 @@ class ContinuousBatcher:
         return {str(s): r.id for s, r in enumerate(self._slots)
                 if r is not None}
 
+    def _trace_queue_exit(self, req: GenRequest, now: float, outcome: str,
+                          terminal: bool, **attrs) -> None:
+        """Span the request's admission-queue residency; when the wait
+        ended the request (shed, expired, withdrawn), close the local
+        trace too: the tail sampler decides whether the spans flush."""
+        tr = self.tracer
+        if tr is None or req.trace_id is None:
+            return
+        tr.span(req.trace_id, "replica.queue", req.submit_t, now,
+                outcome=outcome, req=req.id, **attrs)
+        if terminal:
+            tr.finish(req.trace_id, outcome, req.submit_t, now,
+                      deadline=req.deadline_t, req=req.id)
+
     def _shed(self, req: GenRequest, now: float, cause: str) -> GenRequest:
         req.finish_reason = "shed"
         req.finish_t = now
@@ -416,6 +461,7 @@ class ContinuousBatcher:
         _obs.counter("gen_shed_total",
                      "requests shed by overload control").inc(cause=cause)
         self._queue_age(req, now, "shed")
+        self._trace_queue_exit(req, now, "shed", terminal=True, cause=cause)
         return req
 
     def _finish_queued(self, req: GenRequest, now: float, reason: str):
@@ -430,6 +476,7 @@ class ContinuousBatcher:
                          "requests expired by their deadline").inc(
                              where="queue")
         self._queue_age(req, now, reason)
+        self._trace_queue_exit(req, now, reason, terminal=True)
 
     def _finish(self, slot: int, reason: str):
         req = self._slots[slot]
@@ -443,6 +490,15 @@ class ContinuousBatcher:
         self.engine.release_slot(slot)
         req.finish_reason = reason
         req.finish_t = self._clock()
+        tr = self.tracer
+        if tr is not None and req.trace_id is not None:
+            tr.span(req.trace_id, "decode",
+                    req.first_token_t if req.first_token_t is not None
+                    else req.finish_t,
+                    req.finish_t, rounds=req.rounds, slot=slot,
+                    outcome=reason, req=req.id)
+            tr.finish(req.trace_id, reason, req.submit_t, req.finish_t,
+                      deadline=req.deadline_t, req=req.id)
         _obs.counter("gen_requests_total", "completed generation requests").inc(
             reason=reason)
         if reason == "deadline":
@@ -481,12 +537,19 @@ class ContinuousBatcher:
                 self._finish(slot, "deadline")
 
     def _seat(self, slot: int, req: GenRequest, now: float, tok: int,
-              service_s: float):
-        """Seat an admitted request in ``slot`` with its first token."""
+              service_s: float, src: Optional[int] = None):
+        """Seat an admitted request in ``slot`` with its first token
+        (``src``: the leader's slot of a forked sibling)."""
         req.slot = slot
         self._slots[slot] = req
         req.admit_t = now
         self._queue_age(req, now, "admitted")
+        if src is None:
+            self._trace_queue_exit(req, now, "admitted", terminal=False,
+                                   slot=slot)
+        else:
+            self._trace_queue_exit(req, now, "admitted", terminal=False,
+                                   slot=slot, forked=True)
         req.first_token_t = self._clock()
         _obs.histogram("ttft_queue_seconds",
                        "submit -> admission: the queue-wait half of ttft",
@@ -497,6 +560,16 @@ class ContinuousBatcher:
                        "admission -> first sampled token: the service "
                        "half of ttft, on the real wall clock",
                        unit="s").observe(service_s)
+        tr = self.tracer
+        if tr is not None and req.trace_id is not None:
+            if src is None:
+                tr.span(req.trace_id, "prefill", req.admit_t,
+                        req.first_token_t, service_s=round(service_s, 6),
+                        slot=slot, req=req.id)
+            else:
+                tr.span(req.trace_id, "fork", req.admit_t,
+                        req.first_token_t, service_s=round(service_s, 6),
+                        slot=slot, src=src, req=req.id)
         req.output.append(tok)
 
     def _admit_into(self, slot: int, req: GenRequest, now: float):
@@ -548,7 +621,8 @@ class ContinuousBatcher:
             sib.forked = True
             svc0 = time.perf_counter()
             tok = eng.fork_slot(leader.slot, slot, resample_first=True)
-            self._seat(slot, sib, now, tok, time.perf_counter() - svc0)
+            self._seat(slot, sib, now, tok, time.perf_counter() - svc0,
+                       src=leader.slot)
             if eng.done[slot]:  # the resampled first token was EOS
                 self._finish(slot, "eos")
             elif sib.max_new_tokens == 1:
@@ -655,8 +729,11 @@ class ContinuousBatcher:
             return bool(self._queue)
         was_active = [s for s, r in enumerate(self._slots) if r is not None]
         eng = self.engine
+        tr = self.tracer
         if eng.speculative and self.governor.speculating:
+            r0 = self._clock() if tr is not None else now
             toks, counts, done = self._dispatch("spec_round", eng.spec_step)
+            r1 = self._clock() if tr is not None else now
             if eng.last_round_drafted:
                 self.governor.observe_round(eng.last_round_accepted,
                                             eng.last_round_drafted)
@@ -666,6 +743,12 @@ class ContinuousBatcher:
                 n = int(counts[slot])
                 room = req.max_new_tokens - len(req.output)
                 req.output.extend(int(t) for t in toks[slot, :min(n, room)])
+                if tr is not None and req.trace_id is not None:
+                    tr.span(req.trace_id, "decode.round", r0, r1,
+                            step=self._step_id, mode="spec", slot=slot,
+                            accepted=int(eng.last_round_accepted),
+                            drafted=int(eng.last_round_drafted),
+                            tokens=min(n, room))
                 if room < n:  # the budget ended inside the window
                     self._finish(slot, "length")
                 elif done[slot]:
@@ -674,14 +757,21 @@ class ContinuousBatcher:
                 elif len(req.output) >= req.max_new_tokens:
                     self._finish(slot, "length")
         else:
+            r0 = self._clock() if tr is not None else now
             tok, done, _ = self._dispatch(
                 "decode", eng.plain_step if eng.speculative
                 else eng.decode_step)
+            r1 = self._clock() if tr is not None else now
             if self.governor is not None:
                 self.governor.observe_plain_step()
             for slot in was_active:
                 req = self._slots[slot]
                 req.rounds += 1
+                if tr is not None and req.trace_id is not None:
+                    tr.span(req.trace_id, "decode.round", r0, r1,
+                            step=self._step_id,
+                            mode="plain" if eng.speculative else "decode",
+                            slot=slot, tokens=1)
                 if eng.paged and done[slot] and bool(eng.page_exhausted[slot]):
                     # evicted BEFORE the step: the row emitted pad this
                     # step, not a token

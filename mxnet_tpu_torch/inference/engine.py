@@ -1150,6 +1150,44 @@ class GenerationEngine:
             self._pending_clear.add(slot)
             self._prefill_logits.pop(slot, None)
 
+    def profile(self, prompt=None, steps: int = 8, warmup: int = 2,
+                trace_dir: Optional[str] = None, calibrate: bool = False,
+                band: float = 3.0):
+        """Trace ``steps`` real decode steps (speculative rounds on a
+        speculative engine) and return the
+        :class:`~mxnet_tpu_torch.observability.profiling.Capture`: the
+        measured per-op timeline of the serving hot loop, its hot-op
+        ranking and the measured step time (each step's device window;
+        ``prof_step.busy`` spans hold the card's busy time in it).
+        The steps go through the engine's own step graphs, so the traced
+        program IS the program continuous batching replays; untraced calls
+        run until the step replays its graph, so that no traced step warms
+        up or captures. ``prompt`` (default a short synthetic one) is
+        prefilled into slot 0 first, outside the traced window, so the
+        decode has a live row to extend; the slot is released afterwards.
+        On the card a timeline without kernel rows raises.
+
+        ``calibrate=True`` (predicted against measured per op class) needs
+        the program auditor of ``analysis/*``, which the port does not
+        have yet: it raises ``NotImplementedError``."""
+        from ..observability import profiling as _profiling
+
+        if calibrate:
+            raise NotImplementedError(
+                "GenerationEngine.profile(calibrate=True) needs the schedule "
+                "auditor of analysis/* (GenerationEngine.audit), which the "
+                "port does not have yet")
+        if prompt is None:
+            prompt = list(range(1, 1 + min(4, self.prefill_buckets[0])))
+        self.prefill(prompt, slot=0)
+        fn = self.spec_step if self.speculative else self.decode_step
+        try:
+            return _profiling.capture(fn, steps=steps, warmup=warmup,
+                                      trace_dir=trace_dir, device=self.device,
+                                      replays_only=True)
+        finally:
+            self.release_slot(0)
+
     def generate(self, prompts, max_new_tokens: int = 32) -> List[List[int]]:
         """Generate up to ``max_new_tokens`` for each prompt (at most
         ``batch_size`` prompts, one slot each). Returns the generated token

@@ -1,5 +1,4 @@
-"""Telemetry of the port: the subset of ``mxnet_tpu/observability`` that
-the serving slice uses.
+"""Telemetry of the port: the counterpart of ``mxnet_tpu/observability``.
 
   - ``metrics``  — process-wide registry of counters / gauges / histograms
                    with labels; Prometheus-textfile + JSON exporters;
@@ -22,8 +21,10 @@ Enable via ``MXNET_TPU_TELEMETRY=1`` (+ ``MXNET_TPU_TELEMETRY_DIR``) or::
     ...serve...
     obs.shutdown()                  # flush metrics.json / metrics.prom
 
-The fleet, goodput, profiling and tracing layers of the JAX package are
-not ported yet.
+The fleet view (``fleet``: per-rank snapshots into ``fleet_dir`` and their
+aggregation), the goodput ledger (``goodput``), request tracing and the SLO
+ledger (``tracing``) and measured profiling (``profiling``) sit beside
+them, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -35,14 +36,18 @@ from contextlib import contextmanager
 from typing import Optional
 
 from . import events  # noqa: F401
+from . import goodput  # noqa: F401
 from . import metrics  # noqa: F401
 from .events import emit, read_events, set_step  # noqa: F401
 from .metrics import REGISTRY, counter, gauge, histogram  # noqa: F401
+from . import profiling  # noqa: F401  (imports events/metrics above)
+from . import fleet  # noqa: F401  (imports events/metrics/goodput/profiling)
+from . import tracing  # noqa: F401  (imports metrics above)
 
 __all__ = ["metrics", "events", "REGISTRY", "counter", "gauge", "histogram",
            "emit", "set_step", "read_events", "enabled", "enable", "disable",
            "shutdown", "span", "timed_region", "telemetry_dir",
-           "throughput_delta"]
+           "throughput_delta", "fleet", "goodput", "profiling", "tracing"]
 
 
 def throughput_delta(prev):
@@ -109,6 +114,10 @@ def enable(directory: Optional[str] = None, run_id: Optional[str] = None) -> str
         atexit.register(shutdown)
         _atexit_registered = True
     events.emit("telemetry_enabled", dir=_dir)
+    # fleet view: when a shared fleet directory is configured
+    # (MXNET_TPU_FLEET_DIR), start the per-rank snapshot writer alongside
+    # telemetry
+    fleet.ensure_snapshotter()
     return _dir
 
 
@@ -125,6 +134,9 @@ def shutdown() -> None:
     Idempotent; registered atexit by :func:`enable`."""
     if _dir is None:
         return
+    # final fleet snapshot BEFORE the event log closes (the snapshot
+    # copies the event files; a clean exit must land its tail)
+    fleet.shutdown_snapshotter()
     host = events._host_index()
     suffix = f"-h{host}" if host else ""
     try:

@@ -13,6 +13,13 @@ tuple of tensors. On the card:
     side stream and replays it at once, for its own result;
   - every later call replays.
 
+A capture never runs inside a profiler session (the probe that
+``observability.profiling`` installs with :func:`set_trace_probe`): while
+one is open, a call that would capture runs the function eagerly again,
+as the warm-up did, and the capture waits for the first call after the
+session. The profile entry points count such eager calls
+(:func:`unreplayed_calls`) to trace only replays.
+
 The kernel wrappers count their launches on the host (``launches`` in
 ``ops/layernorm.py``, ``ops/paged_attention.py``, ``ops/flash_attention.py``,
 ``ops/optimizer.py`` and ``ops/softmax_xent.py``). A capture launches
@@ -44,10 +51,12 @@ from ..base import MXNetError
 
 __all__ = ["StepGraph", "GraphPool", "capture_stream", "capture_state",
            "launch_counts", "after_capture", "persistent_empty", "owned",
-           "capturing"]
+           "capturing", "unreplayed_calls", "set_trace_probe"]
 
 # the StepGraph whose capture is under way (captures are not nested)
 _active: Optional["StepGraph"] = None
+# calls of capturing StepGraphs that did not replay (warm-ups, captures)
+_unreplayed = 0
 #: bytes that persistent_empty() may take in one capture: held cached on
 #: a side stream before the capture begins, since a capture may not
 #: cudaMalloc outside its own pool
@@ -104,7 +113,7 @@ def capture_state() -> tuple:
     from ..contrib import amp as _amp
 
     return (_amp.amp_dtype(),) + tuple(
-        _config.get(k) for k in _config._KNOBS if k != "engine_type")
+        _config.get(k) for k in _config.STEP_KNOBS)
 
 
 def _counter_modules():
@@ -136,6 +145,28 @@ def _add_launches(delta: Dict[tuple, int], sign: int = 1) -> None:
             mod.launches += sign * n
         else:
             mod.launches[key] += sign * n
+
+
+def unreplayed_calls() -> int:
+    """Calls so far, over every StepGraph that captures, that ran their
+    step eagerly or captured it instead of replaying a graph."""
+    return _unreplayed
+
+
+def _no_trace() -> bool:
+    return False
+
+
+#: says whether a profiler session is open (no capture runs inside one);
+#: the profiler installs its own through :func:`set_trace_probe`
+_trace_open = _no_trace
+
+
+def set_trace_probe(probe) -> None:
+    """Install ``probe() -> bool``, true while a profiler session of this
+    process is open."""
+    global _trace_open
+    _trace_open = probe
 
 
 def capturing() -> bool:
@@ -236,7 +267,14 @@ class StepGraph:
         self._held = []  # persistent_empty() tensors the graph reads
         self._owned = {}
 
+    @property
+    def replays_next(self) -> bool:
+        """True when the next call replays a graph or, never capturing,
+        runs the step as every call does."""
+        return not self.capture or self.graph is not None
+
     def __call__(self) -> Tuple[torch.Tensor, ...]:
+        global _unreplayed
         self.calls += 1
         if not self.capture:
             outs = tuple(self.fn())
@@ -246,9 +284,10 @@ class StepGraph:
                 for dst, o in zip(self.outputs, outs):
                     dst.copy_(o)
             return self.outputs
-        if self.calls == 1:
-            return self._warm_up()
         if self.graph is None:
+            _unreplayed += 1
+            if self.calls == 1 or _trace_open():
+                return self._warm_up()
             self._capture()
         self.graph.replay()
         _add_launches(self.launches)

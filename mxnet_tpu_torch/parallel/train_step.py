@@ -81,6 +81,7 @@ import math
 import os
 import time
 import weakref
+from typing import Optional
 
 import numpy as np
 import torch
@@ -89,6 +90,7 @@ from .. import config as _config
 from .. import observability as _obs
 from ..base import MXNetError
 from ..contrib import amp as _amp
+from ..observability import profiling as _profiling
 from ..ops import cuda_graph as _cg
 
 __all__ = ["TrainStep"]
@@ -191,6 +193,8 @@ class TrainStep:
         # program key -> (program, static inputs, storage it was captured
         # over); step keys start with "step", window keys with "window"
         self._programs = {}
+        #: the open step capture's token (observability.profiling)
+        self._ptok = None
         #: programs dropped because a parameter, moment or copy moved
         self.recaptures = 0
         #: window programs dispatched (one host sync each with telemetry on)
@@ -387,11 +391,19 @@ class TrainStep:
         obs_on = _obs.enabled()
         t0 = time.perf_counter() if obs_on else 0.0
         batch = tuple(getattr(b, "_data", b) for b in batch)
-        loss, gnorm = self._program_step(batch, obs_on)
-        self._wrote_params()
-        self.optimizer.num_update += 1
-        if obs_on:
-            self._record_step(t0, batch, loss, gnorm)
+        try:
+            loss, gnorm = self._program_step(batch, obs_on)
+            self._wrote_params()
+            self.optimizer.num_update += 1
+            if obs_on:
+                self._record_step(t0 + _profiling.step_capture_begin_seconds(
+                    self._ptok), batch, loss, gnorm)
+        except BaseException:
+            # a failed traced step must not leak the live trace session
+            _profiling.step_capture_abort(self._ptok)
+            self._ptok = None
+            raise
+        self._end_capture(loss)
         self._run_monitors()
         self._check_preemption()
         return loss
@@ -456,8 +468,27 @@ class TrainStep:
             else:
                 dst[0, 0].copy_(b)
         self._fill(rates, sent)
-        outs = prog()
+        outs = self._probe(prog, int(self.optimizer.num_update) + 1)
         return outs[0][0].clone(), (outs[1][0].clone() if obs_on else None)
+
+    def _probe(self, prog, step):
+        """``prog()`` under the measured-profiling probe: a periodic or
+        triggered step capture (``observability.profiling``) traces this
+        call when its graph replays; a call that warms up or captures is
+        never traced. One global read and one call while disarmed. The
+        session's opening (on the card a sync and ``QUIET_S``) is taken
+        out of the step's recorded time, and the capture closes in
+        :meth:`_end_capture`, after the step is recorded, so neither the
+        opening nor the parse and retention inflate the step's own
+        telemetry."""
+        self._ptok = _profiling.step_capture_begin(
+            step, replay=prog.replays_next, device=self.device)
+        return prog()
+
+    def _end_capture(self, outputs):
+        ptok, self._ptok = self._ptok, None
+        if ptok is not None:
+            _profiling.step_capture_end(ptok, outputs)
 
     def _fill(self, rates, sent):
         """Before a program: copies and masters current, and the rates in
@@ -633,6 +664,46 @@ class TrainStep:
             return torch.zeros((0,), dtype=torch.float32, device=self.device)
         return torch.cat(losses) if len(losses) > 1 else losses[0]
 
+    def profile(self, *batch, steps: int = 2, warmup: int = 1,
+                window: Optional[int] = None, accum: int = 1,
+                trace_dir: Optional[str] = None, calibrate: bool = False,
+                band: float = 3.0):
+        """Trace ``steps`` real training steps of this batch signature
+        (after ``warmup`` untraced ones) and return the
+        :class:`~mxnet_tpu_torch.observability.profiling.Capture`: measured
+        per-device op timeline, hot-op ranking and measured step time
+        (each step's device window; ``prof_step.busy`` spans hold the
+        card's busy time in it). The steps go through ``__call__`` /
+        ``run``'s own step graphs, so the traced program IS the production
+        program, and the profiled steps advance the training state like
+        any other steps. A step graph warms up on its first call and
+        captures on its second: untraced calls run past ``warmup`` until
+        the step replays, so that only replays are traced. ``window=``
+        profiles the ``window``-step program instead (one traced replay a
+        window). On the card a timeline without kernel rows raises.
+
+        ``calibrate=True`` needs the schedule auditor of ``analysis/*``
+        (``TrainStep.audit``), which the port does not have yet: it raises
+        ``NotImplementedError``."""
+        if calibrate:
+            raise NotImplementedError(
+                "TrainStep.profile(calibrate=True) needs the schedule "
+                "auditor of analysis/* (TrainStep.audit), which the port "
+                "does not have yet")
+        if window:
+            lead = (window,) if accum == 1 else (window, accum)
+            stacked = tuple(
+                torch.as_tensor(np.asarray(b)) if not torch.is_tensor(b)
+                else b for b in (getattr(b, "_data", b) for b in batch))
+            stacked = tuple(b.to(self.device).expand(lead + tuple(b.shape))
+                            for b in stacked)
+            fn = lambda: self._run_window(stacked, window, accum)  # noqa: E731
+        else:
+            fn = lambda: self(*batch)  # noqa: E731
+        return _profiling.capture(fn, steps=steps, warmup=warmup,
+                                  trace_dir=trace_dir, device=self.device,
+                                  replays_only=True)
+
     def _run_window(self, batches, window, accum):
         """One window program over stacked device batches
         (``[window(, accum), B, ...]`` each). One replay; with telemetry
@@ -657,14 +728,22 @@ class TrainStep:
         for dst, b in zip(static, batches):
             dst.copy_(b if accum > 1 else b.unsqueeze(1))
         self._fill(rates, sent)
-        outs = prog()
-        losses = outs[0].clone()
-        self._wrote_params()
-        self._window_dispatches += 1
-        self.optimizer.num_update += window
-        if obs_on:
-            self._record_window(t0, batches, losses, outs[1].clone(), window,
-                                accum)
+        try:
+            # one capture covers the whole window
+            outs = self._probe(prog, int(self.optimizer.num_update) + window)
+            losses = outs[0].clone()
+            self._wrote_params()
+            self._window_dispatches += 1
+            self.optimizer.num_update += window
+            if obs_on:
+                self._record_window(
+                    t0 + _profiling.step_capture_begin_seconds(self._ptok),
+                    batches, losses, outs[1].clone(), window, accum)
+        except BaseException:
+            _profiling.step_capture_abort(self._ptok)
+            self._ptok = None
+            raise
+        self._end_capture(losses)
         self._run_monitors()
         self._check_preemption()
         return losses
