@@ -79,9 +79,17 @@ prints its last line):
      cost a batcher step (off and on in turns), and, on the timing
      phase's serve engine, ``GenerationEngine.profile(steps=8)`` (8 step
      rows, the paged and LayerNorm kernels named, the card's busy time a
-     step against the decode graph's time, the step's device window
-     against the untraced decode step) and ``mx.profiler`` around a few
-     decode steps;
+     step against the decode graph's time, the step's window against the
+     untraced decode step (printed), calibrated against the decode
+     program's schedule: ``[calibrate]``) and ``mx.profiler`` around a few
+     decode steps; then ``GenerationEngine.audit`` of its decode, prefill
+     and copy-on-write programs (``[audit decode]``: the graph's nodes and
+     edges, its port kernels equal to the launch counters over its capture
+     and to the record's, no memcpy node in the decode graph, the carry in
+     place, ``kv_pages`` the pools' and the table's bytes, the memory
+     estimate's inputs equal to their storages' bytes and its temporaries
+     within 25% of one eager step's measured transient, the tokens
+     unchanged by audits between steps);
   7. train gpt2_345m at full width (B=4, T=1024, f32, Adam) through
      TrainStep: 2 warm-up and 10 timed steps, with the launch counts of
      every kernel read around each step; then the same in bf16
@@ -90,8 +98,12 @@ prints its last line):
      naive from the same weights, losses, weights and Adam moments
      bit-identical across the four; ``TrainStep.profile(steps=2)`` of the
      bf16 step at 8 of its 24 layers (only replays traced; the flash, Adam
-     and xent kernels named), one periodic and one trigger-file step
-     capture, the second sweeping the first; then bench.py's BERT step
+     and xent kernels named; calibrated), one periodic and one trigger-file
+     step capture, the second sweeping the first, and ``TrainStep.audit``
+     of that step (``[audit train]``: the checks of ``[audit decode]``, no
+     f64 op, the carry unchanged by the audit, ``model_flops_per_step``
+     equal to the hand count, the ``train_mfu`` gauge against 989e12);
+     then bench.py's BERT step
      (``bert_amp``: bert_large, B=64, T=128, 20 masked positions,
      TrainStep(net, bert_loss, Adam(1e-4), n_model_inputs=4,
      amp="bfloat16")) the same way, with its MFU by bench.py's
@@ -9876,14 +9888,20 @@ def phase_profile_decode(eng, decode, card):
     step's busy time (``prof_step.busy``, the card busy on the step's
     rows) within 25% of the decode graph's own replay time (``decode``,
     timed by CUDA events beside the timing phase). The measured step (the
-    device window, idle gaps included) is held against the untraced
-    decode step (the host's ms a ``decode_step`` call) and the verdict
-    printed: tracing widens the window by the traced ``cudaGraphLaunch``'s
-    extra host time (both printed), so it is not a gate. Also reported:
-    the host annotation against the untraced host step, and the capture's
-    overhead. Then ``mx.profiler``: ``set_state('run')``, a few decode
-    steps, ``set_state('stop')``, ``dump()`` writes a Chrome trace that
-    names the port's kernels."""
+    device window by the step's kernel rows, idle gaps included) is held
+    against the untraced decode step (the host's ms a ``decode_step`` call)
+    and the verdict printed, not enforced: CUPTI holds a traced
+    ``cudaGraphLaunch`` on the host while the card idles (both launches
+    printed). Beside it: the capture's CUDA-event window of each traced
+    call (``prof_step.events``), and a decode step's card time behind a
+    queued gate that hides the host's enqueue, traced and untraced measured
+    alike (whether the trace slows the card's own work). The capture is
+    calibrated against the decode program's schedule ([calibrate]: each op
+    class's predicted and measured seconds). Also reported: the host
+    annotation against the untraced host step, and the capture's overhead.
+    Then ``mx.profiler``: ``set_state('run')``, a few decode steps,
+    ``set_state('stop')``, ``dump()`` writes a Chrome trace that names the
+    port's kernels."""
     from mxnet_tpu_torch import profiler
     from mxnet_tpu_torch.observability import profiling
 
@@ -9899,6 +9917,10 @@ def phase_profile_decode(eng, decode, card):
         busy_ms = spans.get("prof_step.busy", {}).get(
             "mean_seconds", 0.0) * 1e3
         launches = _host_rows_ms(cap.timeline, "cudaGraphLaunch")
+        events_ms = spans.get(profiling.EVENTS_SPAN, {}).get(
+            "mean_seconds", 0.0) * 1e3
+        gated = {"untraced": statistics.mean(_gated_event_ms(eng, False)),
+                 "traced": statistics.mean(_gated_event_ms(eng, True))}
         res = {"steps": len(steps), "step_ms": step_ms,
                "step_ms_min": min(steps) * 1e3 if steps else None,
                "step_ms_max": max(steps) * 1e3 if steps else None,
@@ -9913,6 +9935,11 @@ def phase_profile_decode(eng, decode, card):
                "busy_ratio": busy_ms / decode["graph_ms"],
                "window_ratio": step_ms / decode["host_ms"] if steps
                else None,
+               "events_ms": events_ms,
+               "events_ratio": events_ms / decode["host_ms"],
+               "gated_event_ms": gated,
+               "gated_event_ratio": gated["traced"] / gated["untraced"],
+               "calibrate": _calibration_rows(cap),
                "traced_window_s": cap.seconds, "profile_call_s": call_s,
                "op_rows": len(rep.op_rows),
                "hot_us_per_step": [(h["name"][:60],
@@ -9956,12 +9983,17 @@ def phase_profile_decode(eng, decode, card):
             len(ln.events) for p in tl.planes if p.is_device
             for ln in p.lines), "table_rows": len(table.splitlines()) - 3}
     gl = res["graph_launch_ms"]
+    log("[calibrate] decode " + json.dumps(res["calibrate"]))
     log(f"[profile decode] gpt2_345m f32 serve engine: 8 step rows, device "
         f"window {step_ms:.3f} ms a step against the untraced decode step's "
         f"{decode['host_ms']:.3f} ms (x{res['window_ratio']:.3f}: "
-        f"{'within' if res['window_within_25pct'] else 'OUTSIDE'} 25%; a "
-        f"traced cudaGraphLaunch holds the host {gl['traced']:.3f} ms "
-        f"against {gl['untraced']:.3f} untraced); card busy {busy_ms:.3f} "
+        f"{'within' if res['window_within_25pct'] else 'OUTSIDE'} 25%); by "
+        f"CUDA events around the traced call {events_ms:.3f} ms "
+        f"(x{res['events_ratio']:.3f}); a traced cudaGraphLaunch holds the "
+        f"host {gl['traced']:.3f} ms against {gl['untraced']:.3f} untraced; "
+        f"behind a gate that hides the enqueue, {gated['traced']:.3f} ms "
+        f"traced against {gated['untraced']:.3f} untraced "
+        f"(x{res['gated_event_ratio']:.3f}); card busy {busy_ms:.3f} "
         f"ms of it (the decode graph {decode['graph_ms']:.3f} ms by CUDA "
         f"events); host {res['host_annotation_ms']:.3f} ms a traced step "
         f"against {decode['host_ms']:.3f} untraced; mx.profiler "
@@ -10015,8 +10047,10 @@ def phase_profile_train(card):
                    "traced_window_s": cap.seconds, "profile_call_s": call_s,
                    "op_rows": len(rep.op_rows),
                    "hot": [(h["name"][:50], round(h["self_ns"] / 2e6, 3))
-                           for h in rep.hot_ops(6)]}
+                           for h in rep.hot_ops(6)],
+                   "calibrate": _calibration_rows(cap)}
             log("[profile train] " + json.dumps(res))
+            log("[calibrate] train " + json.dumps(res["calibrate"]))
             if res["steps"] != 2:
                 raise AssertionError(f"train profile: {res['steps']} step "
                                      f"rows")
@@ -10078,9 +10112,316 @@ def phase_profile_train(card):
         f"{res['busy_ms']:.2f} ms a step), flash, Adam and xent kernels "
         f"named; periodic {res['periodic']['dir']}, triggered "
         f"{res['triggered']}; {card}")
+    res["audit"] = phase_audit_train(ts, batch, card)
     del ts, net
     _release()
     return res
+
+
+def _calibration_rows(cap):
+    """[calibrate]'s rows of one capture: each op class's predicted
+    (roofline) and measured seconds a step, their ratio and the ratio
+    normalized by the median, the drifting classes, and the trace rows no
+    class takes (``other``) by name."""
+    cal = cap.calibration
+    other = collections.Counter()
+    for r in cap.report.op_rows:
+        if r.op_class == "other":
+            other[r.name[:70]] += r.dur_ns
+    return {"rows": [[r.op_class, r.predicted_seconds, r.measured_seconds,
+                      r.ratio, r.normalized, r.drift] for r in cal.rows],
+            "other_rows_ns": other.most_common(4),
+            "overall_ratio": cal.overall_ratio,
+            "predicted_step_s": cal.predicted_step_seconds,
+            "measured_step_s": cal.measured_step_seconds,
+            "drifting": [[d["op_class"], d["normalized_ratio"], d["knob"]]
+                         for d in cal.drifting]}
+
+
+def _gated_event_ms(eng, traced, steps=4, cycles=50_000_000):
+    """A decode step's card time with the host's enqueue hidden: a queued
+    ``torch.cuda._sleep`` gate (``cycles``, 25–35 ms at the H100's clocks)
+    holds the stream while the host enqueues the step, and CUDA events from
+    the gate's end to the call's end time it. ``traced`` runs the steps
+    under ``torch.profiler`` (CPU and CUDA activities), else untraced; the
+    two sides are measured alike (ms a step)."""
+    eng.prefill([1, 2, 3, 4], slot=0)
+    for _ in range(2):
+        eng.decode_step()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    out = []
+    with torch.profiler.profile(activities=acts) if traced \
+            else contextlib.nullcontext():
+        torch.cuda.synchronize()
+        for _ in range(steps):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(cycles)
+            e0.record()
+            eng.decode_step()
+            e1.record()
+            torch.cuda.synchronize()
+            out.append(e0.elapsed_time(e1))
+    eng.release_slot(0)
+    return out
+
+
+def _audit_figures(audit, seconds):
+    """What [audit decode] / [audit train] print of one audit: the record
+    (ops, kernels, products), the graph (nodes by type, edges), the three
+    kernel columns (record, graph, launch counters over the capture), the
+    carry and the memory estimate."""
+    from mxnet_tpu_torch.observability import goodput
+
+    def keyed(col):
+        return {f"{k[0].rsplit('.', 1)[-1]}:{k[1]}": v
+                for k, v in sorted(col.items(), key=str)}
+
+    rec = audit.lowered
+    out = {"audit_s": seconds, "record_ops": len(rec.ops),
+           "products": rec.dot_dtypes(),
+           "f64_ops": len(rec.ops_with_dtype("f64")),
+           "flops": goodput.program_flops(rec).total,
+           "carry_n": len(audit.carry_indices),
+           "carry_in_place": audit.carry_donation(),
+           "memory": audit.memory.summary()}
+    out["memory"].pop("top_buffers", None)
+    if audit.compiled is None:
+        out["why_not_compiled"] = audit.why_not_compiled
+        out["kernels"] = {"record": keyed(rec.kernel_counts())}
+        return out
+    g = audit.compiled
+    out["nodes"] = len(g.ops)
+    out["edges"] = len(g.edges)
+    out["node_types"] = g.op_census()
+    out["memcpy_nodes"] = sum(n for k, n in g.op_census().items()
+                              if k.startswith("memcpy"))
+    out["kernels"] = {k: keyed(v) for k, v in audit.census().items()}
+    return out
+
+
+def _check_audit(what, audit, figures, measured=None, unread=0):
+    """The checks every audit phase makes: the graph census, the launch
+    counters over its capture and the record agree on every port kernel;
+    the carry is updated in place. Given what the card ``measured`` for one
+    eager call (``measured_peak``: the call's own allocations at their
+    peak, and what the allocator held), the memory estimate is held against
+    the card in two parts: its pinned inputs equal what the real input
+    tensors' storages hold, less the ``unread`` bytes of a storage the
+    program reads only a view of, exactly; its temporaries are within
+    ``VALIDATION_TOLERANCE`` of the call's own peak (the allocator's figure
+    printed beside)."""
+    from mxnet_tpu_torch.analysis import VALIDATION_TOLERANCE, \
+        census_mismatches
+
+    if audit.compiled is not None:
+        bad = census_mismatches(audit)
+        if bad:
+            raise AssertionError(f"{what}: record, graph and launch "
+                                 f"counters disagree: {bad}")
+    if audit.carry_donation() != 1.0:
+        raise AssertionError(f"{what}: carry in place "
+                             f"{audit.carry_donation()}, missing inputs "
+                             f"{audit.carry_missing()}")
+    if measured is not None:
+        mem = audit.memory
+        transient, held = measured
+        stored = audit.lowered.input_storage_bytes
+        figures["input_storage_bytes"] = stored
+        figures["measured_transient_bytes"] = transient
+        figures["allocator_held_bytes"] = held
+        figures["transient_estimate_over_measured"] = \
+            mem.temp_peak_bytes / transient
+        if mem.input_bytes + unread != stored:
+            raise AssertionError(f"{what}: the estimate pins {mem.input_bytes}"
+                                 f" B of inputs, their storages hold {stored} "
+                                 f"B ({unread} B unread)")
+        if abs(mem.temp_peak_bytes / transient - 1.0) > VALIDATION_TOLERANCE:
+            raise AssertionError(f"{what}: the estimate's temporaries "
+                                 f"{mem.temp_peak_bytes} B are outside "
+                                 f"{VALIDATION_TOLERANCE} of the measured "
+                                 f"transient {transient} B")
+
+
+def phase_audit_decode(eng, card):
+    """``GenerationEngine.audit()`` on the gpt2_345m f32 serve engine (B=8,
+    full width, pages of 16) whose programs the earlier phases ran: the
+    decode program, a prefill bucket's and the copy-on-write program
+    (captured by a fork here). Each: the record's ops and kernels, the
+    graph's nodes and edges, the three kernel columns equal, the carry in
+    place; the decode graph holds no memcpy node; its ``kv_pages`` bytes
+    are the pools' and the page table's; its estimate's inputs equal their
+    storages' bytes and its temporaries hold the transient the card
+    measured for one eager call within ``VALIDATION_TOLERANCE``; and
+    audits between decode steps change no token."""
+    from mxnet_tpu_torch.analysis import measured_peak
+    from mxnet_tpu_torch.ops import cuda_graph as cg
+
+    # the copy-on-write program's graph: three forks, each followed by a
+    # step that writes into the shared page (one copy each: warm-up,
+    # capture, replay)
+    eng.prefill([5, 6, 7, 8, 9], slot=0)
+    for dst in (1, 2, 3):
+        eng.fork_slot(0, dst)
+        eng.decode_step()
+    for slot in range(4):
+        eng.release_slot(slot)
+    res = {}
+    for name, kw in (("decode", {}), ("prefill_16", {"bucket": 16}),
+                     ("cow", {"program": "cow"})):
+        t = time.perf_counter()
+        audit = eng.audit(**kw)
+        secs = time.perf_counter() - t
+        figures = _audit_figures(audit, secs)
+        measured = None
+        unread = 0
+        if name == "decode":
+            prog = eng._programs[(eng._decode_sig(), cg.capture_state())]
+            with torch.inference_mode():
+                measured = measured_peak(prog.fn)
+            pools = sum(t.numel() * t.element_size()
+                        for kv in eng.pools for t in kv)
+            table = eng.page_table.numel() * eng.page_table.element_size()
+            # the table is a view of a flat buffer one entry longer, whose
+            # spare entry only the copy-on-write program writes
+            unread = eng._table_flat.untyped_storage().nbytes() - table
+            figures["kv_pages_bytes"] = audit.memory.by_category["kv_pages"]
+            if figures["kv_pages_bytes"] != pools + table:
+                raise AssertionError(
+                    f"audit decode: kv_pages {figures['kv_pages_bytes']} B, "
+                    f"the pools and table hold {pools + table} B")
+            if audit.compiled is None or figures["memcpy_nodes"]:
+                raise AssertionError(
+                    f"audit decode: graph {figures.get('node_types')} "
+                    f"({audit.why_not_compiled})")
+        _check_audit(f"audit {name}", audit, figures, measured, unread)
+        res[name] = figures
+    # audits between decode steps change no token
+
+    def tokens(audited):
+        eng.prefill([11, 12, 13], slot=0)
+        eng.prefill([21, 22, 23, 24, 25, 26], slot=1)
+        out = []
+        for _ in range(6):
+            if audited:
+                eng.audit()
+                eng.audit(bucket=16)
+            out.append(eng.decode_step()[0].tolist())
+        eng.release_slot(0)
+        eng.release_slot(1)
+        return out
+
+    plain = tokens(False)
+    if tokens(True) != plain:
+        raise AssertionError("audit decode: an audit changed the tokens")
+    res["tokens_unchanged"] = True
+    log("[audit decode] " + json.dumps(res, default=str))
+    d = res["decode"]
+    log(f"[audit decode] gpt2_345m f32 serve engine, B=8: the decode graph "
+        f"{d['nodes']} nodes ({d['node_types']}), {d['edges']} edges, no "
+        f"memcpy; record {d['record_ops']} ops, kernels "
+        f"{d['kernels']['graph']} in the record, the graph and the "
+        f"counters alike; carry {d['carry_n']} pools in place; inputs "
+        f"{d['memory']['input_bytes']} B pinned, their storages "
+        f"{d['input_storage_bytes']} B; temporaries "
+        f"{d['memory']['temp_peak_bytes']} B against a measured transient "
+        f"of {d['measured_transient_bytes']} B "
+        f"(x{d['transient_estimate_over_measured']:.4f}; the allocator held "
+        f"{d['allocator_held_bytes']} B); audit "
+        f"{d['audit_s']:.3f} s; tokens unchanged; {card}")
+    return res
+
+
+def gpt2_train_flops(batch, seq, layers, units=1024, heads=16,
+                     vocab=50257):
+    """The hand count of one GPT-2 LM training step: 3 x (layers x the
+    forward products of a layer + the tied head), each attention product
+    over the full T x T."""
+    ch = units // heads
+    layer = (2 * batch * seq * units * 3 * units
+             + 2 * (2 * batch * heads * seq * seq * ch)
+             + 2 * batch * seq * units * units
+             + 2 * (2 * batch * seq * units * 4 * units))
+    return 3 * (layers * layer + 2 * batch * seq * units * vocab)
+
+
+def phase_audit_train(ts, batch, card):
+    """``TrainStep.audit`` on the ``train_amp`` step ``[profile train]``
+    built (gpt2_345m width, bf16, B=4, T=1024, PROFILE_TRAIN_LAYERS deep):
+    the audit checks of [audit decode] (the memory estimate against the
+    inputs' storages and one eager step's measured transient), no f64 op,
+    no parameter or moment changed by the audit, ``model_flops_per_step``
+    equal to the hand count, and the ``train_mfu`` gauge set by two
+    telemetry steps against ``peak_flops`` = 989e12 (the bf16 tensor
+    cores)."""
+    from mxnet_tpu_torch import config
+    from mxnet_tpu_torch import observability as obs
+    from mxnet_tpu_torch.analysis import measured_peak
+    from mxnet_tpu_torch.ops import cuda_graph as cg
+
+    carry = [t.detach().clone() for group in ts._carry() for t in group]
+    t = time.perf_counter()
+    audit = ts.audit(*batch)
+    secs = time.perf_counter() - t
+    after = [t.detach() for group in ts._carry() for t in group]
+    if not all(torch.equal(a, b) for a, b in zip(carry, after)):
+        raise AssertionError("audit train: the audit changed the carry")
+    del carry, after
+    figures = _audit_figures(audit, secs)
+    if figures["f64_ops"]:
+        raise AssertionError(f"audit train: {figures['f64_ops']} f64 ops")
+    want = gpt2_train_flops(*batch[0].shape, PROFILE_TRAIN_LAYERS)
+    flops = ts.model_flops_per_step(*batch)
+    figures["model_flops_per_step"] = flops
+    if flops != want:
+        raise AssertionError(f"audit train: model_flops_per_step {flops} "
+                             f"against the hand count {want}")
+    shapes = tuple((tuple(b.shape), b.dtype) for b in batch)
+    key = ("step", shapes, cg.capture_state(), False, ts._hyper_key())
+    if audit.compiled is None:
+        raise AssertionError(f"audit train: {audit.why_not_compiled}")
+    _check_audit("audit train", audit, figures,
+                 measured_peak(ts._programs[key][0].fn))
+    was = config.get("peak_flops")
+    config.set("peak_flops", 989e12)
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_mfu_") as d:
+            obs.enable(d)
+            try:
+                for _ in range(3):  # warm-up, capture, a replay
+                    ts(*batch)
+                torch.cuda.synchronize()
+                figures["train_mfu"] = obs.gauge("train_mfu").value()
+                figures["train_model_flops_per_step"] = \
+                    obs.gauge("train_model_flops_per_step").value()
+                figures["train_mfu_bound"] = \
+                    obs.gauge("train_mfu_bound").value()
+            finally:
+                obs.disable()
+    finally:
+        config.set("peak_flops", was)
+    if not figures["train_mfu"] or \
+            figures["train_model_flops_per_step"] != want:
+        raise AssertionError(f"audit train: gauges {figures}")
+    log("[audit train] " + json.dumps(figures, default=str))
+    log(f"[audit train] gpt2_345m bf16 B=4 T=1024, {PROFILE_TRAIN_LAYERS} "
+        f"layers: the step graph {figures['nodes']} nodes, "
+        f"{figures['memcpy_nodes']} memcpy, {figures['edges']} edges; record "
+        f"{figures['record_ops']} ops, products {figures['products']}, no "
+        f"f64; kernels {figures['kernels']['graph']} in the record, the "
+        f"graph and the counters alike; carry {figures['carry_n']} in place; "
+        f"inputs {figures['memory']['input_bytes']} B pinned, their storages "
+        f"{figures['input_storage_bytes']} B; temporaries "
+        f"{figures['memory']['temp_peak_bytes']} B against a measured "
+        f"transient of {figures['measured_transient_bytes']} B "
+        f"(x{figures['transient_estimate_over_measured']:.4f}; the allocator "
+        f"held {figures['allocator_held_bytes']} B); model FLOPs "
+        f"a step "
+        f"{flops:.6e} (the hand count), train_mfu {figures['train_mfu']:.4f}"
+        f" against 989e12, bound {figures['train_mfu_bound']:.4f}; audit "
+        f"{secs:.3f} s; {card}")
+    return figures
 
 
 def main():
@@ -10132,6 +10473,7 @@ def main():
                            paged=True, page_size=16, device="cuda")
     timing = phase_timing(eng)
     profile_decode = phase_profile_decode(eng, _decode_graph_ms(eng), card)
+    audit_decode = phase_audit_decode(eng, card)
     del eng, serve_net
     _release()
     amp_parity = phase_train_parity(amp="bfloat16")
@@ -10151,6 +10493,9 @@ def main():
         {"fleet_s": fleet["wall_s"],
          "trace_cost_ms": fleet["trace_cost"]["cost_ms"],
          "decode_step_ms": profile_decode["step_ms"],
+         "decode_window_ratio": profile_decode["window_ratio"],
+         "audit_decode_s": audit_decode["decode"]["audit_s"],
+         "audit_train_s": profile_train["audit"]["audit_s"],
          "decode_busy_ms": profile_decode["busy_ms"],
          "decode_capture_overhead_ms": profile_decode["overhead_ms_per_step"],
          "train_step_ms": profile_train["step_ms"]}))

@@ -148,8 +148,19 @@ _KNOBS: Dict[str, tuple] = {
                      "captures given no trace_dir (empty = mxnet_tpu_profile "
                      "under the temporary directory, which honours TMPDIR)"),
     "peak_flops": (float, 0.0, ("MXNET_TPU_PEAK_FLOPS",),
-                   "accelerator peak FLOP/s per process for the fleet "
-                   "report's MFU column; 0 = MFU not computed"),
+                   "accelerator peak FLOP/s per process for train_mfu and "
+                   "the fleet report's MFU column (989e12: one H100's bf16 "
+                   "tensor cores); 0 = MFU not computed"),
+    # -- schedule auditor roofline constants (analysis/schedule.py); 0 =
+    # its defaults, one H100 SXM's, the products priced by dtype;
+    # sched_peak_flops falls back to peak_flops first ----------------------
+    "sched_peak_flops": (float, 0.0, ("MXNET_TPU_SCHED_PEAK_FLOPS",),
+                         "peak FLOP/s the schedule auditor prices every "
+                         "product at; 0 = peak_flops, else each product "
+                         "at its dtype's H100 peak"),
+    "sched_hbm_gbps": (float, 0.0, ("MXNET_TPU_SCHED_HBM_GBPS",),
+                       "HBM bandwidth (GB/s) for the roofline's memory "
+                       "side; 0 = the H100's 3350"),
     # -- fleet serving tier (serving/) ---------------------------------------
     "router_hb_timeout": (float, 5.0, ("MXNET_TPU_ROUTER_HB_TIMEOUT",),
                           "replica heartbeat staleness (seconds since the "
@@ -274,7 +285,7 @@ def get(name: str):
 def set(name: str, value) -> None:  # noqa: A001 - mirrors mxnet_tpu.config.set
     if name not in _KNOBS:
         raise KeyError(f"unknown knob {name!r}")
-    _values[name] = _parse(name, value)
+    _values[name] = _parse(name, value)  # lint: disable=JH005 -- one dict store, atomic under the GIL
 
 
 def resolve(name: str, value=None):

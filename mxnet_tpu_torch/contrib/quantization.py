@@ -36,6 +36,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..analysis import audit as _audit
 from ..base import MXNetError, dtype_torch
 from ..ops import cuda_common as _cc
 from ..registry import register
@@ -214,6 +215,13 @@ def int8_im2col(x, kernel, stride, pad, dilate, groups, k_pad, scale=None):
     else:
         raise MXNetError(f"int8_im2col: input must be int8, float32 or "
                          f"bfloat16, got {x.dtype}")
+    if _audit.recording():
+        b, _, h, w = x.shape
+        oh, ow = _out_hw(h, w, kernel, stride, pad, dilate)
+        ins = [x] + ([scale] if torch.is_tensor(scale) else [])
+        return _audit.record_kernel(
+            (__name__, "int8_im2col"), "int8_im2col_kernel", ins,
+            [((groups, b * oh * ow, k_pad), torch.int8)])[0]
     if x.device.type == "cpu":
         xq = x if scale is None else _quantize(x, scale)
         return int8_im2col_plain(xq, kernel, stride, pad, dilate, groups,
@@ -320,7 +328,7 @@ _sms = {}  # device -> its SM count
 
 def _sm_count(dev):
     if dev not in _sms:
-        _sms[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+        _sms[dev] = torch.cuda.get_device_properties(dev).multi_processor_count  # lint: disable=JH005 -- a memo of a constant
     return _sms[dev]
 
 
@@ -337,11 +345,39 @@ def int8_gemm(a, w, k, data_scale, ws, bias=None, out_dtype="float32",
                       positions, None)
 
 
+def _record_gemm(a, w, k, data_scale, ws, bias, out_dtype, groups, positions,
+                 plan):
+    """The product's record (``analysis.audit``) on the route gemm_plan
+    gives for aligned operands (a record holds no addresses)."""
+    g = int(groups)
+    lda, ldw = a.shape[-1], w.shape[-1]
+    m, n = a.numel() // (g * lda), w.shape[0] // g
+    if plan is None:
+        sms = _sm_count(a.device) if a.device.type == "cuda" else 132
+        plan = gemm_plan(m, n, int(k), g, lda, ldw, True, sms)
+    kind = "int8_gemm_wgmma" if plan[0] == "wgmma" else "int8_gemm_mma"
+    shape = (m, g * n) if positions == 1 else \
+        (m // positions, g * n, positions)
+    ins = [a, w] + [t for t in (data_scale, ws, bias) if torch.is_tensor(t)]
+    scratch = []
+    if plan[0] == "wgmma" and plan[2] > 1:  # the split's partials, counters
+        tiles = g * -(-m // GEMM_BM) * -(-n // plan[1])
+        scratch = [((tiles * plan[2] * GEMM_BM * plan[1] + 2 * tiles,),
+                    torch.int32)]
+    return _audit.record_kernel(
+        (__name__, kind), kind + "_kernel" if plan[0] == "wgmma" else
+        "int8_gemm_kernel", ins, [(shape, dtype_torch(out_dtype))],
+        flops=2.0 * g * m * n * int(k), scratch=scratch)[0]
+
+
 def _int8_gemm(a, w, k, data_scale, ws, bias, out_dtype, groups, positions,
                plan):
     """:func:`int8_gemm` on ``plan``'s route, tile and split (a triple as
     :func:`gemm_plan` returns), or on gemm_plan's for None: the checks and
     benchmarks hold the routes and tilings against each other with it."""
+    if _audit.recording():
+        return _record_gemm(a, w, k, data_scale, ws, bias, out_dtype, groups,
+                            positions, plan)
     if a.device.type == "cpu":
         return int8_gemm_plain(a, w, k, data_scale, ws, bias, out_dtype,
                                groups, positions)

@@ -80,6 +80,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import analysis as _analysis
 from .. import config as _config
 from .. import observability as _obs
 from ..base import MXNetError, resolve_device
@@ -297,6 +298,11 @@ class GenerationEngine:
         self.last_tokens = np.full(self.batch_size, self.pad_id, np.int32)
 
         self._signatures: set = set()  # step signatures run so far
+        # their fingerprints: the recompile events, under the JAX engine's
+        # family labels by contract
+        self._recompile_guard = _analysis.RecompileGuard(
+            "gen_recompiles_total",
+            "generation program lowerings (cache misses)")
         self._programs = {}  # (signature, capture state) -> StepGraph
         self._init_static()
 
@@ -356,15 +362,15 @@ class GenerationEngine:
     def _note_program(self, sig) -> None:
         """Count a step program the first time its signature runs, under
         the JAX engine's family labels (``gen_recompiles_total{reason}``
-        and a ``recompile`` event)."""
+        and a ``recompile`` event), through the engine's
+        :class:`~mxnet_tpu_torch.analysis.RecompileGuard`."""
         if sig in self._signatures:
             return
         self._signatures.add(sig)
         family = _PROGRAM_FAMILY[sig[0]]
-        _obs.counter("gen_recompiles_total",
-                     "generation program lowerings (cache misses)").inc(
-                         reason=family)
-        _obs.emit("recompile", reason=family, sig=list(map(str, sig)))
+        self._recompile_guard.observe(
+            _analysis.Fingerprint.of((), sig=sig), reason=family,
+            group=family, sig=list(map(str, sig)))
 
     def _run_program(self, sig, fn):
         """The outputs of the step graph of ``sig`` (built from ``fn`` on
@@ -597,6 +603,22 @@ class GenerationEngine:
         their table write in the flat table's spare last entry."""
         if not copies:
             return
+        step = self._cow_step()
+        w = self._cow_width
+        sig = ("cow", w)
+        for i in range(0, len(copies), w):
+            entries = np.zeros((4, w), np.int64)
+            for j, entry in enumerate(copies[i:i + w]):
+                entries[:, j] = entry
+            self._note_program(sig)
+            self._put(self._in_cow, entries)
+            self._run_program(sig, step)
+        _obs.counter("gen_cow_copies_total",
+                     "copy-on-write page copies").inc(len(copies))
+
+    def _cow_step(self):
+        """The ``("cow", W)`` step: each entry of the static ``_in_cow``
+        copies a pool page in every layer and repoints a table entry."""
         pool_sets = [self.pools] + ([self.draft_pools] if self.speculative
                                     else [])
         cow, flat, n = self._in_cow, self._table_flat, self._n_row_pages
@@ -612,17 +634,7 @@ class GenerationEngine:
             flat.index_copy_(0, at, dst.to(flat.dtype))
             return ()
 
-        w = self._cow_width
-        sig = ("cow", w)
-        for i in range(0, len(copies), w):
-            entries = np.zeros((4, w), np.int64)
-            for j, entry in enumerate(copies[i:i + w]):
-                entries[:, j] = entry
-            self._note_program(sig)
-            self._put(cow, entries)
-            self._run_program(sig, step)
-        _obs.counter("gen_cow_copies_total",
-                     "copy-on-write page copies").inc(len(copies))
+        return step
 
     def _take_clear_mask(self) -> List[int]:
         """Rows released since the last step: their device table rows are
@@ -791,10 +803,7 @@ class GenerationEngine:
         every start offset. On a speculative engine the same program writes
         the draft model's pools too."""
         bucket = padded.shape[1]
-        buf = self._in_prompt.get(bucket)
-        if buf is None:
-            buf = self._in_prompt[bucket] = torch.zeros(
-                (1, bucket), dtype=torch.int64, device=self.device)
+        buf = self._prompt_buffer(bucket)
         if self.paged:
             self._put(self.page_table[slot], new_row)
             self._in_table.copy_(self.page_table[slot:slot + 1])
@@ -803,8 +812,22 @@ class GenerationEngine:
         self._put(buf, padded)
         self._put(self._in_start, np.array([start], np.int32))
         self._put(self._in_last, np.array([suffix - 1], np.int64))
-        # the step reads no attribute of the engine (no cycle through the
-        # program, which would keep the graphs' pool alive)
+        (last,) = self._run_program(("prefill", bucket),
+                                    self._prefill_step(bucket))
+        return last[0].clone()
+
+    def _prompt_buffer(self, bucket):
+        buf = self._in_prompt.get(bucket)
+        if buf is None:
+            buf = self._in_prompt[bucket] = torch.zeros(
+                (1, bucket), dtype=torch.int64, device=self.device)
+        return buf
+
+    def _prefill_step(self, bucket):
+        """The ``("prefill", bucket)`` step over the static buffers. It
+        reads no attribute of the engine (no cycle through the program,
+        which would keep the graphs' pool alive)."""
+        buf = self._prompt_buffer(bucket)
         net, cache, start_buf = self.net, self._cache(), self._in_start
         table, last_idx = self._in_table, self._in_last
         draft, dcache = (self.draft_net, self.draft_pools) \
@@ -818,8 +841,7 @@ class GenerationEngine:
                       page_table=table)
             return (logits[0].index_select(0, last_idx),)
 
-        (last,) = self._run_program(("prefill", bucket), step)
-        return last[0].clone()
+        return step
 
     @torch.inference_mode()
     def decode_step(self):
@@ -849,20 +871,11 @@ class GenerationEngine:
             clear = self._take_clear_mask()
             self._apply_table_updates(updates, clear)
         active_in = ~self.done  # exhaustion may have finished rows
-        sig = ("decode", self.batch_size) + (("paged",) if self.paged else ())
+        sig = self._decode_sig()
         self._note_program(sig)
         self._put(self._in_tokens, self.last_tokens.astype(np.int64)[:, None])
         self._put(self._in_positions, self.positions)
-        net, cache, tokens = self.net, self._cache(), self._in_tokens
-        positions = self._in_positions
-        table = self.page_table if self.paged else None
-
-        def step():
-            logits, _ = net(tokens, cache=cache, start_pos=positions,
-                            page_table=table)
-            return (logits[:, 0],)
-
-        logits = self._run_program(sig, step)[0].clone()
+        logits = self._run_program(sig, self._decode_step())[0].clone()
         sampled = self._sample(logits).cpu().numpy()
         tok = np.where(self.done, np.int32(self.pad_id), sampled) \
             .astype(np.int32)
@@ -888,6 +901,23 @@ class GenerationEngine:
                        "fraction of decode slots active this step").set(
                            float(active_in.sum()) / self.batch_size)
         return tok, done, logits
+
+    def _decode_sig(self):
+        return ("decode", self.batch_size) + (("paged",) if self.paged
+                                              else ())
+
+    def _decode_step(self):
+        """The plain decode step: one token a row through the cache."""
+        net, cache, tokens = self.net, self._cache(), self._in_tokens
+        positions = self._in_positions
+        table = self.page_table if self.paged else None
+
+        def step():
+            logits, _ = net(tokens, cache=cache, start_pos=positions,
+                            page_table=table)
+            return (logits[:, 0],)
+
+        return step
 
     # -- speculative rounds --------------------------------------------------
     def _draft_step(self):
@@ -1150,8 +1180,112 @@ class GenerationEngine:
             self._pending_clear.add(slot)
             self._prefill_logits.pop(slot, None)
 
+    def audit(self, bucket: Optional[int] = None, compile: bool = True,
+              program: str = "decode"):
+        """Structural :class:`~mxnet_tpu_torch.analysis.ProgramAudit` of a
+        serving program: the record of its step on fake tensors
+        (``lowered``), the census of the CUDA graph it replays
+        (``compiled``; None on the CPU, with ``compile=False``, or before
+        the program's graph is captured: ``why_not_compiled`` says which),
+        and the carry's input indices. Default: the decode step, whose carry
+        is the KV cache it writes in place (the pools, or the dense cache's
+        buffers), so ``audit().carry_donation() == 1.0`` is the
+        in-place-cache check. ``bucket=`` audits that prefill bucket's
+        program (the same carry; on a speculative engine the draft's pools
+        too); on a speculative engine ``program="decode"`` audits the draft
+        program and ``program="verify"`` the verify pass; on a paged engine
+        ``program="cow"`` the copy-on-write program (carry: the pools and
+        the page table, no parameters). The page table is an input of the
+        decode programs, not their carry: the port installs table updates
+        before the step, so no decode program writes it.
+
+        ``audit(...).memory`` is the liveness estimate: cache bytes under
+        ``kv_pages`` (paged: the pools and the page table) / ``kv_cache``
+        (dense), the weights under ``params``, the static buffers under
+        ``io``, the program's own allocations under ``activations`` /
+        ``draft_temp`` / ``verify_temp``; ``audit(...).schedule`` the
+        roofline DAG (no collective on one card). The audit runs nothing:
+        no token, page or random stream changes."""
+        if bucket is not None:
+            bucket = self.bucket_for(bucket)
+            sig, build = ("prefill", bucket), \
+                (lambda: self._prefill_step(bucket))
+        elif program == "cow":
+            if not self.paged:
+                raise ValueError("program='cow' needs a paged engine")
+            sig, build = ("cow", self._cow_width), self._cow_step
+        elif program == "verify":
+            if not self.speculative:
+                raise ValueError("program='verify' needs a speculative "
+                                 "engine (draft_net=/speculate_k=)")
+            sig, build = ("verify", self.batch_size, self.speculate_k), \
+                self._verify_step
+        elif program != "decode":
+            raise ValueError(f"no program {program!r}")
+        elif self.speculative:
+            sig, build = ("draft", self.batch_size, self.speculate_k), \
+                self._draft_step
+        else:
+            sig, build = self._decode_sig(), self._decode_step
+        prog = self._programs.get((sig, _cg.capture_state()))
+        fn = prog.fn if prog is not None else build()
+        draft_side = sig[0] == "draft" or (
+            sig[0] in ("prefill", "cow") and self.speculative)
+        nets = {"prefill": [self.net] + ([self.draft_net] if
+                                         self.speculative else []),
+                "cow": [], "draft": [self.draft_net]}.get(sig[0], [self.net])
+        # a draft net may be the target itself: each tensor is one input
+        params = list({id(p): p for net in nets
+                       for p in net.parameters()}.values())
+        caches = []
+        if sig[0] != "draft":
+            caches.append(self._cache())
+        if draft_side:
+            caches.append(self.draft_pools)
+        carry = [t for cache in caches for kv in cache for t in kv]
+        if sig[0] == "cow":
+            carry.append(self._table_flat)
+        kv_extra = [self.page_table] if self.paged and sig[0] in (
+            "decode", "draft", "verify") else []
+        with torch.no_grad():
+            rep = _analysis.audit_program(fn, carry=params + carry,
+                                          inputs=kv_extra)
+        n_pre, n_carry = len(params), len(carry)
+        kv_cat = "kv_pages" if self.paged else "kv_cache"
+        cats = {i: "params" for i in range(n_pre)}
+        cats.update({i: kv_cat for i in range(
+            n_pre, n_pre + n_carry + len(kv_extra))})
+        for i in range(n_pre + n_carry + len(kv_extra), len(rep.inputs)):
+            cats[i] = "io"
+        if sig[0] == "verify":
+            default_cat = "verify_temp"
+        elif sig[0] == "draft":
+            default_cat = "draft_temp"
+        else:
+            default_cat = "activations"
+        compiled, why = None, ""
+        if not compile:
+            why = "compile=False"
+        elif self.device.type != "cuda":
+            why = f"the engine runs on {self.device}: no CUDA graph"
+        elif not self._capture:
+            why = "engine_type='naive': the program is not captured"
+        elif prog is None or prog.graph is None:
+            why = f"the {sig} program's graph is not captured yet"
+        else:
+            compiled = prog.census
+        memory = _analysis.memory_report(rep, categories=cats,
+                                         default_category=default_cat)
+        comm = _analysis.comm_report(rep)
+        schedule = _analysis.schedule_report(rep, comm=comm)
+        return _analysis.ProgramAudit(
+            lowered=rep, compiled=compiled,
+            carry_indices=tuple(range(n_pre, n_pre + n_carry)), comm=comm,
+            memory=memory, schedule=schedule, why_not_compiled=why,
+            launches=dict(prog.launches) if compiled is not None else {})
+
     def profile(self, prompt=None, steps: int = 8, warmup: int = 2,
-                trace_dir: Optional[str] = None, calibrate: bool = False,
+                trace_dir: Optional[str] = None, calibrate: bool = True,
                 band: float = 3.0):
         """Trace ``steps`` real decode steps (speculative rounds on a
         speculative engine) and return the
@@ -1167,26 +1301,26 @@ class GenerationEngine:
         decode has a live row to extend; the slot is released afterwards.
         On the card a timeline without kernel rows raises.
 
-        ``calibrate=True`` (predicted against measured per op class) needs
-        the program auditor of ``analysis/*``, which the port does not
-        have yet: it raises ``NotImplementedError``."""
+        With ``calibrate=True`` (default) the capture carries per-op-class
+        predicted/measured ratios against :meth:`audit`'s schedule model
+        of the same decode program."""
         from ..observability import profiling as _profiling
 
-        if calibrate:
-            raise NotImplementedError(
-                "GenerationEngine.profile(calibrate=True) needs the schedule "
-                "auditor of analysis/* (GenerationEngine.audit), which the "
-                "port does not have yet")
         if prompt is None:
             prompt = list(range(1, 1 + min(4, self.prefill_buckets[0])))
         self.prefill(prompt, slot=0)
         fn = self.spec_step if self.speculative else self.decode_step
         try:
-            return _profiling.capture(fn, steps=steps, warmup=warmup,
-                                      trace_dir=trace_dir, device=self.device,
-                                      replays_only=True)
+            cap = _profiling.capture(fn, steps=steps, warmup=warmup,
+                                     trace_dir=trace_dir, device=self.device,
+                                     replays_only=True)
         finally:
             self.release_slot(0)
+        if calibrate:
+            cap.schedule = self.audit().schedule
+            cap.calibration = _profiling.calibrate(cap.schedule, cap.report,
+                                                   band=band)
+        return cap
 
     def generate(self, prompts, max_new_tokens: int = 32) -> List[List[int]]:
         """Generate up to ``max_new_tokens`` for each prompt (at most

@@ -230,7 +230,7 @@ class FleetSnapshotter:
     def maybe_snapshot(self) -> bool:
         """Step-boundary throttle: snapshot when ``interval`` has elapsed
         since the last one (one clock read + compare otherwise)."""
-        if time.time() - self._last < self.interval:
+        if time.time() - self._last < self.interval:  # lint: disable=JH003 -- cadence clock
             return False
         return self.snapshot()
 

@@ -1,4 +1,4 @@
-"""Goodput accounting: a copy of the goodput half of
+"""Goodput accounting and the analytic FLOPs model: the port of
 ``mxnet_tpu/observability/goodput.py``.
 
 The **goodput ledger** classifies every interval of a run's wall clock
@@ -8,18 +8,51 @@ subsystems already emit. The ledger is a boundary sweep over the
 classified intervals, so the buckets partition wall time exactly:
 ``sum(buckets) == wall`` by construction, and ``goodput = train / wall``.
 
-:class:`FlopsEstimate` is the result type of the FLOPs model. The model
-itself (``op_flops`` / ``program_flops``, which price the dot-like ops of
-an audited program) needs the program auditor of ``analysis/*``, which the
-port does not have yet; it arrives with it.
+The **FLOPs model** prices every product of a recorded program
+(:func:`~mxnet_tpu_torch.analysis.audit.audit_program`); ``TrainStep``
+exports model FLOPs/step from it and, against the ``peak_flops`` knob, the
+``train_mfu`` gauge. Cost convention (products only: elementwise traffic
+is not model FLOPs), JAX's:
+
+  ==========================  ===============================================
+  mm, addmm, bmm, baddbmm,    2 x prod(result) x the contracted size
+  mv, addmv, dot, linear,
+  _int_mm, _scaled_mm
+  convolution                 2 x prod(result) x in-channels a group x
+                              prod(kernel window)
+  convolution_backward        the forward's cost once for each gradient its
+                              ``output_mask`` asks for (input, weight; the
+                              bias gradient is a sum, not a product)
+  custom_call                 the kernel's own ``flops``: the products of the
+                              function it computes (causal flash at the full
+                              T² of the plain composition), 0 for a kernel
+                              without products
+  ==========================  ===============================================
+
+The JAX vocabulary (``dot_general`` / ``dot`` / ``convolution`` ops with
+parsed contraction attributes, as ``mxnet_tpu.analysis.Op`` holds them) is
+priced as the JAX module prices it, sqrt fallback and all: a product priced
+by the fallback counts in ``FlopsEstimate.n_approx``, one with no priceable
+structure in ``n_unpriced``. Every recorded aten product has its operand
+shapes, so it is exact. A TrainStep window is one program of ``window``
+step bodies: its FLOPs per step are the record's over ``window``.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
-__all__ = ["FlopsEstimate", "GoodputReport", "classify_events",
-           "goodput_ledger", "GOODPUT_CATEGORIES"]
+__all__ = ["FlopsEstimate", "op_flops", "program_flops",
+           "GoodputReport", "classify_events", "goodput_ledger",
+           "GOODPUT_CATEGORIES"]
+
+_DOT_LIKE = ("dot_general", "dot", "convolution")
+#: recorded aten products priced as one matrix product each
+_MATMULS = frozenset({"mm", "addmm", "bmm", "baddbmm", "mv", "addmv", "dot",
+                      "linear", "matmul", "_int_mm", "_scaled_mm"})
+_CONVS = frozenset({"convolution", "_convolution", "cudnn_convolution",
+                    "convolution_backward"})
 
 
 @dataclasses.dataclass
@@ -36,6 +69,107 @@ class FlopsEstimate:
         return {"total": self.total, "by_op": dict(self.by_op),
                 "n_dots": self.n_dots, "n_approx": self.n_approx,
                 "n_unpriced": self.n_unpriced}
+
+
+def _prod(shape: Sequence[int]) -> int:
+    out = 1
+    for d in shape:
+        out *= d
+    return out
+
+
+def _price_jax(op) -> Tuple[Optional[float], bool]:
+    """(flops, exact) of a JAX-vocabulary product, as the JAX module
+    prices it; (None, False) when the op has no priceable structure."""
+    if op.name not in _DOT_LIKE or len(op.shapes) < 3:
+        return None, False
+    lhs, rhs, result = op.shapes[0], op.shapes[-2], op.shapes[-1]
+    meta = op.dot_meta
+    if op.name == "convolution":
+        if meta is None or meta["kernel_out_dim"] >= len(rhs):
+            return None, False
+        out_features = rhs[meta["kernel_out_dim"]] or 1
+        return (2.0 * _prod(result) * _prod(rhs) / out_features
+                / max(1, meta.get("batch_groups", 1))), True
+    if meta is not None and all(d < len(lhs)
+                                for d in meta["lhs_contracting"]):
+        contracted = _prod([lhs[d] for d in meta["lhs_contracting"]])
+        return 2.0 * _prod(result) * contracted, True
+    denom = _prod(result) or 1
+    return 2.0 * _prod(result) * math.sqrt(
+        max(0.0, _prod(lhs) * _prod(rhs) / denom)), False
+
+
+def _conv_flops(result, weight, transposed, groups) -> float:
+    """2 x prod(result) x in-channels a group x prod(window) of a
+    convolution with ``weight`` in PyTorch's layout."""
+    cin = weight[0] // max(1, groups) if transposed else weight[1]
+    return 2.0 * _prod(result) * cin * _prod(weight[2:])
+
+
+def _price(op) -> Tuple[Optional[float], bool]:
+    """(flops, exact) of one recorded op or JAX-vocabulary product."""
+    if op.name == "custom_call":
+        return (float(op.flops), True) if op.flops else (None, False)
+    if not getattr(op, "n_in", 0):
+        return _price_jax(op)
+    shapes, n = op.shapes, op.n_in
+    ins, outs = shapes[:n], shapes[n:]
+    try:
+        if op.name in _MATMULS:
+            # the contracted size: the first product operand's last dim
+            a = ins[1] if op.name in ("addmm", "baddbmm", "addmv") else ins[0]
+            return 2.0 * _prod(outs[0]) * (a[-1] if a else 1), True
+        if op.name in _CONVS:
+            groups = int(op.attrs.get("groups", 1))
+            transposed = bool(op.attrs.get("transposed", False))
+            if op.name == "convolution_backward":
+                grad_out, weight = ins[0], ins[2]
+                fwd = _conv_flops(grad_out, weight, transposed, groups)
+                mask = op.attrs.get("output_mask", (True, True, False))
+                return fwd * (int(mask[0]) + int(mask[1])), True
+            return _conv_flops(outs[0], ins[1], transposed, groups), True
+    except (IndexError, TypeError):
+        return None, False
+    return None, False
+
+
+def _is_priced(op) -> bool:
+    if getattr(op, "attrs", None) and op.attrs.get("not_a_product"):
+        return False
+    if op.name == "custom_call":
+        return bool(op.flops)
+    if getattr(op, "n_in", 0):
+        return op.name in _MATMULS or op.name in _CONVS
+    return op.name in _DOT_LIKE
+
+
+def op_flops(op) -> Optional[float]:
+    """Analytic FLOPs of one product (a recorded aten product, a kernel
+    record with products, or a JAX-vocabulary op); None for anything
+    else."""
+    return _price(op)[0] if _is_priced(op) else None
+
+
+def program_flops(report) -> FlopsEstimate:
+    """Price every product of a recorded program (its aten products and
+    its kernels' own FLOPs)."""
+    est = FlopsEstimate()
+    for op in report.ops:
+        if not _is_priced(op):
+            continue
+        f, exact = _price(op)
+        if f is None:
+            est.n_unpriced += 1
+            continue
+        est.n_dots += 1
+        if not exact:
+            est.n_approx += 1
+        est.total += f
+        key = op.name if op.name != "custom_call" else \
+            f"custom_call:{op.kernel}"
+        est.by_op[key] = est.by_op.get(key, 0.0) + f
+    return est
 
 
 # -- goodput ledger ----------------------------------------------------------

@@ -40,10 +40,11 @@ a :class:`~mxnet_tpu_torch.ops.cuda_graph.StepGraph` whose capture falls
 inside a session runs its step eagerly instead, capturing at its first call
 after the session.
 
-``calibrate`` (predicted against measured class seconds) needs the
-schedule auditor of ``analysis/*``, which the port does not have yet: it
-raises ``NotImplementedError``. ``GenerationEngine.profile`` and
-``TrainStep.profile`` are the entry points; ``tools/torch_profreport.py``
+:func:`calibrate` holds the schedule auditor's per-op-class roofline
+seconds (``analysis.schedule_report`` of the same program's record) against
+a capture's measured class seconds, both classed by :func:`op_class`.
+``GenerationEngine.profile`` and ``TrainStep.profile`` are the entry points
+(``calibrate=True`` by default, as in JAX); ``tools/torch_profreport.py``
 renders a capture.
 """
 from __future__ import annotations
@@ -59,6 +60,7 @@ import threading
 import time
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
+from ..analysis import audit as _audit
 from ..ops import cuda_graph as _cg
 from . import events as _events
 from . import metrics as _metrics
@@ -67,6 +69,7 @@ __all__ = ["TraceEvent", "TraceLine", "TracePlane", "Timeline",
            "parse_xplane_bytes", "parse_chrome_trace", "parse_trace",
            "encode_xplane", "OpRow", "SpanRow", "MeasuredReport",
            "measured_report", "Capture", "capture", "op_class", "calibrate",
+           "CalibrationRow", "CalibrationReport",
            "CaptureController", "step_capture_begin", "step_capture_end",
            "step_capture_abort", "write_snapshot", "latest_profile",
            "request_path", "trace_active", "PROF_STEP_SPAN"]
@@ -598,13 +601,34 @@ _CLASS_OF = {
 }
 
 
+#: record ops (``aten::<op>``, as a CPU trace's rows name them too) that are
+#: products, convolutions or copies; every other aten op is an elementwise
+#: or reduction kernel on the card: ``fusion``, as XLA fuses them in JAX
+_ATEN_DOTS = frozenset({"mm", "addmm", "bmm", "baddbmm", "mv", "addmv", "dot",
+                        "linear", "matmul", "_int_mm", "_scaled_mm"})
+_ATEN_CONVS = frozenset({"convolution", "_convolution", "conv2d",
+                         "cudnn_convolution", "convolution_backward"})
+_ATEN_COPIES = frozenset({"copy_", "clone", "_copy_from", "contiguous",
+                          "copy_to_host", "copy_from_host"})
+
+
 def op_class(name: str) -> str:
-    """Map an op/instruction name (either an HLO instruction like
-    ``dot.3`` / ``all-reduce-start.1`` from a trace row, or a normalized
-    op from the static auditors like ``all_reduce``) onto the small class
-    vocabulary calibration compares across: ``dot`` / ``conv`` /
-    ``fusion`` / one class per collective kind / ``custom_call`` /
-    ``copy`` / ``other``."""
+    """Map an op name onto the small class vocabulary calibration compares
+    across: ``dot`` / ``conv`` / ``fusion`` / one class per collective kind
+    / ``custom_call`` / ``copy`` / ``other``. Both sides of ``calibrate``
+    speak it:
+
+      - the JAX package's names (an HLO instruction like ``dot.3`` /
+        ``all-reduce-start.1``, a normalized op like ``all_reduce``) map as
+        they do there;
+      - a record's aten op or a CPU trace row (``aten::mm``): products are
+        ``dot``, convolutions ``conv``, copies ``copy``, any other op
+        ``fusion``;
+      - the card's kernels by name: the port's own kernels are
+        ``custom_call`` (a Pallas kernel's class in JAX), cuBLAS and CUTLASS
+        products ``dot``, cuDNN convolutions ``conv``, PyTorch's elementwise
+        and reduction kernels ``fusion``, memcpy and memset rows
+        ``copy``."""
     base = name.split(".", 1)[0].strip().lower()
     for suffix in ("-start", "-done", "_start", "_done"):
         if base.endswith(suffix) and base[:-len(suffix)] in _COLLECTIVE_CLASSES:
@@ -618,15 +642,30 @@ def op_class(name: str) -> str:
     # ("broadcast_add_fusion"); TPU names them "fusion.N"
     if base.endswith("fusion"):
         return "fusion"
+    if name.startswith("aten::"):
+        op = name[len("aten::"):].split(".", 1)[0]
+        if op in _ATEN_DOTS:
+            return "dot"
+        if op in _ATEN_CONVS:
+            return "conv"
+        return "copy" if op in _ATEN_COPIES else "fusion"
+    if name in _ATEN_COPIES:
+        return "copy"
+    if _audit.kernel_base_name(name) in _audit.PORT_KERNELS:
+        return "custom_call"
     # the card's library products (cuBLAS / CUTLASS kernel names), and
     # convolutions and copies named by cuDNN and the profiler
     low = name.lower()
-    if any(k in low for k in ("gemm", "gemv", "cutlass", "xmma")):
+    if any(k in low for k in ("gemm", "gemv", "cutlass", "xmma", "nvjet",
+                              "cublas", "splitkreduce")):
         return "dot"
-    if "conv" in low and "convert" not in low:
+    if ("conv" in low and "convert" not in low) or "cudnn" in low:
         return "conv"
-    if low.startswith("memcpy") or low.startswith("memset"):
+    if low.startswith(("memcpy", "memset")):
         return "copy"
+    if any(k in name for k in ("at::native", "2at6native", "cub::",
+                               "at_cuda_detail")):
+        return "fusion"
     return "other"
 
 
@@ -1059,16 +1098,37 @@ class Capture:
     seconds: float                 # wall clock of the traced window
     steps: int
     trigger: str = "api"
+    calibration: Optional["CalibrationReport"] = None
+    # the ScheduleReport calibration was computed against (set by the
+    # profile() entry points; not serialized)
+    schedule: Optional[object] = None
 
     def summary(self) -> dict:
-        return {"trace_dir": self.trace_dir, "run_dir": self.run_dir,
-                "seconds": round(self.seconds, 6), "steps": self.steps,
-                "trigger": self.trigger, "report": self.report.summary()}
+        out = {"trace_dir": self.trace_dir, "run_dir": self.run_dir,
+               "seconds": round(self.seconds, 6), "steps": self.steps,
+               "trigger": self.trigger, "report": self.report.summary()}
+        if self.calibration is not None:
+            out["calibration"] = self.calibration.summary()
+        return out
 
 
 #: untraced calls beyond ``warmup`` that :func:`capture` may take to reach
 #: a call that replays (a StepGraph warms up once and captures once)
 SETTLE_CALLS = 3
+
+#: the span that holds each traced step's CUDA-event window on the card
+EVENTS_SPAN = PROF_STEP_SPAN + ".events"
+
+
+def _event_windows(report: "MeasuredReport", windows_ms) -> None:
+    """One :data:`EVENTS_SPAN` span a traced step, from the step row's start,
+    that lasts the CUDA-event window recorded around its call (see
+    :func:`capture`)."""
+    for s in report.step_rows():
+        if s.step is not None and s.step < len(windows_ms):
+            report.spans.append(SpanRow(
+                name=EVENTS_SPAN, start_ns=s.start_ns,
+                dur_ns=windows_ms[s.step] * 1e6, step=s.step))
 
 
 def capture(fn, *args, steps: int = 2, warmup: int = 1,
@@ -1087,7 +1147,14 @@ def capture(fn, *args, steps: int = 2, warmup: int = 1,
     step graphs, and only replays may be traced. Untraced calls continue
     past ``warmup`` (at most :data:`SETTLE_CALLS` more) until one call
     neither warms up nor captures a graph; a traced call that did raises
-    RuntimeError. Returns a :class:`Capture`."""
+    RuntimeError.
+
+    On the card each traced call is also timed by CUDA events recorded
+    around it, kept apart from its row as an :data:`EVENTS_SPAN` span. The
+    step row stays the device window by its kernel rows, in every entry
+    point; CUPTI holds a traced ``cudaGraphLaunch`` on the host while the
+    card idles (on an H100, 1.2–2.8 ms for a 749-node graph), and both
+    windows hold that idle time. Returns a :class:`Capture`."""
     import torch
 
     def unreplayed():
@@ -1098,14 +1165,16 @@ def capture(fn, *args, steps: int = 2, warmup: int = 1,
     trace_dir = os.path.abspath(trace_dir)
     os.makedirs(trace_dir, exist_ok=True)
     settled = not replays_only
+
+    def untraced():
+        n0 = unreplayed()
+        _block(fn(*args, **kwargs), device)
+        return unreplayed() == n0
+
     for _ in range(max(0, warmup)):
-        n0 = unreplayed()
-        _block(fn(*args, **kwargs), device)
-        settled = unreplayed() == n0
+        settled = untraced()
     for _ in range(SETTLE_CALLS if not settled else 0):
-        n0 = unreplayed()
-        _block(fn(*args, **kwargs), device)
-        if unreplayed() == n0:
+        if untraced():
             settled = True
             break
     if not settled:
@@ -1116,13 +1185,22 @@ def capture(fn, *args, steps: int = 2, warmup: int = 1,
     if not _acquire_trace():
         raise RuntimeError("a profiler trace session is already active "
                            "in this process")
+    timed = _on_card(device) and torch.cuda.is_available()
+    events = []
     try:
         prof = _start(device)
         t0 = time.perf_counter()
         try:
             for _ in range(max(1, steps)):
                 with torch.profiler.record_function(PROF_STEP_SPAN):
-                    _block(fn(*args, **kwargs), device)
+                    if timed:
+                        events.append((torch.cuda.Event(enable_timing=True),
+                                       torch.cuda.Event(enable_timing=True)))
+                        events[-1][0].record()
+                    out = fn(*args, **kwargs)
+                    if timed:
+                        events[-1][1].record()
+                    _block(out, device)
         except BaseException:
             prof.__exit__(None, None, None)
             raise
@@ -1136,6 +1214,8 @@ def capture(fn, *args, steps: int = 2, warmup: int = 1,
     timeline = parse_trace(run_dir)
     report = measured_report(timeline)
     _check_device_rows(report, device, run_dir)
+    if timed:
+        _event_windows(report, [a.elapsed_time(b) for a, b in events])
     if step_offset:
         for s in report.spans:
             if s.step is not None:
@@ -1207,15 +1287,133 @@ def latest_profile(directory: str) -> Optional[dict]:
     return None
 
 
-# -- calibration ----------------------------------------------------------------
-def calibrate(schedule, measured: MeasuredReport, steps: Optional[int] = None,
-              band: float = 3.0, emit: bool = True):
-    """Predicted (the schedule auditor's per-op-class roofline seconds)
-    against measured class seconds. The auditor is part of ``analysis/*``,
-    which the port does not have yet."""
-    raise NotImplementedError(
-        "calibrate needs the schedule auditor (analysis.schedule_report of "
-        "the JAX package's analysis/*), which the port does not have yet")
+# -- calibration --------------------------------------------------------------
+@dataclasses.dataclass
+class CalibrationRow:
+    """One op class's predicted-vs-measured comparison."""
+
+    op_class: str
+    predicted_seconds: float
+    measured_seconds: float
+    ratio: Optional[float]        # predicted / measured
+    normalized: Optional[float]   # ratio / whole-program ratio
+    drift: bool = False
+
+    def describe(self) -> str:
+        r = f"{self.ratio:.3e}" if self.ratio is not None else "-"
+        nrm = f"{self.normalized:.2f}" if self.normalized is not None else "-"
+        flag = "  << DRIFT" if self.drift else ""
+        return (f"{self.op_class:<20} pred {self.predicted_seconds:.3e}s  "
+                f"meas {self.measured_seconds:.3e}s  ratio {r}  "
+                f"norm {nrm}{flag}")
+
+
+#: which roofline knob a drifting class points at
+_DRIFT_KNOB = {
+    "dot": "MXNET_TPU_SCHED_PEAK_FLOPS",
+    "conv": "MXNET_TPU_SCHED_PEAK_FLOPS",
+    "fusion": "MXNET_TPU_SCHED_HBM_GBPS",
+    "other": "MXNET_TPU_SCHED_HBM_GBPS",
+    "copy": "MXNET_TPU_SCHED_HBM_GBPS",
+    "custom_call": "MXNET_TPU_SCHED_HBM_GBPS",
+}
+
+
+def _knob_for(cls: str) -> str:
+    if is_collective_class(cls):
+        return "analysis.schedule.DEFAULT_ICI_GBPS"
+    return _DRIFT_KNOB.get(cls, "MXNET_TPU_SCHED_HBM_GBPS")
+
+
+@dataclasses.dataclass
+class CalibrationReport:
+    """Predicted (static schedule) vs measured (trace) per op class.
+
+    ``overall_ratio`` is the MEDIAN per-class predicted/measured ratio
+    over classes present on both sides (median, so one drifting class
+    cannot drag the baseline it is judged against); per-class ratios
+    are reported raw AND normalized by it. The normalization is what
+    makes the comparison portable: on the CPU everything is uniformly
+    slower than the H100 roofline, but the *relative* balance between
+    classes still validates the constants. A class whose normalized ratio
+    leaves ``[1/band, band]`` is flagged as roofline-constant drift with
+    the ``MXNET_TPU_SCHED_*`` knob it points at."""
+
+    rows: List[CalibrationRow]
+    overall_ratio: Optional[float]
+    predicted_step_seconds: float   # schedule critical path
+    measured_step_seconds: Optional[float]
+    predicted_overlap: float
+    measured_overlap: float
+    band: float
+    drifting: List[dict] = dataclasses.field(default_factory=list)
+
+    def summary(self) -> dict:
+        return {
+            "rows": [{"op_class": r.op_class,
+                      "predicted_seconds": r.predicted_seconds,
+                      "measured_seconds": r.measured_seconds,
+                      "ratio": r.ratio, "normalized": r.normalized,
+                      "drift": r.drift} for r in self.rows],
+            "overall_ratio": self.overall_ratio,
+            "predicted_step_seconds": self.predicted_step_seconds,
+            "measured_step_seconds": self.measured_step_seconds,
+            "predicted_overlap": round(self.predicted_overlap, 6),
+            "measured_overlap": round(self.measured_overlap, 6),
+            "band": self.band,
+            "drifting": list(self.drifting),
+        }
+
+
+def calibrate(schedule, measured: MeasuredReport,
+              steps: Optional[int] = None, band: float = 3.0,
+              emit: bool = True) -> CalibrationReport:
+    """Compare a :class:`~mxnet_tpu_torch.analysis.schedule.ScheduleReport`'s
+    per-op-class roofline seconds against a trace's measured class
+    seconds (per step — ``steps`` defaults to the capture's ``prof_step``
+    window count). A class whose normalized predicted/measured ratio
+    falls outside ``[1/band, band]`` is flagged; with ``emit=True`` each
+    flag lands in the event log as a ``calibration_drift`` event naming
+    the roofline knob to re-tune."""
+    if steps is None:
+        steps = len(measured.step_rows()) or 1
+    pred = dict(getattr(schedule, "op_class_seconds", {}) or {})
+    meas = {k: v / steps for k, v in measured.class_seconds().items()}
+    shared = [c for c in pred if pred[c] > 0 and meas.get(c, 0.0) > 0]
+    ratios = sorted(pred[c] / meas[c] for c in shared)
+    n = len(ratios)
+    overall = None
+    if n:  # median ratio: one drifting class can't drag its own baseline
+        overall = ratios[n // 2] if n % 2 \
+            else (ratios[n // 2 - 1] + ratios[n // 2]) / 2
+    rows: List[CalibrationRow] = []
+    drifting: List[dict] = []
+    for cls in sorted(set(pred) | set(meas)):
+        p = pred.get(cls, 0.0)
+        m = meas.get(cls, 0.0)
+        ratio = (p / m) if m > 0 else None
+        norm = (ratio / overall) if (ratio is not None and overall) else None
+        drift = norm is not None and not (1.0 / band <= norm <= band)
+        rows.append(CalibrationRow(op_class=cls, predicted_seconds=p,
+                                   measured_seconds=m, ratio=ratio,
+                                   normalized=norm, drift=drift))
+        if drift:
+            finding = {"op_class": cls, "normalized_ratio": round(norm, 4),
+                       "predicted_seconds": p, "measured_seconds": m,
+                       "knob": _knob_for(cls)}
+            drifting.append(finding)
+            if emit:
+                _events.LOG.emit("calibration_drift", band=band, **finding)
+    steps_meas = measured.step_seconds()
+    return CalibrationReport(
+        rows=rows, overall_ratio=overall,
+        predicted_step_seconds=getattr(schedule, "critical_path_seconds",
+                                       0.0),
+        measured_step_seconds=(sum(steps_meas) / len(steps_meas)
+                               if steps_meas else None),
+        predicted_overlap=getattr(schedule, "overlap_fraction", 0.0),
+        measured_overlap=measured.overlap_fraction,
+        band=band, drifting=drifting)
 
 
 # -- live-loop wiring (periodic + trigger-file capture) -----------------------
@@ -1269,7 +1467,7 @@ class CaptureController:
     def armed(self) -> bool:
         return self.every_n > 0 or bool(self.fleet_dir)
 
-    def begin_if_due(self, step: int, replay: bool = True,
+    def begin_if_due(self, step: int, replay: bool = True,  # lint: disable=JH002,JH003 -- host bool and probe throttle
                      device=None) -> Optional[dict]:
         """One cheap decision per step: a counter bump, and (at most every
         :data:`TRIGGER_PROBE_SECONDS`) one trigger-file stat. Starts the

@@ -148,7 +148,7 @@ class TailSampler:
         idx = max(0, -(-len(vals) * int(self.slow_pct) // 100) - 1)
         return vals[idx]
 
-    def decide(self, trace_id: str, outcome: str,
+    def decide(self, trace_id: str, outcome: str,  # lint: disable=JH001,JH002 -- host floats and branches, no tensor
                e2e: Optional[float] = None,
                margin: Optional[float] = None,
                redistributed: bool = False) -> Tuple[bool, str]:
@@ -204,7 +204,7 @@ class Tracer:
         self.dropped = 0
 
     # -- emission (hot path when tracing is ON) ------------------------------
-    def span(self, trace_id: str, name: str, t0: float, t1: float,
+    def span(self, trace_id: str, name: str, t0: float, t1: float,  # lint: disable=JH001,JH002 -- host floats and branches, no tensor
              **attrs) -> None:
         rec = {"kind": "span", "trace": str(trace_id), "name": name,
                "t0": round(float(t0), 6), "t1": round(float(t1), 6),
@@ -214,7 +214,7 @@ class Tracer:
         with self._lock:
             self._buf.setdefault(rec["trace"], []).append(rec)
 
-    def finish(self, trace_id: str, outcome: str, t0: float, t1: float,
+    def finish(self, trace_id: str, outcome: str, t0: float, t1: float,  # lint: disable=JH001,JH002 -- host floats and branches, no tensor
                cls: Optional[str] = None, deadline: Optional[float] = None,
                hops: int = 0, **attrs) -> bool:
         """Close a trace locally: run the tail sampler, flush or drop the

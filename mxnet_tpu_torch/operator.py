@@ -80,7 +80,7 @@ def register(reg_name):
         if not issubclass(prop_cls, CustomOpProp):
             raise MXNetError(f"{prop_cls} must subclass CustomOpProp")
         # registered when the user's module is imported, as in MXNet
-        _CUSTOM_PROPS[reg_name] = prop_cls
+        _CUSTOM_PROPS[reg_name] = prop_cls  # lint: disable=JH005 -- import-time registration
         return prop_cls
 
     return deco

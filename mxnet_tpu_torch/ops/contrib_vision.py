@@ -281,7 +281,7 @@ def multibox_prior(data, sizes=(1.0,), ratios=(1.0,), clip=False,
         boxes = boxes.clamp(0.0, 1.0)
     capturing = dev.type == "cuda" and torch.cuda.is_current_stream_capturing()
     if not capturing:  # made inside a capture, it lives in the graph's pool
-        _PRIORS[key] = boxes
+        _PRIORS[key] = boxes  # lint: disable=JH005 -- a memo: a race stores equal boxes
     return boxes
 
 

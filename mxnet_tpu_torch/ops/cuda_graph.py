@@ -22,9 +22,14 @@ session. The profile entry points count such eager calls
 
 The kernel wrappers count their launches on the host (``launches`` in
 ``ops/layernorm.py``, ``ops/paged_attention.py``, ``ops/flash_attention.py``,
-``ops/optimizer.py`` and ``ops/softmax_xent.py``). A capture launches
-nothing, so the counts it made are taken back and added again at every
-replay: the counters say what the card ran, as in the eager step.
+``ops/optimizer.py``, ``ops/softmax_xent.py`` and
+``contrib/quantization.py``). A capture launches nothing, so the counts it
+made are taken back and added again at every replay: the counters say what
+the card ran, as in the eager step.
+
+Right after a capture, before the graph is instantiated, its nodes are read
+once (``analysis.audit.graph_census``) and kept as :attr:`StepGraph.census`:
+the program the step replays is the one its audit reads.
 
 There is no fallback: a capture that fails (a host sync or a pageable copy
 inside the step, or an error the step raises on the host) raises
@@ -40,6 +45,7 @@ copy-out as the card does.
 from __future__ import annotations
 
 import gc
+import threading
 import warnings
 import weakref
 from typing import Callable, Dict, Optional, Tuple
@@ -66,13 +72,16 @@ KEEP_BYTES = 1 << 20
 _keep_streams: Dict[torch.device, "torch.cuda.Stream"] = {}
 # device -> capture streams that no living owner holds
 _free_streams: Dict[torch.device, list] = {}
+# owners may be built on several threads (serving replicas)
+_streams_lock = threading.Lock()
 
 
 def _keep_stream(device):
-    stream = _keep_streams.get(device)
-    if stream is None:
-        stream = _keep_streams[device] = torch.cuda.Stream(device)
-    return stream
+    with _streams_lock:
+        stream = _keep_streams.get(device)
+        if stream is None:
+            stream = _keep_streams[device] = torch.cuda.Stream(device)
+        return stream
 
 
 def capture_stream(owner, device) -> "torch.cuda.Stream":
@@ -84,8 +93,11 @@ def capture_stream(owner, device) -> "torch.cuda.Stream":
     owner's own graphs never run at once). PyTorch keeps a workspace for
     every stream that ran a product, for the life of the process, hence
     the reuse."""
-    free = _free_streams.setdefault(device, [])
-    stream = free.pop() if free else _new_stream(device)
+    with _streams_lock:
+        free = _free_streams.setdefault(device, [])
+        stream = free.pop() if free else None
+    if stream is None:
+        stream = _new_stream(device)
     weakref.finalize(owner, free.append, stream)
     return stream
 
@@ -117,11 +129,12 @@ def capture_state() -> tuple:
 
 
 def _counter_modules():
+    from ..contrib import quantization
     from . import flash_attention, layernorm, optimizer, paged_attention, \
         softmax_xent
 
     return (flash_attention, layernorm, optimizer, paged_attention,
-            softmax_xent)
+            softmax_xent, quantization)
 
 
 def launch_counts() -> Dict[tuple, int]:
@@ -262,10 +275,21 @@ class StepGraph:
         self.calls = 0
         #: launches one replay makes, per counter (recorded at capture)
         self.launches: Dict[tuple, int] = {}
+        self._census = None  # the graph's node census, read at capture
         self._after = []
         self._kept = 0
         self._held = []  # persistent_empty() tensors the graph reads
         self._owned = {}
+
+    @property
+    def census(self):
+        """The captured graph's :class:`~mxnet_tpu_torch.analysis.audit.
+        ProgramReport` (``dialect="graph"``), or None before a capture.
+        Raises what the graph walk raised at capture."""
+        if isinstance(self._census, BaseException):
+            raise RuntimeError(f"the census of step {self.sig}'s graph "
+                               f"failed at capture") from self._census
+        return self._census
 
     @property
     def replays_next(self) -> bool:
@@ -317,7 +341,7 @@ class StepGraph:
             torch.empty(KEEP_BYTES, dtype=torch.uint8, device=self.device)
         self._kept, self._after, self._held, self._owned = 0, [], [], {}
         before = launch_counts()
-        graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         pool = torch.cuda.graph_pool_handle() if self.pool is None \
             else self.pool.handle
         err = outs = None
@@ -361,6 +385,13 @@ class StepGraph:
                              f"(a host sync or a pageable copy inside the "
                              f"step?): {type(err).__name__}: {err}") from err
         self.launches = {k: n for k, n in delta.items() if n}
+        from ..analysis import audit as _audit
+
+        try:
+            self._census = _audit.graph_census(graph)
+        except Exception as e:  # raised again when an audit reads it
+            self._census = e
+        graph.instantiate()
         for fn in self._after:
             fn()
         self._after = []

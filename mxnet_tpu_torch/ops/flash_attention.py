@@ -33,6 +33,7 @@ import math
 import torch
 
 from .. import config as _config
+from ..analysis import audit as _audit
 from ..base import MXNetError
 from . import cuda_common as _cc
 
@@ -185,6 +186,15 @@ def _check_aligned(**tensors):
 def _flash_fwd(q, k, v, causal, return_lse=False):
     """The forward: the kernel for CUDA tensors, the plain version for CPU
     tensors. Returns ``out`` or ``(out, lse)`` with lse (B, H, Tq) f32."""
+    if _audit.recording():
+        b, h, tq, d = q.shape
+        outs = [(q.shape, q.dtype)] + ([((b, h, tq), torch.float32)]
+                                       if return_lse else [])
+        # the plain composition's two products over the full Tq x Tk
+        got = _audit.record_kernel(
+            (__name__, "fwd"), "flash_fwd_tc_kernel", [q, k, v], outs,
+            flops=4.0 * b * h * tq * k.shape[2] * d)
+        return tuple(got) if return_lse else got[0]
     if q.device.type == "cpu":
         out, lse = flash_fwd_plain(q, k, v, causal)
         return (out, lse) if return_lse else out
@@ -232,9 +242,22 @@ def _bwd_args(q, k, v, do, lse, di, causal):
     return ptrs, tail
 
 
+def _bwd_flops(q, k):
+    """Two of the plain backward's four products over the full Tq x Tk:
+    each backward kernel's share of the FLOPs of the function it
+    computes."""
+    b, h, tq, d = q.shape
+    return 4.0 * b * h * tq * k.shape[2] * d
+
+
 def _bwd_dkv(q, k, v, do, lse, di, causal):
     """The dK/dV kernel (CUDA tensors; contiguous, do in q's dtype, lse and
     di f32). Returns (dk, dv)."""
+    if _audit.recording():  # dV = P^T dO and dK = dS^T Q
+        return tuple(_audit.record_kernel(
+            (__name__, "dkv"), "flash_bwd_dkv_tc_kernel",
+            [q, k, v, do, lse, di], [(k.shape, k.dtype), (v.shape, v.dtype)],
+            flops=_bwd_flops(q, k)))
     ptrs, tail = _bwd_args(q, k, v, do, lse, di, causal)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lib = _cc.load("flash_attention")
@@ -246,6 +269,10 @@ def _bwd_dkv(q, k, v, do, lse, di, causal):
 
 def _bwd_dq(q, k, v, do, lse, di, causal):
     """The dQ kernel (same arguments as :func:`_bwd_dkv`). Returns dq."""
+    if _audit.recording():  # dP = dO V^T and dQ = dS K
+        return _audit.record_kernel(
+            (__name__, "dq"), "flash_bwd_dq_tc_kernel", [q, k, v, do, lse, di],
+            [(q.shape, q.dtype)], flops=_bwd_flops(q, k))[0]
     ptrs, tail = _bwd_args(q, k, v, do, lse, di, causal)
     dq = torch.empty_like(q)
     lib = _cc.load("flash_attention")
@@ -258,8 +285,9 @@ def _bwd_dq(q, k, v, do, lse, di, causal):
 def _flash_bwd(q, k, v, o, lse, do, causal):
     """The backward, counterpart of ``_flash_bwd_pallas``: the dK/dV and dQ
     kernels for CUDA tensors, the plain version for CPU tensors. Returns
-    (dq, dk, dv)."""
-    if q.device.type == "cpu":
+    (dq, dk, dv). A recording (``analysis.audit``) takes the kernels' path
+    on either device."""
+    if q.device.type == "cpu" and not _audit.recording():
         return flash_bwd_plain(q, k, v, o, lse, do, causal)
     if q.numel() == 0 or k.numel() == 0:
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)

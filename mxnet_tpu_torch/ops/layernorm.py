@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from ..analysis import audit as _audit
 from ..base import MXNetError
 from . import cuda_common as _cc
 
@@ -41,6 +42,8 @@ BWD_WARP_MAX_D = 1024
 #: partial of dgamma and dbeta a block (one block of 8 warps fills an SM's
 #: registers: ~200 a thread, with the next row's x and g in flight)
 BWD_BLOCKS_PER_SM = 1
+#: SMs of an H100 SXM: the backward's grid in a record made on the CPU
+H100_SMS = 132
 
 #: kernel launches since the last reset (read by chip_smoke.py): the
 #: forward, the backward's row kernel and its merge of the column sums
@@ -146,7 +149,44 @@ def _check(what, x, *params):
     return (x.numel() // d if d else 0), d
 
 
+def _record_forward(x, gamma, beta):
+    """The forward kernel's record (``analysis.audit``)."""
+    d = x.shape[-1]
+    if x.numel() == 0 or d == 0:
+        return torch.empty_like(x)
+    vec = 16 // x.element_size()
+    warp = d * x.element_size() <= FWD_WARP_MAX_BYTES and d % vec == 0
+    return _audit.record_kernel(
+        (__name__, "fwd"), "layernorm_fwd_warp_kernel" if warp else
+        "layernorm_fwd_block_kernel", [x, gamma, beta], [(x.shape, x.dtype)])[0]
+
+
+def _record_backward(x, gamma, g):
+    """The backward's records: the row kernel (dx and the per-block column
+    sums) and the merge (dgamma, dbeta)."""
+    d = x.shape[-1]
+    rows = x.numel() // d if d else 0
+    if rows == 0 or d == 0:
+        return torch.empty_like(x), torch.zeros_like(gamma), \
+            torch.zeros_like(gamma)
+    g = g.contiguous()
+    vec = 16 // x.element_size()
+    warps = BWD_WARPS if 0 < d <= BWD_WARP_MAX_D and d % vec == 0 else 0
+    sms = _sm_count(x.device) if x.device.type == "cuda" else H100_SMS
+    blocks = max(1, min(-(-rows // max(warps, 1)), BWD_BLOCKS_PER_SM * sms))
+    dx, partial = _audit.record_kernel(
+        (__name__, "bwd"), "layernorm_bwd_warp_kernel" if warps else
+        "layernorm_bwd_block_kernel", [x, gamma, g],
+        [(x.shape, x.dtype), ((blocks, 2 * d), torch.float32)])
+    dgamma, dbeta = _audit.record_kernel(
+        (__name__, "bwd_merge"), "layernorm_bwd_merge_kernel", [partial],
+        [(gamma.shape, gamma.dtype), (gamma.shape, gamma.dtype)])
+    return dx, dgamma, dbeta
+
+
 def _forward(x, gamma, beta, eps):
+    if _audit.recording():
+        return _record_forward(x, gamma, beta)
     if x.device.type == "cpu":
         return layer_norm_plain(x, gamma, beta, eps)
     rows, d = _check("layer_norm", x, ("gamma", gamma), ("beta", beta))
@@ -169,6 +209,8 @@ def _backward(x, gamma, g, eps):
     """(dx, dgamma, dbeta) for the cotangent ``g`` of LayerNorm's output:
     the backward kernel (row kernel, then the merge of its column sums) for
     CUDA tensors, :func:`layer_norm_bwd` for CPU tensors."""
+    if _audit.recording():
+        return _record_backward(x, gamma, g)
     if x.device.type == "cpu":
         return layer_norm_bwd(x, gamma, g, eps)
     rows, d = _check("layer_norm backward", x, ("gamma", gamma))

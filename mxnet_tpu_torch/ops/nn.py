@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import config as _config
+from ..analysis import audit as _audit
 from ..contrib import amp as _amp
 from . import layernorm as _ln
 
@@ -110,7 +111,9 @@ class _Lookup(torch.autograd.Function):
         idx, = ctx.saved_tensors
         rows, width = ctx.shape
         flat = g.reshape(-1, width).float()
-        acc = _onehot(idx.reshape(-1), rows, torch.float32).t() @ flat
+        with _audit.not_a_product("the lookup's scatter-add, summed as a "
+                                  "one-hot product"):
+            acc = _onehot(idx.reshape(-1), rows, torch.float32).t() @ flat
         return None, acc.to(g.dtype)
 
 

@@ -25,9 +25,12 @@ one kernel launch for CUDA tensors; for CPU tensors it runs
 """
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
+from ..analysis import audit as _audit
 from ..base import MXNetError
 from . import cuda_common as _cc
 from . import cuda_graph as _cg
@@ -48,6 +51,7 @@ launches = 0
 
 # the last pointer table sent to the card, reused while the tensors stay put
 _table_cache = {"key": None, "table": None}
+_table_lock = threading.Lock()
 
 
 def adam_update(weight, grad, mean, var, lr, beta1=0.9, beta2=0.999,
@@ -212,15 +216,30 @@ def _table(ws, gs, ms, vs, lows):
         host = torch.from_numpy(rows)
         _cg.after_capture(lambda: table.copy_(host))
         return table, chunk
-    if _table_cache["key"] != key:
-        if torch.cuda.is_current_stream_capturing():
-            raise MXNetError("adam kernel: a new pointer table cannot be sent "
-                             "to the card inside a CUDA graph capture; "
-                             "capture through ops.cuda_graph.StepGraph")
-        host = torch.from_numpy(rows).pin_memory()
-        _table_cache["table"] = host.to(ws[0].device, non_blocking=True)
-        _table_cache["key"] = key
-    return _table_cache["table"], chunk
+    with _table_lock:
+        if _table_cache["key"] != key:
+            if torch.cuda.is_current_stream_capturing():
+                raise MXNetError("adam kernel: a new pointer table cannot be "
+                                 "sent to the card inside a CUDA graph "
+                                 "capture; capture through "
+                                 "ops.cuda_graph.StepGraph")
+            host = torch.from_numpy(rows).pin_memory()
+            _table_cache["table"] = host.to(ws[0].device, non_blocking=True)
+            _table_cache["key"] = key
+        return _table_cache["table"], chunk
+
+
+def _record(ws, gs, ms, vs, lr, wd, lows, inv_scale, skip):
+    """The kernel's record (``analysis.audit``): it reads the gradients and
+    the per-tensor rates and writes every weight, moment and copy."""
+    if sum(w.numel() for w in ws) == 0:
+        return
+    lows = [t for t in (lows or ()) if t is not None]
+    written = ws + ms + vs + lows
+    extra = [t for t in (lr, wd, inv_scale, skip) if torch.is_tensor(t)]
+    _audit.record_kernel((__name__, None), "adam_kernel",
+                         written + gs + extra,
+                         written=range(len(written)))
 
 
 def adam_update_fused(weights, grads, means, vars_, lr, wd, *, beta1=0.9,
@@ -244,6 +263,9 @@ def adam_update_fused(weights, grads, means, vars_, lr, wd, *, beta1=0.9,
     n = len(ws)
     clip = -1.0 if clip_gradient is None else float(clip_gradient)
     dev = ws[0].device
+    if _audit.recording():
+        _record(ws, gs, ms, vs, lr, wd, out_lows, inv_scale, skip)
+        return
     if dev.type == "cpu":
         adam_update_multi(ws, gs, ms, vs, lr, wd, beta1=beta1, beta2=beta2,
                           epsilon=epsilon, rescale_grad=rescale_grad,

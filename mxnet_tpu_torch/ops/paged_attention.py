@@ -25,6 +25,7 @@ import math
 
 import torch
 
+from ..analysis import audit as _audit
 from ..base import MXNetError
 from . import cuda_common as _cc
 from . import cuda_graph as _cg
@@ -201,6 +202,21 @@ def paged_attention_read(q, k_pool, v_pool, page_table, position):
         raise MXNetError("paged_attention_read has no backward; run the "
                          "cached paths under torch.no_grad() or "
                          "torch.inference_mode()")
+    if _audit.recording():
+        b, h, tq, ch = q.shape
+        if q.numel() == 0:
+            return torch.empty_like(q)
+        # the plain read's two products over every key the table names,
+        # and the split merge's partials, as the launch allocates them
+        keys = page_table.shape[1] * k_pool.shape[2]
+        n_splits = _split_plan(keys, tq, b * h)[1]
+        return _audit.record_kernel(
+            (__name__, "decode" if tq == 1 else "prefill"),
+            "paged_attention_kernel" if tq == 1 else "paged_prefill_tc_kernel",
+            [q, k_pool, v_pool, page_table, position], [(q.shape, q.dtype)],
+            flops=4.0 * b * h * tq * keys * ch,
+            scratch=[((b * h * tq, n_splits, ch + 2), torch.float32)]
+            if n_splits > 1 else [])[0]
     if q.device.type == "cpu":
         return paged_attention_read_plain(q, k_pool, v_pool, page_table,
                                           position)

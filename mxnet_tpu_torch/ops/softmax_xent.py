@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from .. import config as _config
+from ..analysis import audit as _audit
 from ..base import MXNetError
 from . import cuda_common as _cc
 
@@ -96,6 +97,12 @@ def _xent_fwd(x2, labels):
     CPU tensor. Returns ``(loss, stats)``: stats is the kernel's (2, N) f32
     row max and sum of exp (so ``lse = stats[0] + log(stats[1])``), None on
     the CPU (the plain backward recomputes softmax from the logits)."""
+    if _audit.recording():
+        n = x2.shape[0]
+        loss, stats = _audit.record_kernel(
+            (__name__, "fwd"), "xent_fwd_kernel", [x2, labels],
+            [((n,), torch.float32), ((2, n), torch.float32)])
+        return loss, stats
     if x2.device.type == "cpu":
         return softmax_cross_entropy_plain(x2, labels)[0], None
     n, c, code = _check(x2, labels)
@@ -115,6 +122,11 @@ def _xent_bwd(x2, labels, stats, g):
     """The backward: the kernel (softmax from the forward's ``stats``) for a
     CUDA tensor, the plain version for a CPU tensor. Returns dx in x2's
     dtype."""
+    if _audit.recording():
+        g = g.to(torch.float32).contiguous()
+        return _audit.record_kernel(
+            (__name__, "bwd"), "xent_bwd_kernel", [x2, labels, stats, g],
+            [(x2.shape, x2.dtype)])[0]
     if x2.device.type == "cpu":
         return softmax_cross_entropy_bwd_plain(x2, labels, g)
     n, c, code = _check(x2, labels)

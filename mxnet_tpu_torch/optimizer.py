@@ -41,7 +41,7 @@ _OPT_REGISTRY: Dict[str, type] = {}
 
 
 def register(cls):
-    _OPT_REGISTRY[cls.__name__.lower()] = cls
+    _OPT_REGISTRY[cls.__name__.lower()] = cls  # lint: disable=JH005 -- import-time registration
     return cls
 
 

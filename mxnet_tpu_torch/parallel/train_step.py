@@ -80,16 +80,19 @@ import json
 import math
 import os
 import time
+import types
 import weakref
 from typing import Optional
 
 import numpy as np
 import torch
 
+from .. import analysis as _analysis
 from .. import config as _config
 from .. import observability as _obs
 from ..base import MXNetError
 from ..contrib import amp as _amp
+from ..observability import goodput as _goodput
 from ..observability import profiling as _profiling
 from ..ops import cuda_graph as _cg
 
@@ -199,7 +202,14 @@ class TrainStep:
         self.recaptures = 0
         #: window programs dispatched (one host sync each with telemetry on)
         self._window_dispatches = 0
-        self._signatures = {}  # family -> batch signatures seen (telemetry)
+        # program fingerprints seen: the recompile event of a new program
+        # carries its cause against the closest seen one (JAX's guard)
+        self._recompile_guard = _analysis.RecompileGuard(
+            "train_recompiles_total",
+            "TrainStep program builds (cache misses)",
+            label_map={"static": "hyperparams", "arity": "hyperparams"})
+        # analytic model FLOPs a step, by program key (train_mfu)
+        self._flops_cache = {}
         self._monitors = []
         self._prefetcher = None
         # graceful preemption: set by install_preemption
@@ -444,7 +454,7 @@ class TrainStep:
             entry = None
         if entry is None:
             if _obs.enabled():
-                self._note_recompile(kind, shapes)
+                self._note_recompile(kind, shapes, key)
             entry = self._programs[key] = build(shapes) + (storage,)
         return entry
 
@@ -522,7 +532,7 @@ class TrainStep:
             stream=self._stream, capture=self._capture)
         return prog, (static, rates, [None])
 
-    def _steps(self, static, rates, gnorm):
+    def _steps(self, static, rates, gnorm):  # lint: disable=JH002 -- gnorm: a host bool fixed at build
         """The program body: one step per row of the static buffers (its
         microbatches), at the rates' rows. Returns the ``[steps]`` losses
         (and gradient norms)."""
@@ -536,7 +546,7 @@ class TrainStep:
             return (losses,)
         return losses, torch.stack([g for _, g in outs])
 
-    def _step(self, micros, lr, wd, gnorm=False):
+    def _step(self, micros, lr, wd, gnorm=False):  # lint: disable=JH001,JH002 -- micros: a host list, gnorm a host bool
         """Forward, backward and update over the device microbatches
         ``micros`` at the (N,) rates ``lr`` and ``wd``. Returns the detached
         loss and (``gnorm``) the gradient norm."""
@@ -666,7 +676,7 @@ class TrainStep:
 
     def profile(self, *batch, steps: int = 2, warmup: int = 1,
                 window: Optional[int] = None, accum: int = 1,
-                trace_dir: Optional[str] = None, calibrate: bool = False,
+                trace_dir: Optional[str] = None, calibrate: bool = True,
                 band: float = 3.0):
         """Trace ``steps`` real training steps of this batch signature
         (after ``warmup`` untraced ones) and return the
@@ -682,14 +692,11 @@ class TrainStep:
         profiles the ``window``-step program instead (one traced replay a
         window). On the card a timeline without kernel rows raises.
 
-        ``calibrate=True`` needs the schedule auditor of ``analysis/*``
-        (``TrainStep.audit``), which the port does not have yet: it raises
-        ``NotImplementedError``."""
-        if calibrate:
-            raise NotImplementedError(
-                "TrainStep.profile(calibrate=True) needs the schedule "
-                "auditor of analysis/* (TrainStep.audit), which the port "
-                "does not have yet")
+        With ``calibrate=True`` (default) the capture also carries a
+        :class:`~mxnet_tpu_torch.observability.profiling.CalibrationReport`:
+        per-op-class predicted/measured ratios against this program's
+        :meth:`audit` schedule model, flagging roofline-constant drift
+        (``MXNET_TPU_SCHED_*``)."""
         if window:
             lead = (window,) if accum == 1 else (window, accum)
             stacked = tuple(
@@ -700,9 +707,15 @@ class TrainStep:
             fn = lambda: self._run_window(stacked, window, accum)  # noqa: E731
         else:
             fn = lambda: self(*batch)  # noqa: E731
-        return _profiling.capture(fn, steps=steps, warmup=warmup,
-                                  trace_dir=trace_dir, device=self.device,
-                                  replays_only=True)
+        cap = _profiling.capture(fn, steps=steps, warmup=warmup,
+                                 trace_dir=trace_dir, device=self.device,
+                                 replays_only=True)
+        if calibrate:
+            cap.schedule = self.audit(*batch, window=window,
+                                      accum=accum).schedule
+            cap.calibration = _profiling.calibrate(cap.schedule, cap.report,
+                                                   band=band)
+        return cap
 
     def _run_window(self, batches, window, accum):
         """One window program over stacked device batches
@@ -749,35 +762,178 @@ class TrainStep:
         return losses
 
     # -- telemetry -----------------------------------------------------------
-    def _note_recompile(self, kind, shapes):
+    def _note_recompile(self, kind, shapes, key):
         """Count a new program with its cause (the JAX step's
-        ``train_recompiles_total{reason}``): ``"window"`` for a window
-        program; for a step program ``first``, ``arity``, ``shape``,
-        ``dtype`` or ``hyperparams`` against the closest signature seen."""
-        seen = self._signatures.setdefault(kind, [])
-        if kind == "window":
-            reason = "window"
-        elif not seen:
-            reason = "first"
+        ``train_recompiles_total{reason}``, through its
+        :class:`~mxnet_tpu_torch.analysis.RecompileGuard`): ``"window"``
+        for a window program; for a step program ``first``, ``shape``,
+        ``dtype`` or ``hyperparams`` against the closest signature seen,
+        the event's ``cause``/``detail`` naming the change (``arg0: [2, 3]
+        -> [6, 3]``). The telemetry flag is not part of the fingerprint, as
+        in JAX; a program captured anew over moved storage is not a new
+        one."""
+        arrays = [types.SimpleNamespace(shape=shape, dtype=dt)
+                  for shape, dt in shapes]
+        # the key but its kind, shapes and telemetry flag
+        static = key[2:3] + key[4:] if kind == "step" else \
+            key[1:3] + key[4:5] + key[6:]
+        self._recompile_guard.observe(
+            _analysis.Fingerprint.of(arrays, key=static),
+            reason="window" if kind == "window" else None, group=kind,
+            family=kind)
+
+    # -- model FLOPs (observability.goodput) ---------------------------------
+    def _program_key(self, batch, window=None, accum=1):
+        """The program key and batch signature of a batch, as ``__call__``
+        (``window`` None) or ``run`` would dispatch it."""
+        obs_on = _obs.enabled()
+        batch = tuple(getattr(b, "_data", b) for b in batch)
+        arrays = [b if torch.is_tensor(b) else torch.as_tensor(np.asarray(b))
+                  for b in batch]
+        shapes = tuple((tuple(b.shape), b.dtype) for b in arrays)
+        if window:
+            return ("window", window, accum, shapes, _cg.capture_state(),
+                    obs_on, self._hyper_key()), shapes
+        return ("step", shapes, _cg.capture_state(), obs_on,
+                self._hyper_key()), shapes
+
+    def _program_for(self, batch, window=None, accum=1):
+        """The program key, the program and its static inputs of a batch
+        signature, and whether that program is the live one. Nothing is
+        registered or run: a signature without a program gets a new one
+        here, with its own static buffers."""
+        key, shapes = self._program_key(batch, window, accum)
+        entry = self._programs.get(key)
+        if entry is not None and entry[2] == self._storage():
+            return key, entry[0], entry[1], True
+        prog, statics = self._new_program(shapes, window or 1, accum,
+                                          key[-2])
+        return key, prog, statics, False
+
+    def model_flops_per_step(self, *batch, window: Optional[int] = None,
+                             accum: int = 1) -> Optional[float]:
+        """Analytic model FLOPs of one training step for this batch
+        signature: :func:`~mxnet_tpu_torch.observability.goodput.
+        program_flops` of the step program's record (forward and backward
+        products, the kernels' own FLOPs included). A window program runs
+        ``window`` step bodies, so its FLOPs a step are the record's over
+        ``window`` (each step's ``accum`` microbatches included). None when
+        the program holds no priceable product. Memoized per program
+        key."""
+        return self._estimate_flops(batch, window, accum)
+
+    def _estimate_flops(self, batch, window, accum):
+        key = self._program_key(batch, window, accum)[0]
+        if key not in self._flops_cache:
+            _, prog, statics, _ = self._program_for(batch, window, accum)
+            rep = self._record(prog, statics)[0]
+            total = _goodput.program_flops(rep).total / (window or 1)
+            self._flops_cache[key] = total or None
+        return self._flops_cache[key]
+
+    def _record_flops(self, flops, step_seconds):
+        """The FLOPs/step gauge and, against the ``peak_flops`` knob, model
+        FLOPs utilization."""
+        if not flops:
+            return
+        _obs.gauge("train_model_flops_per_step",
+                   "analytic model FLOPs per training step "
+                   "(the step program's record)", unit="flops").set(flops)
+        peak = float(_config.get("peak_flops"))
+        if peak > 0 and step_seconds > 0:
+            _obs.gauge("train_mfu",
+                       "model FLOPs utilization vs the configured "
+                       "peak_flops").set(flops / step_seconds / peak)
+
+    # -- audit (analysis) ---------------------------------------------------
+    def _carry(self):
+        """The carry a step updates in place: the trainable parameters,
+        the f32 masters of low-precision ones, and the optimizer states
+        (tensors, in train order)."""
+        params = [p for _, _, p in self._train]
+        masters = list(self._master.values())
+        states = []
+        for _, name, _ in self._train:
+            st = self.opt_state[name]
+            states.extend(t for t in (st if isinstance(st, (tuple, list))
+                                      else (st,)) if torch.is_tensor(t))
+        return params, masters, states
+
+    def _record(self, prog, statics):
+        """The record of ``prog`` (:func:`analysis.audit_program`) and the
+        number of carry inputs leading it."""
+        params, masters, states = self._carry()
+        carry = params + masters + states
+        static, rates, _ = statics
+        rep = _analysis.audit_program(
+            prog.fn, carry=carry,
+            inputs=list(static) + [rates] + list(self._low.values()))
+        cats = {i: "params" for i in range(len(params))}
+        cats.update({i: "opt_state" for i in range(len(params), len(carry))})
+        n_static = len(static) + 1
+        cats.update({len(carry) + i: "batch" for i in range(n_static)})
+        cats.update({len(carry) + n_static + i: "amp_copies"
+                     for i in range(len(self._low))})
+        return rep, len(carry), cats
+
+    def audit(self, *batch, window: Optional[int] = None, accum: int = 1,
+              compile: bool = True, rules=None):
+        """Structural :class:`~mxnet_tpu_torch.analysis.ProgramAudit` of the
+        program this batch signature runs: the record of its function on
+        fake tensors (``lowered``: the op, dtype and kernel census; assert
+        bf16 products and no f64 op here), the census of the CUDA graph it
+        replays (``compiled``; None on the CPU, with ``compile=False``, and
+        before the graph is captured: ``why_not_compiled`` says which), and
+        the carry's input indices (parameters, masters, optimizer states),
+        so ``audit(...).carry_donation() == 1.0`` is the whole in-place
+        update check. ``window=`` audits the ``window``-step program.
+
+        ``audit.memory`` is the liveness estimate (``params`` /
+        ``opt_state`` for the carry, ``batch`` for the static inputs,
+        ``amp_copies`` for the low-precision copies, the step's own
+        allocations under ``activations``); ``audit.schedule`` the roofline
+        DAG, exported as the ``train_mfu_bound`` /
+        ``train_comm_exposed_share`` gauges. The audit runs nothing: no
+        parameter, optimizer state or random generator changes."""
+        if rules is not None:
+            raise MXNetError("TrainStep.audit(rules=) needs a mesh, which "
+                             "the port's TrainStep does not take yet")
+        key, prog, statics, live = self._program_for(batch, window, accum)
+        rep, n_carry, cats = self._record(prog, statics)
+        compiled, why = None, ""
+        if not compile:
+            why = "compile=False"
+        elif self.device.type != "cuda":
+            why = f"the program runs on {self.device}: no CUDA graph"
+        elif not self._capture:
+            why = "engine_type='naive': the program is not captured"
+        elif not live or prog.graph is None:
+            why = "the program's graph is not captured yet"
         else:
-            rank = {"hyperparams": 0, "dtype": 1, "shape": 2, "arity": 3}
-            causes = []
-            for prev in seen:
-                if len(prev) != len(shapes):
-                    causes.append("arity")
-                elif any(a[0] != b[0] for a, b in zip(prev, shapes)):
-                    causes.append("shape")
-                elif any(a[1] != b[1] for a, b in zip(prev, shapes)):
-                    causes.append("dtype")
-                else:
-                    causes.append("hyperparams")
-            reason = min(causes, key=rank.get)
-        seen.append(shapes)
-        _obs.counter("train_recompiles_total",
-                     "TrainStep program builds (cache misses)").inc(
-                         reason=reason)
-        _obs.emit("recompile", reason=reason, family=kind,
-                  shapes=[list(s) for s, _ in shapes])
+            compiled = prog.census
+        memory = _analysis.memory_report(rep, categories=cats)
+        comm = _analysis.comm_report(rep)
+        schedule = _analysis.schedule_report(rep, comm=comm)
+        self._record_schedule_bound(schedule)
+        return _analysis.ProgramAudit(
+            lowered=rep, compiled=compiled,
+            carry_indices=tuple(range(n_carry)), comm=comm, memory=memory,
+            schedule=schedule, why_not_compiled=why,
+            launches=dict(prog.launches) if compiled is not None else {})
+
+    def _record_schedule_bound(self, schedule) -> None:
+        """The schedule auditor's static bound beside the live
+        ``train_mfu`` gauge, and the exposed collective share (0 on one
+        card)."""
+        _obs.gauge("train_mfu_bound",
+                   "static MFU upper bound from the schedule auditor's "
+                   "critical-path model").set(schedule.mfu_bound)
+        share = (schedule.exposed_comm_seconds
+                 / schedule.critical_path_seconds
+                 if schedule.critical_path_seconds > 0 else 0.0)
+        _obs.gauge("train_comm_exposed_share",
+                   "exposed collective seconds / critical-path seconds "
+                   "(schedule auditor)").set(share)
 
     def _amp_fetchable(self):
         if self.amp_state is None:
@@ -821,6 +977,7 @@ class TrainStep:
         if gnorm_f is not None:
             _obs.gauge("train_grad_norm").set(gnorm_f)
         self._record_amp(amp_h)
+        self._record_flops(self._estimate_flops(raws, None, 1), dt)
         _obs.emit("train_step", loss=loss_f, grad_norm=gnorm_f,
                   step_seconds=round(dt, 6), samples=samples, tokens=tokens,
                   tokens_per_sec=round(tokens / dt, 3) if dt > 0 else 0.0)
@@ -847,6 +1004,9 @@ class TrainStep:
         _obs.gauge("train_loss").set(float(loss_h[-1]))
         _obs.gauge("train_grad_norm").set(float(gnorm_h[-1]))
         self._record_amp(amp_h)
+        self._record_flops(self._estimate_flops(
+            tuple(b[0] if accum == 1 else b[0, 0] for b in batches), window,
+            accum), dt / window)
         _obs.emit("train_window", window=window, accum=accum,
                   loss=float(loss_h[-1]),
                   loss_mean=float(sum(loss_h) / len(loss_h)),

@@ -39,7 +39,7 @@ def _dir() -> str:
     if not _state["dir"]:
         from .observability.profiling import _default_dir
 
-        _state["dir"] = _default_dir()
+        _state["dir"] = _default_dir()  # lint: disable=JH005 -- the same value from any thread
     return _state["dir"]
 
 

@@ -43,7 +43,7 @@ def register(name, *, nout=1, aliases=(), stochastic=False):
         for n in (name, *aliases):
             if n in _REGISTRY:
                 raise ValueError(f"operator {n!r} registered twice")
-            _REGISTRY[n] = op
+            _REGISTRY[n] = op  # lint: disable=JH005 -- import-time registration
         return fn
 
     return deco
@@ -52,7 +52,7 @@ def register(name, *, nout=1, aliases=(), stochastic=False):
 def alias(existing: str, *names: str) -> None:
     op = _REGISTRY[existing]
     for n in names:
-        _REGISTRY[n] = op
+        _REGISTRY[n] = op  # lint: disable=JH005 -- import-time registration
 
 
 # storage-type dispatch: an op may have a handler for sparse inputs
@@ -68,7 +68,7 @@ def register_sparse(name: str):
     (dense or sparse), or NotImplemented to have the inputs densified."""
 
     def deco(fn):
-        _SPARSE_FNS[name] = fn
+        _SPARSE_FNS[name] = fn  # lint: disable=JH005 -- import-time registration
         return fn
 
     return deco

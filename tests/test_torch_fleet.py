@@ -15,9 +15,10 @@
   - ``observability.enable`` starts the snapshotter when ``fleet_dir`` is
     set and ``shutdown`` takes the final snapshot.
 
-The JAX tests of the FLOPs model (``program_flops`` over an audited
-program) wait for the port of ``analysis/*`` and are skipped here with
-that reason.
+  - the FLOPs model: ``program_flops`` of the LeNet and tiny GPT-2 step
+    records and ``TrainStep.model_flops_per_step`` equal the JAX hand
+    counts, a window's census counts one step, the JAX-vocabulary
+    fallback is flagged as in JAX, and ``train_mfu`` is set from them.
 """
 import importlib.util
 import json
@@ -384,18 +385,164 @@ def test_enable_starts_snapshotter_and_shutdown_lands_final(tmp_path):
     assert jtr.ROUTER_LEVEL_SPANS == ttr.ROUTER_LEVEL_SPANS
 
 
-@pytest.mark.skip(reason="the FLOPs model (goodput.op_flops / "
-                  "program_flops) and TrainStep.model_flops_per_step price "
-                  "the dot census of an audited program: they arrive with "
-                  "the port of analysis/*")
-@pytest.mark.parametrize("jax_test", [
-    "test_flops_lenet_step_hand_counted",
-    "test_flops_tiny_gpt2_step_hand_counted",
-    "test_flops_window_census_counts_scan_body_once",
-    "test_op_flops_fallback_is_flagged",
-    "test_train_mfu_gauge_from_flops"])
-def test_flops_model_waits_for_analysis(jax_test):
-    """Placeholder for ``tests/test_fleet.py``'s FLOPs tests."""
+# -- the FLOPs model (tests/test_fleet.py:111-217) ---------------------------
+def _lenet(side):
+    import numpy as np
+
+    mx = __import__("mxnet_tpu" if side == "jax" else "mxnet_tpu_torch")
+    mx.random.seed(0)
+    with mx.cpu():
+        net = mx.gluon.nn.HybridSequential()
+        net.add(mx.gluon.nn.Conv2D(6, 5, padding=2, activation="tanh"),
+                mx.gluon.nn.MaxPool2D(2, 2), mx.gluon.nn.Flatten(),
+                mx.gluon.nn.Dense(32, activation="tanh"),
+                mx.gluon.nn.Dense(10))
+        net.initialize(mx.init.Xavier())
+        x = mx.nd.array(np.random.RandomState(0).rand(8, 1, 28, 28)
+                        .astype(np.float32))
+        y = mx.nd.array(np.arange(8) % 10)
+    net(x)
+    step = mx.parallel.TrainStep(net, mx.gluon.loss.SoftmaxCrossEntropyLoss(),
+                                 mx.optimizer.create("adam",
+                                                     learning_rate=1e-3))
+    return step, (x, y)
+
+
+def test_flops_lenet_step_hand_counted():
+    """The LeNet step's products against the JAX hand count: the
+    convolution, its weight gradient (the input takes none), and each
+    Dense's forward, input gradient and weight gradient."""
+    from mxnet_tpu import analysis as janalysis
+
+    jts, jbatch = _lenet("jax")
+    jest = jgp.program_flops(janalysis.audit_lowered(jts.lower_hlo(*jbatch)))
+    ts, batch = _lenet("port")
+    est = tgp.program_flops(ts.audit(*batch).lowered)
+    conv_fwd = 2 * (8 * 6 * 28 * 28) * (1 * 5 * 5)
+    expected = conv_fwd * 2 + (2 * 8 * 32 * 1176) * 3 + (2 * 8 * 10 * 32) * 3
+    assert est.total == jest.total == expected == 5584896
+    assert est.n_approx == jest.n_approx == 0
+    assert est.by_op["convolution"] + est.by_op["convolution_backward"] \
+        == jest.by_op["convolution"] == conv_fwd * 2
+    assert ts.model_flops_per_step(*batch) == expected
+
+
+def test_flops_tiny_gpt2_step_hand_counted():
+    """Tiny GPT-2's LM step: 3x the analytic forward product count in both
+    packages (the embedding's one-hot gradient is its scatter-add, no
+    product)."""
+    import numpy as np
+
+    from mxnet_tpu import analysis as janalysis
+    from mxnet_tpu import nd as jnd
+    from mxnet_tpu import optimizer as jopt
+    from mxnet_tpu.models import gpt2 as jgpt2
+    from mxnet_tpu.parallel import TrainStep as JTrainStep
+    from mxnet_tpu_torch import optimizer as topt
+    from mxnet_tpu_torch.models import gpt2 as tgpt2
+    from mxnet_tpu_torch.parallel import TrainStep
+
+    B, T, d, h, V = 2, 32, 32, 2, 64
+    ids = np.random.RandomState(0).randint(0, V, (B, T)).astype(np.int32)
+    lbl = np.random.RandomState(1).randint(0, V, (B, T)).astype(np.int32)
+    jnet = jgpt2.get_gpt2("gpt2_tiny", dropout=0.0, num_layers=2, units=d,
+                          num_heads=h, max_length=64, vocab_size=V)
+    jnet.initialize()
+    jnet(jnd.array(ids, dtype="int32"))
+    jts = JTrainStep(jnet, jgpt2.lm_loss, jopt.Adam(learning_rate=1e-3))
+    jest = jgp.program_flops(janalysis.audit_lowered(jts.lower_hlo(
+        jnd.array(ids, dtype="int32"), jnd.array(lbl, dtype="int32"))))
+    net = tgpt2.get_gpt2("gpt2_117m", dropout=0.0, num_layers=2, units=d,
+                         num_heads=h, max_length=64, vocab_size=V,
+                         device="cpu", seed=0)
+    ts = TrainStep(net, tgpt2.lm_loss, topt.Adam(learning_rate=1e-3))
+    import torch
+
+    batch = (torch.from_numpy(ids), torch.from_numpy(lbl))
+    est = tgp.program_flops(ts.audit(*batch).lowered)
+    ch = d // h
+    layer_fwd = (2 * B * T * d * 3 * d + 2 * (2 * B * h * T * T * ch)
+                 + 2 * B * T * d * d + 2 * (2 * B * T * d * 4 * d))
+    fwd = 2 * layer_fwd + 2 * B * T * d * V
+    assert est.total == jest.total == 3 * fwd == 11796480
+    assert est.n_approx == jest.n_approx == 0
+    assert ts.model_flops_per_step(*batch) == 3 * fwd
+
+
+def _dense_step():
+    import torch
+
+    import mxnet_tpu_torch as tmx
+    from mxnet_tpu_torch import optimizer as topt
+    from mxnet_tpu_torch.parallel import TrainStep
+
+    tmx.random.seed(0)
+    with tmx.cpu():
+        net = tmx.gluon.nn.HybridSequential()
+        net.add(tmx.gluon.nn.Dense(16, in_units=8, activation="relu"),
+                tmx.gluon.nn.Dense(4, in_units=16))
+        net.initialize()
+    x, y = torch.ones(4, 8), torch.zeros(4, 4)
+    net(x)
+    return TrainStep(net, lambda o, t: ((o - t) ** 2).mean(),
+                     topt.SGD(learning_rate=0.01)), (x, y)
+
+
+def test_flops_window_census_counts_one_step():
+    """A window program runs ``window`` step bodies; its FLOPs a step are
+    the single step's (JAX: its scan body appears once)."""
+    ts, (x, y) = _dense_step()
+    single = ts.model_flops_per_step(x, y)
+    assert single == 3 * 2 * 4 * 16 * 8 + 3 * 2 * 4 * 4 * 16 - 2 * 4 * 16 * 8
+    assert ts.model_flops_per_step(x, y, window=2) == single
+    assert ts.model_flops_per_step(x, y, window=2, accum=2) == 2 * single
+
+
+def test_op_flops_fallback_is_flagged():
+    """The JAX vocabulary's ops price as in JAX: the sqrt fallback for a
+    dot without usable contraction dims (flagged approx), an unparsed
+    convolution unpriced."""
+    import pytest
+
+    from mxnet_tpu.analysis import Op as JOp
+    from mxnet_tpu_torch.analysis import Op as TOp
+
+    out = []
+    for gp_, Op in ((jgp, JOp), (tgp, TOp)):
+        op = Op("dot_general", "f32", (8, 10), ("f32",) * 3, 1,
+                shapes=((8, 32), (32, 10), (8, 10)))
+        bad = Op("dot_general", "f32", (8, 10), ("f32",) * 3, 1,
+                 shapes=((8, 32), (32, 10), (8, 10)),
+                 dot_meta={"lhs_contracting": (7,), "lhs_batching": ()})
+        conv = Op("convolution", "f32", (8, 6, 28, 28), ("f32",) * 3, 1,
+                  shapes=((8, 1, 28, 28), (6, 1, 5, 5), (8, 6, 28, 28)))
+        assert gp_.op_flops(op) == pytest.approx(2 * 8 * 10 * 32)
+        assert gp_.op_flops(conv) is None
+        est = gp_.program_flops(type("R", (), {"ops": [op, bad, conv]}))
+        out.append(est.summary())
+    assert out[0] == out[1]
+    assert out[1]["n_dots"] == 2 and out[1]["n_approx"] == 2 \
+        and out[1]["n_unpriced"] == 1
+
+
+def test_train_mfu_gauge_from_flops(tmp_path):
+    tconfig.set("peak_flops", 1e9)
+    try:
+        tobs.enable(str(tmp_path / "run"))
+        ts, (x, y) = _dense_step()
+        ts(x, y)
+        ts(x, y)
+        flops = tobs.REGISTRY.get("train_model_flops_per_step").value()
+        assert flops == ts.model_flops_per_step(x, y)
+        mfu = tobs.REGISTRY.get("train_mfu").value()
+        assert mfu is not None and 0 < mfu < 1e9
+        ts.audit(x, y)
+        bound = tobs.REGISTRY.get("train_mfu_bound").value()
+        assert 0 < bound <= 1
+        assert tobs.REGISTRY.get("train_comm_exposed_share").value() == 0
+    finally:
+        tconfig._values.pop("peak_flops", None)
+        tobs.disable()
 
 
 FLEET_KNOBS = ("trace", "trace_sample", "trace_seed", "trace_slow_pct",

@@ -19,8 +19,8 @@ side on the CPU:
     releases the session, and a traced step's recorded seconds leave out
     the session's opening; ``capture_state`` keys on
     ``config.STEP_KNOBS``, the knobs the kernels read;
-  - ``GenerationEngine.profile`` / ``TrainStep.profile`` on the CPU, and
-    ``calibrate=True`` raising until ``analysis/*`` is ported;
+  - ``GenerationEngine.profile`` / ``TrainStep.profile`` on the CPU, each
+    calibrated (by default, as in JAX) against its program's schedule;
   - a capture snapshot reads the same in both packages'
     ``FleetAggregator`` and ``tools/*profreport.py``.
 """
@@ -157,7 +157,8 @@ def test_op_class_vocabulary_equals_jax():
     assert tprof.op_class("ampere_sgemm_128x64_tn") == "dot"
     assert tprof.op_class("cudnn::conv2d_grouped_direct_kernel") == "conv"
     assert tprof.op_class("Memcpy HtoD (Pinned -> Device)") == "copy"
-    assert tprof.op_class("paged_attention_kernel") == "other"
+    # the port's own kernels are its custom calls
+    assert tprof.op_class("paged_attention_kernel") == "custom_call"
 
 
 def _chrome_trace():
@@ -469,8 +470,12 @@ def test_profile_entry_points_on_the_cpu(tmp_path):
     cap = eng.profile(steps=4, trace_dir=str(tmp_path / "decode"))
     assert len(cap.report.step_rows()) == 4 and eng.done[0]
     assert eng.free_pages == eng.num_pages
-    with pytest.raises(NotImplementedError, match="analysis"):
-        eng.profile(calibrate=True)
+    # calibrated against the decode program's schedule: the CPU trace's
+    # aten rows and the record's ops in one vocabulary
+    rows = {r.op_class: r for r in cap.calibration.rows}
+    assert cap.schedule.op_class_seconds and rows["dot"].ratio > 0
+    assert rows["custom_call"].predicted_seconds > 0
+    assert "calibration" in cap.summary()
     step = _port_step()
     ts = step.__closure__[0].cell_contents  # the TrainStep
     x, y = torch.ones(2, 8), torch.zeros(2, 4)
@@ -478,13 +483,13 @@ def test_profile_entry_points_on_the_cpu(tmp_path):
     cap = ts.profile(x, y, steps=2, warmup=1, trace_dir=str(tmp_path / "ts"))
     assert len(cap.report.step_rows()) == 2
     assert ts.optimizer.num_update == n0 + 3  # the profiled steps train
+    assert cap.calibration.overall_ratio > 0
     cap = ts.profile(x, y, steps=1, warmup=0, window=2,
-                     trace_dir=str(tmp_path / "win"))
-    assert len(cap.report.step_rows()) == 1
-    with pytest.raises(NotImplementedError, match="analysis"):
-        ts.profile(x, y, calibrate=True)
-    with pytest.raises(NotImplementedError):
-        tprof.calibrate(None, cap.report)
+                     trace_dir=str(tmp_path / "win"), calibrate=False)
+    assert len(cap.report.step_rows()) == 1 and cap.calibration is None
+    cal = tprof.calibrate(ts.audit(x, y, window=2).schedule, cap.report,
+                          emit=False)
+    assert {r.op_class for r in cal.rows} >= {"dot", "fusion"}
 
 
 def test_snapshot_reads_equal_in_both_packages(tmp_path, capsys):

@@ -390,7 +390,10 @@ def test_launch_counts_cover_every_kernel_wrapper():
                      ("flash_attention", "fwd"), ("flash_attention", "dkv"),
                      ("flash_attention", "dq"), ("paged_attention", "decode"),
                      ("paged_attention", "prefill"), ("softmax_xent", "fwd"),
-                     ("softmax_xent", "bwd")}
+                     ("softmax_xent", "bwd"), ("quantization", "int8_gemm"),
+                     ("quantization", "int8_gemm_wgmma"),
+                     ("quantization", "int8_gemm_mma"),
+                     ("quantization", "int8_im2col")}
     before = tcg.launch_counts()
     delta = {k: 2 for k in before}
     tcg._add_launches(delta)
@@ -504,6 +507,9 @@ def test_step_that_raises_during_capture(monkeypatch, ended):
     events = []
 
     class Graph:
+        def __init__(self, keep_graph=False):
+            pass
+
         def capture_begin(self, pool=None):
             events.append(("begin", pool))
 
